@@ -1,0 +1,108 @@
+"""Bit-plane split/merge for floating-point tensors (paper §2.1.2, Step 1).
+
+Torch port of ``repro.core.codec``.  Every float splits into an exponent
+plane (uint8) and a lo plane (sign relocated next to the mantissa).  The
+arithmetic runs on the raw bit pattern held in ``int64`` (torch's
+unsigned 16/32-bit dtypes lack shifts and min/max on the CPU), masked after
+every right shift, so no float operation ever touches a value: NaN payloads,
+infinities and subnormals round-trip exactly.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class FloatLayout:
+    """Bit layout of a supported floating-point format."""
+
+    name: str
+    dtype: torch.dtype
+    total_bits: int
+    exp_bits: int
+    mant_bits: int  # mantissa (fraction) bits; sign is always 1
+
+    @property
+    def lo_bits(self) -> int:  # sign + mantissa
+        return 1 + self.mant_bits
+
+    @property
+    def bits_dtype(self) -> torch.dtype:
+        """Same-width integer dtype a float tensor is ``view``-ed as."""
+        return {8: torch.uint8, 16: torch.int16, 32: torch.int32}[self.total_bits]
+
+    @property
+    def bits_mask(self) -> int:
+        return (1 << self.total_bits) - 1
+
+
+LAYOUTS: dict[str, FloatLayout] = {
+    "float32": FloatLayout("float32", torch.float32, 32, 8, 23),
+    "float16": FloatLayout("float16", torch.float16, 16, 5, 10),
+    "bfloat16": FloatLayout("bfloat16", torch.bfloat16, 16, 8, 7),
+    "float8_e4m3fn": FloatLayout("float8_e4m3fn", torch.float8_e4m3fn, 8, 4, 3),
+    "float8_e5m2": FloatLayout("float8_e5m2", torch.float8_e5m2, 8, 5, 2),
+}
+
+_BY_DTYPE = {lay.dtype: lay for lay in LAYOUTS.values()}
+
+
+def layout_of(dtype) -> FloatLayout:
+    if isinstance(dtype, str):
+        if dtype in LAYOUTS:
+            return LAYOUTS[dtype]
+    elif dtype in _BY_DTYPE:
+        return _BY_DTYPE[dtype]
+    raise ValueError(f"unsupported dtype for codec: {dtype}")
+
+
+def to_bits(x: torch.Tensor) -> torch.Tensor:
+    """Raw unsigned bit pattern of a float tensor, as ``int64`` (flat)."""
+    lay = layout_of(x.dtype)
+    return x.reshape(-1).view(lay.bits_dtype).to(torch.int64) & lay.bits_mask
+
+
+def from_bits(bits: torch.Tensor, lay: FloatLayout) -> torch.Tensor:
+    """Inverse of :func:`to_bits`: ``int64`` bit patterns -> float tensor.
+    Bits above ``total_bits`` are truncated, as a cast to the format's
+    unsigned width truncates them in the reference."""
+    return (bits & lay.bits_mask).to(lay.bits_dtype).view(lay.dtype)
+
+
+def split_planes(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Split ``x`` (any shape) into ``(exp_plane, lo_plane)``.
+
+    exp_plane: uint8 (N,), one exponent field per element.
+    lo_plane:  int64 (N,), ``sign << mant_bits | mantissa`` (< 2**lo_bits).
+    """
+    lay = layout_of(x.dtype)
+    bits = to_bits(x)
+    exp = (bits >> lay.mant_bits) & ((1 << lay.exp_bits) - 1)
+    sign = bits >> (lay.total_bits - 1)
+    lo = (sign << lay.mant_bits) | (bits & ((1 << lay.mant_bits) - 1))
+    return exp.to(torch.uint8), lo
+
+
+def merge_bits(exp: torch.Tensor, lo: torch.Tensor, lay: FloatLayout) -> torch.Tensor:
+    """Merge int64 exponent and lo values into int64 bit patterns, truncated
+    to the format's width (exponents wider than ``exp_bits`` wrap exactly as
+    the reference's shift in the format's unsigned dtype does)."""
+    exp = exp.to(torch.int64)
+    lo = lo.to(torch.int64)
+    sign = (lo >> lay.mant_bits) & 1
+    mant = lo & ((1 << lay.mant_bits) - 1)
+    bits = (sign << (lay.total_bits - 1)) | (exp << lay.mant_bits) | mant
+    return bits & lay.bits_mask
+
+
+def merge_planes(exp: torch.Tensor, lo: torch.Tensor, dtype,
+                 shape: tuple[int, ...]) -> torch.Tensor:
+    """Exact inverse of :func:`split_planes`."""
+    lay = layout_of(dtype)
+    n = 1
+    for s in shape:
+        n *= int(s)
+    bits = merge_bits(exp.reshape(-1)[:n], lo.reshape(-1)[:n] & lay.bits_mask, lay)
+    return from_bits(bits, lay).reshape(shape)

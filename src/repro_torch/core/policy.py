@@ -1,0 +1,105 @@
+"""Selective-compression policy and wire accounting (torch port of
+``repro.core.policy``).
+
+Compression applies only to codec-supported floats above ``min_bytes``
+(paper: 1 MB) on data-parallel wires.  Every compressed collective records a
+:class:`WireReport` with its raw and wire bytes into the innermost open
+:func:`capture_wire_reports` of its thread.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import threading
+
+import torch
+
+from repro_torch.core import codec
+from repro_torch.core.calibrate import CompressionProfile
+
+
+@dataclasses.dataclass(frozen=True)
+class CompressionPolicy:
+    enabled: bool = True
+    min_bytes: int = 1 << 20  # paper: 1 MB threshold
+    compress_axes: tuple = ("data", "pod")  # DP/DCN wires
+    raw_axes: tuple = ("model",)  # TP/EP activation wires default raw
+    profile: CompressionProfile = dataclasses.field(
+        default_factory=lambda: CompressionProfile.default())
+
+    def should_compress(self, x: torch.Tensor, axis_name="data", *,
+                        tensor_class: str = "gradient") -> bool:
+        if not self.enabled:
+            return False
+        if x.dtype not in (lay.dtype for lay in codec.LAYOUTS.values()):
+            return False
+        if x.numel() * x.element_size() < self.min_bytes:
+            return False
+        names = (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
+        return all(n in self.compress_axes for n in names)
+
+    def width_for(self, tensor_class: str) -> int:
+        return self.profile.width_for(tensor_class)
+
+    @staticmethod
+    def disabled() -> "CompressionPolicy":
+        return CompressionPolicy(enabled=False)
+
+
+@dataclasses.dataclass(frozen=True)
+class WireReport:
+    """Accounting record of one compressed wire.
+
+    ``decode_hbm_bytes`` is the decoded-float round-trip an UNFUSED receive
+    side would pay between decode and reduce (8 B/element); ``fused`` says
+    it was eliminated.  ``encode_hbm_bytes`` is the transmit-side mirror:
+    the split-plane round-trip an unfused encode would pay
+    (``2 * (1 + itemsize)`` B/element); ``encode_fused`` says it was
+    eliminated.  Every encode of the port is fused; an all-gather has no
+    reduce to fuse (``fused=False``, ``decode_hbm_bytes=0``), as in the
+    reference."""
+
+    name: str
+    axis: str
+    raw_bytes: int
+    wire_bytes: int
+    fused: bool = False
+    decode_hbm_bytes: int = 0
+    encode_fused: bool = False
+    encode_hbm_bytes: int = 0
+
+    @property
+    def ratio(self) -> float:
+        return self.wire_bytes / max(self.raw_bytes, 1)
+
+
+# A stack of capture sinks per thread, so a capture opened in one thread
+# never swallows another thread's reports.  A report made outside any
+# capture is dropped: every eager call records one, so a process-wide list
+# would grow with every step.
+_SINK_STACKS = threading.local()
+
+
+def _sinks() -> list:
+    stack = getattr(_SINK_STACKS, "stack", None)
+    if stack is None:
+        stack = _SINK_STACKS.stack = []
+    return stack
+
+
+def record_wire_report(report: WireReport) -> None:
+    stack = _sinks()
+    if stack:
+        stack[-1].append(report)
+
+
+@contextlib.contextmanager
+def capture_wire_reports():
+    """Collect the calling thread's wire reports into a list."""
+    sink: list = []
+    stack = _sinks()
+    stack.append(sink)
+    try:
+        yield sink
+    finally:
+        stack.pop()

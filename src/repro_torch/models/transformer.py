@@ -1,0 +1,137 @@
+"""Dense decoder stack (torch port of ``repro.models.transformer``).
+
+Parameters keep the reference's layout: per pattern position, every layer
+leaf is STACKED over repeats (``(repeats, ...)``), and the parameters are
+registered in the order of the reference's ``jax.tree_util.tree_leaves``,
+named by their path in the reference's tree (``blocks/0/ffn/w1``, ...,
+``embed``, ``final_norm``).  So the ZeRO-1 bucket of the port holds the
+same bytes as ``zero1.flatten_buckets`` of the reference for the same
+weights, and :func:`load_reference_params` carries weights across.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch import kernels
+from repro_torch.core import codec
+from repro_torch.models import layers as L
+from repro_torch.models.config import ArchConfig
+
+
+def _layer_shapes(cfg: ArchConfig) -> dict:
+    """(shape, init scale) per leaf of one dense layer; scale None = ones."""
+    d, hd, f = cfg.d_model, cfg.hd, cfg.d_ff
+    dense = lambda *s: (s, 1.0 / np.sqrt(s[0]))  # noqa: E731
+    return {
+        "norm1": ((d,), None),
+        "mixer": {"wq": dense(d, cfg.n_heads * hd), "wk": dense(d, cfg.kv_heads * hd),
+                  "wv": dense(d, cfg.kv_heads * hd), "wo": dense(cfg.n_heads * hd, d)},
+        "norm2": ((d,), None),
+        "ffn": {"w1": dense(d, f), "w3": dense(d, f), "w2": dense(f, d)},
+    }
+
+
+def _tree_shapes(cfg: ArchConfig) -> dict:
+    for spec in cfg.pattern:
+        if spec.mixer != "attn" or spec.ffn != "swiglu":
+            raise NotImplementedError(f"layer {spec} is not ported yet")
+    tree = {
+        "embed": ((cfg.vocab, cfg.d_model), 0.02),
+        "final_norm": ((cfg.d_model,), None),
+        "blocks": tuple(_layer_shapes(cfg) for _ in cfg.pattern),
+    }
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = ((cfg.vocab, cfg.d_model), 0.02)
+    return tree
+
+
+def tree_paths(tree, prefix: str = ""):
+    """``(path, leaf)`` pairs in ``jax.tree_util.tree_leaves`` order (dict
+    keys sorted, sequences in order); a leaf is anything that is not a dict
+    and not a sequence of subtrees."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_paths(tree[k], f"{prefix}{k}/")
+    elif isinstance(tree, (tuple, list)) and tree and isinstance(tree[0], dict):
+        for i, t in enumerate(tree):
+            yield from tree_paths(t, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1], tree
+
+
+class Transformer(nn.Module):
+    """Dense decoder over stacked layer parameters; ``forward`` returns the
+    hidden states before the head, as the reference's ``forward``."""
+
+    def __init__(self, cfg: ArchConfig, tensors: dict):
+        super().__init__()
+        self.cfg = cfg
+        self.params = nn.ParameterDict()
+        for path, _ in tree_paths(_tree_shapes(cfg)):
+            self.params[path] = nn.Parameter(tensors[path])
+
+    def leaves(self) -> list:
+        """Parameters in the reference's ``tree_leaves`` order."""
+        return list(self.params.values())
+
+    def head(self) -> torch.Tensor:
+        return self.params["embed" if self.cfg.tie_embeddings else "lm_head"]
+
+    def _layer(self, pi: int, r: int) -> dict:
+        pre = f"blocks/{pi}/"
+        get = lambda k: self.params[pre + k][r]  # noqa: E731
+        return {"norm1": get("norm1"), "norm2": get("norm2"),
+                "mixer": {k: get(f"mixer/{k}") for k in ("wq", "wk", "wv", "wo")},
+                "ffn": {k: get(f"ffn/{k}") for k in ("w1", "w2", "w3")}}
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        h = torch.nn.functional.embedding(tokens, self.params["embed"])
+        cos, sin = L.rope_table(torch.arange(tokens.shape[1], device=tokens.device),
+                                cfg.hd, cfg.rope_theta)
+        for r in range(cfg.repeats):
+            for pi, spec in enumerate(cfg.pattern):
+                p = self._layer(pi, r)
+                h = h + L.attention(p["mixer"], L.rms_norm(h, p["norm1"], cfg.norm_eps),
+                                    cfg, spec, cos, sin)
+                h = h + L.swiglu(p["ffn"], L.rms_norm(h, p["norm2"], cfg.norm_eps))
+        return L.rms_norm(h, self.params["final_norm"], cfg.norm_eps)
+
+
+def init(cfg: ArchConfig, *, generator: torch.Generator, device="cuda") -> Transformer:
+    """Random initialisation with the reference's scales (normal * 0.02 for
+    embeddings, normal / sqrt(fan_in) for dense layers, ones for norms).
+    Draws come from ``generator`` (a CPU generator: the weights are the
+    same on every device) in parameter order."""
+    dev = kernels.resolve_device(device)
+    dt = codec.LAYOUTS[cfg.dtype].dtype
+    tensors = {}
+    for path, (shape, scale) in tree_paths(_tree_shapes(cfg)):
+        if path.startswith("blocks/"):
+            shape = (cfg.repeats,) + tuple(shape)
+        if scale is None:
+            t = torch.ones(shape, dtype=dt)
+        else:
+            t = (torch.randn(shape, generator=generator) * scale).to(dt)
+        tensors[path] = t.to(dev)
+    return Transformer(cfg, tensors)
+
+
+def numpy_to_torch(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """Bit-exact numpy -> torch for codec floats (numpy's bfloat16/fp8 come
+    from ml_dtypes, which torch cannot read directly)."""
+    a = np.ascontiguousarray(a)
+    ints = {1: np.uint8, 2: np.int16, 4: np.int32}[a.dtype.itemsize]
+    return torch.from_numpy(a.view(ints).copy()).view(dtype)
+
+
+def load_reference_params(tree, cfg: ArchConfig, device="cuda") -> Transformer:
+    """The port's model holding the reference's weights:
+    ``tree = jax.tree_util.tree_map(np.asarray, repro...transformer.init(key,
+    cfg))``."""
+    dev = kernels.resolve_device(device)
+    dt = codec.LAYOUTS[cfg.dtype].dtype
+    tensors = {path: numpy_to_torch(a, dt).to(dev) for path, a in tree_paths(tree)}
+    return Transformer(cfg, tensors)

@@ -1,0 +1,218 @@
+"""ZeRO-1 distributed optimizer fused with the compressed two-shot wire
+(torch port of ``repro.optim.zero1``).
+
+ZeRO-1 is a two-shot all-reduce with the optimizer update spliced between
+its phases, so the optimizer's own reduce-scatter and all-gather are the
+compressed wire:
+
+    grads --RS(compressed)--> grad shard --update--> param shard
+          --AG(compressed)--> full params
+
+Parameters are a list of tensors in the reference's ``tree_leaves`` order.
+They are fused into one flat bucket per dtype, padded to ``n_dp * block``;
+rank ``d`` owns shard ``d`` and its f32 optimizer state.  The RS/AG gating
+is the reference plan compiler's rule (``sched/compile.py``
+``compile_reduce_scatter_plan`` / ``compile_all_gather_plan``), applied
+directly: compress iff the policy is enabled and the GLOBAL bytes of the
+phase reach ``min_bytes``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch import kernels
+from repro_torch.core import codec
+from repro_torch.core import compressed_collectives as cc
+from repro_torch.core.policy import CompressionPolicy
+from repro_torch.optim import optimizers as opt
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketMeta:
+    """Static description of the flat buckets of one parameter list."""
+
+    dtype_names: tuple  # bucket order
+    members: tuple  # per bucket: ((leaf_index, shape, size), ...)
+    lengths: tuple  # unpadded length per bucket
+    padded: tuple  # padded length per bucket (multiple of n_dp * block)
+    n_dp: int
+    block: int
+
+    @property
+    def shard_lens(self) -> tuple:
+        return tuple(p // self.n_dp for p in self.padded)
+
+
+def _bucket_name(dtype) -> str:
+    try:
+        return codec.layout_of(dtype).name
+    except ValueError:
+        return "float32"  # reduce/update in f32; re-cast on unflatten
+
+
+def plan_buckets(params, n_dp: int, block: int = 512) -> BucketMeta:
+    groups: dict = {}
+    for i, p in enumerate(params):
+        groups.setdefault(_bucket_name(p.dtype), []).append(
+            (i, tuple(p.shape), p.numel()))
+    names = tuple(sorted(groups))
+    members = tuple(tuple(groups[n]) for n in names)
+    lengths = tuple(sum(m[2] for m in groups[n]) for n in names)
+    mult = n_dp * block
+    padded = tuple(-(-L // mult) * mult for L in lengths)
+    return BucketMeta(names, members, lengths, padded, n_dp, block)
+
+
+def flatten_buckets(meta: BucketMeta, tensors) -> list:
+    out = []
+    for name, mem, L, Lp in zip(meta.dtype_names, meta.members, meta.lengths,
+                                meta.padded):
+        dt = codec.LAYOUTS[name].dtype
+        parts = [tensors[i].detach().to(dt).reshape(-1) for i, _, _ in mem]
+        if Lp > L:
+            parts.append(parts[0].new_zeros(Lp - L))
+        out.append(torch.cat(parts) if len(parts) > 1 else parts[0])
+    return out
+
+
+def unflatten_buckets(meta: BucketMeta, buckets, like) -> list:
+    leaves = list(like)
+    for mem, bucket in zip(meta.members, buckets):
+        off = 0
+        for i, shape, size in mem:
+            leaves[i] = bucket[off: off + size].reshape(shape).to(like[i].dtype)
+            off += size
+    return leaves
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1 state + step
+# ---------------------------------------------------------------------------
+
+def zero1_init_local(ocfg: opt.OptimConfig, meta: BucketMeta, params,
+                     dp_index: int) -> dict:
+    """This rank's ZeRO-1 shard state: f32 master copy + moments."""
+    buckets = flatten_buckets(meta, params)
+    dev = buckets[0].device
+    state = {"count": torch.zeros((), dtype=torch.int32, device=dev),
+             "buckets": []}
+    for bucket, sl in zip(buckets, meta.shard_lens):
+        shard = bucket[dp_index * sl: (dp_index + 1) * sl]
+        b = {"master": shard.to(torch.float32)}
+        if ocfg.name == "adamw":
+            b["m"] = torch.zeros(sl, dtype=torch.float32, device=dev)
+        b["v"] = torch.zeros(sl, dtype=torch.float32, device=dev)
+        state["buckets"].append(b)
+    state["buckets"] = tuple(state["buckets"])
+    return state
+
+
+def load_reference_zero1_state(tree, device="cuda") -> dict:
+    """This rank's ZeRO-1 state from the reference's: ``tree =
+    jax.tree_util.tree_map(np.asarray, zero1_init_local(...))`` (leaves
+    ``(sl,)``, or ``(1, sl)`` in its global 2-D layout)."""
+    dev = kernels.resolve_device(device)
+    as_t = lambda a: torch.from_numpy(np.array(a)).to(dev)  # noqa: E731
+    return {"count": as_t(tree["count"]).to(torch.int32),
+            "buckets": tuple({k: as_t(v).reshape(-1) for k, v in b.items()}
+                             for b in tree["buckets"])}
+
+
+def _raw_reduce_scatter(x: torch.Tensor, group, n_dp: int) -> torch.Tensor:
+    """Uncompressed RS as all_to_all + rank-order f32 sum: the same
+    accumulation order as the compressed path, so compressed-vs-raw
+    training is bit-comparable."""
+    return cc._seq_sum(cc.raw_all_to_all(x.reshape(n_dp, -1), group))
+
+
+def _raw_all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    return cc.raw_all_gather(x, group)
+
+
+def _reduce_scatter(gb: torch.Tensor, group, policy: CompressionPolicy,
+                    n_dp: int):
+    """One RS bucket, gated as ``compile_reduce_scatter_plan``."""
+    if policy.enabled and gb.numel() * gb.element_size() * n_dp >= policy.min_bytes:
+        prof = policy.profile
+        return cc.reduce_scatter_compressed(
+            gb, group, width=policy.width_for("gradient"), block=prof.block,
+            exc_frac=prof.exc_frac)
+    return (_raw_reduce_scatter(gb, group, n_dp),
+            torch.zeros((), dtype=torch.int32, device=gb.device))
+
+
+def _all_gather(shard: torch.Tensor, group, policy: CompressionPolicy,
+                n_dp: int):
+    """One AG bucket, gated as ``compile_all_gather_plan``."""
+    if policy.enabled and shard.numel() * shard.element_size() * n_dp >= policy.min_bytes:
+        prof = policy.profile
+        width = min(policy.width_for("weight") + prof.ag_extra_bits, 8)
+        got, flag = cc.all_gather_compressed(
+            shard, group, width=width, block=prof.block, exc_frac=prof.exc_frac)
+        return got.reshape(-1), flag
+    return (_raw_all_gather(shard, group),
+            torch.zeros((), dtype=torch.int32, device=shard.device))
+
+
+def zero1_step(ocfg: opt.OptimConfig, meta: BucketMeta, params, grads,
+               state: dict, *, group=None, policy: CompressionPolicy):
+    """One ZeRO-1 step.  ``grads`` are this rank's UNREDUCED gradients;
+    reduction happens in the (compressed) reduce-scatter.  Returns
+    (new_params list, new_state, overflow_flag int32, gnorm f32)."""
+    n_dp = dist.get_world_size(group)
+    gbuckets = flatten_buckets(meta, grads)
+    dev = gbuckets[0].device
+    flag = torch.zeros((), dtype=torch.int32, device=dev)
+    c = state["count"] + 1
+    lr = opt.lr_at(ocfg, c)
+
+    # -- reduce-scatter: grad shards (mean over DP) --------------------------
+    gshards = []
+    norm_sq = torch.zeros((), dtype=torch.float32, device=dev)
+    for gb in gbuckets:
+        gs, f = _reduce_scatter(gb, group, policy, n_dp)
+        flag = torch.maximum(flag, f)
+        gs = gs / n_dp
+        gshards.append(gs)
+        norm_sq = norm_sq + torch.sum(torch.square(gs))
+
+    # global grad norm: the shards are disjoint over the group
+    dist.all_reduce(norm_sq, group=group)
+    gnorm = torch.sqrt(norm_sq)
+    scale = torch.clamp(ocfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
+
+    # -- local shard update, then all-gather of the new params ---------------
+    new_buckets, new_state_buckets = [], []
+    b1, b2 = ocfg.b1, ocfg.b2
+    cf = c.to(torch.float32)
+    bc1 = 1 - b1 ** cf
+    bc2 = 1 - b2 ** cf
+    beta_af = 1.0 - cf ** (-ocfg.decay_rate)
+    for name, gs, bst in zip(meta.dtype_names, gshards, state["buckets"]):
+        g = gs * scale
+        master = bst["master"]
+        if ocfg.name == "adamw":
+            m = b1 * bst["m"] + (1 - b1) * g
+            v = b2 * bst["v"] + (1 - b2) * torch.square(g)
+            upd = (m / bc1) / (torch.sqrt(v / bc2) + ocfg.eps)
+            nb = {"m": m, "v": v}
+        else:  # adafactor on a flat shard degenerates to unfactored
+            v = beta_af * bst["v"] + (1 - beta_af) * (torch.square(g) + 1e-30)
+            upd = g / (torch.sqrt(v) + 1e-12)
+            rms = torch.sqrt(torch.mean(torch.square(upd)) + 1e-30)
+            upd = upd / torch.clamp(rms, min=1.0)
+            nb = {"v": v}
+        master = master - lr * (upd + ocfg.weight_decay * master)
+        nb["master"] = master
+        new_state_buckets.append(nb)
+        gathered, f = _all_gather(master.to(codec.LAYOUTS[name].dtype), group,
+                                  policy, n_dp)
+        flag = torch.maximum(flag, f)
+        new_buckets.append(gathered)
+
+    new_params = unflatten_buckets(meta, new_buckets, params)
+    return new_params, {"count": c, "buckets": tuple(new_state_buckets)}, flag, gnorm

@@ -1,0 +1,110 @@
+"""ZeRO-1 training step over the compressed two-shot wire (torch port of
+``repro.train.step``, partition ``zero1``).
+
+One step: forward + sequence-chunked cross-entropy, backward (each rank's
+local gradient), then ``optim/zero1.zero1_step``: compressed reduce-scatter
+of the gradient bucket, f32 shard update, compressed all-gather of the new
+parameters.
+
+Losslessness: every compressed wire carries an overflow flag.  With
+``guard_overflow`` a step whose flag fires keeps the old parameters and
+optimizer state and does not advance the step counter; the launcher then
+reruns it uncompressed (``launch/train.py``).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.core.policy import CompressionPolicy
+from repro_torch.models import transformer
+from repro_torch.models.config import ArchConfig
+from repro_torch.optim import optimizers as opt
+from repro_torch.optim import zero1 as zero1_lib
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    loss_chunk: int = 1024
+    optim: opt.OptimConfig = dataclasses.field(default_factory=opt.OptimConfig)
+    policy: CompressionPolicy = dataclasses.field(default_factory=CompressionPolicy)
+    guard_overflow: bool = True
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: transformer.Transformer
+    opt: dict  # this rank's ZeRO-1 shard state (zero1_init_local)
+    meta: zero1_lib.BucketMeta
+    step: int = 0
+
+
+def chunked_ce_loss(head: torch.Tensor, hidden: torch.Tensor,
+                    labels: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Mean token cross-entropy with logits materialised ``chunk`` positions
+    at a time, in f32 (the reference's ``chunked_ce_loss``)."""
+    B, S, _ = hidden.shape
+    chunk = min(chunk, S)
+    if S % chunk:
+        chunk = S
+    total = hidden.new_zeros((), dtype=torch.float32)
+    for s0 in range(0, S, chunk):
+        logits = (hidden[:, s0:s0 + chunk] @ head.T).to(torch.float32)
+        gold = torch.gather(logits, -1, labels[:, s0:s0 + chunk, None])[..., 0]
+        total = total + torch.sum(torch.logsumexp(logits, dim=-1) - gold)
+    return total / (B * S)
+
+
+def loss_fn(model: transformer.Transformer, batch: dict, tcfg: TrainConfig):
+    hidden = model(batch["tokens"])
+    return chunked_ce_loss(model.head(), hidden, batch["labels"], tcfg.loss_chunk)
+
+
+def train_state_for(model: transformer.Transformer, tcfg: TrainConfig,
+                    group=None) -> TrainState:
+    """ZeRO-1 train state around existing weights (this rank's shard)."""
+    n_dp = dist.get_world_size(group)
+    meta = zero1_lib.plan_buckets(model.leaves(), n_dp,
+                                  block=tcfg.policy.profile.block)
+    ost = zero1_lib.zero1_init_local(tcfg.optim, meta, model.leaves(),
+                                     dp_index=dist.get_rank(group))
+    return TrainState(model=model, opt=ost, meta=meta)
+
+
+def build_train_state(cfg: ArchConfig, tcfg: TrainConfig, *,
+                      generator: torch.Generator, group=None,
+                      device="cuda") -> TrainState:
+    """Randomly initialised model + ZeRO-1 state on ``device``."""
+    model = transformer.init(cfg, generator=generator, device=device)
+    return train_state_for(model, tcfg, group)
+
+
+def train_step(state: TrainState, batch: dict, tcfg: TrainConfig, *,
+               group=None) -> dict:
+    """One ZeRO-1 step; updates ``state`` in place unless the overflow
+    guard fires.  Returns ``{"loss" (mean over ranks), "gnorm": f32
+    tensors, "overflow": int}``."""
+    leaves = state.model.leaves()
+    for p in leaves:
+        p.grad = None
+    loss = loss_fn(state.model, batch, tcfg)
+    loss.backward()
+    grads = [p.grad for p in leaves]
+    with torch.no_grad():
+        new_params, new_opt, flag, gnorm = zero1_lib.zero1_step(
+            tcfg.optim, state.meta, leaves, grads, state.opt, group=group,
+            policy=tcfg.policy)
+        loss = loss.detach()
+        dist.all_reduce(loss, group=group)
+        loss = loss / dist.get_world_size(group)
+        overflow = int(flag)  # the guard needs the flag on the host
+        if overflow == 0 or not tcfg.guard_overflow:
+            for p, new in zip(leaves, new_params):
+                p.copy_(new)
+            state.opt = new_opt
+            state.step += 1
+    for p in leaves:
+        p.grad = None
+    return {"loss": loss, "gnorm": gnorm, "overflow": overflow}

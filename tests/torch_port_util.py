@@ -1,0 +1,185 @@
+"""Shared helpers of the ``test_torch_*`` suites: seeded numpy inputs handed
+to both the JAX reference and the torch port, bit-exact converters, and the
+worker of the multi-rank gloo tests (which imports torch and the port only,
+so spawned ranks start fast)."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+FORMATS = ("float32", "float16", "bfloat16", "float8_e4m3fn", "float8_e5m2")
+_BITS = {"float32": (32, 8, 23), "float16": (16, 5, 10), "bfloat16": (16, 8, 7),
+         "float8_e4m3fn": (8, 4, 3), "float8_e5m2": (8, 5, 2)}
+_UINT = {8: np.uint8, 16: np.uint16, 32: np.uint32}
+
+
+def random_bits(fmt: str, n: int, seed: int) -> np.ndarray:
+    """Uniformly random bit patterns: every NaN payload, +-Inf, subnormal
+    and normal of the format occurs."""
+    total = _BITS[fmt][0]
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 1 << total, n, dtype=np.uint64).astype(_UINT[total])
+
+
+# The NaN that every NaN of a format becomes when XLA:CPU copies floats (e.g.
+# in a concatenate): bf16 and e5m2 NaNs lose their payload (e5m2 also its
+# sign); f32 and f16 NaNs keep it, once quiet; e4m3fn has one NaN per sign.
+_XLA_COPY_NAN = {"bfloat16": 0x7FC0, "float8_e5m2": 0x7F}
+
+
+def grad_like_bits(fmt: str, n: int, seed: int, *, specials: bool = True,
+                   subnormals: bool = True, xla_copy_nans: bool = False) -> np.ndarray:
+    """Bit patterns of gradient-like values (normal(0, 0.02), 8% exact zeros)
+    with an all-zero block, and, if asked, subnormals, +-Inf, NaN payloads
+    and exception blocks (smallest and largest exponent in one block).
+    ``xla_copy_nans``: only NaNs that an XLA:CPU float copy leaves as they
+    are (quiet f32/f16 payloads, the canonical bf16/fp8 NaN)."""
+    total, e, m = _BITS[fmt]
+    rng = np.random.default_rng(seed)
+    vals = rng.normal(0, 0.02, n).astype(np.float32)
+    vals[rng.random(n) < 0.08] = 0.0
+    bits = torch.from_numpy(vals).to(_torch_dtype(fmt)).view(
+        {8: torch.uint8, 16: torch.int16, 32: torch.int32}[total]).numpy()
+    bits = bits.view(_UINT[total]).astype(np.uint64)
+    if n >= 1024:
+        bits[512:1024] = 0
+    if subnormals and n >= 1300:
+        bits[1100:1164] = rng.integers(1, 1 << m, 64)
+        bits[1200:1232] = rng.integers(1, 1 << m, 32) | (1 << (total - 1))
+    if specials and n >= 1400:
+        top = ((1 << e) - 1) << m
+        if fmt == "float8_e4m3fn":  # no infinities; this is its one NaN
+            bits[1300] = top | ((1 << m) - 1)
+        else:
+            bits[1300] = top
+            bits[1301] = top | (1 << (total - 1))
+            bits[1302:1310] = top | rng.integers(1, 1 << m, 8) | (xla_copy_nans << (m - 1))
+            if xla_copy_nans and fmt in _XLA_COPY_NAN:
+                bits[1302:1310] = _XLA_COPY_NAN[fmt]
+        for j in range(3, n // 512, 25):
+            bits[j * 512] = 1 << m
+            bits[j * 512 + 1] = ((1 << e) - 2) << m
+    return bits.astype(_UINT[total])
+
+
+def _torch_dtype(fmt: str):
+    return getattr(torch, fmt)
+
+
+def to_torch(bits: np.ndarray, fmt: str) -> torch.Tensor:
+    """uint bit patterns -> torch float tensor with exactly those bits."""
+    signed = {np.dtype(np.uint8): np.uint8, np.dtype(np.uint16): np.int16,
+              np.dtype(np.uint32): np.int32}[bits.dtype]
+    return torch.from_numpy(bits.view(signed).copy()).view(_torch_dtype(fmt))
+
+
+def to_jax(bits: np.ndarray, fmt: str):
+    import jax
+    import jax.numpy as jnp
+
+    return jax.lax.bitcast_convert_type(jnp.asarray(bits), jnp.dtype(fmt))
+
+
+def np_of(t) -> np.ndarray:
+    """Torch tensor (wire ints, uint8, int64, or float) or JAX array -> numpy
+    with the bits of a same-width unsigned integer where it is integral
+    and f32 bits for floats, so the two frameworks compare as equal arrays."""
+    if isinstance(t, torch.Tensor):
+        t = t.detach().cpu()
+        if t.dtype == torch.int32:
+            return t.numpy().view(np.uint32)
+        if t.dtype in (torch.float32, torch.float16, torch.bfloat16,
+                       torch.float8_e4m3fn, torch.float8_e5m2):
+            ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[t.element_size()]
+            return t.view(ints).numpy().view(_UINT[8 * t.element_size()])
+        return t.numpy()
+    a = np.asarray(t)
+    if a.dtype.kind == "f" or a.dtype.name in ("bfloat16", "float8_e4m3fn",
+                                               "float8_e5m2"):
+        return a.view(_UINT[8 * a.dtype.itemsize])
+    return a
+
+
+def assert_bits_equal(got, want, ctx=""):
+    g, w = np_of(got), np_of(want)
+    assert g.shape == w.shape, (ctx, g.shape, w.shape)
+    if g.dtype != w.dtype:
+        g, w = g.astype(np.int64), w.astype(np.int64)
+    bad = np.flatnonzero(g.reshape(-1) != w.reshape(-1))
+    assert bad.size == 0, (ctx, f"{bad.size} differ; first at {bad[0]}: "
+                                f"{g.reshape(-1)[bad[0]]} vs {w.reshape(-1)[bad[0]]}")
+
+
+# ---------------------------------------------------------------------------
+# worker of the multi-rank gloo tests
+# ---------------------------------------------------------------------------
+
+def run_gloo_ranks(worker, world: int, tmp_path, *args, timeout: float = 120.0) -> list:
+    """Run ``worker(rank, world, out_path, *args)`` in ``world`` spawned
+    processes joined into one gloo group over a ``FileStore`` under
+    ``tmp_path`` (no port, so parallel test workers never collide).  Each
+    rank saves its results as ``.npz`` at ``out_path``; returns them in rank
+    order."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    store = str(tmp_path / "store")
+    outs = [str(tmp_path / f"rank{r}.npz") for r in range(world)]
+    procs = [ctx.Process(target=_gloo_rank, args=(worker, r, world, store, outs[r], *args))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    assert [p.exitcode for p in procs] == [0] * world, [p.exitcode for p in procs]
+    return [dict(np.load(o)) for o in outs]
+
+
+def _gloo_rank(worker, rank, world, store, out, *args):
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        worker(rank, world, out, *args)
+    finally:
+        dist.destroy_process_group()
+
+
+def collectives_rank(rank: int, world: int, out: str, fmt: str, n: int,
+                     width: int) -> None:
+    """Compressed and raw reduce-scatter and all-gather of this rank's
+    seeded input (``grad_like_bits(fmt, n, seed=rank, subnormals=False)``)."""
+    from repro_torch.core import compressed_collectives as cc
+    from repro_torch.optim import zero1
+
+    x = to_torch(grad_like_bits(fmt, n, seed=rank, subnormals=False), fmt)
+    red, flag = cc.reduce_scatter_compressed(x, width=width)
+    raw = zero1._raw_reduce_scatter(cc._pad_flat(x, world * 512), None, world)
+    shard = x[rank * (n // world): (rank + 1) * (n // world)]
+    gat, gflag = cc.all_gather_compressed(shard, width=width)
+    raw_gat = cc.raw_all_gather(cc._pad_flat(shard, 512), None)
+    np.savez(out, red=np_of(red), raw=np_of(raw), flag=int(flag),
+             gat=np_of(gat), raw_gat=np_of(raw_gat), gflag=int(gflag))
+
+
+def train_twin_rank(rank: int, world: int, out: str, steps: int, batch: int,
+                    seq: int) -> None:
+    """ZeRO-1 smollm SMOKE training on the CPU, compressed then raw, from
+    the same seed: losses and final parameter bits of both twins."""
+    from repro_torch.launch import train
+
+    res = {}
+    for tag, compress in (("comp", True), ("raw", False)):
+        run = train.train("smollm_135m", steps=steps, batch=batch, seq=seq,
+                          compress=compress, smoke=True, device="cpu", lr=1e-3,
+                          warmup=2)
+        res[f"{tag}_losses"] = np.array(run.losses)
+        res[f"{tag}_params"] = np.concatenate(
+            [np_of(p).view(np.uint8).reshape(-1) for p in run.state.model.leaves()])
+        res[f"{tag}_retries"] = run.retries
+    np.savez(out, **res)
