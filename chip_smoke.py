@@ -6,23 +6,56 @@
 Needs one CUDA GPU (Hopper, sm_90a) and the CUDA toolkit.  Phases, one
 result line each:
 
-1. build  - compile every kernel from ``src/repro_torch/kernels/csrc``;
-            print the build time and the card's name and power limit.
-2. check  - each CUDA kernel against its plain PyTorch version on the card,
-            5 formats x widths {2, 5, 8}, ragged n, all-zero blocks,
-            subnormals, +-Inf, NaN payloads and exception blocks:
-            encode_fused's four outputs bit for bit, decode_reduce's f32
-            output bit for bit (NaN matched as NaN).
-3. main   - smollm_135m at full width, ZeRO-1 on a single-rank NCCL group,
+1. build  - compile every kernel source in ``src/repro_torch/kernels/csrc``
+            (one nvcc each, all at once); print the build time and the
+            card's name and power limit.
+2. check  - each CUDA kernel against its plain PyTorch version on the card:
+            encode_fused and decode_reduce over 5 formats x widths {2, 5, 8}
+            (ragged n, all-zero blocks, subnormals, +-Inf, NaN payloads,
+            exception blocks; decode_reduce's f32 output with NaN as NaN);
+            pack and unpack at widths 1-32 on ragged group counts, all-zero
+            and all-ones groups and int32 values with the sign bit set;
+            rANS encode and decode on skewed, uniform and one-symbol streams,
+            a table whose top frequency is M - 255, n_valid < per * lanes,
+            and the compacted-stream decode of an ``ans.encode`` stream.
+            All bit for bit.
+3. serve  - smollm_135m at full width and depth, random weights from seed 0:
+            8 greedy requests of 512 prompt tokens (numpy seed 0), 32 new
+            tokens each, 4 slots, max_len 1024, prefill_chunk 512, first
+            colocated, then PD-disaggregated (CompressionPolicy(min_bytes=0),
+            a fresh PlanCache).  The tokens must be identical and the plan
+            cache must show 1 miss and 7 hits.  Launches of the PD run: each
+            admission ships one cache whose two bf16 leaves (k, v) each pack
+            twice (the lo plane, the exponent residuals) and unpack twice on
+            the decode side, so pack = unpack = 4 per admission, 32 in all;
+            no other kernel launches (the colocated run launches none).  Then
+            the first 2 requests, colocated and PD-disaggregated with the
+            engine's rANS codec (kv_codec="rans", a fresh PlanCache: 1 miss,
+            1 hit): identical tokens; each admission's two leaves each pack
+            and unpack their lo plane once and run rans_encode and
+            rans_decode once on their exponent plane, so every one of the
+            four kernels launches 2 x 2 = 4 times.  Then one admitted
+            request's prefilled cache crosses the host wire with each codec
+            (pack_cache, unpack_cache): every leaf bit-identical and a
+            32-token greedy decode from it identical.  Prints tokens/s of
+            each run, pack and unpack ms per shipment, each codec's wire
+            ratio, and the ms of one admission's prefill and of one batched
+            decode step.
+4. main   - smollm_135m at full width, ZeRO-1 on a single-rank NCCL group,
             batch 8 x seq 512: 3 compressed steps, then 3 steps of the raw
             twin from the same weights.  Losses and final parameter bytes
-            must be identical; the kernels' launch counts of the compressed
-            run must equal 2 encodes and n_dp decode+reduces per step.
-            Then where a compressed step's time goes: forward+backward and
-            each wire phase beside its raw twin (host clock, synchronised).
-4. times  - each kernel, its plain version, at the main path's shapes
-            (CUDA events, median of 20 runs after warm-up), beside the
-            card's memory-bandwidth bound.
+            must be identical; per compressed step the launches must be 2
+            encodes, n_dp decode+reduces and n_dp + 2 unpacks (the
+            reduce-scatter's exception patch per received chunk, the
+            all-gather decode's payload and lo planes); the raw twin
+            launches nothing.  Then where a compressed step's time goes:
+            forward+backward and each wire phase beside its raw twin (host
+            clock, synchronised).
+5. times  - each kernel and its plain version at the shapes its path
+            gives it (CUDA events, median of 20 runs after warm-up; the
+            plain rANS versions, one torch step per row, once), beside the
+            least time the card could take (bytes over its memory bandwidth
+            or operations over its peak rate, the larger).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 ``kernels`` JSON.  Any failed phase exits non-zero and prints no result.
@@ -40,11 +73,19 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 ARCH, BATCH, SEQ, STEPS, SEED = "smollm_135m", 8, 512, 3, 0
+# serve phase: requests, prompt tokens, new tokens, slots, cache length;
+# requests of the PD run with the rANS codec
+N_REQ, PROMPT, MAX_NEW, SLOTS, MAX_LEN = 8, 512, 32, 4, 1024
+N_RANS = 2
 WIDTHS = (2, 5, 8)
 TIMED_RUNS = 20
 REPLACES = {
     "encode_fused": "src/repro/kernels/encode_fused.py:45",
     "decode_reduce": "src/repro/kernels/decode_reduce.py:36",
+    "pack": "src/repro/kernels/bitpack.py:28",
+    "unpack": "src/repro/kernels/bitpack.py:40",
+    "rans_encode": "src/repro/kernels/rans.py:43",
+    "rans_decode": "src/repro/kernels/rans.py:68",
 }
 
 
@@ -164,6 +205,221 @@ def phase_check(dev, torch, np):
     return worst
 
 
+def phase_check_wire(dev, torch, np):
+    """The host wire's kernels against their plain versions, bit for bit."""
+    from repro_torch.core import ans
+    from repro_torch.kernels import bitpack, rans, ref
+
+    rng = np.random.default_rng(7)
+    n_cases = 0
+    for n_g in (1, 37, 4099):
+        vals = rng.integers(0, 1 << 32, 32 * n_g, dtype=np.uint64)
+        vals[:32], vals[-32:] = 0, 0xFFFFFFFF  # all-zero and all-ones groups
+        inputs = {"int32": vals.astype(np.uint32).view(np.int32),  # sign bit set
+                  "int64": vals.astype(np.int64), "uint8": vals.astype(np.uint8)}
+        for name, a in inputs.items():
+            t = torch.from_numpy(a).to(dev)
+            for width in range(1, 33):
+                got = bitpack.pack(t, width)
+                if not torch.equal(got, ref.pack(t, width)):
+                    raise AssertionError(f"pack {name} n_g={n_g} w={width} differs")
+                if not torch.equal(bitpack.unpack(got, width), ref.unpack(got, width)):
+                    raise AssertionError(f"unpack {name} n_g={n_g} w={width} differs")
+                n_cases += 1
+    per, lanes = 48, 128
+    streams = {"skewed": np.clip(rng.normal(120, 2.5, per * lanes), 0, 255),
+               "uniform": rng.integers(0, 256, per * lanes),
+               "single": np.full(per * lanes, 7)}
+    top = np.ones(256, np.int64)
+    top[7] = ans.M - 255
+    for name, a in streams.items():
+        syms = torch.from_numpy(a.astype(np.uint8)).reshape(per, lanes).to(dev)
+        tables = [ans.build_freq_table(syms)]
+        if name == "single":  # the top frequency M - 255
+            tables.append(ans.table_from_freq(torch.from_numpy(top).to(dev)))
+        for t in tables:
+            s2s = ans._slot_to_symbol(t)
+            for n_valid in (per * lanes, per * lanes - 77):
+                got = rans.encode(syms, t.freq, t.cum, n_valid)
+                want = ref.rans_encode(syms, t.freq, t.cum, n_valid)
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise AssertionError(f"rans_encode {name} n_valid={n_valid} differs")
+                dec = rans.decode(got[0], got[2], t.freq, t.cum, s2s, n_valid)
+                if not torch.equal(dec, ref.rans_decode(got[0], got[2], t.freq, t.cum,
+                                                        s2s, n_valid)):
+                    raise AssertionError(f"rans_decode {name} n_valid={n_valid} differs")
+                if not torch.equal(dec.reshape(-1)[:n_valid], syms.reshape(-1)[:n_valid]):
+                    raise AssertionError(f"rans {name} does not round-trip")
+        flat = syms.reshape(-1)[: per * lanes - 77]
+        stream = ans.encode(flat, tables[0])
+        s2s = ans._slot_to_symbol(tables[0])
+        got = rans.decode_stream(stream.words, stream.lens, tables[0].freq,
+                                 tables[0].cum, s2s, per, flat.shape[0])
+        want = ref.rans_decode_stream(stream.words, stream.lens, tables[0].freq,
+                                      tables[0].cum, s2s, per, flat.shape[0])
+        if not torch.equal(got, want) or not torch.equal(ans.decode(stream), flat):
+            raise AssertionError(f"compacted-stream rans_decode {name} differs")
+    torch.cuda.synchronize()
+    print(f"check: pack and unpack bit-identical to their plain versions over "
+          f"{n_cases} cases (widths 1-32, 1/37/4099 groups, int32/int64/uint8); "
+          f"rans_encode and rans_decode (dense and compacted stream) over "
+          f"{len(streams)} streams, an M-255 table and n_valid < per*lanes")
+
+
+def _tree_bits_equal(a, b, torch) -> bool:
+    from repro_torch.tree_util import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(
+            x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))
+        for x, y in zip(la, lb))
+
+
+def phase_serve(dev, torch, np):
+    """Colocated, then PD-disaggregated serving of smollm_135m at full width
+    and depth; then one prefilled cache over the host wire with each codec.
+    The launch counts it holds are derived in the module docstring."""
+    from repro_torch import configs, kernels
+    from repro_torch.core.policy import CompressionPolicy
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer
+    from repro_torch.p2p.engine import Compressor
+    from repro_torch.sched.cache import PlanCache
+    from repro_torch.serve import kv_transfer
+    from repro_torch.serve.engine import Request, ServeConfig, ServeEngine
+    from repro_torch.tree_util import tree_flatten, tree_unflatten
+
+    cfg = configs.get(ARCH)
+    model = transformer.init(cfg, generator=torch.Generator().manual_seed(SEED),
+                             device=dev)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab, PROMPT).astype(np.int32)
+               for _ in range(N_REQ)]
+
+    def serve(pd, reqs, max_new, plan_cache=None, kv_codec="packed"):
+        scfg = ServeConfig(batch_slots=SLOTS, max_len=MAX_LEN, prefill_chunk=PROMPT,
+                           pd_disaggregated=pd)
+        eng = ServeEngine(cfg, model, scfg, kv_plan_cache=plan_cache,
+                          kv_policy=CompressionPolicy(min_bytes=0) if pd else None,
+                          kv_codec=kv_codec)
+        for i, p in enumerate(reqs):
+            eng.submit(Request(rid=i, prompt=p, max_new=max_new))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        return sorted((r.rid, tuple(r.out)) for r in done), time.perf_counter() - t0
+
+    with launch_train.deterministic():
+        serve(False, prompts[:1], 2)  # warm-up, neither counted nor timed
+        serve(True, prompts[:1], 2, PlanCache())
+        kernels.clear_launch_counts()
+        colocated, t_col = serve(False, prompts, MAX_NEW)
+        col_launches = kernels.launch_counts()
+        pc = PlanCache()
+        kernels.clear_launch_counts()
+        pd, t_pd = serve(True, prompts, MAX_NEW, pc)
+        pd_launches = kernels.launch_counts()
+        col2, t_col2 = serve(False, prompts[:N_RANS], MAX_NEW)
+        pc_rans = PlanCache()
+        kernels.clear_launch_counts()
+        pd_rans, t_rans = serve(True, prompts[:N_RANS], MAX_NEW, pc_rans, "rans")
+        rans_launches = kernels.launch_counts()
+    if pd != colocated:
+        raise AssertionError(f"PD tokens differ from colocated: {pd} vs {colocated}")
+    if len(pd) != N_REQ or any(len(o) != MAX_NEW or not all(0 <= t < cfg.vocab for t in o)
+                               for _, o in pd):
+        raise AssertionError(f"unexpected serve output {pd}")
+    if (pc.stats.misses, pc.stats.hits) != (1, N_REQ - 1):
+        raise AssertionError(f"plan cache {pc.cache_info()}, expected 1 miss and "
+                             f"{N_REQ - 1} hits")
+    expect = dict.fromkeys(kernels.KERNELS, 0)
+    expect.update(pack=4 * N_REQ, unpack=4 * N_REQ)
+    if pd_launches != expect or any(col_launches.values()):
+        raise AssertionError(f"serve launch counts {pd_launches} (colocated "
+                             f"{col_launches}), expected {expect}")
+    if pd_rans != col2:
+        raise AssertionError(f"PD rANS tokens {pd_rans} differ from colocated {col2}")
+    if (pc_rans.stats.misses, pc_rans.stats.hits) != (1, N_RANS - 1):
+        raise AssertionError(f"rANS plan cache {pc_rans.cache_info()}")
+    want_rans = dict.fromkeys(kernels.KERNELS, 0)
+    want_rans.update(pack=2 * N_RANS, unpack=2 * N_RANS, rans_encode=2 * N_RANS,
+                     rans_decode=2 * N_RANS)
+    if rans_launches != want_rans:
+        raise AssertionError(f"PD rANS serve launches {rans_launches}, expected "
+                             f"{want_rans}")
+    (plan,) = pc._plans.values()
+    n_tok, n_tok2 = N_REQ * MAX_NEW, N_RANS * MAX_NEW
+    print(f"serve: {ARCH} full width, {N_REQ} requests x {PROMPT} prompt + {MAX_NEW} "
+          f"new tokens, {SLOTS} slots, max_len {MAX_LEN}; PD tokens identical to "
+          f"colocated; plan cache {pc.stats.misses} miss {pc.stats.hits} hits "
+          f"(width {plan.width_for_dtype('bfloat16')}); launches {pd_launches}")
+    print(f"  tokens/s colocated {n_tok / t_col:.1f} ({t_col * 1e3:.1f} ms), "
+          f"PD {n_tok / t_pd:.1f} ({t_pd * 1e3:.1f} ms)")
+    print(f"  {N_RANS} requests, PD with the rANS codec: tokens identical to colocated; "
+          f"plan cache {pc_rans.stats.misses} miss {pc_rans.stats.hits} hit; launches "
+          f"{rans_launches}; tokens/s colocated {n_tok2 / t_col2:.1f} "
+          f"({t_col2 * 1e3:.1f} ms), PD rANS {n_tok2 / t_rans:.1f} ({t_rans * 1e3:.1f} ms)")
+
+    # one admitted request's prefilled cache over the host wire, each codec
+    toks = torch.from_numpy(prompts[0][None].astype(np.int64)).to(dev)
+    logits, cache = transformer.prefill(model, toks,
+                                        transformer.init_cache(cfg, 1, MAX_LEN, dev))
+    leaves, treedef = tree_flatten(cache)
+
+    def greedy(c):
+        c = tree_unflatten(treedef, [t.clone() for t in tree_flatten(c)[0]])
+        out = [int(torch.argmax(logits[0, -1]))]
+        for _ in range(MAX_NEW - 1):
+            cur = torch.tensor([[out[-1]]], device=dev)
+            lg, c = transformer.decode_step(model, cur, c)
+            out.append(int(torch.argmax(lg[0, -1])))
+        return out
+
+    want = greedy(cache)
+    ship = {}
+    for codec_name in ("packed", "rans"):
+        eng = Compressor(codec_name=codec_name, device=dev)
+        wire = kv_transfer.pack_cache(cache, eng, plan=plan)
+        back = kv_transfer.unpack_cache(wire, eng)
+        if not _tree_bits_equal(back, cache, torch):
+            raise AssertionError(f"{codec_name} shipment is not bit-identical")
+        if greedy(back) != want:
+            raise AssertionError(f"{codec_name} shipment decodes other tokens")
+        msgs = [m for m in wire["messages"] if hasattr(m, "wire_bytes")]
+        pack_ms = _wall_ms(lambda: kv_transfer.pack_cache(cache, eng, plan=plan),
+                           torch, runs=3)
+        unpack_ms = _wall_ms(lambda: kv_transfer.unpack_cache(wire, eng), torch, runs=3)
+        ship[codec_name] = {
+            "pack_ms": pack_ms, "unpack_ms": unpack_ms,
+            "ratio": sum(m.wire_bytes() for m in msgs) / sum(m.raw_bytes for m in msgs)}
+    for name, r in ship.items():
+        print(f"  {name} shipment of one cache ({len(leaves) - 1} leaves of "
+              f"{tuple(leaves[0].shape)} bf16): bit-identical, {MAX_NEW}-token "
+              f"greedy decode identical; pack {r['pack_ms']:.2f} ms, unpack "
+              f"{r['unpack_ms']:.2f} ms (median of 3), wire ratio {r['ratio']:.4f}")
+    # where a serve run's time goes: one admission's prefill, one batched
+    # decode step (the run is PROMPT-token prefills, decode steps and, in PD,
+    # one packed shipment per admission)
+    batched = transformer.init_cache(cfg, SLOTS, MAX_LEN, dev)
+    batched["pos"] = torch.tensor(PROMPT, dtype=torch.int32, device=dev)
+    cur = torch.zeros((SLOTS, 1), dtype=torch.int32, device=dev)
+    with launch_train.deterministic():
+        parts = {
+            f"prefill 1 x {PROMPT}": _wall_ms(lambda: transformer.prefill(
+                model, toks, transformer.init_cache(cfg, 1, MAX_LEN, dev)), torch, runs=3),
+            f"decode step {SLOTS} slots": _wall_ms(
+                lambda: transformer.decode_step(model, cur, batched), torch),
+        }
+    print("  serve breakdown, ms (host clock to a device sync, median): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
+    return {"pd_launches": pd_launches, "rans_launches": rans_launches,
+            "leaf": leaves[0], "width": plan.width_for_dtype("bfloat16"),
+            "tok_s": {"colocated": n_tok / t_col, "pd": n_tok / t_pd,
+                      "pd_rans": n_tok2 / t_rans}, "ship": ship}
+
+
 def phase_main(dev, torch):
     from repro_torch import kernels
     from repro_torch.launch import train as launch_train
@@ -187,8 +443,10 @@ def phase_main(dev, torch):
             if s != s or s in (float("inf"), float("-inf")):
                 raise AssertionError(f"non-finite loss {comp.losses}")
         n_buckets = len(comp.state.meta.dtype_names)
-        expect = {"encode_fused": 2 * STEPS * n_buckets,
-                  "decode_reduce": STEPS * n_buckets * n_dp}
+        expect = dict.fromkeys(kernels.KERNELS, 0)
+        expect.update(encode_fused=2 * STEPS * n_buckets,
+                      decode_reduce=STEPS * n_buckets * n_dp,
+                      unpack=STEPS * n_buckets * (n_dp + 2))
         if comp.launches != expect or any(raw.launches.values()):
             raise AssertionError(f"launch counts {comp.launches} (raw twin "
                                  f"{raw.launches}), expected {expect}")
@@ -223,7 +481,8 @@ def _wall_ms(fn, torch, runs=5):
 def phase_breakdown(run, group, dev, torch):
     """Where a compressed step's time goes: forward+backward, then each
     wire phase of the ZeRO-1 step, compressed beside its raw twin, on the
-    main path's bucket; the all-gather split into encode and (plain) decode."""
+    main path's bucket; the all-gather split into encode and decode (the
+    unpack kernel, then plain PyTorch for the zero-escape decode and merge)."""
     from repro_torch.core import compressed_collectives as cc
     from repro_torch.core.policy import capture_wire_reports
     from repro_torch.data.pipeline import DataConfig, DataPipeline
@@ -262,7 +521,7 @@ def phase_breakdown(run, group, dev, torch):
             "AG raw": _wall_ms(lambda: zero1._raw_all_gather(shard, group), torch),
             "AG encode": _wall_ms(
                 lambda: cc._encode_chunks(shard[None], width=w_ag, **kw), torch),
-            "AG decode (plain)": _wall_ms(lambda: cc._decode_chunks(
+            "AG decode": _wall_ms(lambda: cc._decode_chunks(
                 wire, dtype=shard.dtype, n=shard.shape[0], width=w_ag,
                 block=prof.block), torch),
         })
@@ -285,27 +544,76 @@ def _time(fn, torch, runs=TIMED_RUNS):
     return sorted(times)[len(times) // 2]
 
 
-def phase_times(comp, dev, torch, np, expect, worst, bw):
-    from repro_torch.core import codec, packing
+
+
+def _time_once(fn, torch):
+    """(ms, result) of ONE run of ``fn`` (CUDA events, no warm-up): for the
+    plain rANS versions, one torch step per row, which take seconds."""
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b), out
+
+
+# Peak rates for the bound: f32 outside the tensor cores; the integer
+# operations of the rANS kernels are counted at the same rate, which the
+# card's int32 rate does not exceed, so the bound stays a lower bound.
+PEAK_OPS = 67e12
+
+
+def phase_times(comp, serve, dev, torch, np, worst, bw):
+    """Each kernel and its plain version at the shapes its path gives it:
+    encode_fused and decode_reduce at the main path's AG bucket; pack and
+    unpack at one KV leaf's exponent residuals at the plan's width (unpack
+    also at the AG payload); rANS encode and the compacted-stream decode at
+    one KV leaf's exponent plane.  Each kernel is checked against its plain
+    version on these inputs first."""
+    from repro_torch import kernels
+    from repro_torch.core import ans, codec, packing
     from repro_torch.core.calibrate import CompressionProfile
+    from repro_torch.kernels import bitpack, rans, ref
     from repro_torch.kernels import decode_reduce as dr
     from repro_torch.kernels import encode_fused as ef
-    from repro_torch.kernels import ref
     from repro_torch.optim import zero1
 
-    # the main path's AG input: the trained bf16 parameter bucket, width 5
+    # launches of each main-path run (counts set to 0 just before each)
+    runs = {"serve_pd": serve["pd_launches"], "serve_pd_rans": serve["rans_launches"],
+            "train": comp.launches}
+    per_unit = {"serve_pd": ("pd_admission", N_REQ),
+                "serve_pd_rans": ("pd_rans_admission", N_RANS),
+                "train": ("train_step", STEPS)}
+    rows = []
+
+    def row(name, *, ms, plain_ms, nbytes, ops, err, **extra):
+        by_run = {r: c[name] for r, c in runs.items() if c[name]}
+        bytes_ms, ops_ms = nbytes / bw * 1e3, ops / PEAK_OPS * 1e3
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{kernels.SOURCES[kernels.KERNELS[name]]}",
+            "replaces": REPLACES[name], "launches": sum(by_run.values()),
+            "launches_by_run": by_run,
+            "launches_per": {per_unit[r][0]: c / per_unit[r][1] for r, c in by_run.items()},
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None, **extra})
+        print(f"times: {name} {extra}: {ms:.4f} ms (plain {plain_ms:.3f} ms), bound "
+              f"{max(bytes_ms, ops_ms):.4f} ms = {nbytes / 1e6:.1f} MB at {bw / 1e12:.2f} TB/s")
+
+    def same(name, got, want):
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{name} differs from its plain version at the path's shape")
+
+    # -- the main path's AG input: the trained bf16 parameter bucket ---------
     meta = comp.state.meta
     x = zero1.flatten_buckets(meta, comp.state.model.leaves())[0].contiguous()
     n, block = x.shape[0], meta.block
     width = CompressionProfile.default().width_for("weight")
     lo_bits = codec.layout_of(x.dtype).lo_bits
     got = ef.encode_fused(x, width, block)
-    want = ref.encode_fused(x, width, block)
-    enc_err = max(float((g.to(torch.int64) - w.to(torch.int64)).abs().max())
-                  for g, w in zip(got, want))
-    if enc_err:
-        raise AssertionError("encode_fused differs from plain at the main path shape")
-    del want
+    same("encode_fused", got, ref.encode_fused(x, width, block))
     pay, lo, bases, _ = got
     gb = bases.repeat_interleave(block // packing.GROUP)
     acc = torch.from_numpy(np.random.default_rng(1).normal(0, 1e-3, n).astype(
@@ -315,35 +623,65 @@ def phase_times(comp, dev, torch, np, expect, worst, bw):
     if not ok:
         raise AssertionError("decode_reduce differs from plain at the main path shape")
     work = acc.clone()
-    rows = []
-    specs = {
-        "encode_fused": (lambda: ef.encode_fused(x, width, block),
-                         lambda: ref.encode_fused(x, width, block),
-                         n * 2 + n // 32 * (width + lo_bits) * 4 + n // block * 8,
-                         0, enc_err),
-        "decode_reduce": (lambda: dr.decode_reduce(pay, lo, gb, work, "bfloat16", width),
-                          lambda: ref.decode_reduce(pay, lo, gb, acc, "bfloat16", width),
-                          n // 32 * (width + lo_bits + 1) * 4 + n * 8,
-                          n, max(dec_err, worst["decode_reduce"])),
-    }
-    for name, (kern, plain, nbytes, flops, err) in specs.items():
-        ms = _time(kern, torch)
-        plain_ms = _time(plain, torch)
-        bytes_ms = nbytes / bw * 1e3
-        ops_ms = flops / 67e12 * 1e3  # f32 adds at the card's non-tensor f32 peak
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": REPLACES[name], "launches": comp.launches[name],
-            "launches_per_step": expect[name] // STEPS,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None, "n": n, "width": width, "dtype": "bfloat16",
-        })
-        print(f"times: {name} n={n} w={width}: {ms:.4f} ms (plain {plain_ms:.3f} ms), "
-              f"bound {max(bytes_ms, ops_ms):.4f} ms = {nbytes / 1e6:.1f} MB at "
-              f"{bw / 1e12:.2f} TB/s")
+    ag = {"n": n, "width": width, "dtype": "bfloat16"}
+    row("encode_fused", ms=_time(lambda: ef.encode_fused(x, width, block), torch),
+        plain_ms=_time(lambda: ref.encode_fused(x, width, block), torch),
+        nbytes=n * 2 + n // 32 * (width + lo_bits) * 4 + n // block * 8, ops=0,
+        err=0.0, **ag)
+    row("decode_reduce",
+        ms=_time(lambda: dr.decode_reduce(pay, lo, gb, work, "bfloat16", width), torch),
+        plain_ms=_time(lambda: ref.decode_reduce(pay, lo, gb, acc, "bfloat16", width), torch),
+        nbytes=n // 32 * (width + lo_bits + 1) * 4 + n * 8, ops=n,
+        err=max(dec_err, worst["decode_reduce"]), **ag)
+
+    # -- one shipped KV leaf: exponent residuals at the plan's width ---------
+    leaf, kv_w = serve["leaf"], serve["width"]
+    exp, _ = codec.split_planes(leaf.reshape(-1))
+    resid = packing.block_residuals(exp, width=kv_w, block=512)[3]
+    n_kv = resid.shape[0]
+    kv_pay = bitpack.pack(resid, kv_w)
+    same("pack", [kv_pay], [ref.pack(resid, kv_w)])
+    same("unpack", [bitpack.unpack(kv_pay, kv_w)], [ref.unpack(kv_pay, kv_w)])
+    same("unpack", [bitpack.unpack(pay, width)], [ref.unpack(pay, width)])
+    kv = {"n": n_kv, "width": kv_w, "input": "uint8 residuals of one KV leaf"}
+    row("pack", ms=_time(lambda: bitpack.pack(resid, kv_w), torch),
+        plain_ms=_time(lambda: ref.pack(resid, kv_w), torch),
+        nbytes=n_kv * resid.element_size() + n_kv // 32 * kv_w * 4, ops=0, err=0.0, **kv)
+    ag_ms = _time(lambda: bitpack.unpack(pay, width), torch)
+    ag_plain_ms = _time(lambda: ref.unpack(pay, width), torch)
+    row("unpack", ms=_time(lambda: bitpack.unpack(kv_pay, kv_w), torch),
+        plain_ms=_time(lambda: ref.unpack(kv_pay, kv_w), torch),
+        nbytes=n_kv // 32 * kv_w * 4 + n_kv * 4, ops=0, err=0.0,
+        n=n_kv, width=kv_w, input="payload of one KV leaf",
+        ag_payload={"n": n, "width": width, "ms": ag_ms, "plain_ms": ag_plain_ms,
+                    "bound_ms": (n // 32 * width * 4 + n * 4) / bw * 1e3})
+
+    # -- rANS: the exponent plane of one KV leaf, 128 lanes ------------------
+    n_e, lanes = exp.shape[0], 128
+    per = -(-n_e // lanes)
+    syms = torch.zeros(per * lanes, dtype=torch.uint8, device=dev)
+    syms[:n_e] = exp
+    syms = syms.reshape(per, lanes)
+    table = ans.build_freq_table(exp)
+    s2s = ans._slot_to_symbol(table)
+    enc_plain_ms, want = _time_once(lambda: ref.rans_encode(syms, table.freq, table.cum, n_e),
+                                    torch)
+    same("rans_encode", rans.encode(syms, table.freq, table.cum, n_e), want)
+    stream = ans.encode(exp, table)
+    dec_plain_ms, want = _time_once(lambda: ref.rans_decode_stream(
+        stream.words, stream.lens, table.freq, table.cum, s2s, per, n_e), torch)
+    got = rans.decode_stream(stream.words, stream.lens, table.freq, table.cum, s2s, per, n_e)
+    same("rans_decode", [got, got.reshape(-1)[:n_e]], [want, exp])
+    used = int(stream.lens.sum())
+    rx = {"n": n_e, "per": per, "lanes": lanes, "plain_runs": 1}
+    tables = 2 * 256 * 4
+    row("rans_encode", ms=_time(lambda: rans.encode(syms, table.freq, table.cum, n_e), torch),
+        plain_ms=enc_plain_ms, nbytes=per * lanes * (1 + 4 + 4) + lanes * 4 + tables,
+        ops=10 * n_e, err=0.0, **rx)
+    row("rans_decode", ms=_time(lambda: rans.decode_stream(
+        stream.words, stream.lens, table.freq, table.cum, s2s, per, n_e), torch),
+        plain_ms=dec_plain_ms, nbytes=used * 2 + lanes * 4 + tables + ans.M + per * lanes,
+        ops=8 * n_e, err=0.0, stream_words=used, **rx)
     return rows
 
 
@@ -365,8 +703,10 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     smi = phase_build(kernels, torch)
     worst = phase_check(dev, torch, np)
-    comp, expect = phase_main(dev, torch)
-    rows = phase_times(comp, dev, torch, np, expect, worst, card_bandwidth(name))
+    phase_check_wire(dev, torch, np)
+    serve = phase_serve(dev, torch, np)
+    comp, _ = phase_main(dev, torch)
+    rows = phase_times(comp, serve, dev, torch, np, worst, card_bandwidth(name))
     print(f"card: {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

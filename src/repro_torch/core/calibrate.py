@@ -1,8 +1,80 @@
-"""Calibrated wire parameters per tensor class (torch port of
-``repro.core.calibrate``; only :class:`CompressionProfile` so far)."""
+"""Width calibration for the static in-collective codec (paper §3.4);
+torch port of ``repro.core.calibrate``.
+
+The packed width ``W`` and the exception capacity are chosen from observed
+exponent statistics (:func:`choose_width`, the host ``Compressor``'s probe
+when no plan gives the width) or taken from a :class:`CompressionProfile`.
+The in-wire ``overflow`` flag catches a width that turned out too small.
+"""
 from __future__ import annotations
 
 import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core import codec, packing
+
+
+@dataclasses.dataclass(frozen=True)
+class WidthChoice:
+    width: int
+    exc_frac: float
+    est_exc_rate: float  # fraction of blocks expected to escape
+    est_ratio: float  # predicted wire ratio vs raw
+    entropy_bits: float  # ANS floor for reference
+
+
+def block_range_stats(x: torch.Tensor, block: int = 512) -> torch.Tensor:
+    """Per-block max code values under the zero-escape mapping (int32):
+    ``max_nz - min_nz + 1`` over nonzero exponents (0 for all-zero blocks).
+    A block packs losslessly at width W iff its stat < 2**W."""
+    exp, _ = codec.split_planes(x)
+    b = packing._pad_to(exp, block).reshape(-1, block).to(torch.int32)
+    nz = b != 0
+    base = torch.where(nz, b, 255).amin(-1)
+    mx = torch.where(nz, b, 0).amax(-1)
+    return torch.where(nz.any(-1), mx - base + 1, 0).to(torch.int32)
+
+
+def width_cost_curve(x: torch.Tensor, *, block: int = 512,
+                     max_exc_frac: float = 0.02) -> tuple:
+    """One :class:`WidthChoice` per candidate exponent width ``1..exp_bits``
+    (escape rate and wire ratio at that width)."""
+    lay = codec.layout_of(x.dtype)
+    rngs = block_range_stats(x, block=block).cpu().numpy()
+    exp, _ = codec.split_planes(x)
+    ent = float(codec.exponent_entropy_bits(exp, lay.exp_bits))
+    n_blocks = len(rngs)
+    cap = packing.exception_capacity(n_blocks, max_exc_frac)
+    curve = []
+    for w in range(1, lay.exp_bits + 1):
+        ratio = (
+            lay.lo_bits
+            + w
+            + 8.0 / block  # bases
+            + (cap * (4 + block) * 8.0) / (n_blocks * block)  # exceptions
+        ) / lay.total_bits
+        curve.append(WidthChoice(
+            width=w,
+            exc_frac=max_exc_frac,
+            est_exc_rate=float(np.mean(rngs >= (1 << w))),
+            est_ratio=ratio,
+            entropy_bits=ent,
+        ))
+    return tuple(curve)
+
+
+def choose_width(x: torch.Tensor, *, block: int = 512,
+                 target_exc_rate: float = 1e-3, margin_bits: int = 0,
+                 max_exc_frac: float = 0.02) -> WidthChoice:
+    """Smallest W whose expected escape rate stays under target, plus
+    ``margin_bits`` of headroom for drift (capped at the exponent width)."""
+    curve = width_cost_curve(x, block=block, max_exc_frac=max_exc_frac)
+    for c in curve:
+        if c.est_exc_rate <= target_exc_rate or c.width == curve[-1].width:
+            return curve[min(c.width + margin_bits, curve[-1].width) - 1]
+    raise AssertionError("unreachable: the last width always matches")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,10 +2,10 @@
 
 Torch port of ``repro.core.codec``.  Every float splits into an exponent
 plane (uint8) and a lo plane (sign relocated next to the mantissa).  The
-arithmetic runs on the raw bit pattern held in ``int64`` (torch's
-unsigned 16/32-bit dtypes lack shifts and min/max on the CPU), masked after
-every right shift, so no float operation ever touches a value: NaN payloads,
-infinities and subnormals round-trip exactly.
+arithmetic runs on the raw bit pattern held in a signed integer dtype
+(torch's unsigned 16/32-bit dtypes lack shifts and min/max on the CPU),
+masked after every right shift, so no float operation ever touches a value:
+NaN payloads, infinities and subnormals round-trip exactly.
 """
 from __future__ import annotations
 
@@ -75,12 +75,16 @@ def split_planes(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Split ``x`` (any shape) into ``(exp_plane, lo_plane)``.
 
     exp_plane: uint8 (N,), one exponent field per element.
-    lo_plane:  int64 (N,), ``sign << mant_bits | mantissa`` (< 2**lo_bits).
+    lo_plane:  int32 (N,), ``sign << mant_bits | mantissa`` (< 2**lo_bits,
+    at most 2**24), the reference's uint32 values.
+
+    The bits are held in ``int32`` (sign-extended from 16 bits); every field
+    is masked after its shift, so the extension never shows.
     """
     lay = layout_of(x.dtype)
-    bits = to_bits(x)
+    bits = x.reshape(-1).view(lay.bits_dtype).to(torch.int32)
     exp = (bits >> lay.mant_bits) & ((1 << lay.exp_bits) - 1)
-    sign = bits >> (lay.total_bits - 1)
+    sign = (bits >> (lay.total_bits - 1)) & 1
     lo = (sign << lay.mant_bits) | (bits & ((1 << lay.mant_bits) - 1))
     return exp.to(torch.uint8), lo
 
@@ -104,5 +108,16 @@ def merge_planes(exp: torch.Tensor, lo: torch.Tensor, dtype,
     n = 1
     for s in shape:
         n *= int(s)
-    bits = merge_bits(exp.reshape(-1)[:n], lo.reshape(-1)[:n] & lay.bits_mask, lay)
+    lo = lo.reshape(-1)[:n].to(torch.int64) & lay.bits_mask
+    bits = merge_bits(exp.reshape(-1)[:n], lo, lay)
     return from_bits(bits, lay).reshape(shape)
+
+
+def exponent_entropy_bits(exp_plane: torch.Tensor, exp_bits: int) -> torch.Tensor:
+    """Empirical entropy (bits/symbol) of an exponent plane, in float32: the
+    floor any entropy coder (the paper's ANS) can reach."""
+    nsym = 1 << exp_bits
+    counts = torch.bincount(exp_plane.reshape(-1).to(torch.int64),
+                            minlength=nsym)[:nsym]
+    p = counts.to(torch.float32) / counts.sum().clamp_min(1).to(torch.float32)
+    return -torch.sum(torch.where(p > 0, p * torch.log2(torch.where(p > 0, p, 1.0)), 0.0))

@@ -40,23 +40,20 @@ def _to_word(vals: torch.Tensor) -> torch.Tensor:
 def bitplane_pack(vals: torch.Tensor, width: int) -> torch.Tensor:
     """Pack ``vals`` (integer (n,), n % 32 == 0, each < 2**width) into
     bit-planes: returns int32 (n // 32, width); word ``[g, b]`` holds bit
-    ``b`` of the 32 values of group ``g`` (value ``i`` at bit ``i``)."""
-    if vals.shape[0] % GROUP:
-        raise ValueError(f"bitplane_pack needs n % {GROUP} == 0, got {vals.shape}")
-    g = _as_u32(vals).reshape(-1, GROUP)
-    pos = torch.arange(GROUP, dtype=torch.int64, device=vals.device)
-    planes = [(((g >> b) & 1) << pos).sum(-1) for b in range(width)]
-    return _to_word(torch.stack(planes, dim=-1))
+    ``b`` of the 32 values of group ``g`` (value ``i`` at bit ``i``).  A CUDA
+    tensor runs the pack kernel, a CPU tensor its plain version
+    (``kernels/bitpack.py``)."""
+    from repro_torch.kernels import bitpack
+
+    return bitpack.pack(vals, width)
 
 
 def bitplane_unpack(packed: torch.Tensor, width: int) -> torch.Tensor:
-    """Inverse of :func:`bitplane_pack`; returns int64 (n,)."""
-    p = _as_u32(packed)
-    pos = torch.arange(GROUP, dtype=torch.int64, device=packed.device)
-    vals = torch.zeros((p.shape[0], GROUP), dtype=torch.int64, device=packed.device)
-    for b in range(width):
-        vals |= ((p[:, b : b + 1] >> pos) & 1) << b
-    return vals.reshape(-1)
+    """Inverse of :func:`bitplane_pack`; returns int32 (n,), the
+    reference's uint32 values with the same bits (unpack kernel on CUDA)."""
+    from repro_torch.kernels import bitpack
+
+    return bitpack.unpack(packed, width)
 
 
 # ---------------------------------------------------------------------------
@@ -116,23 +113,34 @@ class PackedPlane:
         return self.bases.shape[0]
 
 
+def block_residuals(exp: torch.Tensor, *, width: int, block: int) -> tuple:
+    """The zero-escape block codes of a uint8 exponent plane: ``(blocks``
+    uint8 (nb, block) the edge-padded plane, ``base`` int32 (nb,), ``bad``
+    (nb,) the blocks whose range does not fit ``width``, ``resid`` uint8
+    (nb * block,) the residuals the payload packs, clamped to ``width``
+    bits).  A residual is at most 255, so it travels to the pack kernel as
+    one byte."""
+    if block % GROUP:
+        raise ValueError(f"block must be a multiple of {GROUP}, got {block}")
+    blocks = _pad_to(exp, block).reshape(-1, block)
+    b = blocks.to(torch.int32)
+    nz = b != 0
+    base = torch.where(nz, b, 255).amin(-1)
+    base = torch.where(nz.any(-1), base, 1)
+    mx = torch.where(nz, b, 0).amax(-1)
+    bad = (mx - base + 1) >= (1 << width)
+    resid = torch.where(nz, b - base[:, None] + 1, 0).clamp_max((1 << width) - 1)
+    return blocks, base, bad, resid.to(torch.uint8).reshape(-1)
+
+
 def pack_exponents(exp: torch.Tensor, *, width: int, block: int = 512,
                    exc_frac: float = 0.02) -> PackedPlane:
     """Encode a uint8 exponent plane into the static wire format (zero
     escape: code 0 is exponent 0, code r > 0 is ``r + base - 1``)."""
-    if block % GROUP:
-        raise ValueError(f"block must be a multiple of {GROUP}, got {block}")
     n = exp.shape[0]
-    blocks = _pad_to(exp, block).reshape(-1, block).to(torch.int64)
+    blocks, base, bad, resid = block_residuals(exp, width=width, block=block)
     nb = blocks.shape[0]
-    nz = blocks != 0
-    base = torch.where(nz, blocks, 255).amin(-1)
-    base = torch.where(nz.any(-1), base, 1)
-    mx = torch.where(nz, blocks, 0).amax(-1)
-    bad = (mx - base + 1) >= (1 << width)
-    resid = torch.where(nz, blocks - base[:, None] + 1, 0)
-    resid = resid.clamp_max((1 << width) - 1)
-    payload = bitplane_pack(resid.reshape(-1), width)
+    payload = bitplane_pack(resid, width)
     cap = exception_capacity(nb, exc_frac)
     exc_idx = first_true(bad[None], cap, nb)[0]
     rows = blocks[exc_idx.to(torch.int64).clamp_max(nb - 1)]

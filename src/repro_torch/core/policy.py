@@ -26,6 +26,23 @@ class CompressionPolicy:
     raw_axes: tuple = ("model",)  # TP/EP activation wires default raw
     profile: CompressionProfile = dataclasses.field(
         default_factory=lambda: CompressionProfile.default())
+    # The reference's algorithm and fusion knobs, with its defaults.  They
+    # enter a plan's key (``sched/plan.policy_fingerprint``); the port runs
+    # only these defaults (the two-shot algorithm, fused decode+reduce on
+    # the receive side, the fused one-pass encode on the transmit side) and
+    # refuses any other value.
+    allreduce_algorithm: str = "two_shot"
+    fused_decode_reduce: bool = True
+    fused_encode: bool = True
+
+    def __post_init__(self):
+        ported = {"allreduce_algorithm": "two_shot", "fused_decode_reduce": True,
+                  "fused_encode": True}
+        for name, value in ported.items():
+            if getattr(self, name) != value:
+                raise NotImplementedError(
+                    f"CompressionPolicy.{name}={getattr(self, name)!r} is not "
+                    f"ported; the port runs {name}={value!r}")
 
     def should_compress(self, x: torch.Tensor, axis_name="data", *,
                         tensor_class: str = "gradient") -> bool:

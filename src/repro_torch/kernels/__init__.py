@@ -4,11 +4,14 @@ Each kernel is one CUDA C++ source under ``csrc/`` with a plain C
 interface.  At first use, :func:`build_kernels` compiles every source that
 is not yet built with its own ``nvcc`` (all started together) into a shared
 library under ``build/``, keyed by a hash of the source and the flags, and
-:func:`library` loads it with ``ctypes``.  The Python wrapper of each kernel
-(``encode_fused.py``, ``decode_reduce.py``) launches it on a CUDA tensor and
-uses the kernel's plain PyTorch version (``ref.py``) on a CPU tensor; there
-is no switch that turns a kernel off and no fallback that hides a failed
-build or launch.
+:func:`launcher` loads it with ``ctypes``.  A source may hold several
+kernels (``bitpack.cu``: pack and unpack; ``rans.cu``: encode and decode);
+kernel ``name`` is the C function ``<name>_launch`` of source
+``KERNELS[name]``.  The Python wrapper of each kernel (``encode_fused.py``,
+``decode_reduce.py``, ``bitpack.py``, ``rans.py``) launches it on a CUDA
+tensor and uses the kernel's plain PyTorch version (``ref.py``) on a CPU
+tensor; there is no switch that turns a kernel off and no fallback that
+hides a failed build or launch.
 
 Every launch adds one to the kernel's count (:func:`launch_counts`), so a
 run can show that its main path went through the kernels.
@@ -27,6 +30,17 @@ import torch
 SOURCES = {
     "encode_fused": "encode_fused.cu",
     "decode_reduce": "decode_reduce.cu",
+    "bitpack": "bitpack.cu",
+    "rans": "rans.cu",
+}
+# kernel -> the source (key of SOURCES) that holds its launcher
+KERNELS = {
+    "encode_fused": "encode_fused",
+    "decode_reduce": "decode_reduce",
+    "pack": "bitpack",
+    "unpack": "bitpack",
+    "rans_encode": "rans",
+    "rans_decode": "rans",
 }
 # Codec format index shared with the ``switch`` of every launcher in csrc/.
 FORMATS = ("float32", "float16", "bfloat16", "float8_e4m3fn", "float8_e5m2")
@@ -39,7 +53,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 
 _LIBS: dict = {}
-_LAUNCHES = {name: 0 for name in SOURCES}
+_LAUNCHES = {name: 0 for name in KERNELS}
 
 
 # ---------------------------------------------------------------------------
@@ -104,9 +118,9 @@ def _artifact(name: str) -> Path:
 
 
 def build_kernels(names=None) -> dict:
-    """Compile every named kernel whose library is not built yet, one
-    ``nvcc`` per source, all running at once.  Returns ``{name: seconds}``
-    for the kernels compiled by this call; raises with the compiler's
+    """Compile every named source (keys of ``SOURCES``) whose library is not
+    built yet, one ``nvcc`` per source, all running at once.  Returns
+    ``{source: seconds}`` for the sources compiled by this call; raises with the compiler's
     output if any build fails.  ``nvcc``'s ``-Xptxas=-v`` report (registers,
     shared memory, spills) is kept beside each library as ``.log``."""
     names = list(SOURCES) if names is None else list(names)
@@ -138,7 +152,7 @@ def build_kernels(names=None) -> dict:
 
 
 def build_log(name: str) -> str:
-    """The compiler report of kernel ``name``'s current build ('' if none)."""
+    """The compiler report of source ``name``'s current build ('' if none)."""
     log = _artifact(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
@@ -148,8 +162,9 @@ def launcher(name: str, argtypes: tuple):
     use and loaded with ``ctypes``.  It returns ``cudaGetLastError()``."""
     fn = _LIBS.get(name)
     if fn is None:
-        build_kernels([name])
-        fn = getattr(ctypes.CDLL(str(_artifact(name))), f"{name}_launch")
+        source = KERNELS[name]
+        build_kernels([source])
+        fn = getattr(ctypes.CDLL(str(_artifact(source))), f"{name}_launch")
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _LIBS[name] = fn

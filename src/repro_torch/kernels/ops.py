@@ -3,7 +3,8 @@
 Dispatch is by the tensor's device: a CUDA tensor goes to the CUDA kernel,
 a CPU tensor to its plain PyTorch version (the wrappers in
 ``encode_fused.py`` / ``decode_reduce.py`` decide).  There is no switch and
-no counted fallback.
+no counted fallback.  The bit-plane and rANS kernels are reached through
+``core/packing.py`` and ``core/ans.py``.
 
 :func:`encode_fused` / :func:`encode_fused_chunks` produce the complete wire
 dict ``{lo, payload, bases, exc_idx, exc_raw, overflow}`` in one pass over

@@ -86,18 +86,30 @@ class Transformer(nn.Module):
                 "mixer": {k: get(f"mixer/{k}") for k in ("wq", "wk", "wv", "wo")},
                 "ffn": {k: get(f"ffn/{k}") for k in ("w1", "w2", "w3")}}
 
+    def run_layers(self, h: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                   cache: dict | None = None, cache_pos: int | None = None):
+        """Every layer over hidden states ``h`` (B, S, D), then the final
+        norm.  ``cache``/``cache_pos``: the KV cache written in place (see
+        ``layers.attention``)."""
+        cfg = self.cfg
+        for r in range(cfg.repeats):
+            for pi, spec in enumerate(cfg.pattern):
+                p = self._layer(pi, r)
+                kv = None
+                if cache is not None:
+                    c = cache["blocks"][pi]["kv"]
+                    kv = {"k": c["k"][r], "v": c["v"][r]}
+                h = h + L.attention(p["mixer"], L.rms_norm(h, p["norm1"], cfg.norm_eps),
+                                    cfg, spec, cos, sin, kv, cache_pos)
+                h = h + L.swiglu(p["ffn"], L.rms_norm(h, p["norm2"], cfg.norm_eps))
+        return L.rms_norm(h, self.params["final_norm"], cfg.norm_eps)
+
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         h = torch.nn.functional.embedding(tokens, self.params["embed"])
         cos, sin = L.rope_table(torch.arange(tokens.shape[1], device=tokens.device),
                                 cfg.hd, cfg.rope_theta)
-        for r in range(cfg.repeats):
-            for pi, spec in enumerate(cfg.pattern):
-                p = self._layer(pi, r)
-                h = h + L.attention(p["mixer"], L.rms_norm(h, p["norm1"], cfg.norm_eps),
-                                    cfg, spec, cos, sin)
-                h = h + L.swiglu(p["ffn"], L.rms_norm(h, p["norm2"], cfg.norm_eps))
-        return L.rms_norm(h, self.params["final_norm"], cfg.norm_eps)
+        return self.run_layers(h, cos, sin)
 
 
 def init(cfg: ArchConfig, *, generator: torch.Generator, device="cuda") -> Transformer:
@@ -135,3 +147,53 @@ def load_reference_params(tree, cfg: ArchConfig, device="cuda") -> Transformer:
     dt = codec.LAYOUTS[cfg.dtype].dtype
     tensors = {path: numpy_to_torch(a, dt).to(dev) for path, a in tree_paths(tree)}
     return Transformer(cfg, tensors)
+
+
+# ---------------------------------------------------------------------------
+# serving: KV cache, prefill, decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda") -> dict:
+    """The reference's cache pytree: ``{"pos": int32 scalar, "blocks":
+    ({"kv": {"k", "v"}},) per pattern position}``, k and v zeros of
+    ``(repeats, batch, max_len, kv_heads, hd)`` in the model dtype."""
+    dev = kernels.resolve_device(device)
+    dt = codec.LAYOUTS[cfg.dtype].dtype
+    shape = (cfg.repeats, batch, max_len, cfg.kv_heads, cfg.hd)
+    blocks = tuple({"kv": {"k": torch.zeros(shape, dtype=dt, device=dev),
+                           "v": torch.zeros(shape, dtype=dt, device=dev)}}
+                   for _ in cfg.pattern)
+    return {"pos": torch.zeros((), dtype=torch.int32, device=dev), "blocks": blocks}
+
+
+def logits_from_hidden(model: Transformer, h: torch.Tensor) -> torch.Tensor:
+    return h @ model.head().T
+
+
+@torch.no_grad()
+def prefill(model: Transformer, tokens: torch.Tensor, cache: dict) -> tuple:
+    """Prefill forward over ``tokens`` (B, S): the causal forward that also
+    fills the cache at positions [0, S).  The cache's K/V tensors are written
+    in place; returns (last-position logits (B, 1, V), the cache with
+    ``pos = S``).  The cache is what PD disaggregation ships."""
+    S = tokens.shape[1]
+    h = torch.nn.functional.embedding(tokens, model.params["embed"])
+    cos, sin = L.rope_table(torch.arange(S, device=tokens.device), model.cfg.hd,
+                            model.cfg.rope_theta)
+    h = model.run_layers(h, cos, sin, cache)
+    pos = torch.tensor(S, dtype=torch.int32, device=tokens.device)
+    return logits_from_hidden(model, h[:, -1:]), {"pos": pos, "blocks": cache["blocks"]}
+
+
+@torch.no_grad()
+def decode_step(model: Transformer, tokens: torch.Tensor, cache: dict) -> tuple:
+    """One decode step of tokens (B, 1) at the cache's ``pos`` (one position
+    for the whole batch, as the reference).  K/V are written in place;
+    returns (logits (B, 1, V), the cache with ``pos + 1``)."""
+    pos = int(cache["pos"])
+    h = torch.nn.functional.embedding(tokens, model.params["embed"])
+    cos, sin = L.rope_table(torch.full((1,), pos, device=tokens.device),
+                            model.cfg.hd, model.cfg.rope_theta)
+    h = model.run_layers(h, cos, sin, cache, pos)
+    return logits_from_hidden(model, h), {"pos": cache["pos"] + 1,
+                                          "blocks": cache["blocks"]}

@@ -1,0 +1,158 @@
+"""Communication-plan IR (paper §3.3, the Uzip-NCCL persistent kernel model);
+torch port of ``repro.sched.plan``, the subset the ``kv`` kind needs.
+
+A ``CommPlan`` is the static, hashable record of everything a wire would
+otherwise re-derive at every call: leaf buckets, compress-vs-raw paths,
+codec widths, the kernel routing and the expected wire bytes.  It is pure
+data (no tensors), built by ``sched/compile.py`` from shapes and a
+``CompressionPolicy`` and cached by ``sched/cache.py`` on the signature of
+what it ships.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.tree_util import tree_flatten
+
+# -- bucket execution paths ---------------------------------------------------
+# psum-kind buckets (mirror of ``psum_compressed``'s dispatch):
+PATH_TWO_SHOT = "two_shot"        # compressed RS + compressed AG
+PATH_RING = "ring"                # paper's negative baseline, per-hop codec
+PATH_RAW_TWOSHOT = "raw_twoshot"  # big but gated off: byte-exact raw two-shot
+PATH_RAW_PSUM = "raw_psum"        # small: plain (f32-promoted) psum
+# single-phase buckets (reduce_scatter / all_gather / p2p / kv kinds):
+PATH_COMPRESSED = "compressed"
+PATH_RAW = "raw"
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketPlan:
+    """Static schedule for ONE flat bucket (one wire).
+
+    ``members`` lists the pytree leaves fused into the bucket as
+    ``(flat_leaf_index, shape, size)`` in tree order.  For ``kv`` plans
+    ``chunk`` is the block-padded message length of one send.
+    ``wire_bytes``/``raw_bytes`` are the expected per-execution wire
+    accounting (static: wire shapes do not depend on data)."""
+
+    dtype_name: str
+    members: tuple  # ((leaf_index, shape, size), ...)
+    length: int  # unpadded element count of the concatenated bucket
+    path: str  # one of the PATH_* constants
+    width: int = 0  # exponent width of the send phase
+    ag_width: int = 0  # exponent width of the AG phase (two-shot only)
+    block: int = 512
+    exc_frac: float = 0.02
+    fused: bool = True  # fused decode+reduce receive
+    encode_fused: bool = True  # fused one-pass split+pack transmit
+    n_dev: int = 1
+    chunk: int = 0
+    wire_bytes: int = 0  # expected compressed wire bytes per execution
+    raw_bytes: int = 0  # uncompressed bytes the same wires would move
+
+    @property
+    def ratio(self) -> float:
+        return self.wire_bytes / max(self.raw_bytes, 1)
+
+    @property
+    def compressed(self) -> bool:
+        return self.path in (PATH_TWO_SHOT, PATH_RING, PATH_COMPRESSED)
+
+
+@dataclasses.dataclass(frozen=True)
+class CommPlan:
+    """A compiled communication plan for one wire signature.
+
+    ``kind`` "kv": a KV-cache pytree shipped leaf-bucketed over the P2P
+    ``split_send`` pipeline.  ``backend``/``use_kernels`` record the device and whether its
+    wires run the CUDA kernels (``compile.probe_backend``).  ``raw_leaf_ix``
+    are leaves outside every bucket (not a codec float, or 0-d), moved as
+    they are."""
+
+    key: tuple  # the cache key this plan was compiled under (hashable)
+    kind: str
+    axis: tuple  # axis name(s) of the wire
+    n_dev: int
+    backend: str
+    use_kernels: bool
+    buckets: tuple  # BucketPlans
+    raw_leaf_ix: tuple = ()
+    n_leaves: int = 0
+
+    @property
+    def wire_bytes(self) -> int:
+        """Expected compressed wire bytes of one plan execution."""
+        return sum(b.wire_bytes for b in self.buckets if b.compressed)
+
+    @property
+    def raw_bytes(self) -> int:
+        return sum(b.raw_bytes for b in self.buckets if b.compressed)
+
+    @property
+    def ratio(self) -> float:
+        return self.wire_bytes / max(self.raw_bytes, 1)
+
+    def width_for_dtype(self, dtype_name: str) -> int | None:
+        """Recorded send-phase codec width of the first compressed bucket
+        of ``dtype_name``, or None when that dtype rides a raw path.  The
+        host ``p2p/engine.Compressor`` reads it instead of probing."""
+        for b in self.buckets:
+            if b.dtype_name == dtype_name and b.compressed:
+                return b.width
+        return None
+
+    def summary(self) -> dict:
+        return {
+            "kind": self.kind,
+            "axis": self.axis,
+            "n_dev": self.n_dev,
+            "backend": self.backend,
+            "use_kernels": self.use_kernels,
+            "n_buckets": len(self.buckets),
+            "n_raw_leaves": len(self.raw_leaf_ix),
+            "paths": tuple(b.path for b in self.buckets),
+            "n_encode_fused": sum(1 for b in self.buckets
+                                  if b.compressed and b.encode_fused),
+            "wire_bytes": self.wire_bytes,
+            "raw_bytes": self.raw_bytes,
+            "ratio": self.ratio,
+        }
+
+
+def policy_fingerprint(policy, tensor_class: str = "gradient") -> tuple:
+    """Hashable fingerprint of every policy field a plan depends on: part of
+    the cache key, so any knob change misses and recompiles."""
+    prof = policy.profile
+    return (
+        bool(policy.enabled),
+        int(policy.min_bytes),
+        tuple(policy.compress_axes),
+        tuple(policy.raw_axes),
+        str(policy.allreduce_algorithm),
+        bool(policy.fused_decode_reduce),
+        bool(policy.fused_encode),
+        tuple(sorted(prof.widths.items())),
+        int(prof.block),
+        float(prof.exc_frac),
+        int(prof.ag_extra_bits),
+        str(tensor_class),
+    )
+
+
+def dtype_name(dtype) -> str:
+    """``torch.bfloat16`` -> ``"bfloat16"``: the numpy/JAX name of a dtype."""
+    return str(dtype).removeprefix("torch.")
+
+
+def tree_signature(tree) -> tuple:
+    """Hashable structural signature of a pytree: structure + per-leaf
+    (shape, dtype name)."""
+    leaves, treedef = tree_flatten(tree)
+    sig = tuple(
+        (tuple(getattr(leaf, "shape", ())),
+         dtype_name(leaf.dtype) if isinstance(leaf, torch.Tensor)
+         else type(leaf).__name__)
+        for leaf in leaves)
+    return (treedef, sig)

@@ -1,0 +1,224 @@
+"""Serving engine: continuous batching, colocated or PD-disaggregated (torch
+port of ``repro.serve.engine``).
+
+The inference side of the paper's §5.3.2 workload.  Two deployment modes:
+
+  * **colocated**: one worker runs prefill and decode;
+  * **PD-disaggregated** (``ServeConfig.pd_disaggregated``): every admitted
+    request's prefilled cache crosses the prefill -> decode boundary through
+    the compressed host wire (``kv_transfer.ship_cache`` then
+    ``unpack_cache``), with the codec schedule read from a kind-"kv"
+    ``CommPlan`` cached on the cache signature.  The wire is bit-exact, so
+    the tokens are those of colocated serving.
+
+``ServeEngine`` keeps a fixed number of decode slots, each holding one
+request's cache position; finished slots are refilled from the queue
+between decode steps.  The reference's semantics are kept where they look
+odd: one engine-wide ``pos = max(slot pos)`` per decode step, prompts
+left-padded with zeros to a multiple of ``prefill_chunk``, and the splice
+of an admitted cache on the stacked dimension 1.  Sampling is greedy.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.integrity import WireIntegrityError
+from repro_torch.models import transformer
+from repro_torch.models.config import ArchConfig
+from repro_torch.tree_util import tree_flatten
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    batch_slots: int = 8
+    max_len: int = 256
+    temperature: float = 0.0  # 0 = greedy, the only mode ported so far
+    eos_token: int = -1  # -1 = never stops early
+    prefill_chunk: int = 64  # pad prompts to a multiple of this
+    # PD-disaggregation boundary: admitted caches cross prefill -> decode
+    # through the compressed host wire, scheduled by a cached kv CommPlan
+    pd_disaggregated: bool = False
+
+
+def sample(logits: torch.Tensor, temperature: float) -> torch.Tensor:
+    """Greedy: the first index of the largest logit, int32."""
+    if temperature > 0.0:
+        raise NotImplementedError("sampling at temperature > 0 is not ported; "
+                                  "greedy (temperature 0) is")
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray  # (L,) int32
+    max_new: int = 32
+    out: Optional[list] = None
+    done: bool = False
+
+
+class ServeEngine:
+    """Slot-based continuous batching on one worker.
+
+    Decode runs over all ``batch_slots`` every step; finished slots are
+    masked and refilled between steps.  Per-slot KV caches live inside one
+    batched cache; admission writes a freshly prefilled single-request cache
+    into its slot (in place).  ``model`` is a ``transformer.Transformer``;
+    the engine runs on its device."""
+
+    def __init__(self, cfg: ArchConfig, model: transformer.Transformer,
+                 scfg: ServeConfig, *, kv_policy=None, kv_plan_cache=None,
+                 kv_codec: str = "packed"):
+        self.cfg, self.model, self.scfg = cfg, model, scfg
+        self.device = model.params["embed"].device
+        self.kv_policy = kv_policy
+        self.kv_plan_cache = kv_plan_cache
+        self.kv_compressor = None
+        if scfg.pd_disaggregated:
+            from repro_torch.core.policy import CompressionPolicy
+            from repro_torch.p2p.engine import Compressor
+            from repro_torch.sched.cache import default_cache
+
+            if self.kv_policy is None:
+                self.kv_policy = CompressionPolicy(min_bytes=0)
+            if self.kv_plan_cache is None:
+                self.kv_plan_cache = default_cache()
+            self.kv_compressor = Compressor(codec_name=kv_codec,
+                                            device=self.device)
+        # KV-wire integrity recovery: re-pack budget per shipment, and a
+        # test seam that interposes on the packed wire (fault injection)
+        self._kv_max_tries = 3
+        self.kv_fault_injector: Optional[Callable] = None
+        self.cache = transformer.init_cache(cfg, scfg.batch_slots, scfg.max_len,
+                                            self.device)
+        self.tokens = torch.zeros((scfg.batch_slots, 1), dtype=torch.int32,
+                                  device=self.device)
+        self.slots: list = [None] * scfg.batch_slots
+        self.pos = np.zeros(scfg.batch_slots, np.int64)
+        self.budget = np.zeros(scfg.batch_slots, np.int64)
+        self.queue: list = []
+        self.finished: list = []
+
+    # -- admission -----------------------------------------------------------
+
+    def submit(self, req: Request):
+        req.out = []
+        self.queue.append(req)
+
+    @staticmethod
+    def _splice_impl(batched_cache: dict, one_cache: dict, slot: int) -> dict:
+        """Write a single-request cache (batch 1) into slot ``slot`` of the
+        batched cache, in place.  The batch dimension is 0 or, for stacked
+        blocks, 1; ``pos`` is per engine (slot positions live on the host)."""
+        def leafwise(b, o):
+            if b.dim() == 0:
+                return
+            if o.shape[0] == 1 and b.shape[:1] != o.shape[:1]:
+                b[slot:slot + 1] = o
+            elif o.dim() >= 2 and o.shape[1] == 1:
+                b[:, slot:slot + 1] = o
+
+        for k, v in batched_cache.items():
+            if k == "pos":
+                continue
+            for b, o in zip(tree_flatten(v)[0], tree_flatten(one_cache[k])[0]):
+                leafwise(b, o)
+        return batched_cache
+
+    def _admit(self):
+        for s in range(self.scfg.batch_slots):
+            if self.slots[s] is not None or not self.queue:
+                continue
+            req = self.queue.pop(0)
+            pad = -len(req.prompt) % self.scfg.prefill_chunk
+            toks = np.concatenate([np.zeros(pad, np.int32), req.prompt])
+            one_cache = transformer.init_cache(self.cfg, 1, self.scfg.max_len,
+                                               self.device)
+            logits, one_cache = transformer.prefill(
+                self.model, torch.from_numpy(toks[None].astype(np.int64)).to(self.device),
+                one_cache)
+            if self.scfg.pd_disaggregated:
+                one_cache = self._ship_kv(one_cache)
+            nxt = sample(logits[:, -1], self.scfg.temperature)
+            self._splice_impl(self.cache, one_cache, s)
+            self.tokens[s, 0] = nxt[0]
+            req.out.append(int(nxt[0]))
+            if req.max_new <= 1:  # the prefill's token was the whole budget
+                req.done = True
+                self.finished.append(req)
+                continue
+            self.slots[s] = req
+            self.pos[s] = len(toks)
+            self.budget[s] = req.max_new - 1  # 1st token from prefill
+
+    def _ship_kv(self, one_cache: dict) -> dict:
+        """Cross the prefill -> decode boundary: pack the prefilled cache with
+        the host compressor and unpack it on the decode side.
+
+        The codec schedule comes from a kind-"kv" CommPlan keyed on the
+        cache signature: the first admission compiles it, every later one
+        hits.  ``unpack_cache`` verifies the wire's checksum before decoding;
+        on a mismatch the shipment is re-packed from the prefill cache that
+        is still held, at most ``_kv_max_tries`` times.  ``kv_fault_injector``
+        (None outside tests) interposes on the wire between pack and
+        unpack."""
+        from repro_torch.serve.kv_transfer import ship_cache, unpack_cache
+
+        last_err = None
+        for _ in range(max(self._kv_max_tries, 1)):
+            wire, _ = ship_cache(one_cache, self.kv_compressor,
+                                 policy=self.kv_policy,
+                                 plan_cache=self.kv_plan_cache)
+            if self.kv_fault_injector is not None:
+                wire = self.kv_fault_injector(wire)
+            try:
+                return unpack_cache(wire, self.kv_compressor)
+            except WireIntegrityError as e:
+                last_err = e
+        raise WireIntegrityError(
+            f"KV shipment failed integrity {self._kv_max_tries} times"
+        ) from last_err
+
+    # -- decode loop -----------------------------------------------------------
+
+    def step(self) -> bool:
+        """One batched decode step over all active slots."""
+        if all(s is None for s in self.slots):
+            self._admit()
+            if all(s is None for s in self.slots):
+                return False
+        # engine-wide cache pos = max slot pos (slot caches padded before it)
+        self.cache["pos"] = torch.tensor(int(self.pos.max()), dtype=torch.int32,
+                                         device=self.device)
+        logits, self.cache = transformer.decode_step(self.model, self.tokens,
+                                                     self.cache)
+        nxt = sample(logits[:, -1], self.scfg.temperature)
+        self.tokens = nxt[:, None]
+        host = nxt.cpu().numpy()
+        for s, req in enumerate(self.slots):
+            if req is None:
+                continue
+            t = int(host[s])
+            req.out.append(t)
+            self.pos[s] += 1
+            self.budget[s] -= 1
+            if self.budget[s] <= 0 or t == self.scfg.eos_token or \
+               self.pos[s] >= self.scfg.max_len - 1:
+                req.done = True
+                self.finished.append(req)
+                self.slots[s] = None
+        self._admit()
+        return True
+
+    def run(self, max_steps: int = 10_000) -> list:
+        steps = 0
+        while steps < max_steps and (self.queue or any(
+                s is not None for s in self.slots)):
+            if not self.step():
+                break
+            steps += 1
+        return self.finished

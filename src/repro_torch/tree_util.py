@@ -1,0 +1,51 @@
+"""Pytree flatten and unflatten with ``jax.tree_util``'s leaf order, for the
+nested dicts, tuples and lists the port ships (a KV cache, a parameter tree).
+
+Dict keys are visited in sorted order and sequences in order; ``None`` is an
+empty subtree; everything else is a leaf.  The structure (``treedef``) is a
+hashable nested tuple, so it can key a plan cache.
+"""
+from __future__ import annotations
+
+
+def tree_flatten(tree) -> tuple:
+    """``(leaves, treedef)`` of ``tree``."""
+    leaves: list = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            keys = tuple(sorted(t))
+            return ("dict", keys, tuple(walk(t[k]) for k in keys))
+        if isinstance(t, (tuple, list)):
+            return (type(t).__name__, None, tuple(walk(x) for x in t))
+        if t is None:
+            return ("none", None, ())
+        leaves.append(t)
+        return ("leaf", None, ())
+
+    return leaves, walk(tree)
+
+
+def tree_unflatten(treedef: tuple, leaves) -> object:
+    """Inverse of :func:`tree_flatten`."""
+    it = iter(leaves)
+
+    def build(d):
+        kind, keys, subs = d
+        if kind == "leaf":
+            return next(it)
+        if kind == "none":
+            return None
+        kids = [build(s) for s in subs]
+        if kind == "dict":
+            return dict(zip(keys, kids))
+        return tuple(kids) if kind == "tuple" else kids
+
+    out = build(treedef)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree structure holds")
+    return out
+
+
+def tree_leaves(tree) -> list:
+    return tree_flatten(tree)[0]
