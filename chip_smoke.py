@@ -17,8 +17,9 @@ result line each:
             and all-ones groups and int32 values with the sign bit set;
             rANS encode and decode on skewed, uniform and one-symbol streams,
             a table whose top frequency is M - 255, n_valid < per * lanes,
-            and the compacted-stream decode of an ``ans.encode`` stream.
-            All bit for bit.
+            and the compacted-stream decode of an ``ans.encode`` stream;
+            plane_split over 5 formats on the same hard inputs as
+            encode_fused.  All bit for bit.
 3. serve  - smollm_135m at full width and depth, random weights from seed 0:
             8 greedy requests of 512 prompt tokens (numpy seed 0), 32 new
             tokens each, 4 slots, max_len 1024, prefill_chunk 512, first
@@ -51,7 +52,32 @@ result line each:
             launches nothing.  Then where a compressed step's time goes:
             forward+backward and each wire phase beside its raw twin (host
             clock, synchronised).
-5. times  - each kernel and its plain version at the shapes its path
+5. sync   - RL weight sync of smollm_135m at full width and depth
+            (``launch/rl_weight_sync.run``): the ZeRO-1 trainer of the main
+            phase (compressed, lr 1e-5, warm-up 3), 3 warm-up steps,
+            delta-width calibration on one 2-step cadence, then 3
+            iterations of 2 steps, a publish and one update per replica
+            from a WeightSyncEngine with a fresh PlanCache; "rollout-0" is
+            a ServeEngine (4 slots, max_len 1024) that ingests every update,
+            "rollout-1" a plain tree that joins at iteration 1; then the
+            epoch fence and one more publish.  Every reconstruction must be
+            bit-identical to the trainer's weights, the update modes full,
+            delta, delta (rollout-0) and full, delta (rollout-1), then full
+            after the fence, the plan cache 1 miss and 4 hits, and
+            rollout-0's greedy tokens for 2 requests (512 + 32 tokens) those
+            of a fresh engine on the trainer's weights.  Launches of the
+            sync sections: a full update runs encode_fused once and its
+            apply unpack twice (lo plane, exponent payload); a delta runs
+            pack twice (exponent-delta residuals, lo-delta plane) and its
+            apply unpack twice; the iteration-2 delta is encoded once for
+            both replicas (same base).  So encode_fused 3, pack 4, unpack
+            12 over 4 publishes, and the whole run's counts are those plus
+            11 compressed train steps.  Prints each update's mode, wire
+            bytes, ratio and widths, and the ms of each part of a delta and
+            of a full update (encode on the card, device-to-host copy,
+            update_checksum, verify_update, apply = host-to-device copy and
+            decode, in-place copy into the serve engine's model).
+6. times  - each kernel and its plain version at the shapes its path
             gives it (CUDA events, median of 20 runs after warm-up; the
             plain rANS versions, one torch step per row, once), beside the
             least time the card could take (bytes over its memory bandwidth
@@ -86,7 +112,9 @@ REPLACES = {
     "unpack": "src/repro/kernels/bitpack.py:40",
     "rans_encode": "src/repro/kernels/rans.py:43",
     "rans_decode": "src/repro/kernels/rans.py:68",
+    "plane_split": "src/repro/kernels/plane_split.py:34",
 }
+N_SYNC_REQ = 2  # requests rollout-0 serves after its last delta
 
 
 def card_bandwidth(name: str) -> float:
@@ -165,6 +193,7 @@ def phase_check(dev, torch, np):
     from repro_torch.kernels import decode_reduce as dr
     from repro_torch.kernels import encode_fused as ef
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import plane_split as ps
 
     n = 512 * 37 + 123  # ragged: padded to the block multiple by the caller
     worst = {"encode_fused": 0.0, "decode_reduce": 0.0}
@@ -199,9 +228,15 @@ def phase_check(dev, torch, np):
             if not same_f32(cpu, want_acc.cpu(), torch)[0]:
                 raise AssertionError(f"plain decode_reduce {lay.name}: card != CPU")
             worst["decode_reduce"] = max(worst["decode_reduce"], err)
+        got = ps.split_with_stats(xp, 512)
+        want = ref.split_with_stats(xp, 512)
+        for k, g, w in zip(("exp", "lo", "base", "rng"), got, want):
+            if not torch.equal(g, w):
+                raise AssertionError(f"plane_split {lay.name}: {k} differs")
     print(f"check: encode_fused and decode_reduce bit-identical to their plain "
           f"versions over {len(codec.LAYOUTS)} formats x widths {WIDTHS}, "
-          f"n={n} (ragged), {n_exc} exception blocks")
+          f"n={n} (ragged), {n_exc} exception blocks; plane_split bit-identical "
+          f"over {len(codec.LAYOUTS)} formats at n={xp.shape[0]}")
     return worst
 
 
@@ -266,16 +301,6 @@ def phase_check_wire(dev, torch, np):
           f"{len(streams)} streams, an M-255 table and n_valid < per*lanes")
 
 
-def _tree_bits_equal(a, b, torch) -> bool:
-    from repro_torch.tree_util import tree_leaves
-
-    la, lb = tree_leaves(a), tree_leaves(b)
-    return len(la) == len(lb) and all(
-        x.dtype == y.dtype and x.shape == y.shape and torch.equal(
-            x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))
-        for x, y in zip(la, lb))
-
-
 def phase_serve(dev, torch, np):
     """Colocated, then PD-disaggregated serving of smollm_135m at full width
     and depth; then one prefilled cache over the host wire with each codec.
@@ -288,7 +313,7 @@ def phase_serve(dev, torch, np):
     from repro_torch.sched.cache import PlanCache
     from repro_torch.serve import kv_transfer
     from repro_torch.serve.engine import Request, ServeConfig, ServeEngine
-    from repro_torch.tree_util import tree_flatten, tree_unflatten
+    from repro_torch.tree_util import bits_equal, tree_flatten, tree_unflatten
 
     cfg = configs.get(ARCH)
     model = transformer.init(cfg, generator=torch.Generator().manual_seed(SEED),
@@ -383,7 +408,7 @@ def phase_serve(dev, torch, np):
         eng = Compressor(codec_name=codec_name, device=dev)
         wire = kv_transfer.pack_cache(cache, eng, plan=plan)
         back = kv_transfer.unpack_cache(wire, eng)
-        if not _tree_bits_equal(back, cache, torch):
+        if not bits_equal(back, cache):
             raise AssertionError(f"{codec_name} shipment is not bit-identical")
         if greedy(back) != want:
             raise AssertionError(f"{codec_name} shipment decodes other tokens")
@@ -530,6 +555,100 @@ def phase_breakdown(run, group, dev, torch):
     return ms
 
 
+def phase_sync(dev, torch):
+    """RL weight sync at full width and depth; the launch counts it holds are
+    derived in the module docstring."""
+    from repro_torch import kernels
+    from repro_torch.core import codec, packing
+    from repro_torch.launch import rl_weight_sync
+    from repro_torch.launch import train as launch_train
+    from repro_torch.sync import engine as sync_engine
+    from repro_torch.tree_util import tree_flatten
+
+    with launch_train.single_process_group(dev) as group, launch_train.deterministic():
+        kernels.clear_launch_counts()
+        run = rl_weight_sync.run(ARCH, device=dev, batch=BATCH, seq=SEQ, seed=SEED,
+                                 slots=SLOTS, max_len=MAX_LEN, requests=N_SYNC_REQ,
+                                 prompt_len=PROMPT, max_new=MAX_NEW, group=group,
+                                 log=lambda line: print(f"  {line}"))
+        total = kernels.launch_counts()
+    recs = run.records
+    modes = [(r["replica"], r["mode"]) for r in recs]
+    want_modes = [("rollout-0", "full"), ("rollout-0", "delta"), ("rollout-1", "full"),
+                  ("rollout-0", "delta"), ("rollout-1", "delta"), ("rollout-0", "full")]
+    if modes != want_modes or not all(r["exact"] for r in recs):
+        raise AssertionError(f"weight sync modes {modes} (exact "
+                             f"{[r['exact'] for r in recs]}), expected {want_modes}")
+    if (run.plan_cache.stats.misses, run.plan_cache.stats.hits) != (1, 4):
+        raise AssertionError(f"wsync plan cache {run.plan_cache.cache_info()}")
+    if run.tokens != run.fresh_tokens or len(run.tokens) != N_SYNC_REQ or any(
+            len(o) != MAX_NEW for _, o in run.tokens):
+        raise AssertionError(f"rollout-0 tokens {run.tokens} vs fresh {run.fresh_tokens}")
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want.update(encode_fused=3, pack=4, unpack=12)
+    n_steps = len(run.losses)  # each compressed step: 2 encodes, 1 decode+reduce, 3 unpacks
+    train_counts = {"encode_fused": 2 * n_steps, "decode_reduce": n_steps,
+                    "unpack": 3 * n_steps}
+    whole = {k: v + train_counts.get(k, 0) for k, v in want.items()}
+    if run.sync_launches != want or total != whole:
+        raise AssertionError(f"weight sync launches {run.sync_launches} (whole run "
+                             f"{total}), expected {want} (whole run {whole})")
+    for r in recs:
+        widths = (f", delta widths exp={run.widths[0]} lo={run.widths[1]}"
+                  if r["mode"] == "delta" else ", width 5")
+        print(f"  update v{r['version']} -> {r['replica']}: {r['mode']}, wire "
+              f"{r['wire_bytes']} B of {r['raw_bytes']} B, ratio {r['ratio']:.4f}{widths}")
+    print(f"sync: {ARCH} full width, {run.n_publishes} publishes, every reconstruction "
+          f"bit-identical; modes as expected; plan cache 1 miss 4 hits; rollout-0's "
+          f"tokens identical to a fresh engine's; launches {run.sync_launches} (whole "
+          f"run {total}, {n_steps} train steps)")
+
+    # where an update's time goes: the last delta (v3 against v2, rollout-0's)
+    # and the fence's full update, part by part
+    store, plan = run.engine.store, run.engine.plan_for(run.engine.store.latest()[0])
+    (b,) = plan.buckets
+    delta_upd, full_upd = recs[3]["update"], recs[5]["update"]
+    v3, v2 = store.get(delta_upd.version), store.get(delta_upd.base_version)
+
+    def leaves(t):
+        return tree_flatten(t)[0]
+
+    def bucket(t):
+        return codec.pad_flat_bits(codec.concat_members(leaves(t), b.members), b.block)
+
+    enc = {
+        "delta": lambda: packing.encode_delta(
+            bucket(v3), bucket(v2), width=b.delta_width, lo_width=b.delta_lo_width,
+            block=b.block, exc_frac=b.exc_frac),
+        "full": lambda: packing.encode_message(bucket(v3), width=b.width, block=b.block,
+                                               exc_frac=b.exc_frac)}
+    model = run.rollout0.model
+    parts = {}
+    with torch.no_grad():
+        for kind, upd, base in (("delta", delta_upd, v2), ("full", full_upd, None)):
+            m = enc[kind]()
+            new = sync_engine.apply_update(upd, base_params=base, device=dev)
+            parts[kind] = {
+                "encode on the card": _wall_ms(enc[kind], torch, runs=3),
+                "device-to-host copy": _wall_ms(lambda: sync_engine.host_message(m), torch,
+                                                runs=3),
+                "update_checksum": _wall_ms(lambda: sync_engine.update_checksum(upd), torch,
+                                            runs=3),
+                "verify_update": _wall_ms(lambda: sync_engine.verify_update(upd), torch,
+                                          runs=3),
+                "apply (host-to-device copy + decode)": _wall_ms(
+                    lambda: sync_engine.apply_update(upd, base_params=base, device=dev),
+                    torch, runs=3),
+                "in-place copy into the serve model": _wall_ms(
+                    lambda: [p.copy_(g) for p, g in zip(model.leaves(), leaves(new))],
+                    torch, runs=3),
+            }
+            print(f"  {kind} update v{upd.version} ({upd.wire_bytes} B, ratio "
+                  f"{upd.ratio:.4f}), ms (host clock to a device sync, median of 3): "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in parts[kind].items()))
+    return {"launches": run.sync_launches, "n_publishes": run.n_publishes, "parts": parts}
+
+
 def _time(fn, torch, runs=TIMED_RUNS):
     """Median ms of ``runs`` launches of ``fn`` after two warm-ups."""
     fn(), fn()
@@ -563,27 +682,29 @@ def _time_once(fn, torch):
 PEAK_OPS = 67e12
 
 
-def phase_times(comp, serve, dev, torch, np, worst, bw):
+def phase_times(comp, serve, sync, dev, torch, np, worst, bw):
     """Each kernel and its plain version at the shapes its path gives it:
-    encode_fused and decode_reduce at the main path's AG bucket; pack and
-    unpack at one KV leaf's exponent residuals at the plan's width (unpack
-    also at the AG payload); rANS encode and the compacted-stream decode at
-    one KV leaf's exponent plane.  Each kernel is checked against its plain
-    version on these inputs first."""
+    encode_fused, decode_reduce and plane_split at the main path's AG
+    bucket; pack and unpack at one KV leaf's exponent residuals at the plan's
+    width (unpack also at the AG payload); rANS encode and the
+    compacted-stream decode at one KV leaf's exponent plane.  Each kernel is
+    checked against its plain version on these inputs first."""
     from repro_torch import kernels
     from repro_torch.core import ans, codec, packing
     from repro_torch.core.calibrate import CompressionProfile
     from repro_torch.kernels import bitpack, rans, ref
     from repro_torch.kernels import decode_reduce as dr
     from repro_torch.kernels import encode_fused as ef
+    from repro_torch.kernels import plane_split as ps
     from repro_torch.optim import zero1
 
     # launches of each main-path run (counts set to 0 just before each)
     runs = {"serve_pd": serve["pd_launches"], "serve_pd_rans": serve["rans_launches"],
-            "train": comp.launches}
+            "train": comp.launches, "weight_sync": sync["launches"]}
     per_unit = {"serve_pd": ("pd_admission", N_REQ),
                 "serve_pd_rans": ("pd_rans_admission", N_RANS),
-                "train": ("train_step", STEPS)}
+                "train": ("train_step", STEPS),
+                "weight_sync": ("publish", sync["n_publishes"])}
     rows = []
 
     def row(name, *, ms, plain_ms, nbytes, ops, err, **extra):
@@ -633,6 +754,11 @@ def phase_times(comp, serve, dev, torch, np, worst, bw):
         plain_ms=_time(lambda: ref.decode_reduce(pay, lo, gb, acc, "bfloat16", width), torch),
         nbytes=n // 32 * (width + lo_bits + 1) * 4 + n * 8, ops=n,
         err=max(dec_err, worst["decode_reduce"]), **ag)
+    # plane_split at the same bucket: no path of the reference runs it
+    same("plane_split", ps.split_with_stats(x, block), ref.split_with_stats(x, block))
+    row("plane_split", ms=_time(lambda: ps.split_with_stats(x, block), torch),
+        plain_ms=_time(lambda: ref.split_with_stats(x, block), torch),
+        nbytes=n * 2 + n * 8 + n // block * 8, ops=0, err=0.0, n=n, dtype="bfloat16")
 
     # -- one shipped KV leaf: exponent residuals at the plan's width ---------
     leaf, kv_w = serve["leaf"], serve["width"]
@@ -706,7 +832,8 @@ def main() -> int:
     phase_check_wire(dev, torch, np)
     serve = phase_serve(dev, torch, np)
     comp, _ = phase_main(dev, torch)
-    rows = phase_times(comp, serve, dev, torch, np, worst, card_bandwidth(name))
+    sync = phase_sync(dev, torch)
+    rows = phase_times(comp, serve, sync, dev, torch, np, worst, card_bandwidth(name))
     print(f"card: {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

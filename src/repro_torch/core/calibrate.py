@@ -3,7 +3,8 @@ torch port of ``repro.core.calibrate``.
 
 The packed width ``W`` and the exception capacity are chosen from observed
 exponent statistics (:func:`choose_width`, the host ``Compressor``'s probe
-when no plan gives the width) or taken from a :class:`CompressionProfile`.
+when no plan gives the width; :func:`choose_delta_widths` for the XOR-delta
+wire) or taken from a :class:`CompressionProfile`.
 The in-wire ``overflow`` flag catches a width that turned out too small.
 """
 from __future__ import annotations
@@ -77,10 +78,39 @@ def choose_width(x: torch.Tensor, *, block: int = 512,
     raise AssertionError("unreachable: the last width always matches")
 
 
+def choose_delta_widths(x: torch.Tensor, base: torch.Tensor, *, block: int = 512,
+                        target_exc_rate: float = 1e-3,
+                        max_exc_frac: float = 0.02) -> tuple:
+    """Calibrate the XOR-delta wire's ``(exp_width, lo_width)`` from two
+    consecutive weight versions (or representative twins), on their device.
+
+    The exponent-delta width is :func:`choose_width` of the delta's bit
+    pattern; the lo width is the smallest W whose per-ELEMENT escape rate
+    stays under half the exception capacity (the lo packer escapes per
+    element).  Store the result in ``CompressionProfile.widths["delta"]`` and
+    ``["delta_lo"]`` to drive ``CompressionPolicy.delta_widths``."""
+    lay = codec.layout_of(x.dtype)
+    d = codec.xor_delta(x.reshape(-1), base.reshape(-1))
+    w_exp = choose_width(d, block=block, target_exc_rate=target_exc_rate,
+                         max_exc_frac=max_exc_frac).width
+    _, lo = codec.split_planes(d)
+    budget = max_exc_frac / 2  # leave half the capacity as drift headroom
+    n = lo.shape[0]
+    w_lo = lay.lo_bits
+    for w in range(1, lay.lo_bits + 1):
+        # the count over n is the reference's numpy mean of the escape mask
+        if int((lo >= (1 << w)).sum()) / n <= budget:
+            w_lo = w
+            break
+    return int(w_exp), int(w_lo)
+
+
 @dataclasses.dataclass(frozen=True)
 class CompressionProfile:
     """Packed widths per tensor class (paper Table 1: gradients, weights
-    and activations have distinct but individually stable distributions)."""
+    and activations have distinct but individually stable distributions).
+    The keys ``"delta"`` and ``"delta_lo"``, when present, are the XOR-delta
+    wire's widths (:func:`choose_delta_widths`)."""
 
     widths: dict  # class name -> width
     block: int = 512

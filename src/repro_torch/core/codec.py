@@ -121,3 +121,69 @@ def exponent_entropy_bits(exp_plane: torch.Tensor, exp_bits: int) -> torch.Tenso
                             minlength=nsym)[:nsym]
     p = counts.to(torch.float32) / counts.sum().clamp_min(1).to(torch.float32)
     return -torch.sum(torch.where(p > 0, p * torch.log2(torch.where(p > 0, p, 1.0)), 0.0))
+
+
+# ---------------------------------------------------------------------------
+# XOR delta and bucket helpers of the weight-sync wire, in the bits domain
+#
+# Consecutive weight versions differ by small optimizer steps, so the XOR of
+# a version against the receiver's base version is zero wherever a weight did
+# not move and concentrates its nonzero bits in the low mantissa elsewhere.
+# The delta is itself a bit pattern of the same format, so the split+pack
+# wire applies to it unchanged.  Every helper below works on integer views of
+# the tensors: no float operation touches a value, so NaN payloads,
+# infinities and subnormals pass through exactly.
+# ---------------------------------------------------------------------------
+
+def xor_delta(x: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
+    """Bitwise XOR of two same-shape, same-dtype float tensors, as that
+    float dtype.  Self-inverse: ``xor_delta(xor_delta(x, base), base)`` has
+    the bits of ``x``."""
+    lay = layout_of(x.dtype)
+    if base.dtype != x.dtype or tuple(base.shape) != tuple(x.shape):
+        raise ValueError(
+            f"xor_delta needs matching operands, got {tuple(x.shape)}/{x.dtype} "
+            f"vs {tuple(base.shape)}/{base.dtype}")
+    bits = x.view(lay.bits_dtype) ^ base.view(lay.bits_dtype)
+    return bits.view(lay.dtype)
+
+
+def concat_bits(parts: list) -> torch.Tensor:
+    """Concatenate same-dtype flat float tensors through their integer
+    views (one part is returned as it is)."""
+    if len(parts) == 1:
+        return parts[0]
+    lay = layout_of(parts[0].dtype)
+    return torch.cat([p.view(lay.bits_dtype) for p in parts]).view(lay.dtype)
+
+
+def slice_bits(x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """``x[lo:hi]`` of a flat float tensor, through its integer view."""
+    lay = layout_of(x.dtype)
+    return x.view(lay.bits_dtype)[lo:hi].view(lay.dtype)
+
+
+def concat_members(src, members) -> torch.Tensor:
+    """Fuse the leaves ``src[i]`` of a plan bucket's ``members`` ``((i,
+    shape, size), ...)`` into one flat bucket, in member order."""
+    return concat_bits([src[i].reshape(-1) for i, _, _ in members])
+
+
+def split_members(got: torch.Tensor, members):
+    """Inverse of :func:`concat_members`: yields ``(i, leaf)`` sliced out of
+    the flat bucket ``got`` (trailing padding is ignored)."""
+    off = 0
+    for i, shape, size in members:
+        yield i, slice_bits(got, off, off + size).reshape(shape)
+        off += size
+
+
+def pad_flat_bits(x: torch.Tensor, multiple: int) -> torch.Tensor:
+    """Zero-pad a flat float tensor to a multiple of ``multiple``, through
+    its integer view (returned as it is when no pad is needed)."""
+    r = (-x.shape[0]) % multiple
+    if r == 0:
+        return x
+    lay = layout_of(x.dtype)
+    bits = x.view(lay.bits_dtype)
+    return torch.cat([bits, bits.new_zeros((r,))]).view(lay.dtype)

@@ -15,9 +15,12 @@ same bits (gloo and NCCL move ``int32``), ``bases``/``exc_raw`` are
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
+
+from repro_torch.core import codec
 
 GROUP = 32  # residuals per packed group (one 32-bit word per bit-plane)
 _U32 = 0xFFFFFFFF
@@ -173,3 +176,172 @@ def unpack_exponents(p: PackedPlane) -> torch.Tensor:
     blocks = unpack_blocks(p.payload[None], p.bases[None], p.exc_idx[None],
                            p.exc_raw[None], width=p.width, block=p.block)
     return blocks[0, : p.n].to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# Whole-message codec: the packed lo plane plus the packed exponent plane.
+#
+# Message fields are tensors on the encoding device; the weight-sync engine
+# carries them to the host as numpy arrays with the reference's dtypes
+# (``sync/engine.host_message``), so ``wire_bytes`` takes either.
+# ---------------------------------------------------------------------------
+
+def _nbytes(a) -> int:
+    return a.numel() * a.element_size() if isinstance(a, torch.Tensor) else a.nbytes
+
+
+@dataclasses.dataclass(frozen=True)
+class CompressedMessage:
+    lo: torch.Tensor  # int32 (n_pad // 32, lo_bits) bit-planes of sign|mantissa
+    exp: PackedPlane
+    dtype_name: str
+    shape: tuple
+
+    def wire_bytes(self) -> int:
+        e = self.exp
+        return int(_nbytes(self.lo) + _nbytes(e.payload) + _nbytes(e.bases)
+                   + _nbytes(e.exc_idx) + _nbytes(e.exc_raw) + 4)
+
+    def raw_bytes(self) -> int:
+        return math.prod(self.shape) * codec.LAYOUTS[self.dtype_name].total_bits // 8
+
+    def ratio(self) -> float:
+        return self.wire_bytes() / self.raw_bytes()
+
+
+def encode_message(x: torch.Tensor, *, width: int, block: int = 512,
+                   exc_frac: float = 0.02) -> CompressedMessage:
+    """Encode a float tensor into the in-collective wire format with the
+    one-pass split+pack (``kernels/ops.encode_fused``, the encode_fused
+    kernel on CUDA).  Bit-identical to the reference's ``encode_message``
+    in both of its forms, the fused one and the three-pass one."""
+    from repro_torch.kernels import ops  # lazy: the kernels import this module
+
+    lay = codec.layout_of(x.dtype)
+    xf = x.reshape(-1)
+    w = ops.encode_fused(xf, width, block=block, exc_frac=exc_frac)
+    packed = PackedPlane(payload=w["payload"], bases=w["bases"],
+                         exc_idx=w["exc_idx"], exc_raw=w["exc_raw"],
+                         overflow=w["overflow"], width=width, block=block,
+                         n=xf.shape[0], exp_bits=8)
+    return CompressedMessage(lo=w["lo"], exp=packed, dtype_name=lay.name,
+                             shape=tuple(x.shape))
+
+
+def decode_message(m: CompressedMessage) -> torch.Tensor:
+    """Exact inverse of :func:`encode_message` (when ``overflow == 0``), on
+    the device of the message's tensors."""
+    lay = codec.LAYOUTS[m.dtype_name]
+    n = math.prod(m.shape)
+    lo = bitplane_unpack(m.lo, lay.lo_bits)[:n]
+    return codec.merge_planes(unpack_exponents(m.exp), lo, lay.dtype, m.shape)
+
+
+# ---------------------------------------------------------------------------
+# XOR-delta wire format (weight sync, ``sync/engine.py``).
+#
+# A warm delta is mostly zero in both planes: the exponent-delta plane packs
+# with the block codec above at a narrow width (zero escape absorbs the
+# untouched elements), and the lo-delta plane, which sits in the low bits,
+# gets its own width packer.  Lo deltas have a carry tail (an update across a
+# mantissa power boundary flips a run of bits), so the lo packer escapes per
+# ELEMENT: outliers ride a static-capacity (idx, raw) list, restored exactly
+# at decode.  If that list overflows, ``overflow`` is set and the sender falls
+# back to a full message.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DeltaPlane:
+    """Width-packed lo-delta plane with element-granular exact exceptions."""
+
+    payload: torch.Tensor  # int32 (n_pad // 32, width) bit-planes
+    exc_idx: torch.Tensor  # int32 (E,) element indices (n_pad = unused slot)
+    exc_raw: torch.Tensor  # int32 (E,) the reference's uint32 raw lo values
+    overflow: torch.Tensor  # int32 scalar: 1 if exceptions overflowed capacity
+    width: int
+    n: int  # original element count (pre-padding)
+
+
+def pack_delta_plane(vals: torch.Tensor, width: int, *,
+                     exc_frac: float = 0.02) -> DeltaPlane:
+    """Pack a lo-delta stream (integer (n,), values < 2**32) at ``width``
+    bits per element.  Elements that do not fit escape through a list of
+    ``min(n, max(4, ceil(n * exc_frac)))`` entries; ``overflow`` reports that
+    the list was too short (decode would be lossy)."""
+    if width < 1:
+        raise ValueError(f"width must be >= 1, got {width}")
+    n = vals.shape[0]
+    v = _pad_to(vals, GROUP, pad_mode="zero")
+    fits = _as_u32(v) <= (1 << width) - 1
+    payload = bitplane_pack(torch.where(fits, v, 0), width)
+    cap = min(n, max(4, int(np.ceil(n * exc_frac))))
+    bad = ~fits
+    n_pad = v.shape[0]
+    exc_idx = first_true(bad[None], cap, n_pad)[0]
+    picked = v[exc_idx.to(torch.int64).clamp_max(n_pad - 1)]
+    exc_raw = _to_word(torch.where(exc_idx < n_pad, _as_u32(picked), 0))
+    overflow = (bad.sum() > cap).to(torch.int32)
+    return DeltaPlane(payload=payload, exc_idx=exc_idx, exc_raw=exc_raw,
+                      overflow=overflow, width=width, n=n)
+
+
+def unpack_delta_plane(p: DeltaPlane) -> torch.Tensor:
+    """Exact inverse of :func:`pack_delta_plane` (when ``overflow == 0``):
+    int32 (n,), the reference's uint32 values (fill entries land in a
+    discarded spare slot)."""
+    vals = bitplane_unpack(p.payload, p.width)
+    vals = torch.cat([vals, vals.new_zeros((1,))])
+    vals[p.exc_idx.to(torch.int64).clamp(0, vals.shape[0] - 1)] = p.exc_raw.to(vals.dtype)
+    return vals[: p.n]
+
+
+@dataclasses.dataclass(frozen=True)
+class DeltaMessage:
+    """Encoded XOR delta of one tensor against a shared base version: the
+    exponent-delta plane rides the block packer, the lo-delta plane the
+    width packer.  The wire size depends only on (n, widths)."""
+
+    lo: DeltaPlane
+    exp: PackedPlane
+    dtype_name: str
+    shape: tuple
+
+    def wire_bytes(self) -> int:
+        e, lo = self.exp, self.lo
+        return int(_nbytes(lo.payload) + _nbytes(lo.exc_idx) + _nbytes(lo.exc_raw) + 4
+                   + _nbytes(e.payload) + _nbytes(e.bases) + _nbytes(e.exc_idx)
+                   + _nbytes(e.exc_raw) + 4)
+
+    def raw_bytes(self) -> int:
+        return math.prod(self.shape) * codec.LAYOUTS[self.dtype_name].total_bits // 8
+
+    def ratio(self) -> float:
+        return self.wire_bytes() / self.raw_bytes()
+
+    @property
+    def overflow(self):
+        """1 if either plane's exceptions overflowed (decode would be lossy)."""
+        return max(int(self.exp.overflow), int(self.lo.overflow))
+
+
+def encode_delta(x: torch.Tensor, base: torch.Tensor, *, width: int,
+                 lo_width: int, block: int = 512,
+                 exc_frac: float = 0.02) -> DeltaMessage:
+    """XOR ``x`` against ``base`` and encode the delta: ``width`` packs the
+    exponent-delta plane, ``lo_width`` the lo-delta plane.  Bit-exact through
+    :func:`decode_delta` whenever ``overflow == 0``."""
+    lay = codec.layout_of(x.dtype)
+    exp, lo = codec.split_planes(codec.xor_delta(x, base))
+    return DeltaMessage(
+        lo=pack_delta_plane(lo, lo_width, exc_frac=exc_frac),
+        exp=pack_exponents(exp, width=width, block=block, exc_frac=exc_frac),
+        dtype_name=lay.name, shape=tuple(x.shape))
+
+
+def decode_delta(m: DeltaMessage, base: torch.Tensor) -> torch.Tensor:
+    """Exact inverse of :func:`encode_delta` given the same base version."""
+    lay = codec.LAYOUTS[m.dtype_name]
+    n = math.prod(m.shape)
+    lo = unpack_delta_plane(m.lo)[:n]
+    delta = codec.merge_planes(unpack_exponents(m.exp), lo, lay.dtype, m.shape)
+    return codec.xor_delta(delta, base.reshape(m.shape))

@@ -58,6 +58,17 @@ class CompressionPolicy:
     def width_for(self, tensor_class: str) -> int:
         return self.profile.width_for(tensor_class)
 
+    def delta_widths(self, dtype_name: str) -> tuple:
+        """(exp_width, lo_width) of the XOR-delta wire for ``dtype_name``:
+        the profile's ``"delta"`` / ``"delta_lo"`` widths (defaults 2 and 4,
+        aimed at warm deltas one small optimizer step apart), clamped to
+        ``[1, exp_bits]`` and ``[1, lo_bits]``.  They enter the plan key
+        through ``profile.widths``."""
+        lay = codec.LAYOUTS[dtype_name]
+        w = int(self.profile.widths.get("delta", 2))
+        wl = int(self.profile.widths.get("delta_lo", 4))
+        return (max(1, min(w, lay.exp_bits)), max(1, min(wl, lay.lo_bits)))
+
     @staticmethod
     def disabled() -> "CompressionPolicy":
         return CompressionPolicy(enabled=False)

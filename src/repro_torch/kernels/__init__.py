@@ -8,7 +8,8 @@ library under ``build/``, keyed by a hash of the source and the flags, and
 kernels (``bitpack.cu``: pack and unpack; ``rans.cu``: encode and decode);
 kernel ``name`` is the C function ``<name>_launch`` of source
 ``KERNELS[name]``.  The Python wrapper of each kernel (``encode_fused.py``,
-``decode_reduce.py``, ``bitpack.py``, ``rans.py``) launches it on a CUDA
+``decode_reduce.py``, ``bitpack.py``, ``rans.py``, ``plane_split.py``)
+launches it on a CUDA
 tensor and uses the kernel's plain PyTorch version (``ref.py``) on a CPU
 tensor; there is no switch that turns a kernel off and no fallback that
 hides a failed build or launch.
@@ -32,6 +33,7 @@ SOURCES = {
     "decode_reduce": "decode_reduce.cu",
     "bitpack": "bitpack.cu",
     "rans": "rans.cu",
+    "plane_split": "plane_split.cu",
 }
 # kernel -> the source (key of SOURCES) that holds its launcher
 KERNELS = {
@@ -41,6 +43,7 @@ KERNELS = {
     "unpack": "bitpack",
     "rans_encode": "rans",
     "rans_decode": "rans",
+    "plane_split": "plane_split",
 }
 # Codec format index shared with the ``switch`` of every launcher in csrc/.
 FORMATS = ("float32", "float16", "bfloat16", "float8_e4m3fn", "float8_e5m2")

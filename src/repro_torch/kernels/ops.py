@@ -2,9 +2,9 @@
 
 Dispatch is by the tensor's device: a CUDA tensor goes to the CUDA kernel,
 a CPU tensor to its plain PyTorch version (the wrappers in
-``encode_fused.py`` / ``decode_reduce.py`` decide).  There is no switch and
-no counted fallback.  The bit-plane and rANS kernels are reached through
-``core/packing.py`` and ``core/ans.py``.
+``encode_fused.py``, ``decode_reduce.py`` and ``plane_split.py`` decide).
+There is no switch and no counted fallback.  The bit-plane and rANS kernels
+are reached through ``core/packing.py`` and ``core/ans.py``.
 
 :func:`encode_fused` / :func:`encode_fused_chunks` produce the complete wire
 dict ``{lo, payload, bases, exc_idx, exc_raw, overflow}`` in one pass over
@@ -19,6 +19,7 @@ import torch
 from repro_torch.core import codec, packing
 from repro_torch.kernels import decode_reduce as _decode_reduce
 from repro_torch.kernels import encode_fused as _encode_fused
+from repro_torch.kernels import plane_split as _plane_split
 
 GROUP = packing.GROUP
 
@@ -28,6 +29,13 @@ def decode_reduce(payload, lo_planes, group_bases, acc, dtype_name: str,
     """``acc += decode(wire)`` in place (kernel on CUDA, plain on CPU)."""
     return _decode_reduce.decode_reduce(payload, lo_planes, group_bases, acc,
                                         dtype_name, width)
+
+
+def split_with_stats(x: torch.Tensor, block: int = 512):
+    """Split a flat float tensor of whole blocks into (exp, lo) planes with
+    the plain per-block ``min`` and ``max - min`` of the exponents (kernel on
+    CUDA, plain on CPU); a ragged n raises."""
+    return _plane_split.split_with_stats(x, block)
 
 
 def _pad_up(n: int, m: int) -> int:

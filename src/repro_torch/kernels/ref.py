@@ -42,6 +42,26 @@ def unpack(packed: torch.Tensor, width: int) -> torch.Tensor:
     return packing._to_word(vals.reshape(-1))
 
 
+# --- plane_split -------------------------------------------------------------
+
+
+def split_with_stats(x: torch.Tensor, block: int = 512):
+    """Split a flat float tensor (n % block == 0) into its planes, with the
+    plain per-block statistics: returns (exp int32 (n,), lo int32 (n,),
+    base int32 (n_blocks,), rng int32 (n_blocks,)) with ``base = min(exp)``
+    and ``rng = max(exp) - base`` over every exponent of the block, zeros
+    included (not the wire's zero-escape statistics)."""
+    if x.shape[0] % block:
+        raise ValueError(f"n={x.shape[0]} is not a multiple of block={block}")
+    exp, lo = codec.split_planes(x)
+    b = exp.reshape(-1, block).to(torch.int32)
+    base = b.amin(-1)
+    return exp.to(torch.int32), lo, base, b.amax(-1) - base
+
+
+# --- encode_fused ------------------------------------------------------------
+
+
 def encode_fused(x: torch.Tensor, width: int, block: int = 512):
     """Split + zero-escape block stats + bit-plane pack of a flat float
     tensor, ``n % block == 0``.  Returns (payload int32 (n//32, width),

@@ -45,6 +45,27 @@ def single_process_group(device="cuda"):
 
 
 @contextlib.contextmanager
+def launcher_group(device="cuda"):
+    """The world group of a launcher's process: from the environment under
+    ``torchrun`` (NCCL on CUDA, each rank on its ``LOCAL_RANK`` card; gloo on
+    the CPU), else :func:`single_process_group`.  Yields the device to run
+    on; the group is destroyed on exit."""
+    if "WORLD_SIZE" not in os.environ:
+        with single_process_group(device):
+            yield device
+        return
+    dev = kernels.resolve_device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(dev)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    try:
+        yield dev
+    finally:
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
 def deterministic():
     """PyTorch's deterministic algorithms for the duration (the caller's
     setting is restored): the compressed and raw twins are bit-comparable
@@ -135,27 +156,12 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if "WORLD_SIZE" in os.environ:  # torchrun
-        dev = kernels.resolve_device(args.device)
-        if dev.type == "cuda":
-            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
-            torch.cuda.set_device(dev)
-        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
-        ctx = contextlib.nullcontext()
-    else:
-        dev = args.device
-        ctx = single_process_group(dev)
-    try:
-        with ctx:
-            run = train(args.arch, steps=args.steps, batch=args.batch,
-                        seq=args.seq, compress=not args.no_compress,
-                        smoke=args.smoke, device=dev, seed=args.seed,
-                        lr=args.lr, warmup=args.warmup,
-                        optimizer=args.optimizer,
-                        compress_min_bytes=args.compress_min_bytes, log=print)
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+    with launcher_group(args.device) as dev:
+        run = train(args.arch, steps=args.steps, batch=args.batch,
+                    seq=args.seq, compress=not args.no_compress,
+                    smoke=args.smoke, device=dev, seed=args.seed,
+                    lr=args.lr, warmup=args.warmup, optimizer=args.optimizer,
+                    compress_min_bytes=args.compress_min_bytes, log=print)
     print(f"final loss {run.losses[-1]:.4f} | retries {run.retries} | "
           f"compressed={not args.no_compress}")
 

@@ -61,6 +61,16 @@ def tree_paths(tree, prefix: str = ""):
         yield prefix[:-1], tree
 
 
+def _map_paths(tree, fn, prefix: str = ""):
+    """``tree`` with each leaf replaced by ``fn(path)``, paths as in
+    :func:`tree_paths`."""
+    if isinstance(tree, dict):
+        return {k: _map_paths(v, fn, f"{prefix}{k}/") for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)) and tree and isinstance(tree[0], dict):
+        return tuple(_map_paths(t, fn, f"{prefix}{i}/") for i, t in enumerate(tree))
+    return fn(prefix[:-1])
+
+
 class Transformer(nn.Module):
     """Dense decoder over stacked layer parameters; ``forward`` returns the
     hidden states before the head, as the reference's ``forward``."""
@@ -75,6 +85,13 @@ class Transformer(nn.Module):
     def leaves(self) -> list:
         """Parameters in the reference's ``tree_leaves`` order."""
         return list(self.params.values())
+
+    def tree(self) -> dict:
+        """The parameters, detached, as the reference's parameter tree
+        (``{"blocks": ({...},), "embed", "final_norm"}``): its flatten order
+        is :meth:`leaves`' and ``jax.tree_util``'s.  The leaves share the
+        parameters' storage."""
+        return _map_paths(_tree_shapes(self.cfg), lambda p: self.params[p].detach())
 
     def head(self) -> torch.Tensor:
         return self.params["embed" if self.cfg.tie_embeddings else "lm_head"]

@@ -90,9 +90,9 @@ class Message:
         return self.wire_bytes() / self.raw_bytes
 
 
-def _host(t: torch.Tensor, np_dtype) -> np.ndarray:
-    """A device tensor as a numpy array of ``np_dtype`` with the same bits
-    (int32 words -> uint32, uint16 via int16)."""
+def host_array(t: torch.Tensor, np_dtype) -> np.ndarray:
+    """A tensor on any device as a numpy array of ``np_dtype`` with the same
+    bits (int32 words -> uint32, uint16 via int16; 0-d stays 0-d)."""
     t = t.detach()
     if t.dtype == torch.uint16:
         t = t.view(torch.int16)
@@ -183,11 +183,11 @@ class Compressor:
                 if key is not None:
                     self._table_cache[key] = table
             stream = ans.encode(exp, table, lanes=self.lanes)
-            lens = _host(stream.lens, np.int32)
+            lens = host_array(stream.lens, np.int32)
             exp_payload = {
-                "words": _host(stream.words, np.uint16),
+                "words": host_array(stream.words, np.uint16),
                 "lens": lens,
-                "freq": _host(table.freq, np.uint32),
+                "freq": host_array(table.freq, np.uint32),
                 "n": exp.shape[0],
                 "used_bytes": int(lens.sum()) * 2,
             }
@@ -212,17 +212,17 @@ class Compressor:
             t_split = t_total * lo_frac
             t_encode = t_total * (1 - lo_frac)
             exp_payload = {
-                "payload": _host(pk.payload, np.uint32),
-                "bases": _host(pk.bases, np.uint8),
-                "exc_idx": _host(pk.exc_idx, np.int32),
-                "exc_raw": _host(pk.exc_raw, np.uint8),
+                "payload": host_array(pk.payload, np.uint32),
+                "bases": host_array(pk.bases, np.uint8),
+                "exc_idx": host_array(pk.exc_idx, np.int32),
+                "exc_raw": host_array(pk.exc_raw, np.uint8),
                 "overflow": int(pk.overflow),
                 "n": flat.shape[0],
             }
         return Message(
             dtype_name=lay.name, shape=shape,
             raw_bytes=flat.numel() * lay.total_bits // 8,
-            lo_payload=_host(lo_packed, np.uint32), exp_payload=exp_payload,
+            lo_payload=host_array(lo_packed, np.uint32), exp_payload=exp_payload,
             codec=self.codec_name, width=width,
             t_split=t_split, t_encode=t_encode,
         )

@@ -1,5 +1,6 @@
 """Communication-plan IR (paper §3.3, the Uzip-NCCL persistent kernel model);
-torch port of ``repro.sched.plan``, the subset the ``kv`` kind needs.
+torch port of ``repro.sched.plan``, the subset the ``kv`` and ``wsync``
+kinds need.
 
 A ``CommPlan`` is the static, hashable record of everything a wire would
 otherwise re-derive at every call: leaf buckets, compress-vs-raw paths,
@@ -22,7 +23,7 @@ PATH_TWO_SHOT = "two_shot"        # compressed RS + compressed AG
 PATH_RING = "ring"                # paper's negative baseline, per-hop codec
 PATH_RAW_TWOSHOT = "raw_twoshot"  # big but gated off: byte-exact raw two-shot
 PATH_RAW_PSUM = "raw_psum"        # small: plain (f32-promoted) psum
-# single-phase buckets (reduce_scatter / all_gather / p2p / kv kinds):
+# single-phase buckets (reduce_scatter / all_gather / p2p / kv / wsync kinds):
 PATH_COMPRESSED = "compressed"
 PATH_RAW = "raw"
 
@@ -32,9 +33,9 @@ class BucketPlan:
     """Static schedule for ONE flat bucket (one wire).
 
     ``members`` lists the pytree leaves fused into the bucket as
-    ``(flat_leaf_index, shape, size)`` in tree order.  For ``kv`` plans
-    ``chunk`` is the block-padded message length of one send.
-    ``wire_bytes``/``raw_bytes`` are the expected per-execution wire
+    ``(flat_leaf_index, shape, size)`` in tree order.  For ``kv`` and
+    ``wsync`` plans ``chunk`` is the block-padded message length of one
+    send.  ``wire_bytes``/``raw_bytes`` are the expected per-execution wire
     accounting (static: wire shapes do not depend on data)."""
 
     dtype_name: str
@@ -51,6 +52,12 @@ class BucketPlan:
     chunk: int = 0
     wire_bytes: int = 0  # expected compressed wire bytes per execution
     raw_bytes: int = 0  # uncompressed bytes the same wires would move
+    # XOR-delta schedule (kind "wsync" only): the exponent-delta and lo-delta
+    # widths and the expected delta wire bytes.  delta_width == 0: the bucket
+    # is not delta-eligible and always rides the full send.
+    delta_width: int = 0
+    delta_lo_width: int = 0
+    delta_wire_bytes: int = 0
 
     @property
     def ratio(self) -> float:
@@ -66,7 +73,9 @@ class CommPlan:
     """A compiled communication plan for one wire signature.
 
     ``kind`` "kv": a KV-cache pytree shipped leaf-bucketed over the P2P
-    ``split_send`` pipeline.  ``backend``/``use_kernels`` record the device and whether its
+    ``split_send`` pipeline; "wsync": a versioned weight pytree sent to
+    replicas with per-bucket XOR-delta-vs-full gating (the delta schedule in
+    each ``BucketPlan``).  ``backend``/``use_kernels`` record the device and whether its
     wires run the CUDA kernels (``compile.probe_backend``).  ``raw_leaf_ix``
     are leaves outside every bucket (not a codec float, or 0-d), moved as
     they are."""
@@ -94,6 +103,13 @@ class CommPlan:
     def ratio(self) -> float:
         return self.wire_bytes / max(self.raw_bytes, 1)
 
+    @property
+    def delta_wire_bytes(self) -> int:
+        """Expected wire bytes of one all-delta execution (kind "wsync"):
+        delta-eligible buckets ship deltas, the rest their full wires."""
+        return sum(b.delta_wire_bytes if b.delta_width else b.wire_bytes
+                   for b in self.buckets if b.compressed)
+
     def width_for_dtype(self, dtype_name: str) -> int | None:
         """Recorded send-phase codec width of the first compressed bucket
         of ``dtype_name``, or None when that dtype rides a raw path.  The
@@ -115,9 +131,12 @@ class CommPlan:
             "paths": tuple(b.path for b in self.buckets),
             "n_encode_fused": sum(1 for b in self.buckets
                                   if b.compressed and b.encode_fused),
+            "n_delta": sum(1 for b in self.buckets
+                           if b.compressed and b.delta_width),
             "wire_bytes": self.wire_bytes,
             "raw_bytes": self.raw_bytes,
             "ratio": self.ratio,
+            "delta_wire_bytes": self.delta_wire_bytes,
         }
 
 

@@ -13,8 +13,9 @@ The inference side of the paper's §5.3.2 workload.  Two deployment modes:
 
 ``ServeEngine`` keeps a fixed number of decode slots, each holding one
 request's cache position; finished slots are refilled from the queue
-between decode steps.  The reference's semantics are kept where they look
-odd: one engine-wide ``pos = max(slot pos)`` per decode step, prompts
+between decode steps; ``ingest_weights`` hot-swaps the model's weights from
+the weight-sync wire (``sync/engine.py``).  The reference's semantics are
+kept where they look odd: one engine-wide ``pos = max(slot pos)`` per decode step, prompts
 left-padded with zeros to a multiple of ``prefill_chunk``, and the splice
 of an admitted cache on the stacked dimension 1.  Sampling is greedy.
 """
@@ -29,7 +30,7 @@ import torch
 from repro_torch.core.integrity import WireIntegrityError
 from repro_torch.models import transformer
 from repro_torch.models.config import ArchConfig
-from repro_torch.tree_util import tree_flatten
+from repro_torch.tree_util import tree_flatten, tree_leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,6 +103,54 @@ class ServeEngine:
         self.budget = np.zeros(scfg.batch_slots, np.int64)
         self.queue: list = []
         self.finished: list = []
+        # weight-sync state (None until the first ingest): the version and
+        # epoch of the model's weights under the sync protocol
+        self.weight_version: Optional[int] = None
+        self.weight_epoch: Optional[int] = None
+
+    # -- weight-sync ingestion -----------------------------------------------
+
+    def ingest_weights(self, update) -> int:
+        """Hot-swap the model's weights from a weight-sync update
+        (``sync.WeightSyncEngine.update_for``); returns the new version.
+
+        The payload checksum is verified first: a corrupt update raises
+        ``WireIntegrityError`` and the weights stay as they are.  A full
+        update applies unconditionally and adopts the stream's epoch; a
+        delta applies only when this engine holds exactly its base
+        (version and epoch), since XOR against other bits would be garbage,
+        and raises otherwise (the caller should ask for a full send).  The
+        whole new tree is decoded before the first parameter is overwritten
+        (a delta decodes against the current bits), then copied into the
+        model's parameters in place, so the decode loop keeps its tensors."""
+        from repro_torch.sync.engine import apply_update, verify_update
+
+        if update.checksum is not None and not verify_update(update):
+            raise WireIntegrityError(
+                f"update v{update.version} failed its payload checksum; "
+                f"re-send it (escalate delta -> full -> raw)")
+        if update.base_version is not None:
+            if (update.base_version != self.weight_version
+                    or update.epoch != self.weight_epoch):
+                raise ValueError(
+                    f"delta update v{update.version} assumes base "
+                    f"v{update.base_version}@e{update.epoch} but this engine "
+                    f"holds v{self.weight_version}@e{self.weight_epoch}; "
+                    f"request a full send")
+            new = apply_update(update, base_params=self.model.tree(), device=self.device)
+        else:
+            new = apply_update(update, device=self.device)
+        params, got = self.model.leaves(), tree_leaves(new)
+        if len(got) != len(params) or any(
+                g.shape != p.shape or g.dtype != p.dtype for g, p in zip(got, params)):
+            raise ValueError(f"update v{update.version} does not hold this model's "
+                             f"weights")
+        with torch.no_grad():
+            for p, g in zip(params, got):
+                p.copy_(g)
+        self.weight_version = update.version
+        self.weight_epoch = update.epoch
+        return self.weight_version
 
     # -- admission -----------------------------------------------------------
 

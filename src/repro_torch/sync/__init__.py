@@ -1,0 +1,14 @@
+"""Weight sync (paper §5.3.1: RL weight synchronization), torch port of
+``repro.sync``, host path: a trainer publishes versioned weights
+(``train/step.make_publish_hook``), :class:`WeightSyncEngine` encodes each
+replica's update as an XOR delta against the version it acked or as the full
+compressed tensors, on a kind-"wsync" ``CommPlan`` compiled once, and a
+replica reconstructs the published bits (:func:`apply_update`,
+``serve/engine.ServeEngine.ingest_weights``).  Every update carries a CRC-32
+of its payload (:func:`update_checksum`, :func:`verify_update`)."""
+from repro_torch.sync.engine import (SyncUpdate, WeightSyncEngine, apply_update,
+                                     update_checksum, verify_update)
+from repro_torch.sync.store import VersionedStore
+
+__all__ = ["SyncUpdate", "VersionedStore", "WeightSyncEngine", "apply_update",
+           "update_checksum", "verify_update"]

@@ -9,7 +9,8 @@ parameters.
 Losslessness: every compressed wire carries an overflow flag.  With
 ``guard_overflow`` a step whose flag fires keeps the old parameters and
 optimizer state and does not advance the step counter; the launcher then
-reruns it uncompressed (``launch/train.py``).
+reruns it uncompressed (``launch/train.py``).  :func:`make_publish_hook`
+hands the weights to the weight-sync engine after a step.
 """
 from __future__ import annotations
 
@@ -108,3 +109,19 @@ def train_step(state: TrainState, batch: dict, tcfg: TrainConfig, *,
     for p in leaves:
         p.grad = None
     return {"loss": loss, "gnorm": gnorm, "overflow": overflow}
+
+
+def make_publish_hook(sync_engine, *, every: int = 1):
+    """Bridge the train loop to a ``sync.WeightSyncEngine``: returns
+    ``hook(state) -> version | None``, to call after each optimizer step.
+    Every ``every`` steps (read from the train state's own counter, so the
+    cadence survives a restore) it publishes the model's parameter tree,
+    whose signature is step-stable, so every publish after the first hits
+    the cached kind-"wsync" plan.  After restoring a trainer, call
+    ``sync_engine.advance_epoch()`` before the first publish."""
+    def hook(state: TrainState):
+        step = int(state.step)
+        if every > 1 and step % every != 0:
+            return None
+        return sync_engine.publish(state.model.tree())
+    return hook

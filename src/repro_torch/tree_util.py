@@ -7,6 +7,8 @@ hashable nested tuple, so it can key a plan cache.
 """
 from __future__ import annotations
 
+import torch
+
 
 def tree_flatten(tree) -> tuple:
     """``(leaves, treedef)`` of ``tree``."""
@@ -49,3 +51,12 @@ def tree_unflatten(treedef: tuple, leaves) -> object:
 
 def tree_leaves(tree) -> list:
     return tree_flatten(tree)[0]
+
+
+def bits_equal(a, b) -> bool:
+    """Two trees of tensors hold the same leaves bit for bit."""
+    la, lb = tree_leaves(a), tree_leaves(b)
+    bytes_of = lambda t: t.detach().reshape(-1).view(torch.uint8)  # noqa: E731
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(bytes_of(x), bytes_of(y))
+        for x, y in zip(la, lb))

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card, held bit for bit against their plain
-PyTorch versions (NaN matched as NaN for the f32 accumulate).  Imports
+PyTorch versions (NaN matched as NaN for the f32 accumulate), and the
+weight-sync delta wire on the card.  Imports
 torch and the port only, so it runs on a machine without JAX:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -13,7 +14,8 @@ import torch
 from repro_torch import kernels
 from repro_torch.core import ans
 from repro_torch.core import compressed_collectives as cc
-from repro_torch.kernels import bitpack, decode_reduce, encode_fused, rans, ref
+from repro_torch.core import packing
+from repro_torch.kernels import bitpack, decode_reduce, encode_fused, plane_split, rans, ref
 from repro_torch.p2p.engine import Compressor
 from torch_port_util import FORMATS, grad_like_bits, to_torch
 
@@ -145,3 +147,62 @@ def test_compressor_on_the_card_equals_the_cpu(cuda, codec_name):
         np.testing.assert_array_equal(gm.exp_payload[k], v, err_msg=k)
     assert gm.wire_bytes() == cm.wire_bytes()
     assert torch.equal(gpu.decode(cm).cpu().view(torch.int16), x.view(torch.int16))
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_plane_split_kernel_matches_plain_version(cuda, fmt):
+    """Whole numbers of blocks (not multiples of the TPU's 8-block tile),
+    blocks of 512 and 64 values, with every hard case of grad_like_bits."""
+    before = kernels.launch_counts()["plane_split"]
+    for n_blocks, block in ((33, 512), (1, 512), (77, 64)):
+        x = to_torch(grad_like_bits(fmt, n_blocks * block, seed=n_blocks), fmt).to(cuda)
+        got = plane_split.split_with_stats(x, block)
+        for g, w in zip(got, ref.split_with_stats(x, block)):
+            assert g.dtype == torch.int32 and torch.equal(g, w), (fmt, n_blocks, block)
+    assert kernels.launch_counts()["plane_split"] - before == 3
+    with pytest.raises(ValueError):
+        plane_split.split_with_stats(x[:-1], block)
+
+
+def test_delta_wire_on_the_card_equals_the_cpu(cuda):
+    """encode_delta's fields on the card equal the CPU's, and decode_delta
+    restores the bits, NaN payloads included."""
+    from repro_torch.sync.engine import host_message
+
+    bits = grad_like_bits("bfloat16", 512 * 40 + 96, seed=20)
+    rng = np.random.default_rng(21)
+    mask = rng.integers(0, 8, bits.shape).astype(bits.dtype)
+    mask[rng.random(bits.shape) > 0.3] = 0
+    new, base = to_torch(bits ^ mask, "bfloat16"), to_torch(bits, "bfloat16")
+    m = packing.encode_delta(new.to(cuda), base.to(cuda), width=2, lo_width=4)
+    c = packing.encode_delta(new, base, width=2, lo_width=4)
+    g, h = host_message(m), host_message(c)
+    for a, b in ((g.lo, h.lo), (g.exp, h.exp)):
+        for f in ("payload", "exc_idx", "exc_raw", "overflow"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=f)
+    np.testing.assert_array_equal(g.exp.bases, h.exp.bases)
+    back = packing.decode_delta(m, base.to(cuda))
+    assert torch.equal(back.cpu().view(torch.int16), new.view(torch.int16))
+
+
+def test_full_width_delta_round_trip_on_the_card(cuda):
+    """One smollm-135m bf16 bucket (134 515 200 values): a warm delta packs
+    with no overflow, its wire has the plan's closed-form size, the pack and
+    unpack kernels run twice each, and the decode restores every bit."""
+    from repro_torch.sched.compile import delta_wire_bytes
+
+    n = 134_515_200
+    gen = torch.Generator(cuda).manual_seed(22)
+    base = (torch.randn(n, device=cuda, generator=gen) * 0.02).to(torch.bfloat16)
+    flip = torch.randint(0, 8, (n,), device=cuda, generator=gen, dtype=torch.int16)
+    flip = torch.where(torch.rand(n, device=cuda, generator=gen) < 0.3, flip, 0)
+    new = (base.view(torch.int16) ^ flip).view(torch.bfloat16)
+    before = kernels.launch_counts()
+    m = packing.encode_delta(new, base, width=2, lo_width=4)
+    assert m.overflow == 0
+    assert m.wire_bytes() == delta_wire_bytes(n, width=2, lo_width=4, block=512,
+                                              exc_frac=0.02)
+    back = packing.decode_delta(m, base)
+    after = kernels.launch_counts()
+    assert torch.equal(back.view(torch.int16), new.view(torch.int16))
+    assert (after["pack"] - before["pack"], after["unpack"] - before["unpack"]) == (2, 2)

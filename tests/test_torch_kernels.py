@@ -4,6 +4,8 @@
   (``repro.kernels.encode_fused``) and against ``repro.kernels.ref``.
 * ``ops.encode_fused`` / ``encode_fused_chunks``: bit-exact, field by field,
   against the reference's ``ops`` (``use_pallas=False``) on ragged n.
+* ``split_with_stats`` (plane_split): bit-exact against the reference's
+  plain version and its Pallas kernel in interpret mode; a ragged n raises.
 * ``decode_reduce``: bit-exact against the Pallas kernel in interpret mode
   on inputs whose decoded values and sums are never subnormal, because
   XLA:CPU flushes f32 subnormals to zero and the port keeps IEEE subnormals;
@@ -22,10 +24,11 @@ from repro.core import packing as jpacking
 from repro.kernels import decode_reduce as jdecode_reduce
 from repro.kernels import encode_fused as jencode_fused
 from repro.kernels import ops as jops
+from repro.kernels import plane_split as jplane_split
 from repro.kernels import ref as jref
 from repro_torch import kernels
 from repro_torch.core import packing
-from repro_torch.kernels import decode_reduce, encode_fused, ops, ref
+from repro_torch.kernels import decode_reduce, encode_fused, ops, plane_split, ref
 from torch_port_util import (FORMATS, assert_bits_equal, grad_like_bits,
                              np_of, to_jax, to_torch)
 
@@ -95,6 +98,37 @@ def test_ops_encode_fused_chunks_matches_reference(fmt):
     want = jops.encode_fused_chunks(to_jax(bits, fmt).reshape(4, -1), 5,
                                     use_pallas=False)
     _assert_wire_equal(got, want, fmt)
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("n_blocks", [8, 11])
+def test_split_with_stats_matches_reference_and_pallas_interpret(fmt, n_blocks):
+    """All-zero blocks, subnormals, +-Inf, NaN payloads and blocks of the
+    widest exponent range; 11 blocks is not a multiple of the TPU tile (8
+    blocks), which the port does not need."""
+    bits = grad_like_bits(fmt, 512 * n_blocks, seed=30 + n_blocks)
+    got = ops.split_with_stats(to_torch(bits, fmt))
+    names = ("exp", "lo", "base", "rng")
+    for name, g, w in zip(names, got, jref.split_with_stats(to_jax(bits, fmt))):
+        assert g.dtype == torch.int32
+        assert_bits_equal(g, w, f"{fmt} {name}")
+    if n_blocks % jplane_split.TILE_B == 0:
+        want = jops.split_with_stats(to_jax(bits, fmt), use_pallas=True, interpret=True)
+        for name, g, w in zip(names, got, want):
+            assert_bits_equal(g, w, f"{fmt} {name} (Pallas interpret)")
+
+
+def test_split_with_stats_rejects_ragged_n_and_other_devices():
+    x = torch.zeros(1024, dtype=torch.bfloat16)
+    for bad in (x[:1000], x[:0], x.reshape(2, 512)):
+        with pytest.raises(ValueError):
+            plane_split.split_with_stats(bad)
+    with pytest.raises(ValueError):
+        plane_split.split_with_stats(x, block=48)  # not a multiple of 32
+    with pytest.raises(ValueError):
+        plane_split.split_with_stats(x.to("meta"))
+    with pytest.raises(ValueError):
+        ref.split_with_stats(x[:1000])
 
 
 def _decode_inputs(fmt, width, n_g, seed):

@@ -312,7 +312,9 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert {f"repro_torch/{m}.py" for m in (
         "kernels/bitpack", "kernels/rans", "core/ans", "core/integrity",
         "p2p/engine", "sched/plan", "sched/compile", "sched/cache",
-        "serve/kv_transfer", "serve/engine", "launch/serve", "tree_util")} <= rel
+        "serve/kv_transfer", "serve/engine", "launch/serve", "tree_util",
+        "kernels/plane_split", "sync/engine", "sync/store",
+        "launch/rl_weight_sync")} <= rel
     for f in files:
         assert not _imports(f) & {"jax", "jaxlib", "repro"}, f
     mods = [".".join(f.relative_to(SRC).with_suffix("").parts) for f in files[:-1]]
