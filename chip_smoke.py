@@ -17,7 +17,9 @@ result line each:
             and all-ones groups and int32 values with the sign bit set;
             rANS encode and decode on skewed, uniform and one-symbol streams,
             a table whose top frequency is M - 255, n_valid < per * lanes,
-            and the compacted-stream decode of an ``ans.encode`` stream;
+            and the compacted-stream decode of an ``ans.encode`` stream, at
+            per in {1, R - 1, R, R + 1, 3R + 17} (R = 248, the kernels'
+            tile rows) x 128 lanes and at per R + 1 x 256 lanes;
             plane_split over 5 formats on the same hard inputs as
             encode_fused.  All bit for bit.
 3. serve  - smollm_135m at full width and depth, random weights from seed 0:
@@ -81,7 +83,14 @@ result line each:
             gives it (CUDA events, median of 20 runs after warm-up; the
             plain rANS versions, one torch step per row, once), beside the
             least time the card could take (bytes over its memory bandwidth
-            or operations over its peak rate, the larger).
+            or operations over its peak rate, the larger).  The two rANS
+            kernels also get floor_ms, the least time their fixed 128 lanes
+            allow: per x the SM cycles of one step of one lane's chain
+            alone (rans.chain, the kernel's own step in one thread, first
+            held to its plain version; cycles counted on the card by
+            clock64 over per steps, median of 5) at the SM clock nvidia-smi
+            reads while the kernels run; and tables_ms, the wrapper's table
+            ops, which ms includes.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 ``kernels`` JSON.  Any failed phase exits non-zero and prints no result.
@@ -242,7 +251,6 @@ def phase_check(dev, torch, np):
 
 def phase_check_wire(dev, torch, np):
     """The host wire's kernels against their plain versions, bit for bit."""
-    from repro_torch.core import ans
     from repro_torch.kernels import bitpack, rans, ref
 
     rng = np.random.default_rng(7)
@@ -261,10 +269,34 @@ def phase_check_wire(dev, torch, np):
                 if not torch.equal(bitpack.unpack(got, width), ref.unpack(got, width)):
                     raise AssertionError(f"unpack {name} n_g={n_g} w={width} differs")
                 n_cases += 1
-    per, lanes = 48, 128
-    streams = {"skewed": np.clip(rng.normal(120, 2.5, per * lanes), 0, 255),
-               "uniform": rng.integers(0, 256, per * lanes),
-               "single": np.full(per * lanes, 7)}
+    cases = rans_cases(rans.ROWS)
+    for per, lanes in cases:
+        check_rans(per, lanes, rng, dev, torch, np)
+    torch.cuda.synchronize()
+    print(f"check: pack and unpack bit-identical to their plain versions over "
+          f"{n_cases} cases (widths 1-32, 1/37/4099 groups, int32/int64/uint8); "
+          f"rans_encode and rans_decode (dense and compacted stream) over "
+          f"skewed, uniform and single streams, an M-255 table and "
+          f"n_valid < per*lanes at (per, lanes) {cases}")
+
+
+def rans_cases(rows: int) -> list:
+    """(per, lanes) on both sides of the rANS kernels' tile edges (``rows``
+    rows a tile), and one grid of two thread blocks."""
+    return [(per, 128) for per in (1, rows - 1, rows, rows + 1, 3 * rows + 17)] + [
+        (rows + 1, 256)]
+
+
+def check_rans(per, lanes, rng, dev, torch, np):
+    """rANS encode, dense decode and compacted-stream decode against their
+    plain versions, bit for bit, at one (per, lanes)."""
+    from repro_torch.core import ans
+    from repro_torch.kernels import rans, ref
+
+    n = per * lanes
+    streams = {"skewed": np.clip(rng.normal(120, 2.5, n), 0, 255),
+               "uniform": rng.integers(0, 256, n),  # emits in nearly every row
+               "single": np.full(n, 7)}
     top = np.ones(256, np.int64)
     top[7] = ans.M - 255
     for name, a in streams.items():
@@ -274,31 +306,29 @@ def phase_check_wire(dev, torch, np):
             tables.append(ans.table_from_freq(torch.from_numpy(top).to(dev)))
         for t in tables:
             s2s = ans._slot_to_symbol(t)
-            for n_valid in (per * lanes, per * lanes - 77):
+            for n_valid in (n, n - 77):
                 got = rans.encode(syms, t.freq, t.cum, n_valid)
                 want = ref.rans_encode(syms, t.freq, t.cum, n_valid)
                 if not all(torch.equal(g, w) for g, w in zip(got, want)):
-                    raise AssertionError(f"rans_encode {name} n_valid={n_valid} differs")
+                    raise AssertionError(f"rans_encode {name} per={per} lanes={lanes} "
+                                         f"n_valid={n_valid} differs")
                 dec = rans.decode(got[0], got[2], t.freq, t.cum, s2s, n_valid)
                 if not torch.equal(dec, ref.rans_decode(got[0], got[2], t.freq, t.cum,
                                                         s2s, n_valid)):
-                    raise AssertionError(f"rans_decode {name} n_valid={n_valid} differs")
+                    raise AssertionError(f"rans_decode {name} per={per} lanes={lanes} "
+                                         f"n_valid={n_valid} differs")
                 if not torch.equal(dec.reshape(-1)[:n_valid], syms.reshape(-1)[:n_valid]):
-                    raise AssertionError(f"rans {name} does not round-trip")
-        flat = syms.reshape(-1)[: per * lanes - 77]
-        stream = ans.encode(flat, tables[0])
+                    raise AssertionError(f"rans {name} per={per} does not round-trip")
+        flat = syms.reshape(-1)[: n - 77]
+        stream = ans.encode(flat, tables[0], lanes=lanes)
         s2s = ans._slot_to_symbol(tables[0])
         got = rans.decode_stream(stream.words, stream.lens, tables[0].freq,
                                  tables[0].cum, s2s, per, flat.shape[0])
         want = ref.rans_decode_stream(stream.words, stream.lens, tables[0].freq,
                                       tables[0].cum, s2s, per, flat.shape[0])
         if not torch.equal(got, want) or not torch.equal(ans.decode(stream), flat):
-            raise AssertionError(f"compacted-stream rans_decode {name} differs")
-    torch.cuda.synchronize()
-    print(f"check: pack and unpack bit-identical to their plain versions over "
-          f"{n_cases} cases (widths 1-32, 1/37/4099 groups, int32/int64/uint8); "
-          f"rans_encode and rans_decode (dense and compacted stream) over "
-          f"{len(streams)} streams, an M-255 table and n_valid < per*lanes")
+            raise AssertionError(f"compacted-stream rans_decode {name} per={per} "
+                                 f"lanes={lanes} differs")
 
 
 def phase_serve(dev, torch, np):
@@ -801,14 +831,65 @@ def phase_times(comp, serve, sync, dev, torch, np, worst, bw):
     used = int(stream.lens.sum())
     rx = {"n": n_e, "per": per, "lanes": lanes, "plain_runs": 1}
     tables = 2 * 256 * 4
-    row("rans_encode", ms=_time(lambda: rans.encode(syms, table.freq, table.cum, n_e), torch),
-        plain_ms=enc_plain_ms, nbytes=per * lanes * (1 + 4 + 4) + lanes * 4 + tables,
-        ops=10 * n_e, err=0.0, **rx)
-    row("rans_decode", ms=_time(lambda: rans.decode_stream(
-        stream.words, stream.lens, table.freq, table.cum, s2s, per, n_e), torch),
-        plain_ms=dec_plain_ms, nbytes=used * 2 + lanes * 4 + tables + ans.M + per * lanes,
-        ops=8 * n_e, err=0.0, stream_words=used, **rx)
+    enc = lambda: rans.encode(syms, table.freq, table.cum, n_e)  # noqa: E731
+    dec = lambda: rans.decode_stream(  # noqa: E731
+        stream.words, stream.lens, table.freq, table.cum, s2s, per, n_e)
+    mhz = sm_clock_under(lambda: (enc(), dec()), torch)
+    floor = chain_floors(table, s2s, syms, stream, per, mhz, torch)
+    row("rans_encode", ms=_time(enc, torch), plain_ms=enc_plain_ms,
+        nbytes=per * lanes * (1 + 4 + 4) + lanes * 4 + tables, ops=10 * n_e, err=0.0,
+        tables_ms=_time(lambda: rans.encode_table(table.freq, table.cum), torch),
+        **floor["encode"], **rx)
+    row("rans_decode", ms=_time(dec, torch), plain_ms=dec_plain_ms,
+        nbytes=used * 2 + lanes * 4 + tables + ans.M + per * lanes, ops=8 * n_e, err=0.0,
+        tables_ms=_time(lambda: rans.slot_table(table.freq, table.cum, s2s), torch),
+        stream_words=used, **floor["decode"], **rx)
+    for r in rows[-2:]:
+        if not 0 < r["floor_ms"] <= r["ms"]:
+            raise AssertionError(f"{r['name']}: floor {r['floor_ms']:.4f} ms outside "
+                                 f"(0, {r['ms']:.4f} ms]: the chain probe is wrong")
     return rows
+
+
+def chain_floors(table, s2s, syms, stream, per, mhz, torch) -> dict:
+    """floor_ms of each rANS kernel at ``per`` steps a lane: ``per`` times
+    the SM cycles of one step of one lane's chain alone (``rans.chain``: the
+    kernel's own step in one thread, with the symbols of lane 0's first rows
+    or the first words of its stream in registers; clock64 over ``per``
+    steps, median of 5) at ``mhz``.  The lane count (128) is the wire
+    format, so the lanes cannot be cut shorter: with this build's step, no
+    kernel of this format takes less."""
+    from repro_torch.kernels import rans
+
+    w0 = stream.words[0].view(torch.int16).to(torch.int64) & 0xFFFF
+    n0 = int(stream.lens[0])
+    args = (table.freq, table.cum, s2s, syms[:8, 0].contiguous(), stream.words[0, :8],
+            int(w0[n0 - 2]) | int(w0[n0 - 1]) << 16)
+    steps = -(-per // 8) * 8
+    out = {}
+    for kind in ("encode", "decode"):
+        got, _ = rans.chain(kind, *args, steps)
+        if not torch.equal(got.cpu(), rans.plain_chain(kind, *args, steps)):
+            raise AssertionError(f"rans chain {kind} differs from its plain version")
+        runs = sorted(rans.chain(kind, *args, steps)[1] / steps for _ in range(5))
+        cycles = runs[2]
+        out[kind] = {"floor_ms": per * cycles / (mhz * 1e3), "floor_by": "chain", "floor": {
+            "measured": "rans.chain: clock64 over per steps of one lane's chain "
+                        "in one thread, median of 5",
+            "cycles_per_step": cycles, "cycles_per_step_runs": runs, "sm_clock_mhz": mhz}}
+    return out
+
+
+def sm_clock_under(fn, torch, runs=200):
+    """The SM clock (MHz) that nvidia-smi reads while ``runs`` calls of
+    ``fn``, queued on the card, run."""
+    for _ in range(runs):
+        fn()
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    torch.cuda.synchronize()
+    return float(out.split()[0])
 
 
 def main() -> int:

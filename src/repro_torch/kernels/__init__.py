@@ -160,12 +160,13 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
-def launcher(name: str, argtypes: tuple):
-    """The C launcher ``<name>_launch`` of kernel ``name``, built on first
-    use and loaded with ``ctypes``.  It returns ``cudaGetLastError()``."""
+def launcher(name: str, argtypes: tuple, source: str | None = None):
+    """The C launcher ``<name>_launch`` of kernel ``name`` (in ``source``,
+    by default ``KERNELS[name]``), built on first use and loaded with
+    ``ctypes``.  It returns ``cudaGetLastError()``."""
     fn = _LIBS.get(name)
     if fn is None:
-        source = KERNELS[name]
+        source = source or KERNELS[name]
         build_kernels([source])
         fn = getattr(ctypes.CDLL(str(_artifact(source))), f"{name}_launch")
         fn.argtypes = argtypes

@@ -95,17 +95,24 @@ def test_bitpack_kernels_match_plain_versions(cuda):
     assert after["unpack"] - before["unpack"] == launches // 2
 
 
-def test_rans_kernels_match_plain_versions(cuda):
+@pytest.mark.parametrize("per,lanes", [(1, 128), (rans.ROWS - 1, 128), (rans.ROWS, 128),
+                                       (rans.ROWS + 1, 128), (3 * rans.ROWS + 17, 128),
+                                       (rans.ROWS + 1, 256)])
+def test_rans_kernels_match_plain_versions(cuda, per, lanes):
     """Skewed, uniform and one-symbol streams, a table whose top frequency
     is M - 255, n_valid < per * lanes, and the compacted-stream decode of an
-    ``ans.encode`` stream."""
-    rng = np.random.default_rng(18)
-    per, lanes = 40, 128
-    streams = {"skewed": np.clip(rng.normal(120, 2.5, per * lanes), 0, 255),
-               "uniform": rng.integers(0, 256, per * lanes),
-               "single": np.full(per * lanes, 7)}
+    ``ans.encode`` stream, on both sides of the kernels' tile edges (``ROWS``
+    rows, which the dense decode splits into tiles of ``ROWS / 4``) and
+    over two thread blocks (256 lanes)."""
+    rng = np.random.default_rng(18 + per)
+    n = per * lanes
+    streams = {"skewed": np.clip(rng.normal(120, 2.5, n), 0, 255),
+               "uniform": rng.integers(0, 256, n),
+               "single": np.full(n, 7)}
     top = np.ones(256, np.int64)
     top[7] = ans.M - 255
+    before = kernels.launch_counts()
+    launches = 0
     for name, s in streams.items():
         syms = torch.from_numpy(s.astype(np.uint8)).reshape(per, lanes).to(cuda)
         tables = [ans.build_freq_table(syms)]
@@ -113,7 +120,7 @@ def test_rans_kernels_match_plain_versions(cuda):
             tables.append(ans.table_from_freq(torch.from_numpy(top).to(cuda)))
         for t in tables:
             s2s = ans._slot_to_symbol(t)
-            for n_valid in (per * lanes, per * lanes - 77):
+            for n_valid in (n, n - 77):
                 got = rans.encode(syms, t.freq, t.cum, n_valid)
                 want = ref.rans_encode(syms, t.freq, t.cum, n_valid)
                 for g, w in zip(got, want):
@@ -123,9 +130,10 @@ def test_rans_kernels_match_plain_versions(cuda):
                                                         s2s, n_valid)), (name, n_valid)
                 assert torch.equal(dec.reshape(-1)[:n_valid],
                                    syms.reshape(-1)[:n_valid]), (name, n_valid)
-        flat = syms.reshape(-1)[: per * lanes - 77]
-        stream = ans.encode(flat, tables[0])
-        cpu = ans.encode(flat.cpu(), tables[0])  # the table moves to the CPU
+                launches += 1
+        flat = syms.reshape(-1)[: n - 77]
+        stream = ans.encode(flat, tables[0], lanes=lanes)
+        cpu = ans.encode(flat.cpu(), tables[0], lanes=lanes)  # the table moves to the CPU
         assert torch.equal(stream.words.cpu().view(torch.int16), cpu.words.view(torch.int16))
         assert torch.equal(stream.lens.cpu(), cpu.lens)
         s2s = ans._slot_to_symbol(tables[0])
@@ -135,6 +143,63 @@ def test_rans_kernels_match_plain_versions(cuda):
                                       tables[0].cum, s2s, per, flat.shape[0])
         assert torch.equal(got, want), name
         assert torch.equal(ans.decode(stream), flat), name
+        launches += 1
+    after = kernels.launch_counts()
+    # each case: one encode and one decode; each stream: ans.encode, then
+    # decode_stream and ans.decode (two decodes)
+    assert after["rans_encode"] - before["rans_encode"] == launches
+    assert after["rans_decode"] - before["rans_decode"] == launches + len(streams)
+
+
+@pytest.mark.parametrize("kind", ["encode", "decode"])
+def test_rans_chain_matches_plain_version(cuda, kind):
+    """The chain the rANS kernels' floor is counted on runs the plain
+    version's steps, takes cycles in proportion to them, and is counted as
+    no kernel launch."""
+    rng = np.random.default_rng(24)
+    flat = torch.from_numpy(rng.integers(0, 256, 4096).astype(np.uint8)).to(cuda)
+    t = ans.build_freq_table(flat)
+    s2s = ans._slot_to_symbol(t)
+    words = torch.from_numpy(rng.integers(0, 1 << 16, 8).astype(np.int32)).to(cuda)
+    before = kernels.launch_counts()
+    cycles = {}
+    for steps in (0, 8, 800, 8000):
+        for state in (ref.RANS_L, 0xFFFFFFFF):
+            got, cycles[steps] = rans.chain(kind, t.freq, t.cum, s2s, flat[:8], words,
+                                            state, steps)
+            want = rans.plain_chain(kind, t.freq, t.cum, s2s, flat[:8], words, state, steps)
+            assert torch.equal(got.cpu(), want), (steps, state)
+    assert kernels.launch_counts() == before
+    # a step takes at least one cycle, and ten times the steps about ten
+    # times the cycles
+    assert 800 <= cycles[800] and 8 <= cycles[8000] / cycles[800] <= 12
+    with pytest.raises(ValueError):
+        rans.chain(kind, t.freq, t.cum, s2s, flat[:8], words, 0, 12)
+
+
+def test_rans_decode_stream_copies_a_misaligned_view(cuda):
+    """A stream whose data starts off a 16-byte boundary (an offset view)
+    decodes as its aligned copy does."""
+    rng = np.random.default_rng(23)
+    flat = torch.from_numpy(np.clip(rng.normal(120, 2.5, 128 * 300 - 5), 0, 255)
+                            .astype(np.uint8)).to(cuda)
+    t = ans.build_freq_table(flat)
+    s = ans.encode(flat, t)
+    big = torch.zeros((s.words.shape[0] * s.words.shape[1] + 1,), dtype=torch.int16,
+                      device=cuda)
+    view = big[1:].view(s.words.shape)
+    view.copy_(s.words.view(torch.int16))
+    assert view.data_ptr() % 16 != 0
+    s2s = ans._slot_to_symbol(t)
+    got = rans.decode_stream(view, s.lens, t.freq, t.cum, s2s, 300, flat.shape[0])
+    assert torch.equal(got.reshape(-1)[: flat.shape[0]], flat)
+    syms = torch.zeros(128 * 300 + 1, dtype=torch.uint8, device=cuda)
+    syms[1:1 + flat.shape[0]] = flat
+    grid = syms[1:].view(300, 128)
+    assert grid.data_ptr() % 16 != 0
+    got = rans.encode(grid, t.freq, t.cum, flat.shape[0])
+    for g, w in zip(got, ref.rans_encode(grid, t.freq, t.cum, flat.shape[0])):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("codec_name", ["packed", "rans"])
