@@ -13,8 +13,19 @@ result line each:
             encode_fused and decode_reduce over 5 formats x widths {2, 5, 8}
             (ragged n, all-zero blocks, subnormals, +-Inf, NaN payloads,
             exception blocks; decode_reduce's f32 output with NaN as NaN);
+            encode_fused and the unpack of its two planes at the tile edges
+            of their persistent kernels: 5 formats x widths 1, 2, 5, 8, 9,
+            31, 32 (both template routes) x blocks 32, 512, 1024 x block
+            counts 1, T - 1, T, T + 1 and (grid + 1) T + 1 (T blocks a
+            tile, grid thread blocks resident), with all-zero blocks, a
+            block of one nonzero exponent, exception blocks, +-Inf, NaN
+            payloads and subnormals;
             pack and unpack at widths 1-32 on ragged group counts, all-zero
             and all-ones groups and int32 values with the sign bit set;
+            unpack also at the edges of its own tiles at every width (32
+            groups for small counts, T once each resident thread block
+            takes two: 1, 31, 32, 33, 2 R T - 1, 2 R T + 1, (2 R + 1) T + 1
+            groups, R thread blocks resident);
             rANS encode and decode on skewed, uniform and one-symbol streams,
             a table whose top frequency is M - 255, n_valid < per * lanes,
             and the compacted-stream decode of an ``ans.encode`` stream, at
@@ -80,8 +91,9 @@ result line each:
             update_checksum, verify_update, apply = host-to-device copy and
             decode, in-place copy into the serve engine's model).
 6. times  - each kernel and its plain version at the shapes its path
-            gives it (CUDA events, median of 20 runs after warm-up; the
-            plain rANS versions, one torch step per row, once), beside the
+            gives it (unpack: one KV leaf's payload, and the AG decode's
+            payload and lo plane; CUDA events, median of 20 runs after
+            warm-up; the plain rANS versions, one torch step per row, once), beside the
             least time the card could take (bytes over its memory bandwidth
             or operations over its peak rate, the larger).  The two rANS
             kernels also get floor_ms, the least time their fixed 128 lanes
@@ -167,6 +179,131 @@ def hard_input(lay, n: int, seed: int, torch, np):
     return (bits & lay.bits_mask).to(lay.bits_dtype).view(lay.dtype)
 
 
+def edge_input(lay, nb: int, block: int, seed: int, torch, np):
+    """Float tensor (nb * block,) of format ``lay`` (CPU) for the kernels'
+    tile edges, at any block count: gradient-like values; block 0 an
+    exception block (the smallest normal beside the largest finite
+    exponent) that also holds +-Inf, NaN payloads and subnormals; block 1
+    all zero; block 2 one nonzero exponent; every 7th block from 3 an
+    exception block."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(0, 0.02, nb * block).astype(np.float32)).to(lay.dtype)
+    bits = x.view(lay.bits_dtype).to(torch.int64) & lay.bits_mask
+    m, sign = lay.mant_bits, 1 << (lay.total_bits - 1)
+    exp_all = ((1 << lay.exp_bits) - 1) << m
+    widest = ((1 << lay.exp_bits) - 2) << m
+    bits[0], bits[1] = 1 << m, widest
+    if lay.name == "float8_e4m3fn":  # no infinities; one NaN pattern per sign
+        bits[2] = exp_all | ((1 << m) - 1)
+        bits[3] = bits[2] | sign
+    else:
+        bits[2], bits[3] = exp_all, exp_all | sign  # +-Inf
+        bits[4], bits[5] = exp_all | 1, exp_all | sign | ((1 << m) - 1)  # NaN payloads
+    bits[6], bits[7] = 1, sign | ((1 << m) - 1)  # subnormals
+    bits[block:3 * block] = 0  # all-zero block 1; block 2 gets one nonzero exponent
+    if nb > 2:
+        bits[2 * block + 5] = (3 << m) | 1
+    bits[3 * block::7 * block] = 1 << m
+    bits[3 * block + 1::7 * block] = widest
+    return (bits & lay.bits_mask).to(lay.bits_dtype).view(lay.dtype)
+
+
+EDGE_WIDTHS = (1, 2, 5, 8, 9, 31, 32)  # both routes of csrc/encode_fused.cu
+EDGE_BLOCKS = (32, 512, 1024)
+
+
+def edge_counts(tile: int, full: int) -> tuple:
+    """Counts (blocks or groups) on both sides of a tile of ``tile`` and
+    past a persistent grid of ``full`` thread blocks, one tile each."""
+    return (1, tile - 1, tile, tile + 1, (full + 1) * tile + 1)
+
+
+def unpack_edge_counts(width: int, sms: int) -> tuple:
+    """Group counts at the unpack kernel's tile edges: its tiles are 32
+    groups for small counts and grow to ``T`` (its largest, for ``width``)
+    once each of the ``full`` resident thread blocks gets two; so 1, 31,
+    32, 33, then 2 full T - 1 (tiles of T - 32, ragged), 2 full T + 1 and
+    (2 full + 1) T + 1 (tiles of T, past the grid)."""
+    from repro_torch import kernels
+    from repro_torch.kernels import bitpack
+
+    big = bitpack.unpack_geometry(1 << 40, width, sms)
+    t, full = big.tile, sms * kernels.resident_blocks(bitpack.UNPACK_THREADS, big.smem)
+    return (1, 31, 32, 33, 2 * full * t - 1, 2 * full * t + 1, (2 * full + 1) * t + 1)
+
+
+def check_encode_edges(dev, torch, np) -> dict:
+    """encode_fused (and unpack of its payload and lo planes) against the
+    plain versions, bit for bit, over 5 formats x widths EDGE_WIDTHS x
+    blocks EDGE_BLOCKS at the tile edges of each geometry."""
+    from repro_torch import kernels
+    from repro_torch.core import codec, packing
+    from repro_torch.kernels import bitpack, ref
+    from repro_torch.kernels import encode_fused as ef
+
+    sms = kernels.sm_count(dev)
+    before = kernels.launch_counts()
+    n_cases = n_exc = 0
+    for fi, lay in enumerate(codec.LAYOUTS.values()):
+        for block in EDGE_BLOCKS:
+            geos = {w: ef.geometry(1, block, w, lay.total_bits // 8, lay.lo_bits, sms)
+                    for w in EDGE_WIDTHS}
+            counts = {w: edge_counts(g.tile, sms * kernels.resident_blocks(
+                g.threads, g.smem)) for w, g in geos.items()}
+            x_all = edge_input(lay, max(max(c) for c in counts.values()), block,
+                               200 + fi, torch, np).to(dev)
+            for width in EDGE_WIDTHS:
+                for nb in counts[width]:
+                    x = x_all[:nb * block]
+                    got = ef.encode_fused(x, width, block)
+                    want = ref.encode_fused(x, width, block)
+                    for k, g, w in zip(("payload", "lo", "bases", "rng"), got, want):
+                        if not torch.equal(g, w):
+                            raise AssertionError(f"encode_fused {lay.name} w={width} "
+                                                 f"block={block} n_blocks={nb}: {k} differs "
+                                                 f"({geos[width]})")
+                    for words, w in ((got[0], width), (got[1], lay.lo_bits)):
+                        if not torch.equal(bitpack.unpack(words, w), ref.unpack(words, w)):
+                            raise AssertionError(f"unpack of encode_fused {lay.name} "
+                                                 f"w={w} block={block} n_blocks={nb} differs")
+                    n_exc += int((packing._as_u32(got[3]) > (1 << width) - 1).sum())
+                    n_cases += 1
+    launched = {k: kernels.launch_counts()[k] - before[k] for k in ("encode_fused", "unpack")}
+    if launched != {"encode_fused": n_cases, "unpack": 2 * n_cases}:
+        raise AssertionError(f"edge check launches {launched}, expected {n_cases} encodes "
+                             f"and {2 * n_cases} unpacks")
+    return {"cases": n_cases, "exception_blocks": n_exc}
+
+
+def check_unpack_edges(dev, torch, np) -> int:
+    """unpack against its plain version, bit for bit, at widths 1-32 and
+    group counts on both sides of its tile and past its persistent grid;
+    random words with an all-zero and an all-ones group."""
+    from repro_torch import kernels
+    from repro_torch.kernels import bitpack, ref
+
+    sms = kernels.sm_count(dev)
+    counts = {w: unpack_edge_counts(w, sms) for w in range(1, 33)}
+    most = max(max(c) * w for w, c in counts.items())
+    rng = np.random.default_rng(11)
+    words_all = torch.from_numpy(rng.integers(0, 1 << 32, most, dtype=np.uint64)
+                                 .astype(np.uint32).view(np.int32)).to(dev)
+    before = kernels.launch_counts()["unpack"]
+    n_cases = 0
+    for width, cs in counts.items():
+        for n_g in cs:
+            words = words_all[:n_g * width].view(n_g, width)
+            if n_g > 2:
+                words[1], words[2] = 0, -1  # all-zero and all-ones groups
+            if not torch.equal(bitpack.unpack(words, width), ref.unpack(words, width)):
+                raise AssertionError(f"unpack w={width} n_g={n_g} differs "
+                                     f"({bitpack.unpack_geometry(n_g, width, sms)})")
+            n_cases += 1
+    if kernels.launch_counts()["unpack"] - before != n_cases:
+        raise AssertionError("unpack edge check: one launch a case expected")
+    return n_cases
+
+
 def same_f32(a, b, torch) -> tuple:
     """(bit-identical with NaN as NaN, max abs error over the rest)."""
     nan = torch.isnan(a) & torch.isnan(b)
@@ -246,6 +383,11 @@ def phase_check(dev, torch, np):
           f"versions over {len(codec.LAYOUTS)} formats x widths {WIDTHS}, "
           f"n={n} (ragged), {n_exc} exception blocks; plane_split bit-identical "
           f"over {len(codec.LAYOUTS)} formats at n={xp.shape[0]}")
+    edges = check_encode_edges(dev, torch, np)
+    print(f"check: encode_fused and the unpack of its planes bit-identical to their "
+          f"plain versions at the tile edges: {edges['cases']} cases ({len(codec.LAYOUTS)} "
+          f"formats x widths {EDGE_WIDTHS} x blocks {EDGE_BLOCKS} x block counts 1, "
+          f"T-1, T, T+1, (grid+1)T+1), {edges['exception_blocks']} exception blocks")
     return worst
 
 
@@ -269,12 +411,15 @@ def phase_check_wire(dev, torch, np):
                 if not torch.equal(bitpack.unpack(got, width), ref.unpack(got, width)):
                     raise AssertionError(f"unpack {name} n_g={n_g} w={width} differs")
                 n_cases += 1
+    n_edge = check_unpack_edges(dev, torch, np)
     cases = rans_cases(rans.ROWS)
     for per, lanes in cases:
         check_rans(per, lanes, rng, dev, torch, np)
     torch.cuda.synchronize()
     print(f"check: pack and unpack bit-identical to their plain versions over "
           f"{n_cases} cases (widths 1-32, 1/37/4099 groups, int32/int64/uint8); "
+          f"unpack over {n_edge} more (widths 1-32 x group counts at its tile "
+          f"edges and past its grid); "
           f"rans_encode and rans_decode (dense and compacted stream) over "
           f"skewed, uniform and single streams, an M-255 table and "
           f"n_valid < per*lanes at (per, lanes) {cases}")
@@ -679,20 +824,22 @@ def phase_sync(dev, torch):
     return {"launches": run.sync_launches, "n_publishes": run.n_publishes, "parts": parts}
 
 
-def _time(fn, torch, runs=TIMED_RUNS):
-    """Median ms of ``runs`` launches of ``fn`` after two warm-ups."""
+def _time(fn, torch, runs=TIMED_RUNS, reps=1):
+    """Median ms of one call of ``fn`` over ``runs`` windows of ``reps``
+    calls (CUDA events around each window), after two warm-ups.  With one
+    call a window (as the ``kernels`` line is timed) a call's host time
+    before its launch counts; back-to-back calls hide it."""
     fn(), fn()
     times = []
     for _ in range(runs):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / reps)
     return sorted(times)[len(times) // 2]
-
-
 
 
 def _time_once(fn, torch):
@@ -716,7 +863,7 @@ def phase_times(comp, serve, sync, dev, torch, np, worst, bw):
     """Each kernel and its plain version at the shapes its path gives it:
     encode_fused, decode_reduce and plane_split at the main path's AG
     bucket; pack and unpack at one KV leaf's exponent residuals at the plan's
-    width (unpack also at the AG payload); rANS encode and the
+    width (unpack also at the AG payload and lo plane); rANS encode and the
     compacted-stream decode at one KV leaf's exponent plane.  Each kernel is
     checked against its plain version on these inputs first."""
     from repro_torch import kernels
@@ -803,14 +950,18 @@ def phase_times(comp, serve, sync, dev, torch, np, worst, bw):
     row("pack", ms=_time(lambda: bitpack.pack(resid, kv_w), torch),
         plain_ms=_time(lambda: ref.pack(resid, kv_w), torch),
         nbytes=n_kv * resid.element_size() + n_kv // 32 * kv_w * 4, ops=0, err=0.0, **kv)
-    ag_ms = _time(lambda: bitpack.unpack(pay, width), torch)
-    ag_plain_ms = _time(lambda: ref.unpack(pay, width), torch)
+    same("unpack", [bitpack.unpack(lo, lo_bits)], [ref.unpack(lo, lo_bits)])
+
+    def ag_unpack(words, w):  # the AG decode's unpack of the payload or lo plane
+        return {"n": n, "width": w, "ms": _time(lambda: bitpack.unpack(words, w), torch),
+                "plain_ms": _time(lambda: ref.unpack(words, w), torch),
+                "bound_ms": (n // 32 * w * 4 + n * 4) / bw * 1e3}
+
     row("unpack", ms=_time(lambda: bitpack.unpack(kv_pay, kv_w), torch),
         plain_ms=_time(lambda: ref.unpack(kv_pay, kv_w), torch),
         nbytes=n_kv // 32 * kv_w * 4 + n_kv * 4, ops=0, err=0.0,
         n=n_kv, width=kv_w, input="payload of one KV leaf",
-        ag_payload={"n": n, "width": width, "ms": ag_ms, "plain_ms": ag_plain_ms,
-                    "bound_ms": (n // 32 * width * 4 + n * 4) / bw * 1e3})
+        ag_payload=ag_unpack(pay, width), ag_lo=ag_unpack(lo, lo_bits))
 
     # -- rANS: the exponent plane of one KV leaf, 128 lanes ------------------
     n_e, lanes = exp.shape[0], 128

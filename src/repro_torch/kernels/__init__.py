@@ -1,8 +1,9 @@
 """CUDA kernels for Hopper: build, load, launch accounting, device probe.
 
 Each kernel is one CUDA C++ source under ``csrc/`` with a plain C
-interface.  At first use, :func:`build_kernels` compiles every source that
-is not yet built with its own ``nvcc`` (all started together) into a shared
+interface (the persistent kernels share the header ``csrc/staging.cuh``).
+At first use, :func:`build_kernels` compiles every source that is not yet
+built with its own ``nvcc`` (all started together) into a shared
 library under ``build/``, keyed by a hash of the source and the flags, and
 :func:`launcher` loads it with ``ctypes``.  A source may hold several
 kernels (``bitpack.cu``: pack and unpack; ``rans.cu``: encode and decode);
@@ -20,6 +21,7 @@ run can show that its main path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
@@ -48,9 +50,29 @@ KERNELS = {
 # Codec format index shared with the ``switch`` of every launcher in csrc/.
 FORMATS = ("float32", "float16", "bfloat16", "float8_e4m3fn", "float8_e5m2")
 
+# Hopper (sm_90) limits that a persistent kernel's grid is sized by: the
+# shared memory of an SM and of a thread block (227 KB, above 48 KB only as
+# dynamic shared memory), the shared bytes the card reserves per thread
+# block and its unit of allocation, resident threads and thread blocks an SM.
+# :func:`sm_count` checks the ones the card reports.
+SMEM_PER_SM = 233_472
+SMEM_PER_BLOCK = 232_448
+SMEM_RESERVED = 1024
+SMEM_UNIT = 128
+THREADS_PER_SM = 2048
+BLOCKS_PER_SM = 32
+# Threads a thread block of the persistent kernels: encode_fused at most
+# (a warp a compression block), unpack always (4 values a thread, so 32
+# groups a pass).  nvcc gets them as -D defines, so the sources hold no copy.
+ENCODE_FUSED_THREADS = 256
+UNPACK_THREADS = 256
+
 # No fast-math and no flush-to-zero: the f32 accumulate keeps subnormals.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+              f"-DSM_THREADS={THREADS_PER_SM}",
+              f"-DENCODE_FUSED_THREADS={ENCODE_FUSED_THREADS}",
+              f"-DUNPACK_THREADS={UNPACK_THREADS}")
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -102,6 +124,43 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the CUDA ``device`` (a tensor's device,
+    with its index).  Raises if the card's per-SM limits are not the ones
+    :func:`resident_blocks` sizes persistent grids by."""
+    p = torch.cuda.get_device_properties(device)
+    card = (p.shared_memory_per_multiprocessor, p.shared_memory_per_block_optin,
+            p.max_threads_per_multi_processor)
+    if card != (SMEM_PER_SM, SMEM_PER_BLOCK, THREADS_PER_SM):
+        raise RuntimeError(f"{p.name}: shared bytes an SM, a thread block and threads an "
+                           f"SM are {card}; the kernels' grids are sized for Hopper's "
+                           f"{(SMEM_PER_SM, SMEM_PER_BLOCK, THREADS_PER_SM)}")
+    return p.multi_processor_count
+
+
+def resident_blocks(threads: int, smem: int) -> int:
+    """Thread blocks of ``threads`` threads and ``smem`` dynamic shared
+    bytes that one SM holds at once (the kernels' launch bounds keep
+    registers from being the limit).  The only owner of a persistent grid's
+    size: the launchers take the grid as given."""
+    per_block = -(-(smem + SMEM_RESERVED) // SMEM_UNIT) * SMEM_UNIT
+    return min(THREADS_PER_SM // threads, BLOCKS_PER_SM, SMEM_PER_SM // per_block)
+
+
+# A kernel that stages its input by 16-byte copies needs it to start on a
+# 16-byte boundary; its wrapper raises otherwise and never copies quietly.
+ALIGN = 16
+
+
+def require_aligned(ptr: int, what: str) -> None:
+    if ptr % ALIGN:
+        raise ValueError(
+            f"{what} starts at {ptr:#x}, {ptr % ALIGN} bytes past a {ALIGN}-byte "
+            f"boundary; the kernel stages it by {ALIGN}-byte copies. Pass a tensor "
+            f"that starts at a {ALIGN}-byte multiple (e.g. a fresh one)")
+
+
 # ---------------------------------------------------------------------------
 # build + load
 # ---------------------------------------------------------------------------
@@ -115,7 +174,8 @@ def _nvcc() -> str:
 
 
 def _artifact(name: str) -> Path:
-    src = (_CSRC / SOURCES[name]).read_bytes()
+    src = (_CSRC / SOURCES[name]).read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))  # headers the sources share
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{key}.so"
 

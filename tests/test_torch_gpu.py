@@ -7,17 +7,23 @@ torch and the port only, so it runs on a machine without JAX:
 
 Every test here needs a CUDA GPU and skips elsewhere.
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import kernels
-from repro_torch.core import ans
+from repro_torch.core import ans, codec
 from repro_torch.core import compressed_collectives as cc
 from repro_torch.core import packing
 from repro_torch.kernels import bitpack, decode_reduce, encode_fused, plane_split, rans, ref
 from repro_torch.p2p.engine import Compressor
 from torch_port_util import FORMATS, grad_like_bits, to_torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (the kernels' tile-edge cases)
 
 pytestmark = pytest.mark.gpu
 
@@ -93,6 +99,72 @@ def test_bitpack_kernels_match_plain_versions(cuda):
     after = kernels.launch_counts()
     assert after["pack"] - before["pack"] == launches // 2
     assert after["unpack"] - before["unpack"] == launches // 2
+
+
+@pytest.mark.parametrize("block", chip_smoke.EDGE_BLOCKS)
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_encode_fused_at_tile_edges(cuda, fmt, block):
+    """Both template routes (widths 1-8 and the generic 9-32) at block
+    counts 1, T - 1, T, T + 1 and (grid + 1) T + 1 of the persistent
+    kernel's geometry (``chip_smoke.edge_counts``, on ``edge_input``'s
+    all-zero, one-exponent and exception blocks); the unpack of both planes
+    beside it."""
+    lay = codec.LAYOUTS[fmt]
+    sms = kernels.sm_count(cuda)
+    geos = {w: encode_fused.geometry(1, block, w, lay.total_bits // 8, lay.lo_bits, sms)
+            for w in chip_smoke.EDGE_WIDTHS}
+    counts = {w: chip_smoke.edge_counts(g.tile, sms * kernels.resident_blocks(g.threads, g.smem))
+              for w, g in geos.items()}
+    nb_max = max(max(c) for c in counts.values())
+    x_all = chip_smoke.edge_input(lay, nb_max, block, 31, torch, np).to(cuda)
+    before = kernels.launch_counts()
+    cases = 0
+    for width in chip_smoke.EDGE_WIDTHS:
+        for nb in counts[width]:
+            x = x_all[:nb * block]
+            got = encode_fused.encode_fused(x, width, block)
+            for g, w in zip(got, ref.encode_fused(x, width, block)):
+                assert torch.equal(g, w), (width, nb, geos[width])
+            for words, w in ((got[0], width), (got[1], lay.lo_bits)):
+                assert torch.equal(bitpack.unpack(words, w), ref.unpack(words, w)), (w, nb)
+            cases += 1
+    after = kernels.launch_counts()
+    assert after["encode_fused"] - before["encode_fused"] == cases
+    assert after["unpack"] - before["unpack"] == 2 * cases
+
+
+@pytest.mark.parametrize("width", range(1, 33))
+def test_unpack_at_tile_edges(cuda, width):
+    """Group counts at the edges of the unpack kernel's tiles and past its
+    persistent grid (``chip_smoke.unpack_edge_counts``), random words with
+    all-zero and all-ones groups."""
+    counts = chip_smoke.unpack_edge_counts(width, kernels.sm_count(cuda))
+    rng = np.random.default_rng(40 + width)
+    words_all = torch.from_numpy(rng.integers(0, 1 << 32, max(counts) * width,
+                                              dtype=np.uint64).astype(np.uint32)
+                                 .view(np.int32)).to(cuda)
+    before = kernels.launch_counts()["unpack"]
+    for n_g in counts:
+        words = words_all[:n_g * width].view(n_g, width)
+        if n_g > 2:
+            words[1], words[2] = 0, -1
+        assert torch.equal(bitpack.unpack(words, width), ref.unpack(words, width)), n_g
+    assert kernels.launch_counts()["unpack"] - before == len(counts)
+
+
+def test_misaligned_inputs_raise(cuda):
+    """encode_fused and unpack stage their input by 16-byte copies: a view
+    off a 16-byte boundary raises and launches nothing, never a copy."""
+    x = torch.zeros(2048 + 8, dtype=torch.bfloat16, device=cuda)
+    words = torch.zeros(64 * 5 + 4, dtype=torch.int32, device=cuda)
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        encode_fused.encode_fused(x[1:2049], 5, 512)
+    with pytest.raises(ValueError, match="16-byte"):
+        bitpack.unpack(words[1:321].view(64, 5), 5)
+    assert kernels.launch_counts() == before
+    assert encode_fused.encode_fused(x[8:2056], 5, 512)[0].shape == (64, 5)  # 16 B in
+    assert bitpack.unpack(words[4:324].view(64, 5), 5).shape == (2048,)
 
 
 @pytest.mark.parametrize("per,lanes", [(1, 128), (rans.ROWS - 1, 128), (rans.ROWS, 128),
