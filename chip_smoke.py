@@ -20,12 +20,23 @@ result line each:
             tile, grid thread blocks resident), with all-zero blocks, a
             block of one nonzero exponent, exception blocks, +-Inf, NaN
             payloads and subnormals;
+            decode_reduce at the tile edges of its persistent kernel: 5
+            formats x widths 1, 2, 5, 8, 9, 31, 32 x the group counts
+            below, on edge_input encoded in blocks of 32 (exception groups
+            whose clamped codes decode to `& 0xFF` garbage) into an
+            accumulator holding subnormals, +-0, +-inf and NaN;
+            the entry points on views one element and 8 bytes off a 16-byte
+            boundary (ops.encode_fused, packing.encode_message,
+            packing.bitplane_unpack, packing.bitplane_pack,
+            ops.decode_reduce with every tensor off): each launches its
+            kernel once and matches the plain version;
             pack and unpack at widths 1-32 on ragged group counts, all-zero
             and all-ones groups and int32 values with the sign bit set;
-            unpack also at the edges of its own tiles at every width (32
-            groups for small counts, T once each resident thread block
-            takes two: 1, 31, 32, 33, 2 R T - 1, 2 R T + 1, (2 R + 1) T + 1
-            groups, R thread blocks resident);
+            unpack, and pack over uint8, int32 (sign bit set) and int64
+            (above 2**32) input, also at the edges of their own tiles at
+            every width (32 groups for small counts, T once each resident
+            thread block takes two: 1, 31, 32, 33, 2 R T - 1, 2 R T + 1,
+            (2 R + 1) T + 1 groups, R thread blocks resident);
             rANS encode and decode on skewed, uniform and one-symbol streams,
             a table whose top frequency is M - 255, n_valid < per * lanes,
             and the compacted-stream decode of an ``ans.encode`` stream, at
@@ -92,7 +103,10 @@ result line each:
             decode, in-place copy into the serve engine's model).
 6. times  - each kernel and its plain version at the shapes its path
             gives it (unpack: one KV leaf's payload, and the AG decode's
-            payload and lo plane; CUDA events, median of 20 runs after
+            payload and lo plane; pack: one KV leaf's uint8 residuals and
+            int32 lo plane, and the delta sync encode's uint8 exponent
+            residuals and int32 lo delta at the sync run's calibrated
+            widths, each with its launches; CUDA events, median of 20 runs after
             warm-up; the plain rANS versions, one torch step per row, once), beside the
             least time the card could take (bytes over its memory bandwidth
             or operations over its peak rate, the larger).  The two rANS
@@ -218,18 +232,218 @@ def edge_counts(tile: int, full: int) -> tuple:
     return (1, tile - 1, tile, tile + 1, (full + 1) * tile + 1)
 
 
-def unpack_edge_counts(width: int, sms: int) -> tuple:
-    """Group counts at the unpack kernel's tile edges: its tiles are 32
-    groups for small counts and grow to ``T`` (its largest, for ``width``)
-    once each of the ``full`` resident thread blocks gets two; so 1, 31,
-    32, 33, then 2 full T - 1 (tiles of T - 32, ragged), 2 full T + 1 and
-    (2 full + 1) T + 1 (tiles of T, past the grid)."""
+def tile_edge_counts(big, threads: int, sms: int) -> tuple:
+    """Group counts at the tile edges of a persistent bit-plane kernel
+    (unpack, pack, decode_reduce) whose geometry at a huge count is ``big``:
+    its tiles are 32 groups for small counts and grow to ``T = big.tile``
+    (its largest) once each of the ``full`` resident thread blocks gets two;
+    so 1, 31, 32, 33, then 2 full T - 1 (smaller tiles, ragged), 2 full T + 1
+    and (2 full + 1) T + 1 (tiles of T, past the grid)."""
     from repro_torch import kernels
+
+    t, full = big.tile, sms * kernels.resident_blocks(threads, big.smem)
+    return (1, 31, 32, 33, 2 * full * t - 1, 2 * full * t + 1, (2 * full + 1) * t + 1)
+
+
+def unpack_edge_counts(width: int, sms: int) -> tuple:
     from repro_torch.kernels import bitpack
 
-    big = bitpack.unpack_geometry(1 << 40, width, sms)
-    t, full = big.tile, sms * kernels.resident_blocks(bitpack.UNPACK_THREADS, big.smem)
-    return (1, 31, 32, 33, 2 * full * t - 1, 2 * full * t + 1, (2 * full + 1) * t + 1)
+    return tile_edge_counts(bitpack.unpack_geometry(1 << 40, width, sms),
+                            bitpack.UNPACK_THREADS, sms)
+
+
+def pack_edge_counts(width: int, itemsize: int, sms: int) -> tuple:
+    from repro_torch.kernels import bitpack
+
+    return tile_edge_counts(bitpack.pack_geometry(1 << 40, width, itemsize, sms),
+                            bitpack.PACK_THREADS, sms)
+
+
+def decode_reduce_edge_counts(width: int, lo_bits: int, sms: int) -> tuple:
+    from repro_torch.kernels import decode_reduce as dr
+
+    return tile_edge_counts(dr.geometry(1 << 40, width, lo_bits, sms), dr.THREADS, sms)
+
+
+# f32 accumulator values the decode_reduce checks plant: subnormals, +-0,
+# +-inf, NaN
+ACC_SPECIALS = (1e-45, -1e-40, 0.0, -0.0, float("inf"), float("-inf"), float("nan"), 3e-39)
+
+
+def special_acc(n: int, seed: int, torch, np):
+    """f32 (n,) accumulator (CPU): normal values with ACC_SPECIALS at the
+    start, at the end and every 997th element."""
+    acc = torch.from_numpy(np.random.default_rng(seed).normal(0, 1, n).astype(np.float32))
+    sp = torch.tensor(ACC_SPECIALS, dtype=torch.float32)
+    k = len(ACC_SPECIALS)
+    acc[:min(k, n)] = sp[:min(k, n)]
+    acc[-min(k, n):] = sp[:min(k, n)]
+    idx = torch.arange(0, n, 997)
+    acc[idx] = sp[idx % k]
+    return acc
+
+
+def check_decode_reduce_edges(dev, torch, np) -> dict:
+    """decode_reduce against its plain version, bit for bit with NaN as NaN,
+    over 5 formats x widths EDGE_WIDTHS x group counts at its own tile edges
+    and past its grid (``decode_reduce_edge_counts``); the wire is
+    ``edge_input`` encoded in blocks of 32 (one group a block: all-zero
+    groups, exception blocks whose clamped codes decode to `& 0xFF`
+    garbage, +-Inf, NaN payloads, subnormals), the accumulator
+    ``special_acc``."""
+    from repro_torch import kernels
+    from repro_torch.core import codec, packing
+    from repro_torch.kernels import decode_reduce as dr
+    from repro_torch.kernels import ref
+
+    sms = kernels.sm_count(dev)
+    before = kernels.launch_counts()["decode_reduce"]
+    n_cases = n_exc = 0
+    for fi, lay in enumerate(codec.LAYOUTS.values()):
+        for width in EDGE_WIDTHS:
+            counts = decode_reduce_edge_counts(width, lay.lo_bits, sms)
+            x = edge_input(lay, max(counts), packing.GROUP, 400 + fi, torch, np).to(dev)
+            pay_all, lo_all, gb_all, rng = ref.encode_fused(x, width, packing.GROUP)
+            acc_all = special_acc(x.shape[0], 500 + fi, torch, np).to(dev)
+            for n_g in counts:
+                pay, lo, gb = pay_all[:n_g], lo_all[:n_g], gb_all[:n_g]
+                acc = acc_all[:packing.GROUP * n_g]
+                want = ref.decode_reduce(pay, lo, gb, acc, lay.name, width)
+                got = dr.decode_reduce(pay, lo, gb, acc.clone(), lay.name, width)
+                ok, err = same_f32(got, want, torch)
+                if not ok:
+                    raise AssertionError(
+                        f"decode_reduce {lay.name} w={width} n_g={n_g}: not bit-identical "
+                        f"(max abs err {err}; {dr.geometry(n_g, width, lay.lo_bits, sms)})")
+                n_exc += int((packing._as_u32(rng[:n_g]) > (1 << width) - 1).sum())
+                n_cases += 1
+    if kernels.launch_counts()["decode_reduce"] - before != n_cases:
+        raise AssertionError("decode_reduce edge check: one launch a case expected")
+    return {"cases": n_cases, "exception_groups": n_exc}
+
+
+def pack_edge_values(n: int, seed: int, torch, np) -> dict:
+    """(n,) pack inputs of each kind the kernel takes (CPU), from the same
+    random 64-bit values: int64 (negative and above 2**32), int32 (sign bit
+    set) and uint8 (their low bits); group 1 all zero, group 2 all ones."""
+    v = np.random.default_rng(seed).integers(0, 1 << 64, n, dtype=np.uint64)
+    v[32:64], v[64:96] = 0, (1 << 64) - 1
+    return {torch.int64: torch.from_numpy(v.view(np.int64)),
+            torch.int32: torch.from_numpy(v.astype(np.uint32).view(np.int32)),
+            torch.uint8: torch.from_numpy(v.astype(np.uint8))}
+
+
+def check_pack_edges(dev, torch, np) -> int:
+    """pack against its plain version, bit for bit, over uint8, int32 and
+    int64 input x widths 1-32 x group counts at its own tile edges and past
+    its grid (``pack_edge_counts``), with all-zero and all-ones groups."""
+    from repro_torch import kernels
+    from repro_torch.kernels import bitpack, ref
+
+    sms = kernels.sm_count(dev)
+    counts = {(dt, w): pack_edge_counts(w, dt.itemsize, sms)
+              for dt in (torch.uint8, torch.int32, torch.int64) for w in range(1, 33)}
+    most = max(max(c) for c in counts.values())
+    inputs = pack_edge_values(32 * most, 12, torch, np)
+    before = kernels.launch_counts()["pack"]
+    n_cases = 0
+    for dt, vals_cpu in inputs.items():
+        vals_all = vals_cpu[:32 * max(max(counts[(dt, w)]) for w in range(1, 33))].to(dev)
+        for width in range(1, 33):
+            for n_g in counts[(dt, width)]:
+                vals = vals_all[:32 * n_g]
+                if not torch.equal(bitpack.pack(vals, width), ref.pack(vals, width)):
+                    raise AssertionError(f"pack {dt} w={width} n_g={n_g} differs "
+                                         f"({bitpack.pack_geometry(n_g, width, dt.itemsize, sms)})")
+                n_cases += 1
+    if kernels.launch_counts()["pack"] - before != n_cases:
+        raise AssertionError("pack edge check: one launch a case expected")
+    return n_cases
+
+
+def offset_view(src, off_bytes: int, dev, torch):
+    """A copy of ``src`` on ``dev``, as a view that starts ``off_bytes`` past
+    a 16-byte boundary of a larger buffer; returns (view, buffer)."""
+    off = off_bytes // src.element_size()
+    buf = torch.zeros(src.numel() + 16, dtype=src.dtype, device=dev)
+    view = buf[off:off + src.numel()].view(src.shape)
+    view.copy_(src)
+    if view.data_ptr() % 16 != off_bytes % 16:
+        raise AssertionError(f"offset view at {view.data_ptr():#x}, not {off_bytes} B off")
+    return view, buf
+
+
+def check_offset_views(dev, torch, np) -> int:
+    """The entry points above the kernel wrappers take contiguous views that
+    start one element, and 8 bytes, off a 16-byte boundary (every tensor
+    argument, decode_reduce's accumulator too): ops.encode_fused,
+    packing.encode_message, packing.bitplane_unpack, packing.bitplane_pack
+    (uint8 and int32) and ops.decode_reduce.  Each result is bit-identical
+    to the plain version on the same values, each call launches its kernel
+    once, and decode_reduce updates the caller's accumulator in place."""
+    from repro_torch import kernels
+    from repro_torch.core import codec, packing
+    from repro_torch.kernels import ops, ref
+
+    lay = codec.LAYOUTS["bfloat16"]
+    width, n = 5, 2048
+    x = edge_input(lay, n // 512, 512, 300, torch, np)
+    rng = np.random.default_rng(301)
+    words = torch.from_numpy(rng.integers(0, 1 << 32, (n // 32, width), dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32))
+    vals = pack_edge_values(n, 302, torch, np)
+    ref_wire = ref.encode_fused(x, width, 512)
+    gb = ref_wire[2].repeat_interleave(512 // packing.GROUP)
+    acc0 = special_acc(n, 303, torch, np)
+    want_acc = ref.decode_reduce(ref_wire[0], ref_wire[1], gb, acc0, lay.name, width)
+    calls = []
+
+    def launched(name, fn):  # one entry-point call: its kernel launches once
+        before = kernels.launch_counts()[name]
+        out = fn()
+        if kernels.launch_counts()[name] - before != 1:
+            raise AssertionError(f"{name}: an offset view must launch the kernel once")
+        calls.append(name)
+        return out
+
+    for off_name in ("one element", "8 bytes"):
+        def view(t, whole=False):
+            v, buf = offset_view(t, t.element_size() if off_name == "one element" else 8,
+                                 dev, torch)
+            return (v, buf) if whole else v
+
+        xv = view(x)
+        got = launched("encode_fused", lambda: ops.encode_fused(xv, width))
+        want = ops.encode_fused(x, width)
+        m = launched("encode_fused", lambda: packing.encode_message(xv, width=width))
+        mc = packing.encode_message(x, width=width)
+        fields = {**{k: (got[k], want[k]) for k in want},
+                  "message lo": (m.lo, mc.lo), "message payload": (m.exp.payload, mc.exp.payload),
+                  "message bases": (m.exp.bases, mc.exp.bases),
+                  "message exc_raw": (m.exp.exc_raw, mc.exp.exc_raw)}
+        wv = view(words)
+        fields["bitplane_unpack"] = (
+            launched("unpack", lambda: packing.bitplane_unpack(wv, width)), ref.unpack(words, width))
+        for dt in (torch.uint8, torch.int32):
+            vv = view(vals[dt])
+            fields[f"bitplane_pack {dt}"] = (
+                launched("pack", lambda: packing.bitplane_pack(vv, width)), ref.pack(vals[dt], width))
+        for k, (g, w) in fields.items():
+            if not torch.equal(g.cpu(), w.cpu()):
+                raise AssertionError(f"{k} of a view {off_name} off a 16-byte boundary "
+                                     f"differs from the plain version")
+        planes = [view(t) for t in (*ref_wire[:2], gb)]
+        acc, buf = view(acc0, whole=True)
+        outside = buf.clone()
+        out = launched("decode_reduce", lambda: ops.decode_reduce(*planes, acc, lay.name, width))
+        if out is not acc or not same_f32(acc.cpu(), want_acc, torch)[0]:
+            raise AssertionError(f"ops.decode_reduce of views {off_name} off: the accumulator "
+                                 f"is not updated in place as the plain version")
+        off = acc.storage_offset()
+        outside[off:off + n] = acc
+        if not torch.equal(buf.view(torch.int32), outside.view(torch.int32)):
+            raise AssertionError("ops.decode_reduce wrote outside the accumulator's view")
+    return len(calls)
 
 
 def check_encode_edges(dev, torch, np) -> dict:
@@ -388,6 +602,18 @@ def phase_check(dev, torch, np):
           f"plain versions at the tile edges: {edges['cases']} cases ({len(codec.LAYOUTS)} "
           f"formats x widths {EDGE_WIDTHS} x blocks {EDGE_BLOCKS} x block counts 1, "
           f"T-1, T, T+1, (grid+1)T+1), {edges['exception_blocks']} exception blocks")
+    edges = check_decode_reduce_edges(dev, torch, np)
+    print(f"check: decode_reduce bit-identical to its plain version (NaN as NaN) at its "
+          f"tile edges: {edges['cases']} cases ({len(codec.LAYOUTS)} formats x widths "
+          f"{EDGE_WIDTHS} x group counts 1, 31, 32, 33, 2RT-1, 2RT+1, (2R+1)T+1), "
+          f"{edges['exception_groups']} exception groups, accumulator with "
+          f"{ACC_SPECIALS}")
+    calls = check_offset_views(dev, torch, np)
+    print(f"check: {calls} entry-point calls on views one element and 8 bytes off a "
+          f"16-byte boundary (ops.encode_fused, packing.encode_message, "
+          f"packing.bitplane_unpack, packing.bitplane_pack uint8/int32, ops.decode_reduce "
+          f"with every tensor off): each launched its kernel once, bit-identical to the "
+          f"plain version")
     return worst
 
 
@@ -412,6 +638,7 @@ def phase_check_wire(dev, torch, np):
                     raise AssertionError(f"unpack {name} n_g={n_g} w={width} differs")
                 n_cases += 1
     n_edge = check_unpack_edges(dev, torch, np)
+    n_pack_edge = check_pack_edges(dev, torch, np)
     cases = rans_cases(rans.ROWS)
     for per, lanes in cases:
         check_rans(per, lanes, rng, dev, torch, np)
@@ -419,7 +646,8 @@ def phase_check_wire(dev, torch, np):
     print(f"check: pack and unpack bit-identical to their plain versions over "
           f"{n_cases} cases (widths 1-32, 1/37/4099 groups, int32/int64/uint8); "
           f"unpack over {n_edge} more (widths 1-32 x group counts at its tile "
-          f"edges and past its grid); "
+          f"edges and past its grid); pack over {n_pack_edge} more (uint8/int32/int64 x "
+          f"widths 1-32 x group counts at its tile edges and past its grid); "
           f"rans_encode and rans_decode (dense and compacted stream) over "
           f"skewed, uniform and single streams, an M-255 table and "
           f"n_valid < per*lanes at (per, lanes) {cases}")
@@ -521,11 +749,13 @@ def phase_serve(dev, torch, np):
         kernels.clear_launch_counts()
         pd, t_pd = serve(True, prompts, MAX_NEW, pc)
         pd_launches = kernels.launch_counts()
+        pd_packs = kernels.launch_shapes("pack")
         col2, t_col2 = serve(False, prompts[:N_RANS], MAX_NEW)
         pc_rans = PlanCache()
         kernels.clear_launch_counts()
         pd_rans, t_rans = serve(True, prompts[:N_RANS], MAX_NEW, pc_rans, "rans")
         rans_launches = kernels.launch_counts()
+        rans_packs = kernels.launch_shapes("pack")
     if pd != colocated:
         raise AssertionError(f"PD tokens differ from colocated: {pd} vs {colocated}")
     if len(pd) != N_REQ or any(len(o) != MAX_NEW or not all(0 <= t < cfg.vocab for t in o)
@@ -615,6 +845,7 @@ def phase_serve(dev, torch, np):
     print("  serve breakdown, ms (host clock to a device sync, median): "
           + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
     return {"pd_launches": pd_launches, "rans_launches": rans_launches,
+            "pack_shapes": {"serve_pd": pd_packs, "serve_pd_rans": rans_packs},
             "leaf": leaves[0], "width": plan.width_for_dtype("bfloat16"),
             "tok_s": {"colocated": n_tok / t_col, "pd": n_tok / t_pd,
                       "pd_rans": n_tok2 / t_rans}, "ship": ship}
@@ -747,6 +978,7 @@ def phase_sync(dev, torch):
                                  prompt_len=PROMPT, max_new=MAX_NEW, group=group,
                                  log=lambda line: print(f"  {line}"))
         total = kernels.launch_counts()
+        packs = kernels.launch_shapes("pack")  # the train steps run no pack
     recs = run.records
     modes = [(r["replica"], r["mode"]) for r in recs]
     want_modes = [("rollout-0", "full"), ("rollout-0", "delta"), ("rollout-1", "full"),
@@ -791,6 +1023,14 @@ def phase_sync(dev, torch):
     def bucket(t):
         return codec.pad_flat_bits(codec.concat_members(leaves(t), b.members), b.block)
 
+    # the delta encode's two pack inputs at the calibrated widths, by the
+    # steps packing.encode_delta takes (the exponent-delta residuals of
+    # pack_exponents, the lo delta of pack_delta_plane)
+    d_exp, d_lo = packing.delta_planes(bucket(v3), bucket(v2))
+    pack_inputs = {
+        "sync_exp": (packing.block_residuals(d_exp, width=b.delta_width, block=b.block)[3],
+                     b.delta_width),
+        "sync_lo": (packing.lo_delta_fit(d_lo, b.delta_lo_width)[2], b.delta_lo_width)}
     enc = {
         "delta": lambda: packing.encode_delta(
             bucket(v3), bucket(v2), width=b.delta_width, lo_width=b.delta_lo_width,
@@ -821,7 +1061,8 @@ def phase_sync(dev, torch):
             print(f"  {kind} update v{upd.version} ({upd.wire_bytes} B, ratio "
                   f"{upd.ratio:.4f}), ms (host clock to a device sync, median of 3): "
                   + ", ".join(f"{k} {v:.2f}" for k, v in parts[kind].items()))
-    return {"launches": run.sync_launches, "n_publishes": run.n_publishes, "parts": parts}
+    return {"launches": run.sync_launches, "n_publishes": run.n_publishes, "parts": parts,
+            "pack_inputs": pack_inputs, "pack_shapes": packs}
 
 
 def _time(fn, torch, runs=TIMED_RUNS, reps=1):
@@ -863,7 +1104,8 @@ def phase_times(comp, serve, sync, dev, torch, np, worst, bw):
     """Each kernel and its plain version at the shapes its path gives it:
     encode_fused, decode_reduce and plane_split at the main path's AG
     bucket; pack and unpack at one KV leaf's exponent residuals at the plan's
-    width (unpack also at the AG payload and lo plane); rANS encode and the
+    width (unpack also at the AG payload and lo plane; pack also at the KV
+    leaf's lo plane and the delta sync encode's two planes); rANS encode and the
     compacted-stream decode at one KV leaf's exponent plane.  Each kernel is
     checked against its plain version on these inputs first."""
     from repro_torch import kernels
@@ -946,10 +1188,45 @@ def phase_times(comp, serve, sync, dev, torch, np, worst, bw):
     same("pack", [kv_pay], [ref.pack(resid, kv_w)])
     same("unpack", [bitpack.unpack(kv_pay, kv_w)], [ref.unpack(kv_pay, kv_w)])
     same("unpack", [bitpack.unpack(pay, width)], [ref.unpack(pay, width)])
-    kv = {"n": n_kv, "width": kv_w, "input": "uint8 residuals of one KV leaf"}
-    row("pack", ms=_time(lambda: bitpack.pack(resid, kv_w), torch),
-        plain_ms=_time(lambda: ref.pack(resid, kv_w), torch),
-        nbytes=n_kv * resid.element_size() + n_kv // 32 * kv_w * 4, ops=0, err=0.0, **kv)
+    # pack at each shape its paths launch it at (a PD admission packs each
+    # leaf's residuals, uint8, and lo plane, int32 lo_bits wide; a PD-rANS
+    # admission each leaf's lo plane; a delta sync encode its exponent
+    # residuals and its lo delta), with the launches each run tallied under
+    # the shape, (dtype, groups, width); every tallied launch must be one
+    # of a timed shape
+    kv_lo = packing._pad_to(codec.split_planes(leaf.reshape(-1))[1], packing.GROUP, "zero")
+    kv_lo_bits = codec.layout_of(leaf.dtype).lo_bits
+    shapes = {"kv_resid": (resid, kv_w, ("serve_pd",)),
+              "kv_lo": (kv_lo, kv_lo_bits, ("serve_pd", "serve_pd_rans")),
+              "sync_exp": (*sync["pack_inputs"]["sync_exp"], ("weight_sync",)),
+              "sync_lo": (*sync["pack_inputs"]["sync_lo"], ("weight_sync",))}
+    tallies = {**serve["pack_shapes"], "weight_sync": sync["pack_shapes"]}
+    untimed = {r: dict(t) for r, t in tallies.items()}
+
+    def pack_bytes(vals, w):
+        return vals.numel() * vals.element_size() + vals.numel() // 32 * w * 4
+
+    pack_shapes = {}
+    for key, (vals, w, in_runs) in shapes.items():
+        same("pack", [bitpack.pack(vals, w)], [ref.pack(vals, w)])
+        shape = (vals.dtype, vals.numel() // packing.GROUP, w)
+        by = {r: untimed[r].pop(shape, 0) for r in in_runs}
+        pack_shapes[key] = {
+            "n": vals.numel(), "dtype": str(vals.dtype).removeprefix("torch."), "width": w,
+            "launches": sum(by.values()), "launches_by_run": by,
+            "ms": _time(lambda: bitpack.pack(vals, w), torch),
+            "plain_ms": _time(lambda: ref.pack(vals, w), torch),
+            "bound_ms": pack_bytes(vals, w) / bw * 1e3}
+    if any(untimed.values()) or not all(p["launches"] for p in pack_shapes.values()):
+        raise AssertionError(f"pack launches at shapes not timed {untimed}, or a timed "
+                             f"shape no path launched: {pack_shapes}")
+    if {r: sum(t.values()) for r, t in tallies.items()} != {r: runs[r]["pack"] for r in tallies}:
+        raise AssertionError(f"pack launches by shape {tallies} differ from the runs' "
+                             f"counts {runs}")
+    kv = pack_shapes["kv_resid"]
+    row("pack", ms=kv["ms"], plain_ms=kv["plain_ms"], nbytes=pack_bytes(resid, kv_w), ops=0,
+        err=0.0, n=n_kv, width=kv_w, input="uint8 residuals of one KV leaf",
+        shapes=pack_shapes)
     same("unpack", [bitpack.unpack(lo, lo_bits)], [ref.unpack(lo, lo_bits)])
 
     def ag_unpack(words, w):  # the AG decode's unpack of the payload or lo plane

@@ -20,6 +20,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch import kernels
 from repro_torch.core import codec
 
 GROUP = 32  # residuals per packed group (one 32-bit word per bit-plane)
@@ -45,18 +46,20 @@ def bitplane_pack(vals: torch.Tensor, width: int) -> torch.Tensor:
     bit-planes: returns int32 (n // 32, width); word ``[g, b]`` holds bit
     ``b`` of the 32 values of group ``g`` (value ``i`` at bit ``i``).  A CUDA
     tensor runs the pack kernel, a CPU tensor its plain version
-    (``kernels/bitpack.py``)."""
+    (``kernels/bitpack.py``); a view off a 16-byte boundary runs on an
+    aligned copy (``kernels.aligned``)."""
     from repro_torch.kernels import bitpack
 
-    return bitpack.pack(vals, width)
+    return bitpack.pack(kernels.aligned(vals), width)
 
 
 def bitplane_unpack(packed: torch.Tensor, width: int) -> torch.Tensor:
     """Inverse of :func:`bitplane_pack`; returns int32 (n,), the
-    reference's uint32 values with the same bits (unpack kernel on CUDA)."""
+    reference's uint32 values with the same bits (unpack kernel on CUDA; a
+    view off a 16-byte boundary runs on an aligned copy)."""
     from repro_torch.kernels import bitpack
 
-    return bitpack.unpack(packed, width)
+    return bitpack.unpack(kernels.aligned(packed), width)
 
 
 # ---------------------------------------------------------------------------
@@ -262,18 +265,32 @@ class DeltaPlane:
     n: int  # original element count (pre-padding)
 
 
+def delta_planes(x: torch.Tensor, base: torch.Tensor) -> tuple:
+    """The exponent-delta (uint8) and lo-delta (int32) planes of ``x`` XOR
+    ``base``: what :func:`encode_delta` packs."""
+    return codec.split_planes(codec.xor_delta(x, base))
+
+
+def lo_delta_fit(vals: torch.Tensor, width: int) -> tuple:
+    """``(v, fits, kept)`` of a lo-delta plane at ``width`` bits: ``vals``
+    zero-padded to whole groups, the elements that fit, and ``v`` with the
+    others zeroed, which :func:`pack_delta_plane` packs (the others escape)."""
+    if width < 1:
+        raise ValueError(f"width must be >= 1, got {width}")
+    v = _pad_to(vals, GROUP, pad_mode="zero")
+    fits = _as_u32(v) <= (1 << width) - 1
+    return v, fits, torch.where(fits, v, 0)
+
+
 def pack_delta_plane(vals: torch.Tensor, width: int, *,
                      exc_frac: float = 0.02) -> DeltaPlane:
     """Pack a lo-delta stream (integer (n,), values < 2**32) at ``width``
     bits per element.  Elements that do not fit escape through a list of
     ``min(n, max(4, ceil(n * exc_frac)))`` entries; ``overflow`` reports that
     the list was too short (decode would be lossy)."""
-    if width < 1:
-        raise ValueError(f"width must be >= 1, got {width}")
     n = vals.shape[0]
-    v = _pad_to(vals, GROUP, pad_mode="zero")
-    fits = _as_u32(v) <= (1 << width) - 1
-    payload = bitplane_pack(torch.where(fits, v, 0), width)
+    v, fits, kept = lo_delta_fit(vals, width)
+    payload = bitplane_pack(kept, width)
     cap = min(n, max(4, int(np.ceil(n * exc_frac))))
     bad = ~fits
     n_pad = v.shape[0]
@@ -331,7 +348,7 @@ def encode_delta(x: torch.Tensor, base: torch.Tensor, *, width: int,
     exponent-delta plane, ``lo_width`` the lo-delta plane.  Bit-exact through
     :func:`decode_delta` whenever ``overflow == 0``."""
     lay = codec.layout_of(x.dtype)
-    exp, lo = codec.split_planes(codec.xor_delta(x, base))
+    exp, lo = delta_planes(x, base)
     return DeltaMessage(
         lo=pack_delta_plane(lo, lo_width, exc_frac=exc_frac),
         exp=pack_exponents(exp, width=width, block=block, exc_frac=exc_frac),

@@ -1,7 +1,8 @@
 """CUDA kernels for Hopper: build, load, launch accounting, device probe.
 
 Each kernel is one CUDA C++ source under ``csrc/`` with a plain C
-interface (the persistent kernels share the header ``csrc/staging.cuh``).
+interface (the persistent kernels share the headers ``csrc/staging.cuh``
+and ``csrc/bitplane.cuh``).
 At first use, :func:`build_kernels` compiles every source that is not yet
 built with its own ``nvcc`` (all started together) into a shared
 library under ``build/``, keyed by a hash of the source and the flags, and
@@ -16,11 +17,14 @@ tensor; there is no switch that turns a kernel off and no fallback that
 hides a failed build or launch.
 
 Every launch adds one to the kernel's count (:func:`launch_counts`), so a
-run can show that its main path went through the kernels.
+run can show that its main path went through the kernels; a wrapper whose
+kernel runs at several shapes on the paths also tallies each launch under
+its shape (:func:`launch_shapes`).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
@@ -62,41 +66,61 @@ SMEM_UNIT = 128
 THREADS_PER_SM = 2048
 BLOCKS_PER_SM = 32
 # Threads a thread block of the persistent kernels: encode_fused at most
-# (a warp a compression block), unpack always (4 values a thread, so 32
-# groups a pass).  nvcc gets them as -D defines, so the sources hold no copy.
+# (a warp a compression block); pack, unpack and decode_reduce always (4
+# values a thread, so 32 groups a pass).  decode_reduce holds a tile's
+# accumulator in registers, so its tiles have at most DECODE_REDUCE_MAX_TILE
+# groups (two passes).  nvcc gets them as -D defines, so the sources hold
+# no copy.
 ENCODE_FUSED_THREADS = 256
+PACK_THREADS = 256
 UNPACK_THREADS = 256
+DECODE_REDUCE_THREADS = 256
+DECODE_REDUCE_MAX_TILE = 64
 
 # No fast-math and no flush-to-zero: the f32 accumulate keeps subnormals.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
               f"-DSM_THREADS={THREADS_PER_SM}",
               f"-DENCODE_FUSED_THREADS={ENCODE_FUSED_THREADS}",
-              f"-DUNPACK_THREADS={UNPACK_THREADS}")
+              f"-DPACK_THREADS={PACK_THREADS}",
+              f"-DUNPACK_THREADS={UNPACK_THREADS}",
+              f"-DDECODE_REDUCE_THREADS={DECODE_REDUCE_THREADS}",
+              f"-DDECODE_REDUCE_MAX_TILE={DECODE_REDUCE_MAX_TILE}")
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 
 _LIBS: dict = {}
 _LAUNCHES = {name: 0 for name in KERNELS}
+_SHAPES: dict = {}  # (kernel, shape) -> launches
 
 
 # ---------------------------------------------------------------------------
 # launch accounting
 # ---------------------------------------------------------------------------
 
-def count_launch(name: str) -> None:
-    """Called by a wrapper right after it launched kernel ``name``."""
+def count_launch(name: str, shape=None) -> None:
+    """Called by a wrapper right after it launched kernel ``name``; a
+    ``shape`` (any hashable key, e.g. dtype, length and width) is tallied
+    too."""
     _LAUNCHES[name] += 1
+    if shape is not None:
+        _SHAPES[name, shape] = _SHAPES.get((name, shape), 0) + 1
 
 
 def launch_counts() -> dict:
     return dict(_LAUNCHES)
 
 
+def launch_shapes(name: str) -> dict:
+    """``{shape: launches}`` of kernel ``name`` since the counts were cleared."""
+    return {shape: n for (k, shape), n in _SHAPES.items() if k == name}
+
+
 def clear_launch_counts() -> None:
     for name in _LAUNCHES:
         _LAUNCHES[name] = 0
+    _SHAPES.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -120,15 +144,19 @@ def resolve_device(device="cuda") -> torch.device:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    """Handle of PyTorch's current CUDA stream on ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """Handle of PyTorch's current CUDA stream on ``t``'s device: the
+    ``cuda_stream`` of ``torch.cuda.current_stream(t.device)``, read without
+    building a Stream object (a wrapper's host time is most of a launch at
+    small sizes)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 @functools.lru_cache(maxsize=None)
-def sm_count(device: torch.device) -> int:
-    """Streaming multiprocessors of the CUDA ``device`` (a tensor's device,
-    with its index).  Raises if the card's per-SM limits are not the ones
-    :func:`resident_blocks` sizes persistent grids by."""
+def sm_count(device) -> int:
+    """Streaming multiprocessors of the CUDA ``device`` (a tensor's device
+    with its index, or the index, ``t.get_device()``).  Raises if the
+    card's per-SM limits are not the ones :func:`resident_blocks` sizes
+    persistent grids by."""
     p = torch.cuda.get_device_properties(device)
     card = (p.shared_memory_per_multiprocessor, p.shared_memory_per_block_optin,
             p.max_threads_per_multi_processor)
@@ -148,8 +176,38 @@ def resident_blocks(threads: int, smem: int) -> int:
     return min(THREADS_PER_SM // threads, BLOCKS_PER_SM, SMEM_PER_SM // per_block)
 
 
+@dataclasses.dataclass(frozen=True)
+class TileGeometry:
+    """Launch geometry of a persistent bit-plane kernel (pack, unpack,
+    decode_reduce): ``grid`` thread blocks walk over ``n_tiles`` tiles of
+    ``tile`` groups (thread block b takes tiles b, b + grid, ...), with
+    ``smem`` dynamic shared bytes each."""
+    tile: int
+    n_tiles: int
+    grid: int
+    smem: int
+
+
+def tile_geometry(n_groups: int, t_max: int, threads: int, smem_of, sms: int) -> TileGeometry:
+    """The tile rule of the persistent bit-plane kernels, which take 32
+    groups a pass of a thread block: tiles of a multiple of 32 groups, at
+    most ``t_max``, and small enough that each of the thread blocks the card
+    holds at once at ``t_max`` gets two tiles or more where there are groups
+    enough (so a block's next tile's copy overlaps its work on this one); as
+    many thread blocks of ``threads`` as ``sms`` SMs hold at once, at most
+    one a tile.  ``smem_of(tile)``: a thread block's dynamic shared bytes."""
+    full = sms * resident_blocks(threads, smem_of(t_max))
+    tile = max(32, min(t_max, n_groups // (2 * full) // 32 * 32))
+    n_tiles = -(-n_groups // tile)
+    grid = min(n_tiles, sms * resident_blocks(threads, smem_of(tile)))
+    return TileGeometry(tile, n_tiles, grid, smem_of(tile))
+
+
 # A kernel that stages its input by 16-byte copies needs it to start on a
-# 16-byte boundary; its wrapper raises otherwise and never copies quietly.
+# 16-byte boundary.  The bit-plane kernels' wrappers raise otherwise and
+# never copy quietly: the entry points above them pass :func:`aligned`
+# tensors.  (The rANS wrappers, whose callers hand them views of a stream,
+# take :func:`aligned` copies themselves.)
 ALIGN = 16
 
 
@@ -159,6 +217,15 @@ def require_aligned(ptr: int, what: str) -> None:
             f"{what} starts at {ptr:#x}, {ptr % ALIGN} bytes past a {ALIGN}-byte "
             f"boundary; the kernel stages it by {ALIGN}-byte copies. Pass a tensor "
             f"that starts at a {ALIGN}-byte multiple (e.g. a fresh one)")
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when it starts on an ALIGN-byte boundary, else a fresh
+    contiguous copy (which does): what an entry point hands a kernel wrapper
+    for a view into a larger tensor, such as a parameter of a flat bucket."""
+    if t.data_ptr() % ALIGN == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 # ---------------------------------------------------------------------------

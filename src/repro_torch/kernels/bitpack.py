@@ -5,16 +5,16 @@ kernels ``repro/kernels/bitpack.py::_pack_kernel`` and ``::_unpack_kernel``.
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
 version ``ref.pack`` / ``ref.unpack``.  Any whole number of 32-value groups
 is taken (zero groups launch nothing); pack reads uint8, int32 and int64
-values as they are, so no caller widens its values first.  The unpack
-kernel's persistent thread blocks walk over tiles of groups
-(:func:`unpack_geometry`); its packed words must start on a 16-byte boundary
-(the kernel stages them by 16-byte copies), which the wrapper checks and
-never fixes by a copy.
+values as they are, so no caller widens its values first.  Both kernels'
+persistent thread blocks walk over tiles of groups (:func:`pack_geometry`,
+:func:`unpack_geometry`); the values and the packed words must start on a
+16-byte boundary (the kernels stage them by 16-byte copies), which the
+wrappers check and never fix by a copy.  Each pack launch is also tallied
+under its shape, ``(dtype, groups, width)`` (``kernels.launch_shapes``).
 """
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import functools
 
 import torch
@@ -28,45 +28,44 @@ plain_unpack = ref.unpack
 
 # input dtypes of the pack kernel, by the kind index of csrc/bitpack.cu
 _PACK_KINDS = {torch.uint8: 0, torch.int32: 1, torch.int64: 2}
-_PACK_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                  ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+_PACK_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong) + (
+    ctypes.c_int,) * 5 + (ctypes.c_void_p,)
 _UNPACK_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong) + (
     ctypes.c_int,) * 4 + (ctypes.c_void_p,)
 
-# csrc/bitpack.cu's unpack: threads a thread block (4 values each, so 32
-# groups a pass), packed bytes a stage aims at, groups a tile at most
+# csrc/bitpack.cu: threads a thread block (4 values each, so 32 groups a
+# pass), bytes a stage aims at (pack: values, unpack: packed words), groups
+# a tile at most
+PACK_THREADS = kernels.PACK_THREADS
+PACK_STAGE_BYTES = 8192
+PACK_MAX_TILE = 256
 UNPACK_THREADS = kernels.UNPACK_THREADS
 UNPACK_STAGE_BYTES = 16384
 UNPACK_MAX_TILE = 256
 
 
-@dataclasses.dataclass(frozen=True)
-class UnpackGeometry:
-    """Launch geometry of the unpack kernel: ``grid`` persistent thread
-    blocks of UNPACK_THREADS walk over ``n_tiles`` tiles of ``tile``
-    groups (thread block b takes tiles b, b + grid, ...); ``smem`` dynamic
-    shared bytes a thread block (two stages of a tile's packed words)."""
-    tile: int
-    n_tiles: int
-    grid: int
-    smem: int
-
-
 @functools.lru_cache(maxsize=1024)  # a pure function of ints, called a launch
-def unpack_geometry(n_groups: int, width: int, sms: int) -> UnpackGeometry:
-    """Tiles of a multiple of 32 groups (one pass of the thread block; so
-    every tile's words start on a 16-byte boundary) whose words fill at
-    most UNPACK_STAGE_BYTES, and small enough that each of the thread
-    blocks the card holds at once gets two tiles or more where there are
-    groups enough (so its next tile's copy overlaps this one's stores); as
-    many thread blocks as ``sms`` SMs hold at once, at most one a tile."""
-    tile = min(UNPACK_MAX_TILE, UNPACK_STAGE_BYTES // (4 * width) // GROUP * GROUP)
-    full = sms * kernels.resident_blocks(UNPACK_THREADS, 2 * tile * width * 4)
-    tile = max(GROUP, min(tile, n_groups // (2 * full) // GROUP * GROUP))
-    smem = 2 * tile * width * 4
-    n_tiles = -(-n_groups // tile)
-    grid = min(n_tiles, sms * kernels.resident_blocks(UNPACK_THREADS, smem))
-    return UnpackGeometry(tile, n_tiles, grid, smem)
+def pack_geometry(n_groups: int, width: int, itemsize: int,
+                  sms: int) -> kernels.TileGeometry:
+    """:func:`kernels.tile_geometry` for the pack kernel: tiles whose values
+    (``itemsize`` bytes each) fill at most PACK_STAGE_BYTES; shared bytes:
+    two stages of a tile's values, then its words.  A tile's values are
+    whole 16-byte pieces at any count, and its words start on a 16-byte
+    boundary."""
+    t_max = min(PACK_MAX_TILE, PACK_STAGE_BYTES // (GROUP * itemsize) // GROUP * GROUP)
+    return kernels.tile_geometry(n_groups, t_max, PACK_THREADS,
+                                 lambda t: 2 * t * GROUP * itemsize + t * width * 4, sms)
+
+
+@functools.lru_cache(maxsize=1024)
+def unpack_geometry(n_groups: int, width: int, sms: int) -> kernels.TileGeometry:
+    """:func:`kernels.tile_geometry` for the unpack kernel: tiles whose
+    words fill at most UNPACK_STAGE_BYTES; shared bytes: two stages of a
+    tile's packed words (so every tile's words start on a 16-byte
+    boundary)."""
+    t_max = min(UNPACK_MAX_TILE, UNPACK_STAGE_BYTES // (4 * width) // GROUP * GROUP)
+    return kernels.tile_geometry(n_groups, t_max, UNPACK_THREADS,
+                                 lambda t: 2 * t * width * 4, sms)
 
 
 def _check_width(width: int) -> None:
@@ -74,10 +73,15 @@ def _check_width(width: int) -> None:
         raise ValueError(f"width must be in [1, 32], got {width}")
 
 
-def _on_cuda(t: torch.Tensor, op: str) -> torch.Tensor:
-    if t.device.type != "cuda":
+def _on_cpu(t: torch.Tensor, op: str) -> bool:
+    """True for a CPU tensor, False for a CUDA one (read without building
+    a ``torch.device``: at a KV leaf the wrapper's host time is most of a
+    launch); raises for any other device."""
+    if t.is_cuda:
+        return False
+    if t.device.type != "cpu":
         raise ValueError(f"{op} takes a CPU or CUDA tensor, got {t.device}")
-    return t.contiguous()
+    return True
 
 
 def pack(vals: torch.Tensor, width: int) -> torch.Tensor:
@@ -87,21 +91,25 @@ def pack(vals: torch.Tensor, width: int) -> torch.Tensor:
         raise ValueError(f"pack needs a flat tensor with n % {GROUP} == 0, "
                          f"got shape {tuple(vals.shape)}")
     _check_width(width)
-    if vals.device.type == "cpu":
+    if _on_cpu(vals, "pack"):
         return plain_pack(vals, width)
-    vals = _on_cuda(vals, "pack")
-    if vals.dtype not in _PACK_KINDS:
+    vals = vals.contiguous()
+    kind = _PACK_KINDS.get(vals.dtype)
+    if kind is None:
         raise ValueError(f"pack takes {list(_PACK_KINDS)} on CUDA, got {vals.dtype}")
     n_g = vals.shape[0] // GROUP
-    out = torch.empty((n_g, width), dtype=torch.int32, device=vals.device)
+    out = vals.new_empty((n_g, width), dtype=torch.int32)
     if n_g == 0:
         return out
+    ptr = vals.data_ptr()
+    kernels.require_aligned(ptr, "pack's values")
+    geo = pack_geometry(n_g, width, vals.element_size(), kernels.sm_count(vals.get_device()))
     err = kernels.launcher("pack", _PACK_ARGTYPES)(
-        vals.data_ptr(), out.data_ptr(), n_g, width, _PACK_KINDS[vals.dtype],
+        ptr, out.data_ptr(), n_g, width, kind, geo.tile, geo.grid, geo.smem,
         kernels.stream_of(vals))
     if err:
-        raise RuntimeError(f"pack launch failed: cudaError {err}")
-    kernels.count_launch("pack")
+        raise RuntimeError(f"pack launch failed: cudaError {err} ({geo})")
+    kernels.count_launch("pack", (vals.dtype, n_g, width))
     return out
 
 
@@ -112,19 +120,19 @@ def unpack(packed: torch.Tensor, width: int) -> torch.Tensor:
         raise ValueError(f"unpack needs words (n_g, >= {width}), got shape "
                          f"{tuple(packed.shape)}")
     _check_width(width)
-    if packed.device.type == "cpu":
+    if _on_cpu(packed, "unpack"):
         return plain_unpack(packed, width)
-    packed = _on_cuda(packed, "unpack")
+    packed = packed.contiguous()
     if packed.dtype != torch.int32:
         raise ValueError(f"unpack takes int32 words on CUDA, got {packed.dtype}")
     if packed.shape[1] != width:
         packed = packed[:, :width].contiguous()
     n_g = packed.shape[0]
-    out = torch.empty((GROUP * n_g,), dtype=torch.int32, device=packed.device)
+    out = packed.new_empty((GROUP * n_g,))
     if n_g == 0:
         return out
     kernels.require_aligned(packed.data_ptr(), "unpack's packed words")
-    geo = unpack_geometry(n_g, width, kernels.sm_count(packed.device))
+    geo = unpack_geometry(n_g, width, kernels.sm_count(packed.get_device()))
     err = kernels.launcher("unpack", _UNPACK_ARGTYPES)(
         packed.data_ptr(), out.data_ptr(), n_g, width, geo.tile, geo.grid, geo.smem,
         kernels.stream_of(packed))

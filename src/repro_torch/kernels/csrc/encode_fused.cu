@@ -45,6 +45,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bitplane.cuh"
 #include "staging.cuh"
 
 #if !defined(ENCODE_FUSED_THREADS) || !defined(SM_THREADS)
@@ -62,12 +63,7 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_THREADS = ENCODE_FUSED_THREADS;
 constexpr int MIN_BLOCKS = SM_THREADS / MAX_THREADS;  // resident blocks an SM
 
-// per bit: mask ? a : b, one instruction
-__device__ __forceinline__ uint32_t select_bits(uint32_t mask, uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("lop3.b32 %0, %1, %2, %3, 0xE4;" : "=r"(d) : "r"(a), "r"(b), "r"(mask));
-  return d;
-}
+using bitplane::select_bits;
 
 // 32 x 32 bit transpose across the warp: bit i of lane b's result is bit b
 // of lane i's x.  Stage j swaps bit j of the lane and of the bit position:
@@ -110,15 +106,6 @@ __device__ __forceinline__ uint32_t max_u16x2(uint32_t a, uint32_t b) {
   return d;
 }
 constexpr uint32_t H2 = 0x00010001u;  // one in each 16-bit half
-
-// `words` 32-bit words from shared `src` to 16-byte aligned global `dst`.
-__device__ __forceinline__ void store_words(uint32_t* __restrict__ dst,
-                                            const uint32_t* src, int words) {
-  const int n4 = words >> 2;
-  for (int i = threadIdx.x; i < n4; i += blockDim.x)
-    reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(src)[i];
-  for (int i = (n4 << 2) + threadIdx.x; i < words; i += blockDim.x) dst[i] = src[i];
-}
 
 template <int TOTAL, int EXP, int MANT, int WT>
 __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
@@ -319,10 +306,10 @@ encode_fused_kernel(const typename Storage<TOTAL>::T* __restrict__ x,
     __syncthreads();
 
     const long long g0 = (long long)b0 * gpb;
-    store_words(pay + g0 * W, s_pay, nb * gpb * W);
-    store_words(lo_out + g0 * LO, s_lo, nb * gpb * LO);
-    store_words(bases + b0, s_base, nb);
-    store_words(rngs + b0, s_rng, nb);
+    staging::store_words(pay + g0 * W, s_pay, nb * gpb * W);
+    staging::store_words(lo_out + g0 * LO, s_lo, nb * gpb * LO);
+    staging::store_words(bases + b0, s_base, nb);
+    staging::store_words(rngs + b0, s_rng, nb);
   }
 }
 

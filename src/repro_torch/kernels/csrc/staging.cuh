@@ -1,7 +1,7 @@
-// Helpers of the persistent kernels that stage their input tiles in shared
-// memory (encode_fused.cu, bitpack.cu's unpack): asynchronous copies into
-// shared memory (per thread, and 1-D bulk copies with an mbarrier), and the
-// dynamic shared memory a launch may take.
+// Helpers of the persistent kernels that stage their tiles in shared memory
+// (encode_fused.cu, bitpack.cu, decode_reduce.cu): asynchronous copies into
+// shared memory (per thread, and 1-D bulk copies with an mbarrier), 16-byte
+// stores of a staged tile, and the dynamic shared memory a launch may take.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,6 +50,16 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t phase) {
     asm volatile("{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; "
                  "selp.u32 %0, 1, 0, p; }\n"
                  : "=r"(done) : "r"(smem_u32(bar)), "r"(phase) : "memory");
+}
+
+// `words` 32-bit words from shared `src` to 16-byte aligned global `dst`,
+// by the whole thread block: 16-byte stores, the <16-byte tail word by word.
+__device__ __forceinline__ void store_words(uint32_t* __restrict__ dst,
+                                            const uint32_t* src, int words) {
+  const int n4 = words >> 2;
+  for (int i = threadIdx.x; i < n4; i += blockDim.x)
+    reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(src)[i];
+  for (int i = (n4 << 2) + threadIdx.x; i < words; i += blockDim.x) dst[i] = src[i];
 }
 
 // Lets `kernel` take `smem` dynamic shared bytes a thread block, which

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import kernels
 from repro_torch.core import codec, packing
 from repro_torch.kernels import decode_reduce as _decode_reduce
 from repro_torch.kernels import encode_fused as _encode_fused
@@ -26,9 +27,13 @@ GROUP = packing.GROUP
 
 def decode_reduce(payload, lo_planes, group_bases, acc, dtype_name: str,
                   width: int) -> torch.Tensor:
-    """``acc += decode(wire)`` in place (kernel on CUDA, plain on CPU)."""
-    return _decode_reduce.decode_reduce(payload, lo_planes, group_bases, acc,
-                                        dtype_name, width)
+    """``acc += decode(wire)`` in place (kernel on CUDA, plain on CPU);
+    returns ``acc``.  A view off a 16-byte boundary runs on an aligned copy
+    (:func:`kernels.aligned`); an accumulator's copy is copied back."""
+    work = kernels.aligned(acc)
+    _decode_reduce.decode_reduce(kernels.aligned(payload), kernels.aligned(lo_planes),
+                                 kernels.aligned(group_bases), work, dtype_name, width)
+    return acc if work is acc else acc.copy_(work)
 
 
 def split_with_stats(x: torch.Tensor, block: int = 512):
@@ -105,7 +110,7 @@ def encode_fused_chunks(x2d: torch.Tensor, width: int, *, block: int = 512,
     if chunk % block:
         raise ValueError(f"chunk={chunk} is not a multiple of block={block}")
     nb_c, gpc = chunk // block, chunk // GROUP
-    x2d = x2d.contiguous()
+    x2d = kernels.aligned(x2d.contiguous())
     pay, lo, bases, rng = _encode_fused.encode_fused(x2d.reshape(-1), width, block)
     cap = packing.exception_capacity(nb_c, exc_frac)
     exc_idx, exc_raw, overflow = _exceptions_from(

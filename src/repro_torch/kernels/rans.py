@@ -94,12 +94,6 @@ def _word_table(t: torch.Tensor, n: int, dev, name: str,
     return t[:n].to(dtype).contiguous()
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous ``t``, copied when its data does not start on 16 bytes
-    (the kernels stage it with aligned ``cp.async`` copies)."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def _check_cuda(t: torch.Tensor, op: str) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{op} takes CPU or CUDA tensors, got {t.device}")
@@ -121,7 +115,7 @@ def encode(syms: torch.Tensor, freq: torch.Tensor, cum: torch.Tensor,
     dev = syms.device
     info = encode_table(_word_table(freq, 256, dev, "freq"),
                         _word_table(cum, 256, dev, "cum"))
-    syms = _aligned(syms.to(torch.uint8).contiguous())
+    syms = kernels.aligned(syms.to(torch.uint8).contiguous())
     words = torch.empty((per, lanes), dtype=torch.int32, device=dev)
     mask = torch.empty((per, lanes), dtype=torch.int32, device=dev)
     state = torch.empty((lanes,), dtype=torch.int32, device=dev)
@@ -192,7 +186,7 @@ def decode_stream(words: torch.Tensor, lens: torch.Tensor, freq: torch.Tensor,
     if words.device.type == "cpu":
         return plain_decode_stream(words, lens, freq, cum, s2s, per, n_valid)
     _check_cuda(words, "rans decode_stream")
-    words = _aligned(words.contiguous())
+    words = kernels.aligned(words.contiguous())
     lens = lens.to(device=words.device, dtype=torch.int32).contiguous()
     return _launch_decode(words, lens, lens, freq, cum, s2s, per, lanes, cap,
                           n_valid, compact=True)

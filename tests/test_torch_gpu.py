@@ -153,18 +153,102 @@ def test_unpack_at_tile_edges(cuda, width):
 
 
 def test_misaligned_inputs_raise(cuda):
-    """encode_fused and unpack stage their input by 16-byte copies: a view
-    off a 16-byte boundary raises and launches nothing, never a copy."""
+    """encode_fused, unpack, pack and decode_reduce stage their input by
+    16-byte copies: a view off a 16-byte boundary raises and launches
+    nothing, never a copy (decode_reduce: any of its four tensors)."""
     x = torch.zeros(2048 + 8, dtype=torch.bfloat16, device=cuda)
     words = torch.zeros(64 * 5 + 4, dtype=torch.int32, device=cuda)
+    vals = torch.zeros(2048 + 16, dtype=torch.uint8, device=cuda)
+    lo = torch.zeros(64 * 8 + 4, dtype=torch.int32, device=cuda)
+    gb = torch.ones(64 + 4, dtype=torch.int32, device=cuda)
+    acc = torch.zeros(2048 + 4, dtype=torch.float32, device=cuda)
+    dr_args = (words[4:324].view(64, 5), lo[4:516].view(64, 8), gb[4:68], acc[4:2052])
     before = kernels.launch_counts()
     with pytest.raises(ValueError, match="16-byte"):
         encode_fused.encode_fused(x[1:2049], 5, 512)
     with pytest.raises(ValueError, match="16-byte"):
         bitpack.unpack(words[1:321].view(64, 5), 5)
+    with pytest.raises(ValueError, match="16-byte"):
+        bitpack.pack(vals[1:2049], 5)
+    with pytest.raises(ValueError, match="16-byte"):
+        bitpack.pack(words[2:322], 5)  # 8 bytes off
+    for i, off in ((0, words[1:321].view(64, 5)), (1, lo[2:514].view(64, 8)),
+                   (2, gb[1:65]), (3, acc[2:2050])):
+        args = list(dr_args)
+        args[i] = off
+        with pytest.raises(ValueError, match="16-byte"):
+            decode_reduce.decode_reduce(*args, "bfloat16", 5)
     assert kernels.launch_counts() == before
     assert encode_fused.encode_fused(x[8:2056], 5, 512)[0].shape == (64, 5)  # 16 B in
     assert bitpack.unpack(words[4:324].view(64, 5), 5).shape == (2048,)
+    assert bitpack.pack(vals[16:2064], 5).shape == (64, 5)
+    assert decode_reduce.decode_reduce(*dr_args, "bfloat16", 5) is dr_args[3]
+
+
+def test_entry_points_take_offset_views(cuda):
+    """ops.encode_fused, packing.encode_message, packing.bitplane_unpack,
+    packing.bitplane_pack and ops.decode_reduce on views one element and 8
+    bytes off a 16-byte boundary (every tensor argument): bit-identical to
+    the plain versions, one launch a call (``chip_smoke.check_offset_views``)."""
+    assert chip_smoke.check_offset_views(cuda, torch, np) == 12
+
+
+def test_stream_of_is_the_current_stream(cuda):
+    """The wrappers launch on PyTorch's current stream, a side stream too."""
+    t = torch.zeros(1, device=cuda)
+    assert kernels.stream_of(t) == torch.cuda.current_stream(cuda).cuda_stream
+    side = torch.cuda.Stream(device=cuda)
+    with torch.cuda.stream(side):
+        assert kernels.stream_of(t) == side.cuda_stream != torch.cuda.default_stream(
+            cuda).cuda_stream
+
+
+def test_pack_tallies_its_launches_by_shape(cuda):
+    """Each pack launch is tallied under (dtype, groups, width), which
+    chip_smoke.py reads for the launches of each pack shape."""
+    kernels.clear_launch_counts()
+    vals = torch.ones(2048, dtype=torch.uint8, device=cuda)
+    packing.bitplane_pack(vals, 5)
+    packing.bitplane_pack(vals, 5)
+    packing.bitplane_pack(vals.to(torch.int32)[:1024], 8)
+    assert kernels.launch_shapes("pack") == {(torch.uint8, 64, 5): 2, (torch.int32, 32, 8): 1}
+    assert kernels.launch_counts()["pack"] == 3
+
+
+@pytest.mark.parametrize("width", chip_smoke.EDGE_WIDTHS)
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_decode_reduce_at_tile_edges(cuda, fmt, width):
+    """Group counts at the edges of the persistent decode_reduce kernel's
+    tiles and past its grid (``chip_smoke.decode_reduce_edge_counts``), on
+    ``edge_input`` encoded in blocks of 32 (exception groups' garbage codes),
+    into an accumulator with subnormals, +-0, +-inf and NaN."""
+    lay = codec.LAYOUTS[fmt]
+    counts = chip_smoke.decode_reduce_edge_counts(width, lay.lo_bits, kernels.sm_count(cuda))
+    x = chip_smoke.edge_input(lay, max(counts), 32, 41, torch, np).to(cuda)
+    pay_all, lo_all, gb_all, _ = ref.encode_fused(x, width, 32)
+    acc_all = chip_smoke.special_acc(x.shape[0], 42, torch, np).to(cuda)
+    before = kernels.launch_counts()["decode_reduce"]
+    for n_g in counts:
+        args = (pay_all[:n_g], lo_all[:n_g], gb_all[:n_g])
+        acc = acc_all[:32 * n_g]
+        got = decode_reduce.decode_reduce(*args, acc.clone(), fmt, width)
+        assert _same_f32(got, ref.decode_reduce(*args, acc, fmt, width)), n_g
+    assert kernels.launch_counts()["decode_reduce"] - before == len(counts)
+
+
+@pytest.mark.parametrize("width", range(1, 33))
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32, torch.int64])
+def test_pack_at_tile_edges(cuda, dtype, width):
+    """Group counts at the edges of the persistent pack kernel's tiles and
+    past its grid (``chip_smoke.pack_edge_counts``): uint8, int32 with the
+    sign bit set and int64 above 2**32, all-zero and all-ones groups."""
+    counts = chip_smoke.pack_edge_counts(width, dtype.itemsize, kernels.sm_count(cuda))
+    vals_all = chip_smoke.pack_edge_values(32 * max(counts), 43, torch, np)[dtype].to(cuda)
+    before = kernels.launch_counts()["pack"]
+    for n_g in counts:
+        vals = vals_all[:32 * n_g]
+        assert torch.equal(bitpack.pack(vals, width), ref.pack(vals, width)), n_g
+    assert kernels.launch_counts()["pack"] - before == len(counts)
 
 
 @pytest.mark.parametrize("per,lanes", [(1, 128), (rans.ROWS - 1, 128), (rans.ROWS, 128),

@@ -208,6 +208,21 @@ def test_cuda_is_never_silently_replaced(monkeypatch):
     assert kernels.resolve_device("cpu") == torch.device("cpu")
 
 
+def test_launch_shapes_tally_each_launch_under_its_shape():
+    kernels.clear_launch_counts()
+    try:
+        for shape in (("uint8", 4, 5), ("int32", 4, 8), ("uint8", 4, 5)):
+            kernels.count_launch("pack", shape)
+        kernels.count_launch("unpack")
+        assert kernels.launch_shapes("pack") == {("uint8", 4, 5): 2, ("int32", 4, 8): 1}
+        assert kernels.launch_shapes("unpack") == {}
+        assert kernels.launch_counts()["pack"] == 3 and kernels.launch_counts()["unpack"] == 1
+    finally:
+        kernels.clear_launch_counts()
+    assert kernels.launch_shapes("pack") == {}
+    assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
+
+
 def test_cpu_runs_launch_no_kernel():
     kernels.clear_launch_counts()
     x = torch.from_numpy(grad_like_bits("bfloat16", 2048, 13)).view(torch.bfloat16)

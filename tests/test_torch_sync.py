@@ -251,6 +251,26 @@ def test_delta_message_zero_delta(fmt):
     assert_bits_equal(packing.decode_delta(m, x), np_of(x), fmt)
 
 
+@pytest.mark.parametrize("fmt", DTYPES)
+def test_delta_pack_inputs_are_what_encode_delta_packs(fmt):
+    """``delta_planes``, ``block_residuals`` and ``lo_delta_fit`` (the steps
+    chip_smoke.py times the sync packs at) give the two tensors whose packs
+    are the delta message's payloads, which equal the reference's."""
+    new, base = warm_pair(fmt, 5000, seed=4)
+    (x, jx), (b, jb) = both(new, fmt), both(base, fmt)
+    w, wl = POL.delta_widths(fmt)
+    m = packing.encode_delta(x, b, width=w, lo_width=wl)
+    jm = jpacking.encode_delta(jx, jb, width=w, lo_width=wl)
+    exp, lo = packing.delta_planes(x, b)
+    resid = packing.block_residuals(exp, width=w, block=512)[3]
+    v, fits, kept = packing.lo_delta_fit(lo, wl)
+    assert v.shape[0] % packing.GROUP == 0 and torch.equal(kept[~fits], torch.zeros_like(v[~fits]))
+    assert_bits_equal(packing.bitplane_pack(resid, w), m.exp.payload, f"{fmt} exponent")
+    assert_bits_equal(packing.bitplane_pack(kept, wl), m.lo.payload, f"{fmt} lo")
+    assert_bits_equal(m.exp.payload, jm.exp.payload, f"{fmt} reference exponent")
+    assert_bits_equal(m.lo.payload, jm.lo.payload, f"{fmt} reference lo")
+
+
 def test_delta_message_overflow_flag_on_cold_delta():
     (x, jx), (b, jb) = (both(random_bits("bfloat16", 4096, s), "bfloat16") for s in (6, 7))
     m = packing.encode_delta(x, b, width=1, lo_width=1)
