@@ -68,14 +68,40 @@ result line each:
             decode step.
 4. main   - smollm_135m at full width, ZeRO-1 on a single-rank NCCL group,
             batch 8 x seq 512: 3 compressed steps, then 3 steps of the raw
-            twin from the same weights.  Losses and final parameter bytes
-            must be identical; per compressed step the launches must be 2
-            encodes, n_dp decode+reduces and n_dp + 2 unpacks (the
-            reduce-scatter's exception patch per received chunk, the
-            all-gather decode's payload and lo planes); the raw twin
-            launches nothing.  Then where a compressed step's time goes:
-            forward+backward and each wire phase beside its raw twin (host
-            clock, synchronised).
+            twin from the same weights, each run replaying its zero1 plan
+            (1 miss, then 2 hits in the run's plan cache; one consolidated
+            plan:zero1 WireReport a compressed step, of the plan's bytes).
+            Losses and final parameter bytes must be identical; per
+            compressed step the launches must be 2 encodes, n_dp
+            decode+reduces and n_dp + 2 unpacks (the reduce-scatter's
+            exception patch per received chunk, the all-gather decode's
+            payload and lo planes); the raw twin launches nothing.  Then
+            where a compressed step's time goes: forward+backward and each
+            wire phase beside its raw twin (host clock, synchronised).
+   psum   - on the same group, the gradient pytree of one forward+backward
+            of the trained model at batch 8 x 512 through psum_with_plan
+            with the default policy (its one bf16 bucket on the two-shot,
+            fused both ways), with fused_encode=False, with
+            fused_decode_reduce=False and with CompressionPolicy.disabled()
+            (the raw two-shot), then the first again: each result
+            bit-identical to the gradients (the sum of one rank), flag 0;
+            one plan compiled a policy, the repeat a hit; one consolidated
+            plan:psum report a compressed run, the same bytes in each.
+            Launches a compressed run (two_shot_launches): encode_fused 2,
+            decode_reduce 1, unpack 3; unfused encode: pack 4 (the lo plane
+            and the exponent residuals of the RS row and of the AG row)
+            and no encode_fused; unfused decode: unpack 4 and no
+            decode_reduce; the raw twin none.  Then at one rank
+            psum_compressed_hierarchical of the bucket (the group as both
+            levels: encode_fused 4, decode_reduce 2, unpack 6),
+            all_to_all_compressed of the final hidden states as (1, 8 x
+            512 x 576) bf16 and ppermute_compressed of the embedding
+            (49152 x 576 bf16; each encode_fused 1, unpack 2): each
+            bit-identical to its input.  The ring makes no hop at one rank.
+            The unfused encode's wire must equal the fused one's field by
+            field at the plan's widths.  Prints each policy's ms (host
+            clock to a device sync, median of 5), the wire ratio, and the
+            card's name and power limit.
 5. sync   - RL weight sync of smollm_135m at full width and depth
             (``launch/rl_weight_sync.run``): the ZeRO-1 trainer of the main
             phase (compressed, lr 1e-5, warm-up 3), 3 warm-up steps,
@@ -104,9 +130,11 @@ result line each:
 6. times  - each kernel and its plain version at the shapes its path
             gives it (unpack: one KV leaf's payload, and the AG decode's
             payload and lo plane; pack: one KV leaf's uint8 residuals and
-            int32 lo plane, and the delta sync encode's uint8 exponent
+            int32 lo plane, the delta sync encode's uint8 exponent
             residuals and int32 lo delta at the sync run's calibrated
-            widths, each with its launches; CUDA events, median of 20 runs after
+            widths, and the psum phase's unfused encode of the gradient
+            bucket (int32 lo plane, uint8 residuals), each with its
+            launches; CUDA events, median of 20 runs after
             warm-up; the plain rANS versions, one torch step per row, once), beside the
             least time the card could take (bytes over its memory bandwidth
             or operations over its peak rate, the larger).  The two rANS
@@ -539,9 +567,7 @@ def phase_build(kernels, torch):
         for line in kernels.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    smi = run_card()
     print(smi)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
@@ -854,6 +880,7 @@ def phase_serve(dev, torch, np):
 def phase_main(dev, torch):
     from repro_torch import kernels
     from repro_torch.launch import train as launch_train
+    from repro_torch.train import step as step_lib
 
     runs = {}
     with launch_train.single_process_group(dev) as group:
@@ -875,24 +902,39 @@ def phase_main(dev, torch):
                 raise AssertionError(f"non-finite loss {comp.losses}")
         n_buckets = len(comp.state.meta.dtype_names)
         expect = dict.fromkeys(kernels.KERNELS, 0)
-        expect.update(encode_fused=2 * STEPS * n_buckets,
-                      decode_reduce=STEPS * n_buckets * n_dp,
-                      unpack=STEPS * n_buckets * (n_dp + 2))
+        expect.update({k: STEPS * n_buckets * v
+                       for k, v in two_shot_launches(True, True, n_dp).items()})
         if comp.launches != expect or any(raw.launches.values()):
             raise AssertionError(f"launch counts {comp.launches} (raw twin "
                                  f"{raw.launches}), expected {expect}")
-        rs = [r for r in comp.wire_reports if r.name == "reduce_scatter"]
-        ag = [r for r in comp.wire_reports if r.name == "all_gather"]
-        ratio = lambda rr: sum(r.wire_bytes for r in rr) / sum(r.raw_bytes for r in rr)  # noqa: E731
+        # each run replays one zero1 plan: compiled on its first step, a
+        # plan-cache hit on every later one; a compressed step's wire is one
+        # consolidated plan:zero1 report
+        # (a step rerun raw replays the disabled policy's plan: one more)
+        cached = {}
+        for tag, run in (("compressed", comp), ("raw twin", raw)):
+            st, r = run.plan_cache.stats, run.retries
+            cached[tag] = (st.misses, st.hits)
+            if cached[tag] != (1 + bool(r), STEPS - 1 + max(r - 1, 0)):
+                raise AssertionError(f"zero1 plan cache {run.plan_cache.cache_info()}")
+        plan = step_lib.zero1_plan(comp.state, comp.tcfg, group, cache=comp.plan_cache)
+        if [r.name for r in comp.wire_reports] != ["plan:zero1"] * STEPS or any(
+                r.wire_bytes != plan.wire_bytes for r in comp.wire_reports):
+            raise AssertionError(f"wire reports {comp.wire_reports} of plan {plan.summary()}")
+        (pair,) = plan.buckets
         print(f"main: {ARCH} full width, ZeRO-1 n_dp={n_dp}, batch {BATCH} x seq {SEQ}, "
               f"bucket n={comp.state.meta.padded[0]}")
         print(f"  compressed losses {comp.losses} step_ms "
               f"{[round(t, 1) for t in comp.step_ms]} retries {comp.retries}")
         print(f"  raw twin   losses {raw.losses} step_ms {[round(t, 1) for t in raw.step_ms]}")
-        print(f"  wire ratio RS {ratio(rs):.4f} AG {ratio(ag):.4f}; launches {comp.launches}; "
+        print("  zero1 plan cache (misses, hits): " + ", ".join(
+            f"{tag} {mh}" for tag, mh in cached.items()))
+        print(f"  wire ratio RS {pair.rs.ratio:.4f} AG {pair.ag.ratio:.4f} (plan:zero1 "
+              f"{comp.wire_reports[0].ratio:.4f}); launches {comp.launches}; "
               f"losses and final parameter bytes identical")
         phase_breakdown(comp, group, dev, torch)
-    return comp, expect
+        psum = phase_psum(comp, group, dev, torch)
+    return comp, psum
 
 
 def _wall_ms(fn, torch, runs=5):
@@ -959,6 +1001,149 @@ def phase_breakdown(run, group, dev, torch):
     print("  breakdown, ms (median of 5): "
           + ", ".join(f"{k} {v:.2f}" for k, v in ms.items()))
     return ms
+
+
+def two_shot_launches(fused_encode: bool, fused_decode: bool, n_dev: int) -> dict:
+    """Kernel launches of one compressed two-shot bucket over n_dev ranks:
+    the RS encodes n_dev rows and the AG one (encode_fused once a phase, or
+    pack twice a row: the lo plane and the exponent residuals); the RS
+    receive runs decode_reduce and an exception-patch unpack a chunk, or,
+    unfused, unpacks the payloads and the lo planes; the AG decode unpacks
+    both planes."""
+    return {"encode_fused": 2 if fused_encode else 0,
+            "pack": 0 if fused_encode else 2 * (n_dev + 1),
+            "decode_reduce": n_dev if fused_decode else 0,
+            "unpack": n_dev + 2 if fused_decode else 4}
+
+
+def phase_psum(run, group, dev, torch):
+    """The compressed all-reduce of one gradient pytree at full width, on the
+    main phase's one-rank NCCL group; its checks and launch counts are
+    derived in the module docstring."""
+    import dataclasses
+
+    from repro_torch import kernels, sched
+    from repro_torch.core import codec, packing
+    from repro_torch.core import compressed_collectives as cc
+    from repro_torch.core.policy import CompressionPolicy, capture_wire_reports
+    from repro_torch.data.pipeline import DataConfig, DataPipeline
+    from repro_torch.launch import train as launch_train
+    from repro_torch.sched import compile as sched_compile
+    from repro_torch.sched.cache import PlanCache
+    from repro_torch.train import step as step_lib
+    from repro_torch.tree_util import bits_equal
+
+    model, tcfg = run.state.model, run.tcfg
+    leaves = model.leaves()
+    batch = DataPipeline(DataConfig(vocab=model.cfg.vocab, global_batch=BATCH, seq_len=SEQ,
+                                    seed=SEED)).tensors_at(0, dev)
+    with launch_train.deterministic():
+        for p in leaves:
+            p.grad = None
+        step_lib.loss_fn(model, batch, tcfg).backward()
+        grads = [p.grad.detach().clone() for p in leaves]
+        for p in leaves:
+            p.grad = None
+        with torch.no_grad():
+            act = model(batch["tokens"]).reshape(1, -1)  # (1, 8 * 512 * 576) bf16
+    embed = model.params["embed"].detach()
+    n_dp = torch.distributed.get_world_size(group)
+    base = CompressionPolicy()
+    policies = {"two_shot": base, "unfused_encode": dataclasses.replace(base, fused_encode=False),
+                "unfused_decode": dataclasses.replace(base, fused_decode_reduce=False),
+                "raw": CompressionPolicy.disabled()}
+    plan = sched_compile.compile_psum_plan(grads, "data", policy=base, n_dev=n_dp)
+    if plan.summary()["paths"] != ("two_shot",) * len(plan.buckets) or plan.raw_leaf_ix:
+        raise AssertionError(f"psum plan {plan.summary()}")
+
+    def derived(pol) -> dict:
+        want = dict.fromkeys(kernels.KERNELS, 0)
+        if pol.enabled:
+            for k, v in two_shot_launches(pol.fused_encode, pol.fused_decode_reduce,
+                                          n_dp).items():
+                want[k] = v * len(plan.buckets)
+        return want
+
+    def counted(fn):
+        before = kernels.launch_counts()
+        out = fn()
+        after = kernels.launch_counts()
+        return out, {k: after[k] - before[k] for k in after}
+
+    # -- the phase's own runs: these launches are the kernels line's "psum" --
+    kernels.clear_launch_counts()
+    cache, outs, reports = PlanCache(), {}, {}
+    for name, pol in [*policies.items(), ("two_shot again", base)]:
+        with capture_wire_reports() as reports[name]:
+            (out, flag), got = counted(
+                lambda: sched.psum_with_plan(grads, group, policy=pol, cache=cache))
+        if got != derived(pol) or int(flag) or not bits_equal(out, grads):
+            raise AssertionError(f"psum_with_plan {name}: flag {int(flag)}, launches {got} "
+                                 f"(expected {derived(pol)}), identical to the gradients "
+                                 f"{bits_equal(out, grads)}")
+        outs[name] = out
+    if (cache.stats.misses, cache.stats.hits) != (len(policies), 1):
+        raise AssertionError(f"psum plan cache {cache.cache_info()}")
+    plan_reports = {k: r for k, (r,) in ((k, v) for k, v in reports.items() if v)}
+    if set(plan_reports) != set(reports) - {"raw"} or len(
+            {(r.raw_bytes, r.wire_bytes) for r in plan_reports.values()}) != 1 or [
+            r.encode_fused for r in plan_reports.values()] != [True, False, True, True] or (
+            plan_reports["two_shot"].wire_bytes != plan.wire_bytes):
+        raise AssertionError(f"psum reports {reports}, plan {plan.summary()}")
+    bucket = torch.cat([g.reshape(-1) for g in grads])
+    others = {
+        "hierarchical": (lambda: cc.psum_compressed_hierarchical(
+            bucket, group, group, policy=base, group=group), bucket,
+            {"encode_fused": 4, "decode_reduce": 2, "unpack": 6}),
+        "all_to_all": (lambda: cc.all_to_all_compressed(act, group, policy=base), act,
+                       {"encode_fused": 1, "unpack": 2}),
+        "ppermute": (lambda: cc.ppermute_compressed(embed, [(0, 0)], group, policy=base),
+                     embed, {"encode_fused": 1, "unpack": 2})}
+    for name, (fn, x, want) in others.items():
+        (out, flag), got = counted(fn)
+        want = {**dict.fromkeys(kernels.KERNELS, 0), **want}
+        if got != want or int(flag) or not bits_equal(out, x):
+            raise AssertionError(f"{name}: flag {int(flag)}, launches {got} (expected "
+                                 f"{want}), identical {bits_equal(out, x)}")
+    launches, pack_shapes = kernels.launch_counts(), kernels.launch_shapes("pack")
+
+    # -- the wires: the unfused encode's equal the fused one's, field by field
+    (b,) = plan.buckets
+    rows = cc._pad_flat(bucket, n_dp * b.block).reshape(n_dp, -1)
+    widths = sorted({b.width, b.ag_width})
+    for w in widths:
+        kw = dict(width=w, block=b.block, exc_frac=b.exc_frac)
+        fused, unfused = cc._encode_chunks(rows, **kw), cc._encode_chunks(rows, fused=False, **kw)
+        if any(not torch.equal(fused[k], unfused[k]) for k in fused):
+            raise AssertionError(f"the unfused encode's wire differs at width {w}")
+    exp, lo = codec.split_planes(rows[0])
+    pack_inputs = {"psum_lo": (packing._pad_to(lo, packing.GROUP, "zero"),
+                               codec.layout_of(bucket.dtype).lo_bits)}
+    for w in widths:
+        pack_inputs[f"psum_resid_w{w}"] = (
+            packing.block_residuals(exp, width=w, block=b.block)[3], w)
+
+    ms = {name: _wall_ms(lambda: sched.psum_with_plan(grads, group, policy=pol, cache=cache),
+                         torch) for name, pol in policies.items()}
+    print(f"psum: {ARCH} full width, gradients of one step at batch {BATCH} x seq {SEQ} "
+          f"({len(grads)} leaves, bucket n={bucket.numel()}), one-rank NCCL group; "
+          f"psum_with_plan two_shot, unfused encode, unfused decode and the raw twin each "
+          f"bit-identical to the gradients; wires of the unfused encode identical at "
+          f"widths {widths}; plan cache {len(policies)} misses 1 hit; hierarchical, "
+          f"all_to_all {tuple(act.shape)} and ppermute {tuple(embed.shape)} bit-identical; "
+          f"launches {launches}")
+    print(f"  ms (host clock to a device sync, median of 5): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
+          + f"; wire ratio {plan_reports['two_shot'].ratio:.4f}; card {run_card()}")
+    return {"launches": launches, "pack_shapes": pack_shapes, "pack_inputs": pack_inputs,
+            "ms": ms, "ratio": plan_reports["two_shot"].ratio}
+
+
+def run_card() -> str:
+    """The card's name and power limit, as nvidia-smi reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
 def phase_sync(dev, torch):
@@ -1100,7 +1285,7 @@ def _time_once(fn, torch):
 PEAK_OPS = 67e12
 
 
-def phase_times(comp, serve, sync, dev, torch, np, worst, bw):
+def phase_times(comp, serve, sync, psum, dev, torch, np, worst, bw):
     """Each kernel and its plain version at the shapes its path gives it:
     encode_fused, decode_reduce and plane_split at the main path's AG
     bucket; pack and unpack at one KV leaf's exponent residuals at the plan's
@@ -1119,10 +1304,10 @@ def phase_times(comp, serve, sync, dev, torch, np, worst, bw):
 
     # launches of each main-path run (counts set to 0 just before each)
     runs = {"serve_pd": serve["pd_launches"], "serve_pd_rans": serve["rans_launches"],
-            "train": comp.launches, "weight_sync": sync["launches"]}
+            "train": comp.launches, "psum": psum["launches"], "weight_sync": sync["launches"]}
     per_unit = {"serve_pd": ("pd_admission", N_REQ),
                 "serve_pd_rans": ("pd_rans_admission", N_RANS),
-                "train": ("train_step", STEPS),
+                "train": ("train_step", STEPS), "psum": ("psum_phase", 1),
                 "weight_sync": ("publish", sync["n_publishes"])}
     rows = []
 
@@ -1199,8 +1384,10 @@ def phase_times(comp, serve, sync, dev, torch, np, worst, bw):
     shapes = {"kv_resid": (resid, kv_w, ("serve_pd",)),
               "kv_lo": (kv_lo, kv_lo_bits, ("serve_pd", "serve_pd_rans")),
               "sync_exp": (*sync["pack_inputs"]["sync_exp"], ("weight_sync",)),
-              "sync_lo": (*sync["pack_inputs"]["sync_lo"], ("weight_sync",))}
-    tallies = {**serve["pack_shapes"], "weight_sync": sync["pack_shapes"]}
+              "sync_lo": (*sync["pack_inputs"]["sync_lo"], ("weight_sync",)),
+              **{k: (*v, ("psum",)) for k, v in psum["pack_inputs"].items()}}
+    tallies = {**serve["pack_shapes"], "weight_sync": sync["pack_shapes"],
+               "psum": psum["pack_shapes"]}
     untimed = {r: dict(t) for r, t in tallies.items()}
 
     def pack_bytes(vals, w):
@@ -1340,9 +1527,9 @@ def main() -> int:
     worst = phase_check(dev, torch, np)
     phase_check_wire(dev, torch, np)
     serve = phase_serve(dev, torch, np)
-    comp, _ = phase_main(dev, torch)
+    comp, psum = phase_main(dev, torch)
     sync = phase_sync(dev, torch)
-    rows = phase_times(comp, serve, sync, dev, torch, np, worst, card_bandwidth(name))
+    rows = phase_times(comp, serve, sync, psum, dev, torch, np, worst, card_bandwidth(name))
     print(f"card: {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -4,12 +4,14 @@
         --steps 3 --batch 8 --seq 512 [--no-compress] [--smoke] [--device cpu]
 
 Wires together: config registry -> data pipeline -> ZeRO-1 train step over
-the compressed two-shot wire.  A compressed step whose overflow flag fires
-is rerun with ``CompressionPolicy.disabled()`` (the reference's StepRunner
-retry); the retries are counted.  Under ``torchrun`` the process group comes
-from the environment; otherwise a single-process group is made (NCCL on
-the GPU, gloo on the CPU).  Checkpointing, heartbeat and straggler
-detection are not ported yet.
+the compressed two-shot wire, each step replaying the run's ``zero1`` plan
+(compiled on the first step, a plan-cache hit on every later one).  A
+compressed step whose overflow flag fires is rerun with
+``CompressionPolicy.disabled()`` over the plan of that policy (the
+reference's StepRunner retry); the retries are counted.  Under
+``torchrun`` the process group comes from the environment; otherwise a
+single-process group is made (NCCL on the GPU, gloo on the CPU).
+Checkpointing, heartbeat and straggler detection are not ported yet.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from repro_torch import configs, kernels
 from repro_torch.core.policy import CompressionPolicy, capture_wire_reports
 from repro_torch.data.pipeline import DataConfig, DataPipeline
 from repro_torch.optim.optimizers import OptimConfig
+from repro_torch.sched.cache import PlanCache
 from repro_torch.train import step as step_lib
 
 @contextlib.contextmanager
@@ -94,6 +97,7 @@ class TrainRun:
     step_ms: list
     retries: int
     wire_reports: list
+    plan_cache: PlanCache  # the run's zero1 plans: one miss a policy, then hits
 
 
 def train(arch: str, *, steps: int, batch: int, seq: int, compress: bool = True,
@@ -118,17 +122,20 @@ def train(arch: str, *, steps: int, batch: int, seq: int, compress: bool = True,
         process_index=dist.get_rank(group),
         process_count=dist.get_world_size(group))
     run = TrainRun(state=state, tcfg=tcfg, losses=[], step_ms=[], retries=0,
-                   wire_reports=[])
+                   wire_reports=[], plan_cache=PlanCache())
     with deterministic(), capture_wire_reports() as reports:
         for s in range(steps):
             b = pipe.tensors_at(s, dev)
             t0 = time.perf_counter()
-            m = step_lib.train_step(state, b, tcfg, group=group)
+            plan = step_lib.zero1_plan(state, tcfg, group, cache=run.plan_cache)
+            m = step_lib.train_step(state, b, tcfg, group=group, plan=plan)
             # on overflow the guard kept the old state: rerun the step raw,
             # which cannot overflow
             tries = int(m["overflow"] != 0)
             if tries:
-                m = step_lib.train_step(state, b, raw_tcfg, group=group)
+                raw_plan = step_lib.zero1_plan(state, raw_tcfg, group,
+                                               cache=run.plan_cache)
+                m = step_lib.train_step(state, b, raw_tcfg, group=group, plan=raw_plan)
             loss = float(m["loss"])  # waits for the step to finish
             run.step_ms.append((time.perf_counter() - t0) * 1e3)
             run.losses.append(loss)

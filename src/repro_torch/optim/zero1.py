@@ -10,11 +10,12 @@ compressed wire:
 
 Parameters are a list of tensors in the reference's ``tree_leaves`` order.
 They are fused into one flat bucket per dtype, padded to ``n_dp * block``;
-rank ``d`` owns shard ``d`` and its f32 optimizer state.  The RS/AG gating
-is the reference plan compiler's rule (``sched/compile.py``
-``compile_reduce_scatter_plan`` / ``compile_all_gather_plan``), applied
-directly: compress iff the policy is enabled and the GLOBAL bytes of the
-phase reach ``min_bytes``.
+rank ``d`` owns shard ``d`` and its f32 optimizer state.  The wire schedule
+is a compiled ``zero1`` plan (``sched/compile.compile_zero1_plan``: per
+bucket, an RS phase at the gradient width and an AG phase at the weight
+width, each compressed iff the policy is enabled and the GLOBAL bytes of
+the phase reach ``min_bytes``), replayed through
+``sched.Zero1Execution``.
 """
 from __future__ import annotations
 
@@ -24,11 +25,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch import kernels
+from repro_torch import kernels, sched
 from repro_torch.core import codec
 from repro_torch.core import compressed_collectives as cc
 from repro_torch.core.policy import CompressionPolicy
 from repro_torch.optim import optimizers as opt
+from repro_torch.sched import compile as sched_compile
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,86 +135,69 @@ def _raw_all_gather(x: torch.Tensor, group) -> torch.Tensor:
     return cc.raw_all_gather(x, group)
 
 
-def _reduce_scatter(gb: torch.Tensor, group, policy: CompressionPolicy,
-                    n_dp: int):
-    """One RS bucket, gated as ``compile_reduce_scatter_plan``."""
-    if policy.enabled and gb.numel() * gb.element_size() * n_dp >= policy.min_bytes:
-        prof = policy.profile
-        return cc.reduce_scatter_compressed(
-            gb, group, width=policy.width_for("gradient"), block=prof.block,
-            exc_frac=prof.exc_frac)
-    return (_raw_reduce_scatter(gb, group, n_dp),
-            torch.zeros((), dtype=torch.int32, device=gb.device))
-
-
-def _all_gather(shard: torch.Tensor, group, policy: CompressionPolicy,
-                n_dp: int):
-    """One AG bucket, gated as ``compile_all_gather_plan``."""
-    if policy.enabled and shard.numel() * shard.element_size() * n_dp >= policy.min_bytes:
-        prof = policy.profile
-        width = min(policy.width_for("weight") + prof.ag_extra_bits, 8)
-        got, flag = cc.all_gather_compressed(
-            shard, group, width=width, block=prof.block, exc_frac=prof.exc_frac)
-        return got.reshape(-1), flag
-    return (_raw_all_gather(shard, group),
-            torch.zeros((), dtype=torch.int32, device=shard.device))
-
-
 def zero1_step(ocfg: opt.OptimConfig, meta: BucketMeta, params, grads,
-               state: dict, *, group=None, policy: CompressionPolicy):
+               state: dict, *, group=None, policy: CompressionPolicy,
+               axis_name="data", plan=None):
     """One ZeRO-1 step.  ``grads`` are this rank's UNREDUCED gradients;
-    reduction happens in the (compressed) reduce-scatter.  Returns
+    reduction happens in the (compressed) reduce-scatter.  The wire runs
+    ``plan``, a compiled ``zero1`` plan (the train step compiles one per
+    step signature); with ``plan=None`` it is compiled from ``policy`` and
+    the gate label ``axis_name`` on first sight and cached.  Returns
     (new_params list, new_state, overflow_flag int32, gnorm f32)."""
     n_dp = dist.get_world_size(group)
     gbuckets = flatten_buckets(meta, grads)
     dev = gbuckets[0].device
+    if plan is None:
+        plan = sched_compile.cached_zero1_plan(meta, policy=policy, axis_name=axis_name,
+                                               n_dev=n_dp, device=dev)
     flag = torch.zeros((), dtype=torch.int32, device=dev)
     c = state["count"] + 1
     lr = opt.lr_at(ocfg, c)
 
-    # -- reduce-scatter: grad shards (mean over DP) --------------------------
-    gshards = []
-    norm_sq = torch.zeros((), dtype=torch.float32, device=dev)
-    for gb in gbuckets:
-        gs, f = _reduce_scatter(gb, group, policy, n_dp)
-        flag = torch.maximum(flag, f)
-        gs = gs / n_dp
-        gshards.append(gs)
-        norm_sq = norm_sq + torch.sum(torch.square(gs))
+    with sched.Zero1Execution(plan, group) as ex:
+        # -- reduce-scatter: grad shards (mean over DP) ----------------------
+        gshards = []
+        norm_sq = torch.zeros((), dtype=torch.float32, device=dev)
+        for i, gb in enumerate(gbuckets):
+            gs, f = ex.reduce_scatter(i, gb)
+            flag = torch.maximum(flag, f)
+            gs = gs / n_dp
+            gshards.append(gs)
+            norm_sq = norm_sq + torch.sum(torch.square(gs))
 
-    # global grad norm: the shards are disjoint over the group
-    dist.all_reduce(norm_sq, group=group)
-    gnorm = torch.sqrt(norm_sq)
-    scale = torch.clamp(ocfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
+        # global grad norm: the shards are disjoint over the group
+        dist.all_reduce(norm_sq, group=group)
+        gnorm = torch.sqrt(norm_sq)
+        scale = torch.clamp(ocfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
 
-    # -- local shard update, then all-gather of the new params ---------------
-    new_buckets, new_state_buckets = [], []
-    b1, b2 = ocfg.b1, ocfg.b2
-    cf = c.to(torch.float32)
-    bc1 = 1 - b1 ** cf
-    bc2 = 1 - b2 ** cf
-    beta_af = 1.0 - cf ** (-ocfg.decay_rate)
-    for name, gs, bst in zip(meta.dtype_names, gshards, state["buckets"]):
-        g = gs * scale
-        master = bst["master"]
-        if ocfg.name == "adamw":
-            m = b1 * bst["m"] + (1 - b1) * g
-            v = b2 * bst["v"] + (1 - b2) * torch.square(g)
-            upd = (m / bc1) / (torch.sqrt(v / bc2) + ocfg.eps)
-            nb = {"m": m, "v": v}
-        else:  # adafactor on a flat shard degenerates to unfactored
-            v = beta_af * bst["v"] + (1 - beta_af) * (torch.square(g) + 1e-30)
-            upd = g / (torch.sqrt(v) + 1e-12)
-            rms = torch.sqrt(torch.mean(torch.square(upd)) + 1e-30)
-            upd = upd / torch.clamp(rms, min=1.0)
-            nb = {"v": v}
-        master = master - lr * (upd + ocfg.weight_decay * master)
-        nb["master"] = master
-        new_state_buckets.append(nb)
-        gathered, f = _all_gather(master.to(codec.LAYOUTS[name].dtype), group,
-                                  policy, n_dp)
-        flag = torch.maximum(flag, f)
-        new_buckets.append(gathered)
+        # -- local shard update, then all-gather of the new params -----------
+        new_buckets, new_state_buckets = [], []
+        b1, b2 = ocfg.b1, ocfg.b2
+        cf = c.to(torch.float32)
+        bc1 = 1 - b1 ** cf
+        bc2 = 1 - b2 ** cf
+        beta_af = 1.0 - cf ** (-ocfg.decay_rate)
+        for i, (name, gs, bst) in enumerate(zip(meta.dtype_names, gshards,
+                                                state["buckets"])):
+            g = gs * scale
+            master = bst["master"]
+            if ocfg.name == "adamw":
+                m = b1 * bst["m"] + (1 - b1) * g
+                v = b2 * bst["v"] + (1 - b2) * torch.square(g)
+                upd = (m / bc1) / (torch.sqrt(v / bc2) + ocfg.eps)
+                nb = {"m": m, "v": v}
+            else:  # adafactor on a flat shard degenerates to unfactored
+                v = beta_af * bst["v"] + (1 - beta_af) * (torch.square(g) + 1e-30)
+                upd = g / (torch.sqrt(v) + 1e-12)
+                rms = torch.sqrt(torch.mean(torch.square(upd)) + 1e-30)
+                upd = upd / torch.clamp(rms, min=1.0)
+                nb = {"v": v}
+            master = master - lr * (upd + ocfg.weight_decay * master)
+            nb["master"] = master
+            new_state_buckets.append(nb)
+            gathered, f = ex.all_gather(i, master.to(codec.LAYOUTS[name].dtype))
+            flag = torch.maximum(flag, f)
+            new_buckets.append(gathered.reshape(-1))
 
     new_params = unflatten_buckets(meta, new_buckets, params)
     return new_params, {"count": c, "buckets": tuple(new_state_buckets)}, flag, gnorm

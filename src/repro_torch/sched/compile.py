@@ -1,15 +1,24 @@
-"""CommPlan compiler (torch port of ``repro.sched.compile``; the ``kv`` and
-``wsync`` kinds so far).
+"""CommPlan compiler (torch port of ``repro.sched.compile``; the kinds of
+:data:`PLAN_KINDS`).
 
-What ``serve/kv_transfer`` would decide per shipment and the weight-sync
-engine per publish (leaf buckets, the compress gate, the codec widths, the
-expected wire bytes) is decided here, once, from shapes and dtypes.  The
-expected bytes are the wire formats' closed-form sizes
-(:func:`p2p_wire_bytes`, :func:`delta_wire_bytes`), where the reference
-traces its encoders with ``jax.eval_shape``; the tests hold the two equal.
+What the collectives, ZeRO-1, ``serve/kv_transfer`` and the weight-sync
+engine would decide per call (leaf buckets, the compress gate, the codec
+widths, chunk grids, the fused knobs, the expected wire bytes) is decided
+here, once, from shapes and dtypes; ``sched/executor.py`` replays the
+collective kinds through the same primitives.  The expected bytes are the
+wire formats' closed-form sizes (:func:`encoded_wire_bytes`,
+:func:`p2p_wire_bytes`, :func:`delta_wire_bytes`), where the reference
+traces its encoders with ``jax.eval_shape``; the tests hold the two equal,
+and hold :func:`encoded_wire_bytes` to a real encode's ``wire_nbytes``.
+
+Widths come from the policy's profile unless live data is given
+(``compile_psum_plan(sample=...)``): then ``calibrate.choose_width`` picks
+each bucket's width and the probe's estimates are recorded.
+
 The P2P strategy is the reference's default, ``split_send``, throughout.
 The reference's broadcast schedules (its ``broadcast=`` argument of the
 wsync compiler) are not ported: a wsync plan is receiver-count-agnostic.
+The reference's ``p2p`` and ``fsdp_gather`` kinds are not ported yet.
 """
 from __future__ import annotations
 
@@ -19,10 +28,11 @@ import math
 import torch
 
 from repro_torch import kernels
-from repro_torch.core import codec, packing
-from repro_torch.sched.plan import (PATH_COMPRESSED, PATH_RAW, BucketPlan,
-                                    CommPlan, dtype_name, policy_fingerprint,
-                                    tree_signature)
+from repro_torch.core import calibrate, codec, packing
+from repro_torch.sched.plan import (PATH_COMPRESSED, PATH_RAW, PATH_RAW_PSUM,
+                                    PATH_RAW_TWOSHOT, PATH_RING, PATH_TWO_SHOT,
+                                    BucketPlan, CommPlan, PhasePair, dtype_name,
+                                    policy_fingerprint, tree_signature)
 from repro_torch.tree_util import tree_flatten, tree_leaves
 
 
@@ -57,12 +67,26 @@ def p2p_wire_bytes(n_padded: int, dtype, *, width: int, block: int,
     return lo + exp
 
 
+def encoded_wire_bytes(n_chunks: int, chunk: int, dtype, *, width: int,
+                       block: int, exc_frac: float) -> int:
+    """Wire size of encoding ``(n_chunks, chunk)`` rows at ``width``
+    (``compressed_collectives._encode_chunks``): each row is one message of
+    :func:`p2p_wire_bytes`, its lo plane over the row padded to whole
+    groups, its exponent wire over the row padded to whole blocks."""
+    return n_chunks * p2p_wire_bytes(chunk, dtype, width=width, block=block,
+                                     exc_frac=exc_frac)
+
+
+def _itemsize(dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
 def _p2p_bucket(length: int, dtype, axis_name, *, policy, n_dev: int,
                 tensor_class: str) -> BucketPlan:
     """One flat split-send P2P message's schedule: the policy gate and the
     width, as a BucketPlan (``chunk``: the block-padded length of the
     send)."""
-    itemsize = torch.empty((), dtype=dtype).element_size()
+    itemsize = _itemsize(dtype)
     base = dict(dtype_name=dtype_name(dtype), members=((0, (length,), length),),
                 length=length, n_dev=n_dev)
     struct = torch.empty((length,), dtype=dtype, device="meta")
@@ -84,6 +108,232 @@ def _p2p_bucket(length: int, dtype, axis_name, *, policy, n_dev: int,
 def _with_members(bucket: BucketPlan, members) -> BucketPlan:
     return dataclasses.replace(bucket, members=tuple(members))
 
+
+# ---------------------------------------------------------------------------
+# collectives: the pytree all-reduce, the flat two-shot phases, ZeRO-1
+# ---------------------------------------------------------------------------
+
+def _group_leaves(leaves) -> tuple:
+    """The psum bucketing (``tree_psum_compressed``, the psum and wsync
+    kinds): codec-float leaves group per dtype name (in leaf order), every
+    other leaf is raw.  Returns ``({name: [(i, shape, size), ...]}, raw leaf
+    indices)``."""
+    groups: dict = {}
+    raw_ix = []
+    for i, leaf in enumerate(leaves):
+        lay = codec.LAYOUTS.get(dtype_name(leaf.dtype)) if isinstance(
+            leaf, torch.Tensor) else None
+        if lay is None:
+            raw_ix.append(i)
+        else:
+            groups.setdefault(lay.name, []).append(
+                (i, tuple(leaf.shape), math.prod(leaf.shape)))
+    return groups, tuple(raw_ix)
+
+
+def _probe_bucket(parts, block: int):
+    """Compressibility probe on live bucket data: a ``WidthChoice``."""
+    flat = torch.cat(parts) if len(parts) > 1 else parts[0]
+    return calibrate.choose_width(flat, block=block)
+
+
+def compile_psum_plan(tree, axis_name, *, policy, tensor_class: str = "gradient",
+                      n_dev: int, sample=None, key: tuple = None,
+                      device=None) -> CommPlan:
+    """Compile the pytree all-reduce schedule (kind "psum"): the buckets of
+    ``tree_psum_compressed`` and the dispatch of ``psum_compressed`` for
+    each (two-shot or ring when compressed; the raw two-shot when gated off
+    at ``min_bytes`` or more, else ``psum_safe``).  Only the shapes and
+    dtypes of ``tree`` are read.  ``sample`` (a tree of live tensors of the
+    same structure) switches the width to the calibrate probe.  ``device``
+    (default: the tree's; needed for "meta" tensors) picks the recorded
+    kernel routing."""
+    leaves, _ = tree_flatten(tree)
+    device = _device_of(leaves) if device is None else device
+    backend, use_kernels = probe_backend(device)
+    sample_leaves = tree_leaves(sample) if sample is not None else None
+    groups, raw_ix = _group_leaves(leaves)
+    buckets = []
+    for name in sorted(groups):
+        members = tuple(groups[name])
+        length = sum(m[2] for m in members)
+        dt = codec.LAYOUTS[name].dtype
+        itemsize = _itemsize(dt)
+        base = dict(dtype_name=name, members=members, length=length, n_dev=n_dev)
+        struct = torch.empty((length,), dtype=dt, device="meta")
+        if not policy.should_compress(struct, axis_name, tensor_class=tensor_class):
+            path = (PATH_RAW_TWOSHOT if length * itemsize >= policy.min_bytes
+                    else PATH_RAW_PSUM)
+            buckets.append(BucketPlan(path=path, raw_bytes=length * itemsize, **base))
+            continue
+        width = policy.width_for(tensor_class)
+        block, exc = policy.profile.block, policy.profile.exc_frac
+        probe = None
+        if sample_leaves is not None:
+            choice = _probe_bucket([sample_leaves[i].reshape(-1) for i, _, _ in members],
+                                   block)
+            width = choice.width
+            probe = (choice.est_exc_rate, choice.est_ratio, choice.entropy_bits)
+        padded = _pad_up(length, n_dev * block)
+        chunk = padded // n_dev
+        common = dict(width=width, block=block, exc_frac=exc,
+                      fused=policy.fused_decode_reduce,
+                      encode_fused=policy.fused_encode, chunk=chunk, probe=probe, **base)
+        if policy.allreduce_algorithm == "ring":
+            hop = encoded_wire_bytes(1, chunk, dt, width=width, block=block, exc_frac=exc)
+            buckets.append(BucketPlan(
+                path=PATH_RING, wire_bytes=2 * (n_dev - 1) * hop,
+                raw_bytes=2 * (n_dev - 1) * chunk * itemsize, **common))
+            continue
+        ag_width = min(width + policy.profile.ag_extra_bits, 8)
+        rs_wire = encoded_wire_bytes(n_dev, chunk, dt, width=width, block=block,
+                                     exc_frac=exc)
+        ag_wire = n_dev * encoded_wire_bytes(1, chunk, dt, width=ag_width, block=block,
+                                             exc_frac=exc)
+        buckets.append(BucketPlan(
+            path=PATH_TWO_SHOT, ag_width=ag_width, wire_bytes=rs_wire + ag_wire,
+            raw_bytes=(padded + n_dev * chunk) * itemsize, **common))
+    if key is None:
+        key = psum_plan_key(tree, axis_name, policy, tensor_class, n_dev, device)
+    return CommPlan(key=key, kind="psum", axis=axis_tuple(axis_name), n_dev=n_dev,
+                    backend=backend, use_kernels=use_kernels, buckets=tuple(buckets),
+                    raw_leaf_ix=raw_ix, n_leaves=len(leaves))
+
+
+def psum_plan_key(tree, axis_name, policy, tensor_class: str, n_dev: int,
+                  device=None) -> tuple:
+    # probe_backend is part of every key, so a CPU plan is never replayed on
+    # the card (nor the other way round)
+    if device is None:
+        device = _device_of(tree_leaves(tree))
+    return ("psum", tree_signature(tree), axis_tuple(axis_name), int(n_dev),
+            policy_fingerprint(policy, tensor_class), probe_backend(device))
+
+
+def reduce_scatter_plan_key(length: int, dtype_name: str, axis_name, policy,
+                            tensor_class: str, n_dev: int, device="cuda") -> tuple:
+    return ("reduce_scatter", (int(length), str(dtype_name)), axis_tuple(axis_name),
+            int(n_dev), policy_fingerprint(policy, tensor_class), probe_backend(device))
+
+
+def all_gather_plan_key(length: int, dtype_name: str, axis_name, policy,
+                        tensor_class: str, n_dev: int, device="cuda") -> tuple:
+    return ("all_gather", (int(length), str(dtype_name)), axis_tuple(axis_name),
+            int(n_dev), policy_fingerprint(policy, tensor_class), probe_backend(device))
+
+
+def _gated_on(policy, length: int, itemsize: int, n_dev: int) -> bool:
+    """ZeRO-1's gate of a flat phase: the policy is enabled and the GLOBAL
+    bytes (the local bucket times ``n_dev``) reach ``min_bytes``."""
+    return policy.enabled and length * itemsize * n_dev >= policy.min_bytes
+
+
+def compile_reduce_scatter_plan(length: int, dtype_name: str, axis_name, *, policy,
+                                n_dev: int, tensor_class: str = "gradient",
+                                key: tuple = None, device="cuda") -> CommPlan:
+    """Flat reduce-scatter schedule (kind "reduce_scatter") of a local
+    bucket of ``length`` elements, gated on the global bucket bytes."""
+    backend, use_kernels = probe_backend(device)
+    itemsize = _itemsize(codec.LAYOUTS[dtype_name].dtype)
+    base = dict(dtype_name=dtype_name, members=((0, (length,), length),),
+                length=length, n_dev=n_dev)
+    if key is None:
+        key = reduce_scatter_plan_key(length, dtype_name, axis_name, policy,
+                                      tensor_class, n_dev, device)
+    if not _gated_on(policy, length, itemsize, n_dev):
+        bucket = BucketPlan(path=PATH_RAW, raw_bytes=length * itemsize, **base)
+    else:
+        width, block = policy.width_for(tensor_class), policy.profile.block
+        exc = policy.profile.exc_frac
+        padded = _pad_up(length, n_dev * block)
+        chunk = padded // n_dev
+        bucket = BucketPlan(
+            path=PATH_COMPRESSED, width=width, block=block, exc_frac=exc,
+            fused=policy.fused_decode_reduce, encode_fused=policy.fused_encode,
+            chunk=chunk, raw_bytes=padded * itemsize,
+            wire_bytes=encoded_wire_bytes(n_dev, chunk, codec.LAYOUTS[dtype_name].dtype,
+                                          width=width, block=block, exc_frac=exc),
+            **base)
+    return CommPlan(key=key, kind="reduce_scatter", axis=axis_tuple(axis_name),
+                    n_dev=n_dev, backend=backend, use_kernels=use_kernels,
+                    buckets=(bucket,), n_leaves=1)
+
+
+def compile_all_gather_plan(length: int, dtype_name: str, axis_name, *, policy,
+                            n_dev: int, tensor_class: str = "weight",
+                            key: tuple = None, device="cuda") -> CommPlan:
+    """Flat all-gather schedule (kind "all_gather") of a local shard of
+    ``length`` elements: the tensor class's width plus ``ag_extra_bits``."""
+    backend, use_kernels = probe_backend(device)
+    dt = codec.LAYOUTS[dtype_name].dtype
+    itemsize = _itemsize(dt)
+    base = dict(dtype_name=dtype_name, members=((0, (length,), length),),
+                length=length, n_dev=n_dev, fused=False)
+    if key is None:
+        key = all_gather_plan_key(length, dtype_name, axis_name, policy,
+                                  tensor_class, n_dev, device)
+    if not _gated_on(policy, length, itemsize, n_dev):
+        bucket = BucketPlan(path=PATH_RAW, raw_bytes=n_dev * length * itemsize, **base)
+    else:
+        width = min(policy.width_for(tensor_class) + policy.profile.ag_extra_bits, 8)
+        block, exc = policy.profile.block, policy.profile.exc_frac
+        padded = _pad_up(length, block)
+        bucket = BucketPlan(
+            path=PATH_COMPRESSED, width=width, block=block, exc_frac=exc,
+            encode_fused=policy.fused_encode, chunk=padded,
+            wire_bytes=n_dev * encoded_wire_bytes(1, padded, dt, width=width,
+                                                  block=block, exc_frac=exc),
+            raw_bytes=n_dev * padded * itemsize, **base)
+    return CommPlan(key=key, kind="all_gather", axis=axis_tuple(axis_name),
+                    n_dev=n_dev, backend=backend, use_kernels=use_kernels,
+                    buckets=(bucket,), n_leaves=1)
+
+
+def compile_zero1_plan(meta, *, policy, axis_name, n_dev: int, key: tuple = None,
+                       device="cuda") -> CommPlan:
+    """Compile the ZeRO-1 sync schedule (kind "zero1") of a ``BucketMeta``:
+    one ``PhasePair`` per dtype bucket, the RS phase at the gradient width,
+    the AG phase at the weight width, each gated as its flat kind."""
+    backend, use_kernels = probe_backend(device)
+    if key is None:
+        key = zero1_plan_key(meta, axis_name, policy, n_dev, device)
+    pairs = []
+    for name, members, padded, shard in zip(meta.dtype_names, meta.members,
+                                            meta.padded, meta.shard_lens):
+        rs = compile_reduce_scatter_plan(
+            padded, name, axis_name, policy=policy, n_dev=n_dev,
+            tensor_class="gradient", key=key + ("rs", name), device=device).buckets[0]
+        ag = compile_all_gather_plan(
+            shard, name, axis_name, policy=policy, n_dev=n_dev, tensor_class="weight",
+            key=key + ("ag", name), device=device).buckets[0]
+        pairs.append(PhasePair(rs=_with_members(rs, members), ag=ag))
+    return CommPlan(key=key, kind="zero1", axis=axis_tuple(axis_name), n_dev=n_dev,
+                    backend=backend, use_kernels=use_kernels, buckets=tuple(pairs),
+                    n_leaves=sum(len(m) for m in meta.members))
+
+
+def zero1_plan_key(meta, axis_name, policy, n_dev: int, device="cuda") -> tuple:
+    return ("zero1", meta.dtype_names, meta.padded, meta.shard_lens, meta.block,
+            axis_tuple(axis_name), int(n_dev), policy_fingerprint(policy),
+            probe_backend(device))
+
+
+def cached_zero1_plan(meta, *, policy, axis_name, n_dev: int, device="cuda",
+                      cache=None) -> CommPlan:
+    """Keyed-cache wrapper of :func:`compile_zero1_plan`, the train step's
+    entry point: one compile per step signature and policy, then hits."""
+    from repro_torch.sched.cache import default_cache
+
+    cache = default_cache() if cache is None else cache
+    key = zero1_plan_key(meta, axis_name, policy, n_dev, device)
+    return cache.get_or_compile(
+        key, lambda: compile_zero1_plan(meta, policy=policy, axis_name=axis_name,
+                                        n_dev=n_dev, key=key, device=device))
+
+
+# ---------------------------------------------------------------------------
+# serve KV: the cache pytree shipped over the P2P wire (paper §5.3.2)
+# ---------------------------------------------------------------------------
 
 def compile_kv_plan(cache, axis_name, *, policy, n_dev: int,
                     key: tuple = None, device=None) -> CommPlan:
@@ -151,23 +401,6 @@ def cached_kv_plan(cache, axis_name, *, policy, n_dev: int,
 # weight sync: the versioned trainer -> replica send (paper §5.3.1), per-dtype
 # leaf buckets with both the full and the XOR-delta wire's schedule
 # ---------------------------------------------------------------------------
-
-def _group_leaves(leaves) -> tuple:
-    """The reference's psum bucketing: codec-float leaves group per dtype
-    name (in leaf order), every other leaf is raw.  Returns ``({name:
-    [(i, shape, size), ...]}, raw leaf indices)``."""
-    groups: dict = {}
-    raw_ix = []
-    for i, leaf in enumerate(leaves):
-        lay = codec.LAYOUTS.get(dtype_name(leaf.dtype)) if isinstance(
-            leaf, torch.Tensor) else None
-        if lay is None:
-            raw_ix.append(i)
-        else:
-            groups.setdefault(lay.name, []).append(
-                (i, tuple(leaf.shape), math.prod(leaf.shape)))
-    return groups, tuple(raw_ix)
-
 
 def delta_wire_bytes(n_padded: int, *, width: int, lo_width: int, block: int,
                      exc_frac: float) -> int:
@@ -249,3 +482,18 @@ def cached_wsync_plan(tree, axis_name, *, policy, n_dev: int,
     return cache.get_or_compile(
         key, lambda: compile_wsync_plan(tree, axis_name, policy=policy,
                                         n_dev=n_dev, key=key))
+
+
+# ---------------------------------------------------------------------------
+# kind registry: CommPlan.kind -> compiler.  The reference's "p2p" and
+# "fsdp_gather" kinds come with the in-mesh P2P senders and FSDP.
+# ---------------------------------------------------------------------------
+
+PLAN_KINDS = {
+    "psum": compile_psum_plan,
+    "reduce_scatter": compile_reduce_scatter_plan,
+    "all_gather": compile_all_gather_plan,
+    "zero1": compile_zero1_plan,
+    "kv": compile_kv_plan,
+    "wsync": compile_wsync_plan,
+}

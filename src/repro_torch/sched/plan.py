@@ -1,13 +1,15 @@
 """Communication-plan IR (paper §3.3, the Uzip-NCCL persistent kernel model);
-torch port of ``repro.sched.plan``, the subset the ``kv`` and ``wsync``
-kinds need.
+torch port of ``repro.sched.plan`` (without the wsync broadcast schedules).
 
 A ``CommPlan`` is the static, hashable record of everything a wire would
 otherwise re-derive at every call: leaf buckets, compress-vs-raw paths,
 codec widths, the kernel routing and the expected wire bytes.  It is pure
 data (no tensors), built by ``sched/compile.py`` from shapes and a
-``CompressionPolicy`` and cached by ``sched/cache.py`` on the signature of
-what it ships.
+``CompressionPolicy``, cached by ``sched/cache.py`` on the signature of
+what it ships, and replayed by ``sched/executor.py`` (the collective kinds)
+or by the serve and weight-sync engines (``kv``, ``wsync``).  Replaying a
+plan calls the same primitives with the same arguments as the planless
+entry point, so the two give the same bits.
 """
 from __future__ import annotations
 
@@ -23,20 +25,23 @@ PATH_TWO_SHOT = "two_shot"        # compressed RS + compressed AG
 PATH_RING = "ring"                # paper's negative baseline, per-hop codec
 PATH_RAW_TWOSHOT = "raw_twoshot"  # big but gated off: byte-exact raw two-shot
 PATH_RAW_PSUM = "raw_psum"        # small: plain (f32-promoted) psum
-# single-phase buckets (reduce_scatter / all_gather / p2p / kv / wsync kinds):
+# single-phase buckets (reduce_scatter / all_gather / kv / wsync kinds):
 PATH_COMPRESSED = "compressed"
 PATH_RAW = "raw"
 
 
 @dataclasses.dataclass(frozen=True)
 class BucketPlan:
-    """Static schedule for ONE flat bucket (one wire).
+    """Static schedule for ONE flat bucket (one wire, or one two-shot pair).
 
     ``members`` lists the pytree leaves fused into the bucket as
-    ``(flat_leaf_index, shape, size)`` in tree order.  For ``kv`` and
-    ``wsync`` plans ``chunk`` is the block-padded message length of one
-    send.  ``wire_bytes``/``raw_bytes`` are the expected per-execution wire
-    accounting (static: wire shapes do not depend on data)."""
+    ``(flat_leaf_index, shape, size)`` in tree order.  ``chunk`` is the
+    per-rank chunk length of the reduce-scatter grid (``padded / n_dev``;
+    the all-gather phase reuses it); for ``all_gather``, ``kv`` and
+    ``wsync`` plans it is the block-padded length of one send.
+    ``wire_bytes``/``raw_bytes`` are the expected per-execution wire
+    accounting (static: wire shapes do not depend on data), the sums of the
+    collectives' WireReports."""
 
     dtype_name: str
     members: tuple  # ((leaf_index, shape, size), ...)
@@ -58,6 +63,9 @@ class BucketPlan:
     delta_width: int = 0
     delta_lo_width: int = 0
     delta_wire_bytes: int = 0
+    # compressibility probe, when the compiler calibrated the width from live
+    # data (``sample=``): (est_exc_rate, est_ratio, entropy_bits), else None
+    probe: tuple | None = None
 
     @property
     def ratio(self) -> float:
@@ -69,16 +77,29 @@ class BucketPlan:
 
 
 @dataclasses.dataclass(frozen=True)
+class PhasePair:
+    """ZeRO-1 bucket schedule: the RS (gradient-class) and AG (weight-class)
+    phases of one dtype bucket carry different widths and are gated on
+    different byte counts, so each gets its own BucketPlan."""
+
+    rs: BucketPlan
+    ag: BucketPlan
+
+
+@dataclasses.dataclass(frozen=True)
 class CommPlan:
     """A compiled communication plan for one wire signature.
 
-    ``kind`` "kv": a KV-cache pytree shipped leaf-bucketed over the P2P
-    ``split_send`` pipeline; "wsync": a versioned weight pytree sent to
-    replicas with per-bucket XOR-delta-vs-full gating (the delta schedule in
-    each ``BucketPlan``).  ``backend``/``use_kernels`` record the device and whether its
-    wires run the CUDA kernels (``compile.probe_backend``).  ``raw_leaf_ix``
-    are leaves outside every bucket (not a codec float, or 0-d), moved as
-    they are."""
+    ``kind``: "psum" (pytree two-shot or ring all-reduce), "reduce_scatter"
+    and "all_gather" (flat single-bucket phases), "zero1" (per-dtype RS/AG
+    ``PhasePair``s with the optimizer update between), "kv" (a KV-cache
+    pytree shipped leaf-bucketed over the P2P ``split_send`` pipeline) or
+    "wsync" (a versioned weight pytree sent to replicas with per-bucket
+    XOR-delta-vs-full gating, the delta schedule in each ``BucketPlan``).
+    ``backend``/``use_kernels`` record the device and whether its wires run
+    the CUDA kernels (``compile.probe_backend``).  ``raw_leaf_ix`` are
+    leaves outside every bucket (not a codec float, or 0-d for "kv"): summed
+    with ``psum_safe`` (kind "psum") or moved as they are."""
 
     key: tuple  # the cache key this plan was compiled under (hashable)
     kind: str
@@ -86,18 +107,26 @@ class CommPlan:
     n_dev: int
     backend: str
     use_kernels: bool
-    buckets: tuple  # BucketPlans
+    buckets: tuple  # BucketPlans (PhasePairs for kind "zero1")
     raw_leaf_ix: tuple = ()
     n_leaves: int = 0
+
+    def _flat_buckets(self):
+        for b in self.buckets:
+            if isinstance(b, PhasePair):
+                yield b.rs
+                yield b.ag
+            else:
+                yield b
 
     @property
     def wire_bytes(self) -> int:
         """Expected compressed wire bytes of one plan execution."""
-        return sum(b.wire_bytes for b in self.buckets if b.compressed)
+        return sum(b.wire_bytes for b in self._flat_buckets() if b.compressed)
 
     @property
     def raw_bytes(self) -> int:
-        return sum(b.raw_bytes for b in self.buckets if b.compressed)
+        return sum(b.raw_bytes for b in self._flat_buckets() if b.compressed)
 
     @property
     def ratio(self) -> float:
@@ -108,13 +137,13 @@ class CommPlan:
         """Expected wire bytes of one all-delta execution (kind "wsync"):
         delta-eligible buckets ship deltas, the rest their full wires."""
         return sum(b.delta_wire_bytes if b.delta_width else b.wire_bytes
-                   for b in self.buckets if b.compressed)
+                   for b in self._flat_buckets() if b.compressed)
 
     def width_for_dtype(self, dtype_name: str) -> int | None:
         """Recorded send-phase codec width of the first compressed bucket
         of ``dtype_name``, or None when that dtype rides a raw path.  The
         host ``p2p/engine.Compressor`` reads it instead of probing."""
-        for b in self.buckets:
+        for b in self._flat_buckets():
             if b.dtype_name == dtype_name and b.compressed:
                 return b.width
         return None
@@ -128,10 +157,10 @@ class CommPlan:
             "use_kernels": self.use_kernels,
             "n_buckets": len(self.buckets),
             "n_raw_leaves": len(self.raw_leaf_ix),
-            "paths": tuple(b.path for b in self.buckets),
-            "n_encode_fused": sum(1 for b in self.buckets
+            "paths": tuple(b.path for b in self._flat_buckets()),
+            "n_encode_fused": sum(1 for b in self._flat_buckets()
                                   if b.compressed and b.encode_fused),
-            "n_delta": sum(1 for b in self.buckets
+            "n_delta": sum(1 for b in self._flat_buckets()
                            if b.compressed and b.delta_width),
             "wire_bytes": self.wire_bytes,
             "raw_bytes": self.raw_bytes,

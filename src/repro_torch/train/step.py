@@ -4,7 +4,9 @@
 One step: forward + sequence-chunked cross-entropy, backward (each rank's
 local gradient), then ``optim/zero1.zero1_step``: compressed reduce-scatter
 of the gradient bucket, f32 shard update, compressed all-gather of the new
-parameters.
+parameters, replaying the step signature's ``zero1`` plan
+(:func:`zero1_plan`: compiled once per signature and policy, then a cache
+hit).
 
 Losslessness: every compressed wire carries an overflow flag.  With
 ``guard_overflow`` a step whose flag fires keeps the old parameters and
@@ -24,6 +26,7 @@ from repro_torch.models import transformer
 from repro_torch.models.config import ArchConfig
 from repro_torch.optim import optimizers as opt
 from repro_torch.optim import zero1 as zero1_lib
+from repro_torch.sched import compile as sched_compile
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,11 +85,24 @@ def build_train_state(cfg: ArchConfig, tcfg: TrainConfig, *,
     return train_state_for(model, tcfg, group)
 
 
+def zero1_plan(state: TrainState, tcfg: TrainConfig, group=None, *,
+               axis_name="data", cache=None):
+    """The ``zero1`` plan of this train state's step signature (bucket
+    layout, policy, group size, device): compiled on first sight, then a
+    hit in ``cache`` (default: the process cache)."""
+    return sched_compile.cached_zero1_plan(
+        state.meta, policy=tcfg.policy, axis_name=axis_name,
+        n_dev=dist.get_world_size(group), device=state.model.leaves()[0].device,
+        cache=cache)
+
+
 def train_step(state: TrainState, batch: dict, tcfg: TrainConfig, *,
-               group=None) -> dict:
-    """One ZeRO-1 step; updates ``state`` in place unless the overflow
-    guard fires.  Returns ``{"loss" (mean over ranks), "gnorm": f32
-    tensors, "overflow": int}``."""
+               group=None, plan=None) -> dict:
+    """One ZeRO-1 step over ``plan`` (default: :func:`zero1_plan`); updates
+    ``state`` in place unless the overflow guard fires.  Returns ``{"loss"
+    (mean over ranks), "gnorm": f32 tensors, "overflow": int}``."""
+    if plan is None:
+        plan = zero1_plan(state, tcfg, group)
     leaves = state.model.leaves()
     for p in leaves:
         p.grad = None
@@ -96,7 +112,7 @@ def train_step(state: TrainState, batch: dict, tcfg: TrainConfig, *,
     with torch.no_grad():
         new_params, new_opt, flag, gnorm = zero1_lib.zero1_step(
             tcfg.optim, state.meta, leaves, grads, state.opt, group=group,
-            policy=tcfg.policy)
+            policy=tcfg.policy, plan=plan)
         loss = loss.detach()
         dist.all_reduce(loss, group=group)
         loss = loss / dist.get_world_size(group)

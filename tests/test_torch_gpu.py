@@ -427,3 +427,94 @@ def test_full_width_delta_round_trip_on_the_card(cuda):
     after = kernels.launch_counts()
     assert torch.equal(back.view(torch.int16), new.view(torch.int16))
     assert (after["pack"] - before["pack"], after["unpack"] - before["unpack"]) == (2, 2)
+
+
+# ---------------------------------------------------------------------------
+# the all-reduce family and psum_with_plan on a one-rank NCCL group, against
+# the same calls on a one-rank gloo group on the CPU
+# ---------------------------------------------------------------------------
+
+PSUM_KNOBS = {"fused": {}, "unfused_encode": {"fused_encode": False},
+              "unfused_decode": {"fused_decode_reduce": False}}
+
+
+def _psum_tree(seed: int = 40) -> dict:
+    """A bf16 and an f32 bucket, and an int32 leaf outside the codec."""
+    x = to_torch(grad_like_bits("bfloat16", 512 * 24 + 77, seed=seed), "bfloat16")
+    f = to_torch(grad_like_bits("float32", 3000, seed=seed + 1), "float32")
+    return {"w": x[:6000].reshape(60, 100), "emb": x[6000:], "norm": f,
+            "step": torch.arange(4, dtype=torch.int32)}
+
+
+def _launches(before: dict) -> dict:
+    after = kernels.launch_counts()
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor, *, nan_as_nan: bool = False) -> bool:
+    """Same dtype and bits; with ``nan_as_nan`` a NaN matches any NaN: a sum
+    leaves the f32 accumulator by float arithmetic and a cast, which keep a
+    NaN's payload on the CPU and make it a canonical NaN on the card."""
+    a, b = a.detach().cpu().reshape(-1), b.detach().cpu().reshape(-1)
+    if a.dtype != b.dtype:
+        return False
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    same = a.view(ints) == b.view(ints)
+    if nan_as_nan and a.is_floating_point():
+        same |= a.float().isnan() & b.float().isnan()
+    return bool(same.all())
+
+
+@pytest.mark.parametrize("knobs", sorted(PSUM_KNOBS))
+def test_psum_with_plan_on_the_card_equals_the_cpu(cuda, knobs):
+    import dataclasses
+
+    from repro_torch import sched
+    from repro_torch.core.policy import CompressionPolicy
+    from repro_torch.launch.train import single_process_group
+    from repro_torch.sched.cache import PlanCache
+
+    pol = dataclasses.replace(CompressionPolicy(min_bytes=0), **PSUM_KNOBS[knobs])
+    tree = _psum_tree()
+    with single_process_group("cpu") as g:
+        want, _ = sched.psum_with_plan(tree, g, policy=pol, cache=PlanCache())
+    with single_process_group(cuda) as g:
+        gtree = {k: v.to(cuda) for k, v in tree.items()}
+        before = kernels.launch_counts()
+        got, flag = sched.psum_with_plan(gtree, g, policy=pol, cache=PlanCache())
+        launched = _launches(before)
+    assert int(flag) == 0
+    for k in tree:
+        assert got[k].is_cuda and _same_bits(got[k], want[k], nan_as_nan=True), k
+    knob = {"fused_encode": True, "fused_decode_reduce": True, **PSUM_KNOBS[knobs]}
+    per_bucket = chip_smoke.two_shot_launches(knob["fused_encode"],
+                                              knob["fused_decode_reduce"], n_dev=1)
+    assert launched == {k: 2 * v for k, v in per_bucket.items() if v}  # two buckets
+
+
+def test_hierarchical_all_to_all_and_ppermute_on_the_card_equal_the_cpu(cuda):
+    from repro_torch.core.policy import CompressionPolicy
+    from repro_torch.launch.train import single_process_group
+
+    pol = CompressionPolicy(min_bytes=0)
+    x = to_torch(grad_like_bits("bfloat16", 512 * 24 + 77, seed=41), "bfloat16")
+
+    def calls(g, t):
+        return {"hier": lambda: cc.psum_compressed_hierarchical(t, g, g, policy=pol, group=g),
+                "a2a": lambda: cc.all_to_all_compressed(t[None], g, policy=pol),
+                "ppermute": lambda: cc.ppermute_compressed(t, [(0, 0)], g, policy=pol)}
+
+    with single_process_group("cpu") as g:
+        want = {k: fn()[0] for k, fn in calls(g, x).items()}
+    # the hierarchical form: two RS and two AG phases; a2a and ppermute:
+    # one encode and the AG-style decode of both planes
+    expect = {"hier": {"encode_fused": 4, "decode_reduce": 2, "unpack": 6},
+              "a2a": {"encode_fused": 1, "unpack": 2},
+              "ppermute": {"encode_fused": 1, "unpack": 2}}
+    with single_process_group(cuda) as g:
+        for k, fn in calls(g, x.to(cuda)).items():
+            before = kernels.launch_counts()
+            got, flag = fn()
+            assert _launches(before) == expect[k], k
+            assert int(flag) == 0 and got.is_cuda, k
+            assert _same_bits(got, want[k], nan_as_nan=k == "hier"), k

@@ -187,9 +187,14 @@ def test_p2p_wire_bytes_closed_form_matches_reference(fmt, n, width):
                                          ("fused_decode_reduce", False),
                                          ("fused_encode", False)])
 def test_policy_refuses_the_knobs_the_port_does_not_run(field, value):
-    with pytest.raises(NotImplementedError, match=field):
-        CompressionPolicy(**{field: value})
-    assert getattr(JPolicy(**{field: value}), field) == value  # the reference runs it
+    """The port now runs every value of these knobs that the reference runs:
+    each is taken, with the reference's plan fingerprint; only an algorithm
+    that neither runs is refused."""
+    pol, jpol = CompressionPolicy(**{field: value}), JPolicy(**{field: value})
+    assert getattr(pol, field) == getattr(jpol, field) == value
+    assert sched_plan.policy_fingerprint(pol) == jplan.policy_fingerprint(jpol)
+    with pytest.raises(ValueError, match="allreduce_algorithm"):
+        CompressionPolicy(allreduce_algorithm="tree")
 
 
 def test_policy_fingerprint_and_signature():

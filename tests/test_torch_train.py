@@ -235,7 +235,8 @@ def test_compressed_and_raw_twins_are_identical_and_launch_no_kernel():
     for a, b in zip(_param_bits(comp), _param_bits(raw)):
         assert np.array_equal(a, b)
     assert comp.retries == raw.retries == 0
-    assert {r.name for r in comp.wire_reports} == {"reduce_scatter", "all_gather"}
+    # each step's wire is one consolidated report of its zero1 plan
+    assert [r.name for r in comp.wire_reports] == ["plan:zero1"] * 3
     assert raw.wire_reports == []
     assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
 

@@ -183,3 +183,119 @@ def train_twin_rank(rank: int, world: int, out: str, steps: int, batch: int,
             [np_of(p).view(np.uint8).reshape(-1) for p in run.state.model.leaves()])
         res[f"{tag}_retries"] = run.retries
     np.savez(out, **res)
+
+
+# ---------------------------------------------------------------------------
+# workers of the all-reduce family's multi-rank tests
+# ---------------------------------------------------------------------------
+
+PSUM_N = 512 * 8 + 300  # a ragged bucket: 8 blocks and a tail
+A2A_INNER = 512 * 2 + 40  # an all_to_all row: 2 blocks and a tail
+PSUM_VARIANTS = {  # name -> CompressionPolicy overrides (min_bytes=0)
+    "two_shot": {},
+    "unfused_encode": {"fused_encode": False},
+    "unfused_decode": {"fused_decode_reduce": False},
+    "ring": {"allreduce_algorithm": "ring"},
+    "ring_unfused": {"allreduce_algorithm": "ring", "fused_encode": False,
+                     "fused_decode_reduce": False},
+}
+REPORT_FIELDS = ("name", "raw_bytes", "wire_bytes", "fused", "decode_hbm_bytes",
+                 "encode_fused", "encode_hbm_bytes")
+
+
+def psum_bits(rank: int, n: int = PSUM_N, fmt: str = "bfloat16") -> np.ndarray:
+    """Rank ``rank``'s seeded gradient-like input (no subnormals: XLA:CPU
+    flushes them in the reference's reduce)."""
+    return grad_like_bits(fmt, n, seed=100 + rank, subnormals=False)
+
+
+def exact_f32(rank: int, n: int) -> np.ndarray:
+    """Small integers times powers of two: the f32 sum of up to four ranks
+    is exact, so it is the same in every summation order (the backend's
+    all_reduce fixes none)."""
+    rng = np.random.default_rng(200 + rank)
+    return (rng.integers(-64, 64, n) * 2.0 ** rng.integers(-8, 8, n)).astype(np.float32)
+
+
+def report_rows(reports) -> list:
+    return [[getattr(r, f) for f in REPORT_FIELDS] for r in reports]
+
+
+def saved_reports(reports) -> np.ndarray:
+    """WireReport rows as a JSON string array (``np.load`` takes no pickles)."""
+    import json
+
+    return np.array(json.dumps(report_rows(reports)))
+
+
+def _psum_tree(rank: int):
+    """A mixed tree: two bf16 leaves, f32 leaves large and small, an int32
+    leaf (raw: not a codec float)."""
+    x = to_torch(psum_bits(rank), "bfloat16")
+    return {"w": x[:3000].reshape(60, 50), "emb": x[3000:], "norm": torch.from_numpy(
+        exact_f32(rank, 700)), "bias": torch.from_numpy(exact_f32(rank + 7, 9)),
+        "step": torch.arange(5, dtype=torch.int32) * (rank + 1)}
+
+
+def psum_rank(rank: int, world: int, out: str) -> None:
+    """Every member of the all-reduce family on this rank's seeded inputs:
+    psum_compressed in each of PSUM_VARIANTS (values, flags, WireReports),
+    psum_raw_twoshot, psum_safe, all_to_all_compressed, ppermute_compressed
+    (a ring shift, and one pair only), tree_psum_compressed and
+    psum_with_plan on a mixed tree, and at four ranks
+    psum_compressed_hierarchical over 2 pods x 2 data ranks (pod-major)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch import sched
+    from repro_torch.core import compressed_collectives as cc
+    from repro_torch.core.policy import CompressionPolicy, capture_wire_reports
+    from repro_torch.tree_util import tree_flatten
+
+    pol = CompressionPolicy(min_bytes=0)
+    x = to_torch(psum_bits(rank), "bfloat16")
+    xe = torch.from_numpy(exact_f32(rank, 3000))
+    res = {}
+    for name, kw in PSUM_VARIANTS.items():
+        with capture_wire_reports() as reps:
+            got, flag = cc.psum_compressed(x, policy=dataclasses.replace(pol, **kw))
+        res[f"psum_{name}"], res[f"flag_{name}"] = np_of(got), int(flag)
+        res[f"reports_{name}"] = saved_reports(reps)
+    res["raw_twoshot"] = np_of(cc.psum_raw_twoshot(x))
+    res["raw_twoshot_f32"] = np_of(cc.psum_raw_twoshot(xe))
+    res["safe_f32"] = np_of(cc.psum_safe(xe))
+    res["safe_bf16"] = np_of(cc.psum_safe(xe.to(torch.bfloat16)))
+    res["gated_raw"] = np_of(cc.psum_compressed(x, policy=CompressionPolicy.disabled())[0])
+    rows = x[: world * A2A_INNER].reshape(world, A2A_INNER)
+    for tag, p in (("a2a", pol), ("a2a_unfused", dataclasses.replace(pol, fused_encode=False)),
+                   ("a2a_raw", CompressionPolicy.disabled())):
+        got, flag = cc.all_to_all_compressed(rows, policy=p)
+        res[tag], res[f"flag_{tag}"] = np_of(got), int(flag)
+    shift = [(i, (i + 1) % world) for i in range(world)]
+    for tag, perm, p in (("pp_shift", shift, pol), ("pp_pair", [(0, world - 1)], pol),
+                         ("pp_raw", shift, CompressionPolicy.disabled())):
+        got, flag = cc.ppermute_compressed(x, perm, policy=p)
+        res[tag], res[f"flag_{tag}"] = np_of(got), int(flag)
+    tree = _psum_tree(rank)
+    for tag, fn in (("tree", cc.tree_psum_compressed), ("plan", sched.psum_with_plan)):
+        with capture_wire_reports() as reps:
+            got, flag = fn(tree, policy=pol)
+        for i, leaf in enumerate(tree_flatten(got)[0]):
+            res[f"{tag}_{i}"] = np_of(leaf)
+        res[f"flag_{tag}"] = int(flag)
+        res[f"reports_{tag}"] = saved_reports(reps)
+    if world == 4:
+        pods = [dist.new_group([2 * p, 2 * p + 1]) for p in range(2)]
+        datas = [dist.new_group([d, d + 2]) for d in range(2)]
+        intra, inter = pods[rank // 2], datas[rank % 2]
+        got, flag = cc.psum_compressed_hierarchical(x, intra, inter, policy=pol)
+        res["hier"], res["flag_hier"] = np_of(got), int(flag)
+        got, _ = cc.psum_compressed_hierarchical(
+            x, intra, inter, policy=dataclasses.replace(pol, fused_encode=False,
+                                                        fused_decode_reduce=False))
+        res["hier_unfused"] = np_of(got)
+        got, _ = cc.psum_compressed_hierarchical(xe, intra, inter,
+                                                 policy=CompressionPolicy.disabled())
+        res["hier_raw_f32"] = np_of(got)
+    np.savez(out, **res)
