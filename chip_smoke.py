@@ -127,14 +127,41 @@ result line each:
             of a full update (encode on the card, device-to-host copy,
             update_checksum, verify_update, apply = host-to-device copy and
             decode, in-place copy into the serve engine's model).
-6. times  - each kernel and its plain version at the shapes its path
-            gives it (unpack: one KV leaf's payload, and the AG decode's
-            payload and lo plane; pack: one KV leaf's uint8 residuals and
-            int32 lo plane, the delta sync encode's uint8 exponent
-            residuals and int32 lo delta at the sync run's calibrated
-            widths, and the psum phase's unfused encode of the gradient
-            bucket (int32 lo plane, uint8 residuals), each with its
-            launches; CUDA events, median of 20 runs after
+6. p2p    - Uzip-P2P in the mesh (core/split_send and the p2p, kv and
+            wsync plans), on a one-rank NCCL group with perm [(0, 0)]: the
+            serve phase's prefilled cache (two (30, 1, 1024, 3, 64) bf16
+            leaves, one bucket of 11 796 480, and the 0-d position leaf,
+            raw) through transfer_cache_with_plan under split_send,
+            encode_send and chunked (CompressionPolicy(), one PlanCache: 3
+            misses, then only hits on the timing repeats) and gated off;
+            every leaf bit-identical to the cache, one plan:kv report a run
+            whose bytes and ratio are the plan's.  The psum phase's gradient
+            bucket (134 515 008 bf16, padded to 134 515 200) through
+            p2p_send_with_plan under each strategy and gated off,
+            bit-identical; then as a reducing receiver into a seeded f32
+            accumulator, fused and unfused, each bit-identical to
+            acc + grad.float().  The sync phase's last two weight versions
+            through sync_weights_with_plan at its calibrated delta widths:
+            full, then a delta against the older one (a set flag takes the
+            full retry), each bit-identical to the newer version.  Launches
+            of each run as derived in p2p_launches: split_send pack 2 and
+            unpack 2 (a fused reducing receiver: decode_reduce 1 and unpack
+            1), encode_send encode_fused 1 and unpack 2, chunked that a
+            chunk (4 chunks at both buckets), a delta pack 2 and unpack 2;
+            gated off none.  Prints each strategy's ms beside its raw twin
+            (host clock to a device sync, median of 5; at one rank the wire
+            is NCCL's copy to itself, so the times are the codec's
+            schedule, not a network's).
+7. times  - each kernel and its plain version at the shapes its path
+            gives it: encode_fused, decode_reduce and plane_split at the
+            AG bucket, pack and unpack at one KV leaf (the row's ms), and
+            encode_fused, decode_reduce, pack and unpack also at every
+            shape any run of phases 3-6 launched them at (``shapes``): each
+            run's first input of each shape, which recorded_inputs keeps,
+            is held against the plain version, and every launch a run
+            tallied must be at a recorded shape; each shape is timed once,
+            with its launches by run; rANS at one KV leaf's exponent
+            plane.  CUDA events, median of 20 runs after
             warm-up; the plain rANS versions, one torch step per row, once), beside the
             least time the card could take (bytes over its memory bandwidth
             or operations over its peak rate, the larger).  The two rANS
@@ -151,6 +178,8 @@ The last line is ``{"ok": true, "device": {...}}``; the line before it the
 """
 from __future__ import annotations
 
+import contextlib
+import importlib
 import json
 import os
 import subprocess
@@ -730,6 +759,57 @@ def check_rans(per, lanes, rng, dev, torch, np):
                                  f"lanes={lanes} differs")
 
 
+# the kernels whose wrappers tally each launch under its shape, by the
+# module (under repro_torch.kernels) and the name of the wrapper
+SHAPED = {"encode_fused": ("encode_fused", "encode_fused"),
+          "decode_reduce": ("decode_reduce", "decode_reduce"),
+          "pack": ("bitpack", "pack"), "unpack": ("bitpack", "unpack")}
+
+
+@contextlib.contextmanager
+def recorded_inputs(torch):
+    """While active, the wrappers of SHAPED keep a copy of the arguments of
+    their first launch at each shape, under the shape the launch was
+    tallied at (``kernels.launch_shapes``): ``{kernel: {shape: args}}``, the
+    inputs the path gives each kernel.  A launch that does not go through
+    the wrapper's module attribute is tallied and not recorded, which the
+    caller's comparison of the two shows."""
+    from repro_torch import kernels
+
+    inputs = {name: {} for name in SHAPED}
+    seen, saved = set(), []
+    for name, (module, attr) in SHAPED.items():
+        mod = importlib.import_module(f"repro_torch.kernels.{module}")
+        saved.append((mod, attr, getattr(mod, attr)))
+
+        def rec(*args, _name=name, _fn=getattr(mod, attr)):
+            sig = (_name, *((a.dtype, tuple(a.shape)) if isinstance(a, torch.Tensor) else a
+                            for a in args))
+            copy = None if sig in seen else tuple(
+                a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+            seen.add(sig)
+            before = kernels.launch_shapes(_name)
+            out = _fn(*args)
+            for shape, n in kernels.launch_shapes(_name).items():
+                if n != before.get(shape, 0) and copy is not None:
+                    inputs[_name].setdefault(shape, copy)
+            return out
+
+        setattr(mod, attr, rec)
+    try:
+        yield inputs
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def shape_tallies() -> dict:
+    """``{kernel: {shape: launches}}`` of SHAPED since the counts were cleared."""
+    from repro_torch import kernels
+
+    return {k: kernels.launch_shapes(k) for k in SHAPED}
+
+
 def phase_serve(dev, torch, np):
     """Colocated, then PD-disaggregated serving of smollm_135m at full width
     and depth; then one prefilled cache over the host wire with each codec.
@@ -772,16 +852,18 @@ def phase_serve(dev, torch, np):
         colocated, t_col = serve(False, prompts, MAX_NEW)
         col_launches = kernels.launch_counts()
         pc = PlanCache()
-        kernels.clear_launch_counts()
-        pd, t_pd = serve(True, prompts, MAX_NEW, pc)
-        pd_launches = kernels.launch_counts()
-        pd_packs = kernels.launch_shapes("pack")
+        with recorded_inputs(torch) as inputs:
+            kernels.clear_launch_counts()
+            pd, t_pd = serve(True, prompts, MAX_NEW, pc)
+            pd_launches = kernels.launch_counts()
+        recorded = {"serve_pd": (inputs, shape_tallies())}
         col2, t_col2 = serve(False, prompts[:N_RANS], MAX_NEW)
         pc_rans = PlanCache()
-        kernels.clear_launch_counts()
-        pd_rans, t_rans = serve(True, prompts[:N_RANS], MAX_NEW, pc_rans, "rans")
-        rans_launches = kernels.launch_counts()
-        rans_packs = kernels.launch_shapes("pack")
+        with recorded_inputs(torch) as inputs:
+            kernels.clear_launch_counts()
+            pd_rans, t_rans = serve(True, prompts[:N_RANS], MAX_NEW, pc_rans, "rans")
+            rans_launches = kernels.launch_counts()
+        recorded["serve_pd_rans"] = (inputs, shape_tallies())
     if pd != colocated:
         raise AssertionError(f"PD tokens differ from colocated: {pd} vs {colocated}")
     if len(pd) != N_REQ or any(len(o) != MAX_NEW or not all(0 <= t < cfg.vocab for t in o)
@@ -871,8 +953,8 @@ def phase_serve(dev, torch, np):
     print("  serve breakdown, ms (host clock to a device sync, median): "
           + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
     return {"pd_launches": pd_launches, "rans_launches": rans_launches,
-            "pack_shapes": {"serve_pd": pd_packs, "serve_pd_rans": rans_packs},
-            "leaf": leaves[0], "width": plan.width_for_dtype("bfloat16"),
+            "recorded": recorded, "leaf": leaves[0],
+            "width": plan.width_for_dtype("bfloat16"), "cache": cache,
             "tok_s": {"colocated": n_tok / t_col, "pd": n_tok / t_pd,
                       "pd_rans": n_tok2 / t_rans}, "ship": ship}
 
@@ -886,11 +968,13 @@ def phase_main(dev, torch):
     with launch_train.single_process_group(dev) as group:
         n_dp = torch.distributed.get_world_size(group)
         for compress in (True, False):
-            kernels.clear_launch_counts()
-            runs[compress] = launch_train.train(
-                ARCH, steps=STEPS, batch=BATCH, seq=SEQ, compress=compress,
-                device=dev, seed=SEED, group=group)
-            runs[compress].launches = kernels.launch_counts()
+            with recorded_inputs(torch) as inputs:
+                kernels.clear_launch_counts()
+                runs[compress] = launch_train.train(
+                    ARCH, steps=STEPS, batch=BATCH, seq=SEQ, compress=compress,
+                    device=dev, seed=SEED, group=group)
+                runs[compress].launches = kernels.launch_counts()
+            runs[compress].recorded = (inputs, shape_tallies())
         comp, raw = runs[True], runs[False]
         if comp.losses != raw.losses:
             raise AssertionError(f"loss curves differ: {comp.losses} vs {raw.losses}")
@@ -1023,7 +1107,6 @@ def phase_psum(run, group, dev, torch):
     import dataclasses
 
     from repro_torch import kernels, sched
-    from repro_torch.core import codec, packing
     from repro_torch.core import compressed_collectives as cc
     from repro_torch.core.policy import CompressionPolicy, capture_wire_reports
     from repro_torch.data.pipeline import DataConfig, DataPipeline
@@ -1071,41 +1154,43 @@ def phase_psum(run, group, dev, torch):
         return out, {k: after[k] - before[k] for k in after}
 
     # -- the phase's own runs: these launches are the kernels line's "psum" --
-    kernels.clear_launch_counts()
-    cache, outs, reports = PlanCache(), {}, {}
-    for name, pol in [*policies.items(), ("two_shot again", base)]:
-        with capture_wire_reports() as reports[name]:
-            (out, flag), got = counted(
-                lambda: sched.psum_with_plan(grads, group, policy=pol, cache=cache))
-        if got != derived(pol) or int(flag) or not bits_equal(out, grads):
-            raise AssertionError(f"psum_with_plan {name}: flag {int(flag)}, launches {got} "
-                                 f"(expected {derived(pol)}), identical to the gradients "
-                                 f"{bits_equal(out, grads)}")
-        outs[name] = out
-    if (cache.stats.misses, cache.stats.hits) != (len(policies), 1):
-        raise AssertionError(f"psum plan cache {cache.cache_info()}")
-    plan_reports = {k: r for k, (r,) in ((k, v) for k, v in reports.items() if v)}
-    if set(plan_reports) != set(reports) - {"raw"} or len(
-            {(r.raw_bytes, r.wire_bytes) for r in plan_reports.values()}) != 1 or [
-            r.encode_fused for r in plan_reports.values()] != [True, False, True, True] or (
-            plan_reports["two_shot"].wire_bytes != plan.wire_bytes):
-        raise AssertionError(f"psum reports {reports}, plan {plan.summary()}")
-    bucket = torch.cat([g.reshape(-1) for g in grads])
-    others = {
-        "hierarchical": (lambda: cc.psum_compressed_hierarchical(
-            bucket, group, group, policy=base, group=group), bucket,
-            {"encode_fused": 4, "decode_reduce": 2, "unpack": 6}),
-        "all_to_all": (lambda: cc.all_to_all_compressed(act, group, policy=base), act,
-                       {"encode_fused": 1, "unpack": 2}),
-        "ppermute": (lambda: cc.ppermute_compressed(embed, [(0, 0)], group, policy=base),
-                     embed, {"encode_fused": 1, "unpack": 2})}
-    for name, (fn, x, want) in others.items():
-        (out, flag), got = counted(fn)
-        want = {**dict.fromkeys(kernels.KERNELS, 0), **want}
-        if got != want or int(flag) or not bits_equal(out, x):
-            raise AssertionError(f"{name}: flag {int(flag)}, launches {got} (expected "
-                                 f"{want}), identical {bits_equal(out, x)}")
-    launches, pack_shapes = kernels.launch_counts(), kernels.launch_shapes("pack")
+    with recorded_inputs(torch) as inputs:
+        kernels.clear_launch_counts()
+        cache, outs, reports = PlanCache(), {}, {}
+        for name, pol in [*policies.items(), ("two_shot again", base)]:
+            with capture_wire_reports() as reports[name]:
+                (out, flag), got = counted(
+                    lambda: sched.psum_with_plan(grads, group, policy=pol, cache=cache))
+            if got != derived(pol) or int(flag) or not bits_equal(out, grads):
+                raise AssertionError(f"psum_with_plan {name}: flag {int(flag)}, launches {got} "
+                                     f"(expected {derived(pol)}), identical to the gradients "
+                                     f"{bits_equal(out, grads)}")
+            outs[name] = out
+        if (cache.stats.misses, cache.stats.hits) != (len(policies), 1):
+            raise AssertionError(f"psum plan cache {cache.cache_info()}")
+        plan_reports = {k: r for k, (r,) in ((k, v) for k, v in reports.items() if v)}
+        if set(plan_reports) != set(reports) - {"raw"} or len(
+                {(r.raw_bytes, r.wire_bytes) for r in plan_reports.values()}) != 1 or [
+                r.encode_fused for r in plan_reports.values()] != [True, False, True, True] or (
+                plan_reports["two_shot"].wire_bytes != plan.wire_bytes):
+            raise AssertionError(f"psum reports {reports}, plan {plan.summary()}")
+        bucket = torch.cat([g.reshape(-1) for g in grads])
+        others = {
+            "hierarchical": (lambda: cc.psum_compressed_hierarchical(
+                bucket, group, group, policy=base, group=group), bucket,
+                {"encode_fused": 4, "decode_reduce": 2, "unpack": 6}),
+            "all_to_all": (lambda: cc.all_to_all_compressed(act, group, policy=base), act,
+                           {"encode_fused": 1, "unpack": 2}),
+            "ppermute": (lambda: cc.ppermute_compressed(embed, [(0, 0)], group, policy=base),
+                         embed, {"encode_fused": 1, "unpack": 2})}
+        for name, (fn, x, want) in others.items():
+            (out, flag), got = counted(fn)
+            want = {**dict.fromkeys(kernels.KERNELS, 0), **want}
+            if got != want or int(flag) or not bits_equal(out, x):
+                raise AssertionError(f"{name}: flag {int(flag)}, launches {got} (expected "
+                                     f"{want}), identical {bits_equal(out, x)}")
+        launches = kernels.launch_counts()
+    recorded = (inputs, shape_tallies())
 
     # -- the wires: the unfused encode's equal the fused one's, field by field
     (b,) = plan.buckets
@@ -1116,12 +1201,6 @@ def phase_psum(run, group, dev, torch):
         fused, unfused = cc._encode_chunks(rows, **kw), cc._encode_chunks(rows, fused=False, **kw)
         if any(not torch.equal(fused[k], unfused[k]) for k in fused):
             raise AssertionError(f"the unfused encode's wire differs at width {w}")
-    exp, lo = codec.split_planes(rows[0])
-    pack_inputs = {"psum_lo": (packing._pad_to(lo, packing.GROUP, "zero"),
-                               codec.layout_of(bucket.dtype).lo_bits)}
-    for w in widths:
-        pack_inputs[f"psum_resid_w{w}"] = (
-            packing.block_residuals(exp, width=w, block=b.block)[3], w)
 
     ms = {name: _wall_ms(lambda: sched.psum_with_plan(grads, group, policy=pol, cache=cache),
                          torch) for name, pol in policies.items()}
@@ -1135,8 +1214,8 @@ def phase_psum(run, group, dev, torch):
     print(f"  ms (host clock to a device sync, median of 5): "
           + ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
           + f"; wire ratio {plan_reports['two_shot'].ratio:.4f}; card {run_card()}")
-    return {"launches": launches, "pack_shapes": pack_shapes, "pack_inputs": pack_inputs,
-            "ms": ms, "ratio": plan_reports["two_shot"].ratio}
+    return {"launches": launches, "recorded": recorded, "ms": ms,
+            "ratio": plan_reports["two_shot"].ratio, "bucket": bucket}
 
 
 def run_card() -> str:
@@ -1156,14 +1235,14 @@ def phase_sync(dev, torch):
     from repro_torch.sync import engine as sync_engine
     from repro_torch.tree_util import tree_flatten
 
-    with launch_train.single_process_group(dev) as group, launch_train.deterministic():
+    with launch_train.single_process_group(dev) as group, launch_train.deterministic(), \
+            recorded_inputs(torch) as inputs:
         kernels.clear_launch_counts()
         run = rl_weight_sync.run(ARCH, device=dev, batch=BATCH, seq=SEQ, seed=SEED,
                                  slots=SLOTS, max_len=MAX_LEN, requests=N_SYNC_REQ,
                                  prompt_len=PROMPT, max_new=MAX_NEW, group=group,
                                  log=lambda line: print(f"  {line}"))
         total = kernels.launch_counts()
-        packs = kernels.launch_shapes("pack")  # the train steps run no pack
     recs = run.records
     modes = [(r["replica"], r["mode"]) for r in recs]
     want_modes = [("rollout-0", "full"), ("rollout-0", "delta"), ("rollout-1", "full"),
@@ -1208,14 +1287,6 @@ def phase_sync(dev, torch):
     def bucket(t):
         return codec.pad_flat_bits(codec.concat_members(leaves(t), b.members), b.block)
 
-    # the delta encode's two pack inputs at the calibrated widths, by the
-    # steps packing.encode_delta takes (the exponent-delta residuals of
-    # pack_exponents, the lo delta of pack_delta_plane)
-    d_exp, d_lo = packing.delta_planes(bucket(v3), bucket(v2))
-    pack_inputs = {
-        "sync_exp": (packing.block_residuals(d_exp, width=b.delta_width, block=b.block)[3],
-                     b.delta_width),
-        "sync_lo": (packing.lo_delta_fit(d_lo, b.delta_lo_width)[2], b.delta_lo_width)}
     enc = {
         "delta": lambda: packing.encode_delta(
             bucket(v3), bucket(v2), width=b.delta_width, lo_width=b.delta_lo_width,
@@ -1246,8 +1317,178 @@ def phase_sync(dev, torch):
             print(f"  {kind} update v{upd.version} ({upd.wire_bytes} B, ratio "
                   f"{upd.ratio:.4f}), ms (host clock to a device sync, median of 3): "
                   + ", ".join(f"{k} {v:.2f}" for k, v in parts[kind].items()))
+    # the sync sections' launches by shape (the window's inputs also hold
+    # the train steps')
+    recorded = (inputs, {k: run.sync_shapes[k] for k in SHAPED})
     return {"launches": run.sync_launches, "n_publishes": run.n_publishes, "parts": parts,
-            "pack_inputs": pack_inputs, "pack_shapes": packs}
+            "recorded": recorded, "versions": (v2, v3), "policy": run.engine.policy}
+
+
+def p2p_launches(strategy: str, *, n_chunks: int = 1, reduce: str = "") -> dict:
+    """Kernel launches of one compressed P2P send of one bucket at one rank
+    (core/split_send): split_send packs its lo plane and its exponent
+    residuals (pack 2; delta_send packs its two delta planes alike) and the
+    receive unpacks the payload and the lo plane (unpack 2), or, as a fused
+    reducing receiver, runs decode_reduce and the exception patch's unpack
+    of the lo rows; encode_send encodes in one pass (encode_fused 1) and
+    unpacks both planes; the chunked pipeline is one encode_send a chunk."""
+    if strategy in ("split_send", "delta"):
+        recv = {"decode_reduce": 1, "unpack": 1} if reduce == "fused" else {"unpack": 2}
+        return {"pack": 2, **recv}
+    return {"encode_fused": n_chunks, "unpack": 2 * n_chunks}
+
+
+def phase_p2p(serve, psum, sync, dev, torch):
+    """Uzip-P2P in the mesh at full width, on a one-rank NCCL group with
+    perm [(0, 0)] (the wire is NCCL's copy to itself): the serve phase's
+    prefilled cache through transfer_cache_with_plan under each strategy and
+    gated off; the psum phase's gradient bucket through p2p_send_with_plan
+    under each strategy, gated off, and as a reducing receiver fused and
+    unfused; the sync phase's last two weight versions through
+    sync_weights_with_plan, full, then as a delta.  Checks and launch counts
+    are derived in the module docstring and ``p2p_launches``."""
+    import dataclasses
+
+    from repro_torch import kernels, sched
+    from repro_torch.core.policy import CompressionPolicy, capture_wire_reports
+    from repro_torch.core.split_send import chunk_grid
+    from repro_torch.launch import train as launch_train
+    from repro_torch.sched import compile as sched_compile
+    from repro_torch.sched.cache import PlanCache
+    from repro_torch.tree_util import bits_equal, tree_flatten
+
+    cache, bucket = serve["cache"], psum["bucket"]
+    v_prev, v_new = sync["versions"]
+    perm, base = [(0, 0)], CompressionPolicy()
+    off = CompressionPolicy.disabled()
+    strategies = sched_compile.P2P_STRATEGIES
+    kv_plans = {s: sched_compile.compile_kv_plan(cache, "data", policy=base, n_dev=1,
+                                                 strategy=s) for s in strategies}
+    (kv_b,) = kv_plans["split_send"].buckets
+    ws_plan = sched_compile.compile_wsync_plan(v_new, "data", policy=sync["policy"], n_dev=1)
+
+    def derived(strategy, n, buckets=1, **kw) -> dict:
+        want = dict.fromkeys(kernels.KERNELS, 0)
+        n_chunks = (chunk_grid(n, sched_compile._P2P_PIPELINE_CHUNKS, 512)[1]
+                    if strategy == "chunked" else 1)
+        for k, v in p2p_launches(strategy, n_chunks=n_chunks, **kw).items():
+            want[k] += buckets * v
+        return want
+
+    def counted(fn):
+        before = kernels.launch_counts()
+        out = fn()
+        after = kernels.launch_counts()
+        return out, {k: after[k] - before[k] for k in after}
+
+    def check(name, out, flag, got, want, same):
+        if got != want or int(flag) or not same:
+            raise AssertionError(f"p2p {name}: flag {int(flag)}, launches {got} (expected "
+                                 f"{want}), bit-identical {same}")
+
+    acc = torch.empty(bucket.numel(), dtype=torch.float32, device=dev).normal_(
+        0, 1e-3, generator=torch.Generator(device=dev).manual_seed(SEED))
+    reduced = acc + bucket.float()
+    pols = {"fused": base, "unfused": dataclasses.replace(base, fused_decode_reduce=False)}
+    n_ws = sum(b.compressed for b in ws_plan.buckets)
+    with launch_train.single_process_group(dev) as group:
+        kv_cache, grad_cache, ws_cache = PlanCache(), PlanCache(), PlanCache()
+
+        def kv(strategy, pol=base, pc=kv_cache):
+            return sched.transfer_cache_with_plan(cache, group, perm, policy=pol,
+                                                  strategy=strategy, plan_cache=pc)
+
+        def grad(strategy, pol=base, reduce_into=None):
+            return sched.p2p_send_with_plan(bucket, group, perm, policy=pol,
+                                            tensor_class="gradient", strategy=strategy,
+                                            reduce_into=reduce_into, cache=grad_cache)
+
+        def wsync(base_tree=None):
+            return sched.sync_weights_with_plan(v_new, group, perm, policy=sync["policy"],
+                                                base=base_tree, cache=ws_cache)
+
+        # -- the phase's own runs: these launches are the kernels line's "p2p"
+        with recorded_inputs(torch) as inputs:
+            kernels.clear_launch_counts()
+            ratios = {}
+            for strat in strategies:
+                with capture_wire_reports() as reps:
+                    (out, flag), got = counted(lambda: kv(strat))
+                check(f"kv {strat}", out, flag, got, derived(strat, kv_b.length),
+                      bits_equal(out, cache))
+                plan = kv_plans[strat]
+                if [r.name for r in reps] != ["plan:kv"] or (
+                        reps[0].wire_bytes, reps[0].raw_bytes, reps[0].ratio) != (
+                        plan.wire_bytes, plan.raw_bytes, plan.ratio):
+                    raise AssertionError(f"p2p kv {strat}: reports {reps}, plan {plan.summary()}")
+                ratios[strat] = plan.ratio
+            if (kv_cache.stats.misses, kv_cache.stats.hits) != (len(strategies), 0):
+                raise AssertionError(f"kv plan cache {kv_cache.cache_info()}")
+            (out, flag), got = counted(lambda: kv("split_send", off, PlanCache()))
+            check("kv raw", out, flag, got, dict.fromkeys(kernels.KERNELS, 0),
+                  bits_equal(out, cache))
+            for strat in strategies:
+                (out, flag), got = counted(lambda: grad(strat))
+                check(f"gradient bucket {strat}", out, flag, got, derived(strat, bucket.numel()),
+                      bits_equal(out, bucket))
+            (out, flag), got = counted(lambda: grad("split_send", off))
+            check("gradient bucket raw", out, flag, got, dict.fromkeys(kernels.KERNELS, 0),
+                  bits_equal(out, bucket))
+            for tag, pol in pols.items():
+                (out, flag), got = counted(lambda: grad("split_send", pol, acc))
+                check(f"reducing receiver {tag}", out, flag, got,
+                      derived("split_send", bucket.numel(), reduce=tag),
+                      same_f32(out, reduced, torch)[0])
+            (out, flag), got = counted(lambda: wsync())
+            check("weight sync full", out, flag, got,
+                  derived("split_send", bucket.numel(), n_ws), bits_equal(out, v_new))
+            (out, flag), got = counted(lambda: wsync(v_prev))
+            want = derived("delta", bucket.numel(), n_ws)
+            retried = bool(int(flag))
+            if retried:  # the delta overflowed its widths: the escalation sends in full
+                (out, flag), more = counted(lambda: wsync())
+                got = {k: got[k] + more[k] for k in got}
+                want = {k: want[k] + v for k, v in derived("split_send", bucket.numel(),
+                                                           n_ws).items()}
+            check("weight sync delta", out, flag, got, want, bits_equal(out, v_new))
+            launches = kernels.launch_counts()
+        recorded = (inputs, shape_tallies())
+
+        # -- times: host clock to a device sync, median of 5 (not counted)
+        ms = {"kv": {s: _wall_ms(lambda: kv(s), torch) for s in strategies},
+              "gradient": {s: _wall_ms(lambda: grad(s), torch) for s in strategies}}
+        ms["kv"]["raw"] = _wall_ms(lambda: kv("split_send", off, PlanCache()), torch)
+        ms["gradient"]["raw"] = _wall_ms(lambda: grad("split_send", off), torch)
+        ms["reducing receiver"] = {t: _wall_ms(lambda: grad("split_send", p, acc), torch)
+                                   for t, p in pols.items()}
+        ms["reducing receiver"]["raw + f32 add"] = _wall_ms(
+            lambda: grad("split_send", off, acc), torch)
+        ms["weight sync"] = {"full": _wall_ms(wsync, torch),
+                             "delta": _wall_ms(lambda: wsync(v_prev), torch),
+                             "raw": _wall_ms(lambda: sched.sync_weights_with_plan(
+                                 v_new, group, perm, policy=off, cache=PlanCache()), torch)}
+    if kv_cache.stats.misses != len(strategies) or kv_cache.stats.hits != 6 * len(strategies):
+        raise AssertionError(f"kv plan cache after the repeats {kv_cache.cache_info()}")
+
+    print(f"p2p: {ARCH} full width, one-rank NCCL group, perm [(0, 0)]; KV cache "
+          f"({len(tree_flatten(cache)[0]) - 1} bf16 leaves of "
+          f"{tuple(tree_flatten(cache)[0][0].shape)}, one bucket n={kv_b.length}) through "
+          f"transfer_cache_with_plan under {', '.join(strategies)} and gated off, each "
+          f"bit-identical, plan:kv ratio = plan ratio "
+          f"({', '.join(f'{k} {v:.4f}' for k, v in ratios.items())}), "
+          f"plan cache {len(strategies)} misses then hits; gradient bucket n={bucket.numel()} "
+          f"through p2p_send_with_plan under each strategy and gated off, bit-identical; "
+          f"reducing receiver fused and unfused bit-identical to acc + grad.float(); "
+          f"weight sync full and delta (widths exp={ws_plan.buckets[0].delta_width} "
+          f"lo={ws_plan.buckets[0].delta_lo_width}) bit-identical"
+          f"{' after a full retry' if retried else ', delta flag 0'}; launches {launches}")
+    print("  ms (host clock to a device sync, median of 5; at one rank the wire is NCCL's "
+          "copy to itself, so the early lo-plane send can hide only that copy and these "
+          "are the codec's schedule, not a network's): " + "; ".join(
+              f"{part}: " + ", ".join(f"{k} {v:.2f}" for k, v in d.items())
+              for part, d in ms.items()) + f"; card {run_card()}")
+    return {"launches": launches, "recorded": recorded, "ms": ms, "ratios": ratios,
+            "retried": retried}
 
 
 def _time(fn, torch, runs=TIMED_RUNS, reps=1):
@@ -1285,14 +1526,14 @@ def _time_once(fn, torch):
 PEAK_OPS = 67e12
 
 
-def phase_times(comp, serve, sync, psum, dev, torch, np, worst, bw):
+def phase_times(comp, serve, sync, psum, p2p, dev, torch, np, worst, bw):
     """Each kernel and its plain version at the shapes its path gives it:
     encode_fused, decode_reduce and plane_split at the main path's AG
     bucket; pack and unpack at one KV leaf's exponent residuals at the plan's
-    width (unpack also at the AG payload and lo plane; pack also at the KV
-    leaf's lo plane and the delta sync encode's two planes); rANS encode and the
-    compacted-stream decode at one KV leaf's exponent plane.  Each kernel is
-    checked against its plain version on these inputs first."""
+    width; encode_fused, decode_reduce, pack and unpack also at every shape
+    the runs launched them at, on the runs' recorded inputs; rANS encode
+    and the compacted-stream decode at one KV leaf's exponent plane.  Each
+    kernel is checked against its plain version on these inputs first."""
     from repro_torch import kernels
     from repro_torch.core import ans, codec, packing
     from repro_torch.core.calibrate import CompressionProfile
@@ -1304,11 +1545,12 @@ def phase_times(comp, serve, sync, psum, dev, torch, np, worst, bw):
 
     # launches of each main-path run (counts set to 0 just before each)
     runs = {"serve_pd": serve["pd_launches"], "serve_pd_rans": serve["rans_launches"],
-            "train": comp.launches, "psum": psum["launches"], "weight_sync": sync["launches"]}
+            "train": comp.launches, "psum": psum["launches"], "weight_sync": sync["launches"],
+            "p2p": p2p["launches"]}
     per_unit = {"serve_pd": ("pd_admission", N_REQ),
                 "serve_pd_rans": ("pd_rans_admission", N_RANS),
                 "train": ("train_step", STEPS), "psum": ("psum_phase", 1),
-                "weight_sync": ("publish", sync["n_publishes"])}
+                "weight_sync": ("publish", sync["n_publishes"]), "p2p": ("p2p_phase", 1)}
     rows = []
 
     def row(name, *, ms, plain_ms, nbytes, ops, err, **extra):
@@ -1324,12 +1566,71 @@ def phase_times(comp, serve, sync, psum, dev, torch, np, worst, bw):
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None, **extra})
-        print(f"times: {name} {extra}: {ms:.4f} ms (plain {plain_ms:.3f} ms), bound "
+        shown = {k: v for k, v in extra.items() if k != "shapes"}
+        print(f"times: {name} {shown}: {ms:.4f} ms (plain {plain_ms:.3f} ms), bound "
               f"{max(bytes_ms, ops_ms):.4f} ms = {nbytes / 1e6:.1f} MB at {bw / 1e12:.2f} TB/s")
 
     def same(name, got, want):
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
             raise AssertionError(f"{name} differs from its plain version at the path's shape")
+
+    # -- encode_fused, decode_reduce, pack and unpack at each shape a run
+    # launched them at, held against the plain version on each run's first
+    # input of the shape (recorded_inputs) and timed once a shape; every
+    # launch a run tallied must be at a recorded shape
+    recorded = {**serve["recorded"], "train": comp.recorded, "psum": psum["recorded"],
+                "weight_sync": sync["recorded"], "p2p": p2p["recorded"]}
+
+    def encode_cost(x, w, blk):
+        n, lo_w = x.numel(), codec.layout_of(x.dtype).lo_bits
+        return n * x.element_size() + n // 32 * (w + lo_w) * 4 + n // blk * 8, 0
+
+    per_shape = {  # kernel: (wrapper, plain version, (bytes, operations) of its args)
+        "encode_fused": (ef.encode_fused, ref.encode_fused, encode_cost),
+        "decode_reduce": (dr.decode_reduce, ref.decode_reduce, lambda pay, lo, gb, a, dt, w: (
+            pay.shape[0] * (w + lo.shape[1] + 1) * 4 + a.numel() * 8, a.numel())),
+        "pack": (bitpack.pack, ref.pack, lambda vals, w: (
+            vals.numel() * vals.element_size() + vals.numel() // 32 * w * 4, 0)),
+        "unpack": (bitpack.unpack, ref.unpack, lambda words, w: (
+            words.shape[0] * w * 4 + words.shape[0] * 32 * 4, 0))}
+
+    def held(name, kernel, plain, args):
+        """Check the kernel on ``args``; returns a call of it to time."""
+        if name == "decode_reduce":  # in place: each call on its own accumulator
+            pay_, lo_, gb_, acc_, dt_, w_ = args
+            if not same_f32(kernel(pay_, lo_, gb_, acc_.clone(), dt_, w_), plain(*args),
+                            torch)[0]:
+                raise AssertionError(f"decode_reduce differs from plain at {args[-2:]}")
+            work_ = acc_.clone()
+            return lambda: kernel(pay_, lo_, gb_, work_, dt_, w_)
+        got_, want_ = kernel(*args), plain(*args)
+        same(name, got_ if name == "encode_fused" else [got_],
+             want_ if name == "encode_fused" else [want_])
+        return lambda: kernel(*args)
+
+    path_shapes = {}
+    for name, (kernel, plain, cost) in per_shape.items():
+        by_shape = {}  # shape -> (the first run's input, {run: launches})
+        for r, (inputs, tallies) in recorded.items():
+            tally = tallies[name]
+            if not set(tally) <= set(inputs[name]) or sum(tally.values()) != runs[r][name]:
+                raise AssertionError(f"{r} {name}: launches tallied at {tally}, inputs "
+                                     f"recorded at {list(inputs[name])}, {runs[r][name]} "
+                                     f"launches")
+            for shape, count in tally.items():
+                call = held(name, kernel, plain, inputs[name][shape])
+                by_shape.setdefault(shape, (inputs[name][shape], call, {}))[2][r] = count
+        path_shapes[name] = {}
+        for shape, (args, call, by) in by_shape.items():
+            nbytes, ops = cost(*args)
+            bytes_ms, ops_ms = nbytes / bw * 1e3, ops / PEAK_OPS * 1e3
+            key = "_".join(str(v).removeprefix("torch.") for v in shape)
+            path_shapes[name][key] = entry = {
+                "launches": sum(by.values()), "launches_by_run": by,
+                "ms": _time(call, torch), "plain_ms": _time(lambda a=args: plain(*a), torch),
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+            print(f"times: {name} at {key}: {entry}")
 
     # -- the main path's AG input: the trained bf16 parameter bucket ---------
     meta = comp.state.meta
@@ -1352,12 +1653,12 @@ def phase_times(comp, serve, sync, psum, dev, torch, np, worst, bw):
     row("encode_fused", ms=_time(lambda: ef.encode_fused(x, width, block), torch),
         plain_ms=_time(lambda: ref.encode_fused(x, width, block), torch),
         nbytes=n * 2 + n // 32 * (width + lo_bits) * 4 + n // block * 8, ops=0,
-        err=0.0, **ag)
+        err=0.0, **ag, shapes=path_shapes["encode_fused"])
     row("decode_reduce",
         ms=_time(lambda: dr.decode_reduce(pay, lo, gb, work, "bfloat16", width), torch),
         plain_ms=_time(lambda: ref.decode_reduce(pay, lo, gb, acc, "bfloat16", width), torch),
         nbytes=n // 32 * (width + lo_bits + 1) * 4 + n * 8, ops=n,
-        err=max(dec_err, worst["decode_reduce"]), **ag)
+        err=max(dec_err, worst["decode_reduce"]), **ag, shapes=path_shapes["decode_reduce"])
     # plane_split at the same bucket: no path of the reference runs it
     same("plane_split", ps.split_with_stats(x, block), ref.split_with_stats(x, block))
     row("plane_split", ms=_time(lambda: ps.split_with_stats(x, block), torch),
@@ -1372,60 +1673,15 @@ def phase_times(comp, serve, sync, psum, dev, torch, np, worst, bw):
     kv_pay = bitpack.pack(resid, kv_w)
     same("pack", [kv_pay], [ref.pack(resid, kv_w)])
     same("unpack", [bitpack.unpack(kv_pay, kv_w)], [ref.unpack(kv_pay, kv_w)])
-    same("unpack", [bitpack.unpack(pay, width)], [ref.unpack(pay, width)])
-    # pack at each shape its paths launch it at (a PD admission packs each
-    # leaf's residuals, uint8, and lo plane, int32 lo_bits wide; a PD-rANS
-    # admission each leaf's lo plane; a delta sync encode its exponent
-    # residuals and its lo delta), with the launches each run tallied under
-    # the shape, (dtype, groups, width); every tallied launch must be one
-    # of a timed shape
-    kv_lo = packing._pad_to(codec.split_planes(leaf.reshape(-1))[1], packing.GROUP, "zero")
-    kv_lo_bits = codec.layout_of(leaf.dtype).lo_bits
-    shapes = {"kv_resid": (resid, kv_w, ("serve_pd",)),
-              "kv_lo": (kv_lo, kv_lo_bits, ("serve_pd", "serve_pd_rans")),
-              "sync_exp": (*sync["pack_inputs"]["sync_exp"], ("weight_sync",)),
-              "sync_lo": (*sync["pack_inputs"]["sync_lo"], ("weight_sync",)),
-              **{k: (*v, ("psum",)) for k, v in psum["pack_inputs"].items()}}
-    tallies = {**serve["pack_shapes"], "weight_sync": sync["pack_shapes"],
-               "psum": psum["pack_shapes"]}
-    untimed = {r: dict(t) for r, t in tallies.items()}
-
-    def pack_bytes(vals, w):
-        return vals.numel() * vals.element_size() + vals.numel() // 32 * w * 4
-
-    pack_shapes = {}
-    for key, (vals, w, in_runs) in shapes.items():
-        same("pack", [bitpack.pack(vals, w)], [ref.pack(vals, w)])
-        shape = (vals.dtype, vals.numel() // packing.GROUP, w)
-        by = {r: untimed[r].pop(shape, 0) for r in in_runs}
-        pack_shapes[key] = {
-            "n": vals.numel(), "dtype": str(vals.dtype).removeprefix("torch."), "width": w,
-            "launches": sum(by.values()), "launches_by_run": by,
-            "ms": _time(lambda: bitpack.pack(vals, w), torch),
-            "plain_ms": _time(lambda: ref.pack(vals, w), torch),
-            "bound_ms": pack_bytes(vals, w) / bw * 1e3}
-    if any(untimed.values()) or not all(p["launches"] for p in pack_shapes.values()):
-        raise AssertionError(f"pack launches at shapes not timed {untimed}, or a timed "
-                             f"shape no path launched: {pack_shapes}")
-    if {r: sum(t.values()) for r, t in tallies.items()} != {r: runs[r]["pack"] for r in tallies}:
-        raise AssertionError(f"pack launches by shape {tallies} differ from the runs' "
-                             f"counts {runs}")
-    kv = pack_shapes["kv_resid"]
-    row("pack", ms=kv["ms"], plain_ms=kv["plain_ms"], nbytes=pack_bytes(resid, kv_w), ops=0,
-        err=0.0, n=n_kv, width=kv_w, input="uint8 residuals of one KV leaf",
-        shapes=pack_shapes)
-    same("unpack", [bitpack.unpack(lo, lo_bits)], [ref.unpack(lo, lo_bits)])
-
-    def ag_unpack(words, w):  # the AG decode's unpack of the payload or lo plane
-        return {"n": n, "width": w, "ms": _time(lambda: bitpack.unpack(words, w), torch),
-                "plain_ms": _time(lambda: ref.unpack(words, w), torch),
-                "bound_ms": (n // 32 * w * 4 + n * 4) / bw * 1e3}
-
+    row("pack", ms=_time(lambda: bitpack.pack(resid, kv_w), torch),
+        plain_ms=_time(lambda: ref.pack(resid, kv_w), torch),
+        nbytes=n_kv * resid.element_size() + n_kv // 32 * kv_w * 4, ops=0, err=0.0,
+        n=n_kv, width=kv_w, input="uint8 residuals of one KV leaf",
+        shapes=path_shapes["pack"])
     row("unpack", ms=_time(lambda: bitpack.unpack(kv_pay, kv_w), torch),
         plain_ms=_time(lambda: ref.unpack(kv_pay, kv_w), torch),
         nbytes=n_kv // 32 * kv_w * 4 + n_kv * 4, ops=0, err=0.0,
-        n=n_kv, width=kv_w, input="payload of one KV leaf",
-        ag_payload=ag_unpack(pay, width), ag_lo=ag_unpack(lo, lo_bits))
+        n=n_kv, width=kv_w, input="payload of one KV leaf", shapes=path_shapes["unpack"])
 
     # -- rANS: the exponent plane of one KV leaf, 128 lanes ------------------
     n_e, lanes = exp.shape[0], 128
@@ -1529,7 +1785,9 @@ def main() -> int:
     serve = phase_serve(dev, torch, np)
     comp, psum = phase_main(dev, torch)
     sync = phase_sync(dev, torch)
-    rows = phase_times(comp, serve, sync, psum, dev, torch, np, worst, card_bandwidth(name))
+    p2p = phase_p2p(serve, psum, sync, dev, torch)
+    rows = phase_times(comp, serve, sync, psum, p2p, dev, torch, np, worst,
+                       card_bandwidth(name))
     print(f"card: {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

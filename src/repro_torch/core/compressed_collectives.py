@@ -39,7 +39,8 @@ names.  A ppermute (:func:`raw_ppermute`, also the ring's hop) is one
 ``all_to_all_single`` whose split sizes are zero for every rank but the
 source and the target: it runs on NCCL at one rank (a send to itself) and
 on gloo at 2-4 ranks, where ``batch_isend_irecv`` would need a send to
-itself at one rank.
+itself at one rank.  :func:`raw_ppermute_start` issues one without waiting
+(the early lo-plane send of ``core/split_send.split_send``).
 
 Every reduce accumulates in f32 in rank order (:func:`_seq_sum`), so the
 compressed and raw paths, fused and unfused, are bit-identical.  Each
@@ -122,11 +123,35 @@ def raw_all_gather(x: torch.Tensor, group) -> torch.Tensor:
     return got.view(x.dtype).reshape(-1)
 
 
-def raw_ppermute(t: torch.Tensor, group, perm) -> torch.Tensor:
-    """Uncompressed ppermute of ``t`` along ``perm`` (``(source, target)``
-    group ranks), as bytes: one ``all_to_all_single`` whose splits are
-    empty but toward this rank's target and from its source.  A rank that
-    no pair targets gets zeros, as in the reference's ``ppermute``."""
+class PendingPermute:
+    """A ppermute in flight (:func:`raw_ppermute_start`): the receive
+    buffer, the ``Work`` of its ``all_to_all_single`` and the tensors the
+    backend reads or writes until :meth:`wait` (NCCL runs the op on its own
+    stream, gloo on a thread of its own, so neither may be freed or written
+    before then)."""
+
+    def __init__(self, t: torch.Tensor, send: torch.Tensor, out: torch.Tensor,
+                 work, received: bool):
+        self.out, self.work = out, work
+        self._send, self._received = send, received
+        self._dtype, self._shape = t.dtype, t.shape
+
+    def wait(self) -> torch.Tensor:
+        """The received tensor, of the sent one's shape and dtype; a rank
+        that no pair targets gets zeros."""
+        self.work.wait()
+        out = self.out if self._received else self._send.new_zeros(self._send.numel())
+        self._send = None
+        return out.view(self._dtype).reshape(self._shape)
+
+
+def raw_ppermute_start(t: torch.Tensor, group, perm) -> PendingPermute:
+    """Issue an uncompressed ppermute of ``t`` along ``perm`` (``(source,
+    target)`` group ranks), as bytes, and return without waiting: one
+    ``all_to_all_single(async_op=True)`` whose splits are empty but toward
+    this rank's target and from its source.  Work queued after it on the
+    current stream overlaps with the transfer (the reference gets this from
+    XLA's scheduler when nothing depends on the send)."""
     me, k = dist.get_rank(group), dist.get_world_size(group)
     dst = [d for s, d in perm if s == me]
     src = [s for s, d in perm if d == me]
@@ -135,14 +160,19 @@ def raw_ppermute(t: torch.Tensor, group, perm) -> torch.Tensor:
     flat = t.contiguous().reshape(-1).view(torch.uint8)
     nbytes = flat.numel()
     out = flat.new_empty(nbytes if src else 0)
-    dist.all_to_all_single(
+    work = dist.all_to_all_single(
         out, flat if dst else flat[:0],
         output_split_sizes=[nbytes if src and j == src[0] else 0 for j in range(k)],
         input_split_sizes=[nbytes if dst and j == dst[0] else 0 for j in range(k)],
-        group=group)
-    if not src:
-        out = flat.new_zeros(nbytes)
-    return out.view(t.dtype).reshape(t.shape)
+        group=group, async_op=True)
+    return PendingPermute(t, flat, out, work, bool(src))
+
+
+def raw_ppermute(t: torch.Tensor, group, perm) -> torch.Tensor:
+    """Uncompressed ppermute of ``t`` along ``perm``: start, then wait
+    (:func:`raw_ppermute_start`).  A rank that no pair targets gets zeros,
+    as in the reference's ``ppermute``."""
+    return raw_ppermute_start(t, group, perm).wait()
 
 
 def psum_safe(x: torch.Tensor, group=None) -> torch.Tensor:

@@ -9,8 +9,9 @@ values as they are, so no caller widens its values first.  Both kernels'
 persistent thread blocks walk over tiles of groups (:func:`pack_geometry`,
 :func:`unpack_geometry`); the values and the packed words must start on a
 16-byte boundary (the kernels stage them by 16-byte copies), which the
-wrappers check and never fix by a copy.  Each pack launch is also tallied
-under its shape, ``(dtype, groups, width)`` (``kernels.launch_shapes``).
+wrappers check and never fix by a copy.  Each launch is also tallied
+under its shape (``kernels.launch_shapes``): pack's ``(dtype, groups,
+width)``, unpack's ``(groups, width)``.
 """
 from __future__ import annotations
 
@@ -138,5 +139,5 @@ def unpack(packed: torch.Tensor, width: int) -> torch.Tensor:
         kernels.stream_of(packed))
     if err:
         raise RuntimeError(f"unpack launch failed: cudaError {err} ({geo})")
-    kernels.count_launch("unpack")
+    kernels.count_launch("unpack", (n_g, width))
     return out

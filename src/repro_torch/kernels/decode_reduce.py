@@ -7,7 +7,9 @@ tensor launches the kernel (or raises); a CPU tensor runs the plain version
 persistent thread blocks walk over tiles of groups (:func:`geometry`); all
 four tensors must start on a 16-byte boundary (the kernel stages the planes
 by 16-byte copies and reads and writes the accumulator 16 bytes at a time),
-which the wrapper checks and never fixes by a copy.
+which the wrapper checks and never fixes by a copy.  Each launch is also
+tallied under its shape, ``(format, groups, width)``
+(``kernels.launch_shapes``).
 """
 from __future__ import annotations
 
@@ -81,5 +83,5 @@ def decode_reduce(payload: torch.Tensor, lo_planes: torch.Tensor,
                  geo.tile, geo.grid, geo.smem, kernels.stream_of(acc))
     if err:
         raise RuntimeError(f"decode_reduce launch failed: cudaError {err} ({geo})")
-    kernels.count_launch("decode_reduce")
+    kernels.count_launch("decode_reduce", (dtype_name, n_g, width))
     return acc

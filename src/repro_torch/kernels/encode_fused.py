@@ -7,7 +7,8 @@ launches the kernel (or raises); a CPU tensor runs the plain version
 tiles of compression blocks; :func:`geometry` sizes them.  Any number of
 whole blocks is taken; the input must start on a 16-byte boundary (the
 kernel stages each tile by one bulk copy, which needs it), which the
-wrapper checks and never fixes by a copy.
+wrapper checks and never fixes by a copy.  Each launch is also tallied under
+its shape, ``(dtype, n, block, width)`` (``kernels.launch_shapes``).
 """
 from __future__ import annotations
 
@@ -95,5 +96,5 @@ def encode_fused(x: torch.Tensor, width: int, block: int = 512):
                  geo.tile, geo.grid, geo.threads, geo.smem, kernels.stream_of(x))
     if err:
         raise RuntimeError(f"encode_fused launch failed: cudaError {err} ({geo})")
-    kernels.count_launch("encode_fused")
+    kernels.count_launch("encode_fused", (x.dtype, n, block, width))
     return pay, lo, bases, rng

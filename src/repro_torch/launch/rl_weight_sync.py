@@ -59,7 +59,8 @@ class SyncRun:
     """What a run did: per update ``records`` (iteration, replica, mode,
     wire and raw bytes, ratio, the update itself), the delta widths, the
     plan cache, the kernel launches of the sync sections (publish, encode,
-    apply; counted just before and after each) and the serve check."""
+    apply; counted just before and after each), also by shape where the
+    wrapper tallies one (``kernels.launch_shapes``), and the serve check."""
 
     state: step_lib.TrainState
     engine: WeightSyncEngine
@@ -69,6 +70,7 @@ class SyncRun:
     records: list
     losses: list
     sync_launches: dict
+    sync_shapes: dict  # {kernel: {shape: launches}} of the sync sections
     n_publishes: int
     tokens: list  # rollout-0's greedy tokens after its last delta
     fresh_tokens: list  # a fresh engine's, from the trainer's weights
@@ -118,11 +120,13 @@ def run(arch: str, *, smoke: bool = False, device="cuda", batch: int = 8,
     held = {"rollout-0": None}  # rollout-1's tree; rollout-0 holds its own
     records: list = []
     sync_launches = dict.fromkeys(kernels.KERNELS, 0)
+    sync_shapes: dict = {k: {} for k in kernels.KERNELS}
     n_publishes = 0
 
     def sync(it, names):
         nonlocal n_publishes
         before = kernels.launch_counts()
+        before_shapes = {k: kernels.launch_shapes(k) for k in kernels.KERNELS}
         publish(state)
         n_publishes += 1
         for name in names:
@@ -146,6 +150,10 @@ def run(arch: str, *, smoke: bool = False, device="cuda", batch: int = 8,
                 raise AssertionError(f"{name} diverged at v{upd.version}")
         for k, v in kernels.launch_counts().items():
             sync_launches[k] += v - before[k]
+            for shape, n in kernels.launch_shapes(k).items():
+                if n != before_shapes[k].get(shape, 0):
+                    sync_shapes[k][shape] = (sync_shapes[k].get(shape, 0) + n
+                                             - before_shapes[k].get(shape, 0))
 
     log(f"{cfg.name}: delta widths exp={w_d} lo={w_lo}; rollout-1 joins at "
         f"iteration 1")
@@ -185,7 +193,8 @@ def run(arch: str, *, smoke: bool = False, device="cuda", batch: int = 8,
         f"fence: the next update to rollout-0 was full, bit-exact")
     return SyncRun(state=state, engine=engine, rollout0=rollout0, widths=(w_d, w_lo),
                    plan_cache=plan_cache, records=records, losses=losses,
-                   sync_launches=sync_launches, n_publishes=n_publishes,
+                   sync_launches=sync_launches, sync_shapes=sync_shapes,
+                   n_publishes=n_publishes,
                    tokens=tokens[0], fresh_tokens=tokens[1])
 
 

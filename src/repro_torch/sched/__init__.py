@@ -1,13 +1,23 @@
 """Communication plans (torch port of ``repro.sched``): a wire's decisions
 (leaf buckets, compress gates, codec widths, chunk grids, expected bytes)
 are compiled once into a ``CommPlan`` (``plan.py``, ``compile.py``), cached
-on the signature of what they ship (``cache.py``) and replayed
-(``executor.py`` for the collective kinds ``psum``, ``reduce_scatter``,
-``all_gather`` and ``zero1``; the serve and weight-sync engines for ``kv``
-and ``wsync``)."""
+on the signature of what they ship (``cache.py``) and replayed by
+``executor.py``: the collective kinds ``psum``, ``reduce_scatter``,
+``all_gather`` and ``zero1``, and the P2P kinds ``p2p``, ``kv`` and
+``wsync`` (the host serve and weight-sync engines also read ``kv`` and
+``wsync`` plans)."""
+from repro_torch.sched.compile import (PLAN_KINDS, cached_kv_plan, cached_p2p_plan,
+                                       cached_wsync_plan, compile_kv_plan,
+                                       compile_p2p_plan, compile_wsync_plan)
 from repro_torch.sched.executor import (Zero1Execution, all_gather_with_plan,
-                                        execute_psum, psum_with_plan,
-                                        reduce_scatter_with_plan)
+                                        execute_kv_transfer, execute_p2p, execute_psum,
+                                        execute_wsync, p2p_send_with_plan, psum_with_plan,
+                                        reduce_scatter_with_plan, sync_weights_with_plan,
+                                        transfer_cache_with_plan)
 
-__all__ = ["Zero1Execution", "all_gather_with_plan", "execute_psum",
-           "psum_with_plan", "reduce_scatter_with_plan"]
+__all__ = ["PLAN_KINDS", "Zero1Execution", "all_gather_with_plan", "cached_kv_plan",
+           "cached_p2p_plan", "cached_wsync_plan", "compile_kv_plan", "compile_p2p_plan",
+           "compile_wsync_plan", "execute_kv_transfer", "execute_p2p", "execute_psum",
+           "execute_wsync", "p2p_send_with_plan", "psum_with_plan",
+           "reduce_scatter_with_plan", "sync_weights_with_plan",
+           "transfer_cache_with_plan"]

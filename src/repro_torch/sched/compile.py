@@ -15,10 +15,12 @@ Widths come from the policy's profile unless live data is given
 (``compile_psum_plan(sample=...)``): then ``calibrate.choose_width`` picks
 each bucket's width and the probe's estimates are recorded.
 
-The P2P strategy is the reference's default, ``split_send``, throughout.
-The reference's broadcast schedules (its ``broadcast=`` argument of the
-wsync compiler) are not ported: a wsync plan is receiver-count-agnostic.
-The reference's ``p2p`` and ``fsdp_gather`` kinds are not ported yet.
+The P2P kinds (``p2p``, ``kv``, ``wsync``) record their strategy
+(:data:`P2P_STRATEGIES`, default ``split_send``) in the plan and its key;
+``sched/executor.py`` replays them through ``core/split_send``.  The
+reference's broadcast schedules (its ``broadcast=`` argument of the wsync
+compiler) are not ported: a wsync plan is receiver-count-agnostic.  The
+reference's ``fsdp_gather`` kind is not ported yet.
 """
 from __future__ import annotations
 
@@ -29,6 +31,8 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.core import calibrate, codec, packing
+from repro_torch.core.split_send import STRATEGIES as P2P_STRATEGIES
+from repro_torch.core.split_send import chunk_grid
 from repro_torch.sched.plan import (PATH_COMPRESSED, PATH_RAW, PATH_RAW_PSUM,
                                     PATH_RAW_TWOSHOT, PATH_RING, PATH_TWO_SHOT,
                                     BucketPlan, CommPlan, PhasePair, dtype_name,
@@ -81,11 +85,20 @@ def _itemsize(dtype) -> int:
     return torch.empty((), dtype=dtype).element_size()
 
 
+_P2P_PIPELINE_CHUNKS = 4  # chunked_pipeline_send's default chunk count
+
+
+def _check_strategy(strategy: str) -> None:
+    if strategy not in P2P_STRATEGIES:
+        raise ValueError(f"unknown P2P strategy {strategy!r}")
+
+
 def _p2p_bucket(length: int, dtype, axis_name, *, policy, n_dev: int,
-                tensor_class: str) -> BucketPlan:
-    """One flat split-send P2P message's schedule: the policy gate and the
-    width, as a BucketPlan (``chunk``: the block-padded length of the
-    send)."""
+                tensor_class: str, strategy: str = "split_send") -> BucketPlan:
+    """One flat P2P message's schedule under ``strategy``: the policy gate,
+    the width and the fused knobs, as a BucketPlan.  ``chunk`` is the
+    block-padded length of one send ("chunked": of one pipeline chunk, on
+    ``split_send.chunk_grid``'s grid)."""
     itemsize = _itemsize(dtype)
     base = dict(dtype_name=dtype_name(dtype), members=((0, (length,), length),),
                 length=length, n_dev=n_dev)
@@ -94,15 +107,19 @@ def _p2p_bucket(length: int, dtype, axis_name, *, policy, n_dev: int,
         return BucketPlan(path=PATH_RAW, raw_bytes=length * itemsize, **base)
     width = policy.width_for(tensor_class)
     block, exc = policy.profile.block, policy.profile.exc_frac
-    padded = _pad_up(length, block)
+    if strategy == "chunked":
+        per, n_chunks = chunk_grid(length, _P2P_PIPELINE_CHUNKS, block)
+    else:
+        per, n_chunks = _pad_up(length, block), 1
     # split_send materialises the split (its early lo-plane send needs it),
     # so its encode is never the fused one-pass kernel
     return BucketPlan(path=PATH_COMPRESSED, width=width, block=block, exc_frac=exc,
-                      fused=policy.fused_decode_reduce, encode_fused=False,
-                      chunk=padded,
-                      wire_bytes=p2p_wire_bytes(padded, dtype, width=width,
-                                                block=block, exc_frac=exc),
-                      raw_bytes=padded * itemsize, **base)
+                      fused=policy.fused_decode_reduce,
+                      encode_fused=policy.fused_encode and strategy != "split_send",
+                      chunk=per,
+                      wire_bytes=n_chunks * p2p_wire_bytes(per, dtype, width=width,
+                                                           block=block, exc_frac=exc),
+                      raw_bytes=n_chunks * per * itemsize, **base)
 
 
 def _with_members(bucket: BucketPlan, members) -> BucketPlan:
@@ -332,21 +349,71 @@ def cached_zero1_plan(meta, *, policy, axis_name, n_dev: int, device="cuda",
 
 
 # ---------------------------------------------------------------------------
+# P2P: one tensor over the split-send pipeline or a baseline (paper §3.2)
+# ---------------------------------------------------------------------------
+
+def compile_p2p_plan(x, axis_name, *, policy, n_dev: int, tensor_class: str = "weight",
+                     strategy: str = "split_send", key: tuple = None,
+                     device=None) -> CommPlan:
+    """Compile the schedule of one P2P send (kind "p2p"): the gate, width
+    and fused knobs ``core/split_send.p2p_send`` derives at every call, and
+    the strategy's chunk grid, decided once from ``x``'s shape and dtype.
+    ``device`` (default: ``x``'s; needed for a "meta" tensor) picks the
+    recorded kernel routing."""
+    _check_strategy(strategy)
+    device = x.device if device is None else device
+    backend, use_kernels = probe_backend(device)
+    shape, length = tuple(x.shape), math.prod(x.shape)
+    if key is None:
+        key = p2p_plan_key(shape, dtype_name(x.dtype), axis_name, policy, tensor_class,
+                           strategy, n_dev, device)
+    bucket = _p2p_bucket(length, x.dtype, axis_name, policy=policy, n_dev=n_dev,
+                         tensor_class=tensor_class, strategy=strategy)
+    return CommPlan(key=key, kind="p2p", axis=axis_tuple(axis_name), n_dev=n_dev,
+                    backend=backend, use_kernels=use_kernels,
+                    buckets=(_with_members(bucket, ((0, shape, length),)),),
+                    n_leaves=1, strategy=strategy)
+
+
+def p2p_plan_key(shape, dtype_name: str, axis_name, policy, tensor_class: str,
+                 strategy: str, n_dev: int, device="cuda") -> tuple:
+    return ("p2p", (tuple(shape), str(dtype_name)), str(strategy), axis_tuple(axis_name),
+            int(n_dev), policy_fingerprint(policy, tensor_class), probe_backend(device))
+
+
+def cached_p2p_plan(x, axis_name, *, policy, n_dev: int, tensor_class: str = "weight",
+                    strategy: str = "split_send", cache=None) -> CommPlan:
+    """Keyed-cache wrapper of :func:`compile_p2p_plan`: one compile a send
+    signature (shape, dtype, strategy, policy, device), then hits."""
+    from repro_torch.sched.cache import default_cache
+
+    cache = default_cache() if cache is None else cache
+    key = p2p_plan_key(tuple(x.shape), dtype_name(x.dtype), axis_name, policy,
+                       tensor_class, strategy, n_dev, x.device)
+    return cache.get_or_compile(key, lambda: compile_p2p_plan(
+        x, axis_name, policy=policy, n_dev=n_dev, tensor_class=tensor_class,
+        strategy=strategy, key=key))
+
+
+# ---------------------------------------------------------------------------
 # serve KV: the cache pytree shipped over the P2P wire (paper §5.3.2)
 # ---------------------------------------------------------------------------
 
 def compile_kv_plan(cache, axis_name, *, policy, n_dev: int,
-                    key: tuple = None, device=None) -> CommPlan:
-    """Compile a KV-cache transfer schedule (kind "kv"), shipped with the
-    reference's default P2P strategy, ``split_send``.
+                    strategy: str = "split_send", key: tuple = None,
+                    device=None) -> CommPlan:
+    """Compile a KV-cache transfer schedule (kind "kv") under a P2P
+    ``strategy`` (``serve/kv_transfer.transfer_cache``).
 
     Leaves are split with ``kv_transfer._bucket_leaves``; compressible
     leaves fuse into one flat message per dtype (in first-seen leaf order),
     each gated and sized like a P2P send of the concatenated bucket at
     tensor class "activation".  ``device`` (default: the cache's) picks the
-    recorded kernel routing."""
+    recorded kernel routing.  The host wire (``kv_transfer.pack_cache``)
+    reads the widths of the default, ``split_send``, plan."""
     from repro_torch.serve.kv_transfer import _bucket_leaves
 
+    _check_strategy(strategy)
     leaves, comp, raw = _bucket_leaves(cache)
     device = _device_of(leaves) if device is None else device
     backend, use_kernels = probe_backend(device)
@@ -359,14 +426,14 @@ def compile_kv_plan(cache, axis_name, *, policy, n_dev: int,
                         for i in idxs)
         bucket = _p2p_bucket(sum(m[2] for m in members), dt, axis_name,
                              policy=policy, n_dev=n_dev,
-                             tensor_class="activation")
+                             tensor_class="activation", strategy=strategy)
         buckets.append(_with_members(bucket, members))
     if key is None:
-        key = kv_plan_key(cache, axis_name, policy, n_dev, device)
+        key = kv_plan_key(cache, axis_name, policy, n_dev, device, strategy=strategy)
     return CommPlan(key=key, kind="kv", axis=axis_tuple(axis_name), n_dev=n_dev,
                     backend=backend, use_kernels=use_kernels,
                     buckets=tuple(buckets), raw_leaf_ix=tuple(raw),
-                    n_leaves=len(leaves))
+                    n_leaves=len(leaves), strategy=strategy)
 
 
 def _device_of(leaves) -> torch.device:
@@ -376,25 +443,26 @@ def _device_of(leaves) -> torch.device:
     return torch.device("cpu")
 
 
-def kv_plan_key(cache, axis_name, policy, n_dev: int, device=None) -> tuple:
+def kv_plan_key(cache, axis_name, policy, n_dev: int, device=None, *,
+                strategy: str = "split_send") -> tuple:
     if device is None:
         device = _device_of(tree_leaves(cache))
-    return ("kv", tree_signature(cache), axis_tuple(axis_name),
+    return ("kv", tree_signature(cache), str(strategy), axis_tuple(axis_name),
             int(n_dev), policy_fingerprint(policy, "activation"),
             probe_backend(device))
 
 
 def cached_kv_plan(cache, axis_name, *, policy, n_dev: int,
-                   plan_cache=None) -> CommPlan:
+                   strategy: str = "split_send", plan_cache=None) -> CommPlan:
     """Keyed-cache wrapper of :func:`compile_kv_plan`, the serve engine's
     entry point: a signature-stable cache compiles once and hits after."""
     from repro_torch.sched.cache import default_cache
 
     plan_cache = default_cache() if plan_cache is None else plan_cache
-    key = kv_plan_key(cache, axis_name, policy, n_dev)
+    key = kv_plan_key(cache, axis_name, policy, n_dev, strategy=strategy)
     return plan_cache.get_or_compile(
-        key, lambda: compile_kv_plan(cache, axis_name, policy=policy,
-                                     n_dev=n_dev, key=key))
+        key, lambda: compile_kv_plan(cache, axis_name, policy=policy, n_dev=n_dev,
+                                     strategy=strategy, key=key))
 
 
 # ---------------------------------------------------------------------------
@@ -420,16 +488,20 @@ def delta_wire_bytes(n_padded: int, *, width: int, lo_width: int, block: int,
 
 
 def compile_wsync_plan(tree, axis_name, *, policy, n_dev: int,
-                       key: tuple = None, device=None) -> CommPlan:
+                       strategy: str = "split_send", key: tuple = None,
+                       device=None) -> CommPlan:
     """Compile a weight-sync schedule (kind "wsync").
 
     Codec-float leaves fuse into one flat bucket per dtype (sorted by dtype
-    name), each gated and sized like a ``split_send`` P2P message of the
-    concatenated bucket at tensor class "weight", plus the XOR-delta
+    name), each gated and sized like a P2P message of the concatenated
+    bucket at tensor class "weight" under ``strategy``, plus the XOR-delta
     schedule of each compressed bucket: ``policy.delta_widths`` and the
     expected delta wire bytes.  Delta or full is chosen per receiver at run
-    time; the plan holds the schedule of both.  ``device`` (default: the
-    tree's) picks the recorded kernel routing."""
+    time; the plan holds the schedule of both.  The host engine
+    (``sync/engine.py``) and the in-mesh wire (``sched/executor.execute_wsync``)
+    read it.  ``device`` (default: the tree's) picks the recorded kernel
+    routing."""
+    _check_strategy(strategy)
     leaves, _ = tree_flatten(tree)
     device = _device_of(leaves) if device is None else device
     backend, use_kernels = probe_backend(device)
@@ -442,51 +514,48 @@ def compile_wsync_plan(tree, axis_name, *, policy, n_dev: int,
         dt = codec.LAYOUTS[name].dtype
         bucket = _with_members(
             _p2p_bucket(length, dt, axis_name, policy=policy, n_dev=n_dev,
-                        tensor_class="weight"), members)
+                        tensor_class="weight", strategy=strategy), members)
         if bucket.path == PATH_COMPRESSED:
-            # A host update ships whole messages, so its full encode is the
-            # one-pass kernel (``packing.encode_message``); the reference
-            # records split_send's encode_fused=False, which its in-mesh
-            # early lo-plane send needs and the host wire does not.
             w_d, w_lo = policy.delta_widths(name)
             bucket = dataclasses.replace(
-                bucket, encode_fused=True, delta_width=w_d, delta_lo_width=w_lo,
+                bucket, delta_width=w_d, delta_lo_width=w_lo,
                 delta_wire_bytes=delta_wire_bytes(
                     _pad_up(length, block), width=w_d, lo_width=w_lo, block=block,
                     exc_frac=exc))
         buckets.append(bucket)
     if key is None:
-        key = wsync_plan_key(tree, axis_name, policy, n_dev, device)
+        key = wsync_plan_key(tree, axis_name, policy, n_dev, device, strategy=strategy)
     return CommPlan(key=key, kind="wsync", axis=axis_tuple(axis_name), n_dev=n_dev,
                     backend=backend, use_kernels=use_kernels,
                     buckets=tuple(buckets), raw_leaf_ix=raw_ix,
-                    n_leaves=len(leaves))
+                    n_leaves=len(leaves), strategy=strategy)
 
 
-def wsync_plan_key(tree, axis_name, policy, n_dev: int, device=None) -> tuple:
+def wsync_plan_key(tree, axis_name, policy, n_dev: int, device=None, *,
+                   strategy: str = "split_send") -> tuple:
     if device is None:
         device = _device_of(tree_leaves(tree))
-    return ("wsync", tree_signature(tree), axis_tuple(axis_name), int(n_dev),
-            policy_fingerprint(policy, "weight"), probe_backend(device))
+    return ("wsync", tree_signature(tree), str(strategy), axis_tuple(axis_name),
+            int(n_dev), policy_fingerprint(policy, "weight"), probe_backend(device))
 
 
 def cached_wsync_plan(tree, axis_name, *, policy, n_dev: int,
-                      cache=None) -> CommPlan:
+                      strategy: str = "split_send", cache=None) -> CommPlan:
     """Keyed-cache wrapper of :func:`compile_wsync_plan`, the weight-sync
     engine's entry point: a stable weight-tree signature compiles on the
     first publish and hits on every later one."""
     from repro_torch.sched.cache import default_cache
 
     cache = default_cache() if cache is None else cache
-    key = wsync_plan_key(tree, axis_name, policy, n_dev)
+    key = wsync_plan_key(tree, axis_name, policy, n_dev, strategy=strategy)
     return cache.get_or_compile(
-        key, lambda: compile_wsync_plan(tree, axis_name, policy=policy,
-                                        n_dev=n_dev, key=key))
+        key, lambda: compile_wsync_plan(tree, axis_name, policy=policy, n_dev=n_dev,
+                                        strategy=strategy, key=key))
 
 
 # ---------------------------------------------------------------------------
-# kind registry: CommPlan.kind -> compiler.  The reference's "p2p" and
-# "fsdp_gather" kinds come with the in-mesh P2P senders and FSDP.
+# kind registry: CommPlan.kind -> compiler.  The reference's "fsdp_gather"
+# kind comes with FSDP.
 # ---------------------------------------------------------------------------
 
 PLAN_KINDS = {
@@ -494,6 +563,7 @@ PLAN_KINDS = {
     "reduce_scatter": compile_reduce_scatter_plan,
     "all_gather": compile_all_gather_plan,
     "zero1": compile_zero1_plan,
+    "p2p": compile_p2p_plan,
     "kv": compile_kv_plan,
     "wsync": compile_wsync_plan,
 }

@@ -20,23 +20,34 @@ Entry points:
   * :func:`reduce_scatter_with_plan`: flat local bucket -> reduced shard;
   * :func:`all_gather_with_plan`: flat local shard -> gathered buckets;
   * :class:`Zero1Execution`: ZeRO-1's two phases around its update
-    (``optim/zero1.zero1_step``).
+    (``optim/zero1.zero1_step``);
+  * :func:`p2p_send_with_plan`: one P2P send (the plan twin of
+    ``core/split_send.p2p_send``, kind "p2p"), over :func:`execute_p2p`;
+  * :func:`transfer_cache_with_plan`: a KV-cache pytree over the in-mesh
+    P2P wire (the plan twin of ``serve/kv_transfer.transfer_cache``, kind
+    "kv"), over :func:`execute_kv_transfer`;
+  * :func:`sync_weights_with_plan`: a weight pytree, full or as XOR deltas
+    against a base version (the plan twin of ``sync/wire.sync_weights``,
+    kind "wsync"), over :func:`execute_wsync`.
 
 Every function takes the ``torch.distributed`` group that carries the wire
-(``None``: the world); the plan's ``axis`` holds the labels it was gated on.
-The ``kv`` and ``wsync`` kinds are replayed by the serve and weight-sync
-engines over the host wire, not here.
+(``None``: the world), and the P2P kinds the ``perm`` of ``(source,
+target)`` group ranks; the plan's ``axis`` holds the labels it was gated
+on.  The host serve and weight-sync engines also read the ``kv`` and
+``wsync`` plans for their host wires.
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import codec
 from repro_torch.core.compressed_collectives import (
     _no_flag, all_gather_compressed, psum_compressed_ring, psum_raw_twoshot,
     psum_safe, reduce_scatter_compressed)
 from repro_torch.core.policy import (WireReport, capture_wire_reports,
                                      record_wire_report)
+from repro_torch.core.split_send import p2p_dispatch, send_raw_leaves, wsync_dispatch
 from repro_torch.sched import compile as sched_compile
 from repro_torch.sched.cache import PlanCache, default_cache
 from repro_torch.sched.plan import (PATH_COMPRESSED, PATH_RAW_PSUM, PATH_RAW_TWOSHOT,
@@ -256,3 +267,162 @@ class Zero1Execution:
         """Bucket ``i``'s AG phase: (gathered, flag)."""
         return _exec_all_gather(self.plan.buckets[i].ag, shard, self.group,
                                 _label(self.plan))
+
+
+# ---------------------------------------------------------------------------
+# P2P wires: kinds "p2p", "kv" and "wsync"
+# ---------------------------------------------------------------------------
+
+def _exec_p2p_bucket(b: BucketPlan, x: torch.Tensor, group, perm, *, strategy: str,
+                     label, reduce_into=None):
+    """One P2P message from its BucketPlan: ``p2p_send``'s dispatch with the
+    gate, width and fused knobs read off the plan (``split_send.p2p_dispatch``
+    is the seam both share)."""
+    return p2p_dispatch(x, group, perm, compressed=b.path == PATH_COMPRESSED,
+                        width=b.width, block=b.block, exc_frac=b.exc_frac,
+                        strategy=strategy, reduce_into=reduce_into, fused=b.fused,
+                        encode_fused=b.encode_fused, axis_name=label)
+
+
+def _check_kind(plan: CommPlan, kind: str) -> None:
+    if plan.kind != kind:
+        raise ValueError(f"a {plan.kind!r} plan handed to the {kind!r} executor")
+
+
+def _check_leaves(plan: CommPlan, leaves, what: str) -> None:
+    """A stale plan (another leaf count, shape or dtype) raises rather than
+    scatter the wire into the wrong leaves."""
+    if len(leaves) != plan.n_leaves:
+        raise ValueError(f"{what} of {len(leaves)} leaves, plan of {plan.n_leaves}")
+    for b in plan.buckets:
+        for i, shape, _ in b.members:
+            leaf = leaves[i]
+            if tuple(leaf.shape) != tuple(shape) or dtype_name(leaf.dtype) != b.dtype_name:
+                raise ValueError(f"{what} leaf {i} is {tuple(leaf.shape)}/"
+                                 f"{dtype_name(leaf.dtype)} but the plan recorded "
+                                 f"{tuple(shape)}/{b.dtype_name}")
+
+
+def execute_p2p(plan: CommPlan, x: torch.Tensor, group, perm, *, reduce_into=None):
+    """Run a compiled kind-"p2p" plan on ``x``: the bits of ``p2p_send``
+    under the (policy, tensor class, strategy) the plan was compiled from.
+    Returns (received, flag), or (``reduce_into`` + received in f32, flag)
+    for a reducing receiver.  Records one ``plan:p2p`` WireReport."""
+    _check_kind(plan, "p2p")
+    _check_leaves(plan, [x], "tensor")
+    with capture_wire_reports() as caught:
+        out = _exec_p2p_bucket(plan.buckets[0], x, group, perm, strategy=plan.strategy,
+                               label=_label(plan), reduce_into=reduce_into)
+    _emit(plan, caught)
+    return out
+
+
+def p2p_send_with_plan(x: torch.Tensor, group, perm, *, axis_name="data", policy=None,
+                       tensor_class: str = "weight", strategy: str = "split_send",
+                       reduce_into=None, plan: CommPlan = None, cache: PlanCache = None):
+    """Plan-driven P2P send over ``group``.  With ``plan=None`` the plan is
+    looked up by (shape, dtype, strategy, axis label, group size, policy,
+    device) in ``cache`` (default: the process cache) and compiled on first
+    sight.  Bit-identical to ``split_send.p2p_send``."""
+    if plan is None:
+        if policy is None:
+            raise ValueError("p2p_send_with_plan needs policy= or plan=")
+        plan = sched_compile.cached_p2p_plan(
+            x, axis_name, policy=policy, n_dev=dist.get_world_size(group),
+            tensor_class=tensor_class, strategy=strategy, cache=cache)
+    return execute_p2p(plan, x, group, perm, reduce_into=reduce_into)
+
+
+def execute_kv_transfer(plan: CommPlan, cache, group, perm):
+    """Run a compiled kind-"kv" plan on a KV-cache pytree: the bits of
+    ``serve/kv_transfer.transfer_cache`` under the (policy, strategy) the
+    plan was compiled from: the buckets concatenate the same leaves in the
+    same order and ride the same wire; raw leaves take the raw ppermute.
+    Returns (cache at the target, flag); records one ``plan:kv`` report."""
+    _check_kind(plan, "kv")
+    leaves, treedef = tree_flatten(cache)
+    _check_leaves(plan, leaves, "cache")
+    out = list(leaves)
+    flag = _no_flag(leaves[0])
+    with capture_wire_reports() as caught:
+        for b in plan.buckets:
+            got, f = _exec_p2p_bucket(b, codec.concat_members(leaves, b.members), group,
+                                      perm, strategy=plan.strategy, label=_label(plan))
+            flag = torch.maximum(flag, f)
+            for i, leaf in codec.split_members(got, b.members):
+                out[i] = leaf
+        send_raw_leaves(leaves, plan.raw_leaf_ix, out, group, perm)
+    _emit(plan, caught)
+    return tree_unflatten(treedef, out), flag
+
+
+def transfer_cache_with_plan(cache, group, perm, *, axis_name="data", policy=None,
+                             strategy: str = "split_send", plan: CommPlan = None,
+                             plan_cache: PlanCache = None):
+    """Plan-driven in-mesh KV-cache transfer over ``group``.  With
+    ``plan=None`` the plan is looked up by the cache's signature (structure,
+    leaf shapes and dtypes), the strategy, the policy and the group size in
+    ``plan_cache``: a decode loop with a stable cache compiles once and hits
+    after.  Bit-identical to ``serve/kv_transfer.transfer_cache``."""
+    if plan is None:
+        if policy is None:
+            raise ValueError("transfer_cache_with_plan needs policy= or plan=")
+        plan = sched_compile.cached_kv_plan(
+            cache, axis_name, policy=policy, n_dev=dist.get_world_size(group),
+            strategy=strategy, plan_cache=plan_cache)
+    return execute_kv_transfer(plan, cache, group, perm)
+
+
+def execute_wsync(plan: CommPlan, tree, group, perm, *, base=None):
+    """Run a compiled kind-"wsync" plan on a weight pytree: the bits of
+    ``sync/wire.sync_weights(tree, ..., base=base)`` under the (policy,
+    strategy) the plan was compiled from (both call
+    ``split_send.wsync_dispatch`` with the same arguments).  ``base``, the
+    version both ends hold, ships XOR deltas on every delta-eligible bucket;
+    ``None`` ships full tensors.  Returns (tree at the target, flag); a
+    nonzero flag after a delta means the delta overflowed its widths and the
+    caller must send in full.  Records one ``plan:wsync`` report."""
+    _check_kind(plan, "wsync")
+    leaves, treedef = tree_flatten(tree)
+    base_leaves = None
+    if base is not None:
+        base_leaves, base_def = tree_flatten(base)
+        if base_def != treedef:
+            raise ValueError("the base tree's structure is not the weight tree's")
+    _check_leaves(plan, leaves, "weight")
+    out = list(leaves)
+    flag = _no_flag(leaves[0])
+    with capture_wire_reports() as caught:
+        for b in plan.buckets:
+            bucket = codec.concat_members(leaves, b.members)
+            bucket_base = (None if base_leaves is None
+                           else codec.concat_members(base_leaves, b.members))
+            got, f = wsync_dispatch(
+                bucket, bucket_base, group, perm, compressed=b.path == PATH_COMPRESSED,
+                width=b.width, delta_width=b.delta_width,
+                delta_lo_width=b.delta_lo_width, block=b.block, exc_frac=b.exc_frac,
+                strategy=plan.strategy, fused=b.fused, encode_fused=b.encode_fused,
+                axis_name=_label(plan))
+            flag = torch.maximum(flag, f)
+            for i, leaf in codec.split_members(got, b.members):
+                out[i] = leaf
+        send_raw_leaves(leaves, plan.raw_leaf_ix, out, group, perm)
+    _emit(plan, caught)
+    return tree_unflatten(treedef, out), flag
+
+
+def sync_weights_with_plan(tree, group, perm, *, axis_name="data", policy=None,
+                           base=None, strategy: str = "split_send",
+                           plan: CommPlan = None, cache: PlanCache = None):
+    """Plan-driven in-mesh weight sync over ``group``.  With ``plan=None``
+    the plan is looked up by the weight tree's signature, the strategy, the
+    policy and the group size in ``cache``: a trainer that publishes a
+    stable tree compiles once and hits after.  Bit-identical to
+    ``sync/wire.sync_weights``."""
+    if plan is None:
+        if policy is None:
+            raise ValueError("sync_weights_with_plan needs policy= or plan=")
+        plan = sched_compile.cached_wsync_plan(
+            tree, axis_name, policy=policy, n_dev=dist.get_world_size(group),
+            strategy=strategy, cache=cache)
+    return execute_wsync(plan, tree, group, perm, base=base)

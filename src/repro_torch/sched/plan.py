@@ -6,8 +6,8 @@ otherwise re-derive at every call: leaf buckets, compress-vs-raw paths,
 codec widths, the kernel routing and the expected wire bytes.  It is pure
 data (no tensors), built by ``sched/compile.py`` from shapes and a
 ``CompressionPolicy``, cached by ``sched/cache.py`` on the signature of
-what it ships, and replayed by ``sched/executor.py`` (the collective kinds)
-or by the serve and weight-sync engines (``kv``, ``wsync``).  Replaying a
+what it ships, and replayed by ``sched/executor.py`` (the host serve and
+weight-sync engines also read the ``kv`` and ``wsync`` plans).  Replaying a
 plan calls the same primitives with the same arguments as the planless
 entry point, so the two give the same bits.
 """
@@ -93,13 +93,16 @@ class CommPlan:
     ``kind``: "psum" (pytree two-shot or ring all-reduce), "reduce_scatter"
     and "all_gather" (flat single-bucket phases), "zero1" (per-dtype RS/AG
     ``PhasePair``s with the optimizer update between), "kv" (a KV-cache
-    pytree shipped leaf-bucketed over the P2P ``split_send`` pipeline) or
+    pytree shipped leaf-bucketed over the P2P pipeline) or
     "wsync" (a versioned weight pytree sent to replicas with per-bucket
-    XOR-delta-vs-full gating, the delta schedule in each ``BucketPlan``).
+    XOR-delta-vs-full gating, the delta schedule in each ``BucketPlan``) or
+    "p2p" (one tensor over the P2P pipeline, ``core/split_send.p2p_send``).
     ``backend``/``use_kernels`` record the device and whether its wires run
     the CUDA kernels (``compile.probe_backend``).  ``raw_leaf_ix`` are
     leaves outside every bucket (not a codec float, or 0-d for "kv"): summed
-    with ``psum_safe`` (kind "psum") or moved as they are."""
+    with ``psum_safe`` (kind "psum") or moved as they are.  ``strategy`` is
+    the P2P pipeline of "p2p", "kv" and "wsync" plans ("split_send",
+    "encode_send" or "chunked"); empty for the collectives."""
 
     key: tuple  # the cache key this plan was compiled under (hashable)
     kind: str
@@ -110,6 +113,7 @@ class CommPlan:
     buckets: tuple  # BucketPlans (PhasePairs for kind "zero1")
     raw_leaf_ix: tuple = ()
     n_leaves: int = 0
+    strategy: str = ""  # P2P pipeline (kinds "p2p", "kv", "wsync")
 
     def _flat_buckets(self):
         for b in self.buckets:
@@ -157,6 +161,7 @@ class CommPlan:
             "use_kernels": self.use_kernels,
             "n_buckets": len(self.buckets),
             "n_raw_leaves": len(self.raw_leaf_ix),
+            "strategy": self.strategy,
             "paths": tuple(b.path for b in self._flat_buckets()),
             "n_encode_fused": sum(1 for b in self._flat_buckets()
                                   if b.compressed and b.encode_fused),

@@ -1,14 +1,22 @@
 """KV-cache transfer for prefill-decode disaggregation (paper §5.3.2);
-torch port of ``repro.serve.kv_transfer``, the host path.
+torch port of ``repro.serve.kv_transfer``.
 
-PD workers are separate processes: the prefilled cache is encoded leaf by
-leaf with the host engine (``p2p/engine.Compressor``), shipped out of band
-as numpy messages with a CRC-32 over the payload, and decoded on the other
-side bit for bit.  The codec widths come from a kind-"kv" ``CommPlan``
-compiled once per cache signature (:func:`ship_cache`), so a serve engine
-with a stable cache shape decides once and hits the plan cache on every
-later shipment.  The in-mesh wire (``transfer_cache`` over ``split_send``)
-is ported later.
+Two wires:
+
+  * in-mesh (:func:`transfer_cache`): prefill and decode ranks share a
+    process group; the compressible leaves fuse into one flat message per
+    dtype (large blocks keep the codec efficient) and cross it over the P2P
+    pipeline (``core/split_send.p2p_send``, by default the split-send);
+    ``sched.transfer_cache_with_plan`` replays the same decisions from a
+    kind-"kv" ``CommPlan``, to the same bits;
+  * host (:func:`pack_cache` / :func:`unpack_cache`): PD workers are
+    separate processes; the prefilled cache is encoded leaf by leaf with the
+    host engine (``p2p/engine.Compressor``), shipped out of band as numpy
+    messages with a CRC-32 over the payload, and decoded on the other side
+    bit for bit.  The codec widths come from a kind-"kv" ``CommPlan``
+    compiled once per cache signature (:func:`ship_cache`), so a serve
+    engine with a stable cache shape decides once and hits the plan cache on
+    every later shipment.
 """
 from __future__ import annotations
 
@@ -16,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import codec, integrity
+from repro_torch.core.compressed_collectives import _no_flag
 from repro_torch.core.policy import CompressionPolicy
 from repro_torch.sched.plan import dtype_name
 from repro_torch.tree_util import tree_flatten, tree_unflatten
@@ -34,6 +43,40 @@ def _bucket_leaves(cache):
         else:
             raw.append(i)
     return leaves, comp, raw
+
+
+def transfer_cache(cache, group, perm, *, policy: CompressionPolicy,
+                   strategy: str = "split_send", plan=None, axis_name="data"):
+    """Ship a KV-cache pytree along ``perm`` (``(source, target)`` ranks of
+    ``group``) over the in-mesh wire.  The compressible leaves fuse into one
+    flat bucket per dtype, in first-seen leaf order, each sent by
+    ``split_send.p2p_send`` at tensor class "activation" under
+    ``strategy``; every other leaf takes the raw ppermute (a 0-d leaf as
+    ``[None]``).  Returns (cache at the target, flag), every leaf the bits
+    of a raw ppermute.  ``plan`` (a compiled kind-"kv" ``CommPlan``) replays
+    its schedule instead (``sched/executor.execute_kv_transfer``)."""
+    from repro_torch.core.split_send import p2p_send, send_raw_leaves
+
+    if plan is not None:
+        from repro_torch.sched.executor import execute_kv_transfer
+
+        return execute_kv_transfer(plan, cache, group, perm)
+    leaves, comp, raw = _bucket_leaves(cache)
+    out = list(leaves)
+    flag = _no_flag(leaves[0])
+    groups: dict = {}
+    for i in comp:
+        groups.setdefault(leaves[i].dtype, []).append(
+            (i, tuple(leaves[i].shape), leaves[i].numel()))
+    for members in groups.values():
+        got, f = p2p_send(codec.concat_members(leaves, members), group, perm,
+                          policy=policy, tensor_class="activation", strategy=strategy,
+                          axis_name=axis_name)
+        flag = torch.maximum(flag, f)
+        for i, leaf in codec.split_members(got, members):
+            out[i] = leaf
+    send_raw_leaves(leaves, raw, out, group, perm)
+    return tree_unflatten(tree_flatten(cache)[1], out), flag
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:

@@ -5,10 +5,13 @@ replica's update as an XOR delta against the version it acked or as the full
 compressed tensors, on a kind-"wsync" ``CommPlan`` compiled once, and a
 replica reconstructs the published bits (:func:`apply_update`,
 ``serve/engine.ServeEngine.ingest_weights``).  Every update carries a CRC-32
-of its payload (:func:`update_checksum`, :func:`verify_update`)."""
+of its payload (:func:`update_checksum`, :func:`verify_update`).  The in-mesh
+wire, :func:`sync_weights`, sends the same buckets along a process group's
+``perm`` (``sync/wire.py``)."""
 from repro_torch.sync.engine import (SyncUpdate, WeightSyncEngine, apply_update,
                                      update_checksum, verify_update)
 from repro_torch.sync.store import VersionedStore
+from repro_torch.sync.wire import sync_weights
 
 __all__ = ["SyncUpdate", "VersionedStore", "WeightSyncEngine", "apply_update",
-           "update_checksum", "verify_update"]
+           "sync_weights", "update_checksum", "verify_update"]

@@ -518,3 +518,114 @@ def test_hierarchical_all_to_all_and_ppermute_on_the_card_equal_the_cpu(cuda):
             assert _launches(before) == expect[k], k
             assert int(flag) == 0 and got.is_cuda, k
             assert _same_bits(got, want[k], nan_as_nan=k == "hier"), k
+
+
+P2P_STRATEGIES = ("split_send", "encode_send", "chunked")
+
+
+def _p2p_expect(strategy: str, n: int, **kw) -> dict:
+    from repro_torch.core.split_send import chunk_grid
+
+    n_chunks = chunk_grid(n, 4, 512)[1] if strategy == "chunked" else 1
+    return {k: v for k, v in chip_smoke.p2p_launches(strategy, n_chunks=n_chunks,
+                                                     **kw).items() if v}
+
+
+@pytest.mark.parametrize("strategy", P2P_STRATEGIES)
+def test_p2p_strategies_on_the_card_equal_the_cpu(cuda, strategy):
+    """split_send, encode_send and the chunked pipeline on a one-rank NCCL
+    group: the CPU plain route's bits (the input's), with the launches
+    ``chip_smoke.p2p_launches`` derives."""
+    from repro_torch.core import split_send as ss
+    from repro_torch.launch.train import single_process_group
+
+    fn = {"split_send": ss.split_send, "encode_send": ss.encode_send,
+          "chunked": ss.chunked_pipeline_send}[strategy]
+    n = 512 * 24 + 77
+    x = to_torch(grad_like_bits("bfloat16", n, seed=42), "bfloat16")
+    with single_process_group("cpu") as g:
+        want, _ = fn(x, g, [(0, 0)], width=5)
+    with single_process_group(cuda) as g:
+        before = kernels.launch_counts()
+        got, flag = fn(x.to(cuda), g, [(0, 0)], width=5)
+        assert _launches(before) == _p2p_expect(strategy, n)
+    assert int(flag) == 0 and got.is_cuda
+    assert _same_bits(got, want) and _same_bits(got, x)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_p2p_reducing_receiver_on_the_card_equals_the_cpu(cuda, fused):
+    """split_send(reduce_into=): the fused decode+reduce (decode_reduce and
+    the exception patch's unpack) and the unfused decode-then-add give the
+    CPU's f32 bits and ``acc + x`` (NaN as NaN)."""
+    from repro_torch.core import split_send as ss
+    from repro_torch.launch.train import single_process_group
+
+    n = 512 * 24 + 77
+    x = to_torch(grad_like_bits("bfloat16", n, seed=43, subnormals=False), "bfloat16")
+    acc = torch.from_numpy(np.random.default_rng(43).normal(0, 1, n).astype(np.float32))
+    with single_process_group("cpu") as g:
+        want, _ = ss.split_send(x, g, [(0, 0)], width=5, reduce_into=acc, use_fused=fused)
+    with single_process_group(cuda) as g:
+        before = kernels.launch_counts()
+        got, flag = ss.split_send(x.to(cuda), g, [(0, 0)], width=5, reduce_into=acc.to(cuda),
+                                  use_fused=fused)
+        assert _launches(before) == _p2p_expect("split_send", n,
+                                                reduce="fused" if fused else "")
+    assert int(flag) == 0 and got.is_cuda and got.dtype == torch.float32
+    assert _same_bits(got, want, nan_as_nan=True)
+    assert _same_bits(got, acc + x.float(), nan_as_nan=True)
+
+
+def test_p2p_delta_kv_and_weight_sync_on_the_card_equal_the_cpu(cuda):
+    """delta_send (pack and unpack twice), transfer_cache_with_plan under
+    each strategy and sync_weights_with_plan full and as a delta, on the
+    card: the CPU's bits."""
+    from repro_torch import sched
+    from repro_torch.core import split_send as ss
+    from repro_torch.core.policy import CompressionPolicy
+    from repro_torch.launch.train import single_process_group
+    from repro_torch.sched.cache import PlanCache
+    from repro_torch.tree_util import bits_equal, tree_flatten
+
+    pol = CompressionPolicy(min_bytes=0)
+    base = to_torch(grad_like_bits("bfloat16", 512 * 24 + 77, seed=44), "bfloat16")
+    x = (base.view(torch.int16) ^ 3).view(torch.bfloat16)  # a warm delta
+    tree = {"k": x[:6000].reshape(60, 100), "v": x[6000:], "pos": torch.tensor(7)}
+    wbase = {"k": base[:6000].reshape(60, 100), "v": base[6000:]}
+
+    def runs(g, dev):
+        def on(t):
+            return {k: v.to(dev) for k, v in t.items()}
+
+        out = {"delta": ss.delta_send(x.to(dev), base.to(dev), g, [(0, 0)], width=2,
+                                      lo_width=4)}
+        for s in P2P_STRATEGIES:
+            out[f"kv_{s}"] = sched.transfer_cache_with_plan(
+                on(tree), g, [(0, 0)], policy=pol, strategy=s, plan_cache=PlanCache())
+        w = {k: v for k, v in on(tree).items() if k != "pos"}
+        out["sync_full"] = sched.sync_weights_with_plan(w, g, [(0, 0)], policy=pol,
+                                                        cache=PlanCache())
+        out["sync_delta"] = sched.sync_weights_with_plan(w, g, [(0, 0)], policy=pol,
+                                                         base=on(wbase), cache=PlanCache())
+        return out
+
+    with single_process_group("cpu") as g:
+        want = runs(g, "cpu")
+    with single_process_group(cuda) as g:
+        before = kernels.launch_counts()
+        got = runs(g, cuda)
+        launched = _launches(before)
+    n = x.numel()
+    expect = {}
+    for part in [_p2p_expect("delta", n)] + [_p2p_expect(s, n) for s in P2P_STRATEGIES] + [
+            _p2p_expect("split_send", n), _p2p_expect("delta", n)]:
+        for k, v in part.items():
+            expect[k] = expect.get(k, 0) + v
+    assert launched == expect
+    for k in want:
+        (a, fa), (b, fb) = got[k], want[k]
+        assert int(fa) == int(fb) == 0, k
+        assert (bits_equal({n: t.cpu() for n, t in a.items()}, b) if isinstance(a, dict)
+                else _same_bits(a, b)), k
+    assert all(t.is_cuda for t in tree_flatten(got["kv_chunked"][0])[0])

@@ -299,3 +299,132 @@ def psum_rank(rank: int, world: int, out: str) -> None:
                                                  policy=CompressionPolicy.disabled())
         res["hier_raw_f32"] = np_of(got)
     np.savez(out, **res)
+
+
+# ---------------------------------------------------------------------------
+# worker of the P2P wire's multi-rank tests (core/split_send, the in-mesh KV
+# and weight-sync wires)
+# ---------------------------------------------------------------------------
+
+SPLIT_SIZES = (100, 513, 1537, 2048, 2065)
+SPLIT_STRATEGIES = ("split_send", "encode_send", "chunked")
+SPLIT_PERMS = {"swap": [(0, 1), (1, 0)], "pair": [(0, 1)]}  # "pair": rank 0 untargeted
+SPLIT_WIDTH = 5
+REDUCE_N = 2065
+DELTA_N = 2065
+DELTA_WIDTHS = {"warm": (2, 4), "overflow": (1, 1)}
+
+
+def split_bits(fmt: str, n: int, rank: int, *, subnormals: bool = True) -> np.ndarray:
+    """Rank ``rank``'s seeded input of the P2P tests: gradient-like values
+    with specials and exception blocks; NaNs that survive the reference's
+    float-copy pad; subnormals only where no f32 add follows."""
+    return grad_like_bits(fmt, n, seed=1000 + 31 * rank + n, subnormals=subnormals,
+                          xla_copy_nans=True)
+
+
+def reduce_acc(n: int, rank: int) -> np.ndarray:
+    """A reducing receiver's f32 accumulator: normal values, no subnormals."""
+    return np.random.default_rng(2000 + rank).normal(0, 1, n).astype(np.float32)
+
+
+def delta_pair(fmt: str, n: int, rank: int) -> tuple:
+    """(x, base) bits of a warm XOR delta: the base version both ends hold
+    (the same on every rank) and this rank's next version, whose low
+    mantissa bits (three at most) moved where the exponent is not all ones
+    (its NaNs, the canonical ones that survive the reference's float copy,
+    stay)."""
+    total, e, m = _BITS[fmt]
+    base = grad_like_bits(fmt, n, seed=3000, subnormals=True, xla_copy_nans=True)
+    flips = np.random.default_rng(3001 + rank).integers(0, 1 << min(m, 3), n).astype(
+        base.dtype)
+    flips[(base >> m) & ((1 << e) - 1) == (1 << e) - 1] = 0
+    return base ^ flips, base
+
+
+def p2p_tree(rank: int) -> dict:
+    """A KV-cache-like pytree: bf16 K and V leaves, an f32 leaf, an int32
+    scalar (a raw 0-d leaf)."""
+    bits = split_bits("bfloat16", 2 * 2 * 64 * 4 * 8, rank)
+    kv = to_torch(bits, "bfloat16").reshape(2, 2, 64, 4, 8)
+    return {"k": kv[0], "v": kv[1],
+            "b": to_torch(split_bits("float32", 300, rank), "float32"),
+            "pos": torch.tensor(7 + rank, dtype=torch.int32)}
+
+
+def weight_trees(rank: int) -> tuple:
+    """(weights, base): a bf16 leaf one warm step from its base version, a
+    bf16 and an f32 leaf equal to theirs, an int32 leaf outside the codec."""
+    bits, base = delta_pair("bfloat16", 3000, rank)
+    same = {"v": to_torch(split_bits("bfloat16", 1000, 9), "bfloat16").reshape(10, 100),
+            "b": to_torch(split_bits("float32", 600, 9), "float32"),
+            "step": torch.arange(3, dtype=torch.int32) + rank}
+    return ({"w": to_torch(bits, "bfloat16").reshape(30, 100), **same},
+            {"w": to_torch(base, "bfloat16").reshape(30, 100), **same})
+
+
+def split_send_rank(rank: int, world: int, out: str) -> None:
+    """Every P2P wire on this rank's seeded inputs, along each of
+    SPLIT_PERMS: the three strategies (5 formats x SPLIT_SIZES, values,
+    flags, WireReports), the reducing receiver fused and unfused, the raw
+    dispatch, delta_send and wsync_dispatch (warm and overflowing),
+    transfer_cache and sync_weights with their plan twins."""
+    from repro_torch import sched
+    from repro_torch.core import split_send as ss
+    from repro_torch.core.policy import CompressionPolicy, capture_wire_reports
+    from repro_torch.sched.cache import PlanCache
+    from repro_torch.serve.kv_transfer import transfer_cache
+    from repro_torch.sync.wire import sync_weights
+    from repro_torch.tree_util import tree_flatten
+
+    fns = {"split_send": ss.split_send, "encode_send": ss.encode_send,
+           "chunked": ss.chunked_pipeline_send}
+    pol = CompressionPolicy(min_bytes=0)
+    res = {}
+    for ptag, perm in SPLIT_PERMS.items():
+        for fmt in FORMATS:
+            for n in SPLIT_SIZES:
+                x = to_torch(split_bits(fmt, n, rank), fmt)
+                for strat, fn in fns.items():
+                    with capture_wire_reports() as reps:
+                        got, flag = fn(x, None, perm, width=SPLIT_WIDTH)
+                    key = f"{strat}_{fmt}_{n}_{ptag}"
+                    res[key], res[f"flag_{key}"] = np_of(got), int(flag)
+                    res[f"reports_{key}"] = saved_reports(reps)
+            x = to_torch(split_bits(fmt, REDUCE_N, rank, subnormals=False), fmt)
+            acc = torch.from_numpy(reduce_acc(REDUCE_N, rank))
+            for fused in (True, False):
+                got, flag = ss.split_send(x, None, perm, width=SPLIT_WIDTH, reduce_into=acc,
+                                          use_fused=fused)
+                key = f"reduce_{fused}_{fmt}_{ptag}"
+                res[key], res[f"flag_{key}"] = np_of(got), int(flag)
+            bits, base = delta_pair(fmt, DELTA_N, rank)
+            for dtag, (w, wl) in DELTA_WIDTHS.items():
+                got, flag = ss.delta_send(to_torch(bits, fmt), to_torch(base, fmt), None, perm,
+                                          width=w, lo_width=wl)
+                key = f"delta_{dtag}_{fmt}_{ptag}"
+                res[key], res[f"flag_{key}"] = np_of(got), int(flag)
+                got, flag = ss.wsync_dispatch(
+                    to_torch(bits, fmt), to_torch(base, fmt), None, perm, compressed=True,
+                    width=SPLIT_WIDTH, delta_width=w, delta_lo_width=wl)
+                res[f"wsync_{key}"], res[f"flag_wsync_{key}"] = np_of(got), int(flag)
+        x = to_torch(split_bits("bfloat16", 2065, rank), "bfloat16")
+        got, flag = ss.p2p_dispatch(x, None, perm, compressed=False, width=SPLIT_WIDTH)
+        res[f"raw_{ptag}"], res[f"flag_raw_{ptag}"] = np_of(got), int(flag)
+        tree = p2p_tree(rank)
+        for strat in SPLIT_STRATEGIES:
+            for tag, fn in (("tc", transfer_cache), ("tc_plan", sched.transfer_cache_with_plan)):
+                kw = {"plan_cache": PlanCache()} if tag == "tc_plan" else {}
+                got, flag = fn(tree, None, perm, policy=pol, strategy=strat, **kw)
+                for i, leaf in enumerate(tree_flatten(got)[0]):
+                    res[f"{tag}_{strat}_{ptag}_{i}"] = np_of(leaf)
+                res[f"flag_{tag}_{strat}_{ptag}"] = int(flag)
+        wtree, wbase = weight_trees(rank)
+        for btag, b in (("full", None), ("delta", wbase)):
+            for tag, fn in (("sw", sync_weights), ("sw_plan", sched.sync_weights_with_plan)):
+                kw = {"cache": PlanCache()} if tag == "sw_plan" else {}
+                got, flag = fn(wtree, None, perm, policy=pol, base=b, **kw)
+                for i, leaf in enumerate(tree_flatten(got)[0]):
+                    res[f"{tag}_{btag}_{ptag}_{i}"] = np_of(leaf)
+                res[f"flag_{tag}_{btag}_{ptag}"] = int(flag)
+    np.savez(out, **res)
