@@ -127,7 +127,34 @@ result line each:
             of a full update (encode on the card, device-to-host copy,
             update_checksum, verify_update, apply = host-to-device copy and
             decode, in-place copy into the serve engine's model).
-6. p2p    - Uzip-P2P in the mesh (core/split_send and the p2p, kv and
+6. fleet  - the weight-sync fleet (sync/fleet.SyncFleet) at full width:
+            the sync phase's retained versions (v1-v4; one bf16 bucket of
+            134 515 200 values) published to 6 replicas r0-r5 whose weights
+            live on the card, each fleet a fresh WeightSyncEngine with the
+            sync run's policy over one shared PlanCache.  (a) star, tree
+            (fanout 2) and pipeline: each version published, then settle():
+            bit-exact in one round, one encode a publish, trainer egress
+            root_degree x the update's wire bytes (6, 2 and 1 copies),
+            forwards n_edges - root_degree and hop depth the schedule's (1,
+            2 and 6); one plan compile a schedule triple (3 misses: the
+            plan without schedule, tree and pipeline).  (b) the tree under
+            FaultPlan.generate (seed 7, 10 rounds, drop, corrupt and delay
+            rates 0.1, delays up to 2 rounds, a kill, a join and a trainer
+            restart from a checkpoint in a temporary directory), a version
+            published at every third round, then settle(max_rounds=80):
+            bit-exact, no silent corruption, injected == seen + lost, no
+            quarantine, max_link_failures <= max_retries.  (c)
+            execute_wsync_broadcast and broadcast_weights of a pipeline of
+            3 over ranks (0, 0, 0, 0) on a one-rank NCCL group (each level a
+            self-send), full and as a delta against the previous version:
+            bit-identical with flag 0, the twins equal.  Launches derived in
+            fleet_launches from what the fleet did (a full encode
+            encode_fused 1, a delta tried pack 2, an applied bucket unpack
+            2, a raw one none) plus p2p_launches of each in-mesh level.
+            Prints each wave's mode, wire and egress bytes, rounds and
+            settle ms (host clock to a device sync), the chaos run's rounds,
+            ms, ledger, stats and trace events, and the in-mesh ms.
+7. p2p    - Uzip-P2P in the mesh (core/split_send and the p2p, kv and
             wsync plans), on a one-rank NCCL group with perm [(0, 0)]: the
             serve phase's prefilled cache (two (30, 1, 1024, 3, 64) bf16
             leaves, one bucket of 11 796 480, and the 0-d position leaf,
@@ -152,11 +179,11 @@ result line each:
             (host clock to a device sync, median of 5; at one rank the wire
             is NCCL's copy to itself, so the times are the codec's
             schedule, not a network's).
-7. times  - each kernel and its plain version at the shapes its path
+8. times  - each kernel and its plain version at the shapes its path
             gives it: encode_fused, decode_reduce and plane_split at the
             AG bucket, pack and unpack at one KV leaf (the row's ms), and
             encode_fused, decode_reduce, pack and unpack also at every
-            shape any run of phases 3-6 launched them at (``shapes``): each
+            shape any run of phases 3-7 launched them at (``shapes``): each
             run's first input of each shape, which recorded_inputs keeps,
             is held against the plain version, and every launch a run
             tallied must be at a recorded shape; each shape is timed once,
@@ -1321,7 +1348,227 @@ def phase_sync(dev, torch):
     # the train steps')
     recorded = (inputs, {k: run.sync_shapes[k] for k in SHAPED})
     return {"launches": run.sync_launches, "n_publishes": run.n_publishes, "parts": parts,
-            "recorded": recorded, "versions": (v2, v3), "policy": run.engine.policy}
+            "recorded": recorded, "versions": (v2, v3), "policy": run.engine.policy,
+            "retained": [store.get(v) for v in store.retained()]}
+
+
+# fleet phase: replicas (benchmarks/fig_tree.py runs 64 for the topologies
+# and 8 under chaos; 6 hold the weights of all three topologies and the chaos
+# run inside the time limit), the topologies as (kind, fanout), and the
+# chaos run's settings (fig_tree.run_chaos_tree's, plus one trainer restart)
+N_FLEET = 6
+FLEET_KINDS = (("star", 2), ("tree", 2), ("pipeline", 1))
+CHAOS = dict(seed=7, rounds=10, drop_rate=0.1, corrupt_rate=0.1, delay_rate=0.1,
+             max_delay=2, kills=1, joins=1, trainer_restarts=1)
+CHAOS_FLEET = dict(broadcast="tree", fanout=2, max_retries=30, backoff_cap=2)
+
+
+def fleet_launches(encodes, applies) -> dict:
+    """Kernel launches of a fleet run, from what it did (the sync phase's
+    counts): of each compressed bucket an encode handled, a delta tried
+    packs its two planes (pack 2) and a full encode runs encode_fused once
+    (also after a delta that overflowed, and before a full wire whose
+    exceptions overflowed ships raw); a bucket forced raw launches nothing.
+    Each compressed bucket a replica applies unpacks its two planes (unpack
+    2); a raw one nothing.  ``encodes`` holds (delta tried, mode shipped,
+    forced raw) a compressed bucket, ``applies`` each applied bucket's mode."""
+    out = {"encode_fused": 0, "pack": 0, "unpack": 0}
+    for tried_delta, mode, forced_raw in encodes:
+        if forced_raw:
+            continue
+        out["pack"] += 2 * tried_delta
+        out["encode_fused"] += mode != "delta"
+    out["unpack"] = 2 * sum(mode != "raw" for mode in applies)
+    return out
+
+
+@contextlib.contextmanager
+def fleet_record(plan):
+    """While active, every ``WeightSyncEngine`` encode and every replica's
+    apply is recorded for :func:`fleet_launches`: ``(encodes, applies,
+    updates)``, the compressed buckets of ``plan`` (the weights' wsync plan)
+    telling which bucket could run a kernel."""
+    from repro_torch.sync import engine as engine_mod
+    from repro_torch.sync import fleet as fleet_mod
+
+    encodes, applies, updates = [], [], []
+    encode, apply = engine_mod.WeightSyncEngine._encode_update, fleet_mod.apply_update
+
+    def rec_encode(self, params, version, base_version, force):
+        update = encode(self, params, version, base_version, force)
+        for b, (_, _, mode, _) in zip(plan.buckets, update.buckets, strict=True):
+            if b.compressed:
+                encodes.append((base_version is not None and b.delta_width > 0, mode,
+                                force == "raw"))
+        updates.append(update)
+        return update
+
+    def rec_apply(update, *args, **kw):
+        applies.extend(m for b, (_, _, m, _) in zip(plan.buckets, update.buckets, strict=True)
+                       if b.compressed)
+        return apply(update, *args, **kw)
+
+    engine_mod.WeightSyncEngine._encode_update, fleet_mod.apply_update = rec_encode, rec_apply
+    try:
+        yield encodes, applies, updates
+    finally:
+        engine_mod.WeightSyncEngine._encode_update, fleet_mod.apply_update = encode, apply
+
+
+def phase_fleet(sync, dev, torch):
+    """The weight-sync fleet at full width: the sync phase's retained
+    versions to N_FLEET replicas on the card over each topology, then the
+    tree under seeded chaos, then the in-mesh pipeline; checks and launch
+    counts are derived in the module docstring and ``fleet_launches``."""
+    import tempfile
+
+    from repro_torch import kernels, sched
+    from repro_torch.launch import train as launch_train
+    from repro_torch.runtime.faults import FaultConfig, FaultPlan
+    from repro_torch.sched.cache import PlanCache
+    from repro_torch.sync import FleetConfig, SyncFleet, WeightSyncEngine, broadcast_weights
+    from repro_torch.tree_util import bits_equal
+
+    versions, policy = sync["retained"], sync["policy"]
+    v_prev, v_new = sync["versions"]
+    names = tuple(f"r{i}" for i in range(N_FLEET))
+    plan = sched.compile_wsync_plan(v_new, "data", policy=policy, n_dev=1)
+    n_ws = sum(b.compressed for b in plan.buckets)
+    cache = PlanCache()  # one for every fleet: a plan a schedule triple
+
+    def engine():
+        return WeightSyncEngine(policy=policy, plan_cache=cache)
+
+    def synced_ms(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    topo = {}
+    mesh_plan = sched.compile_wsync_plan(v_new, "data", policy=policy, n_dev=1,
+                                         broadcast="pipeline", n_receivers=3)
+    ranks = (0, 0, 0, 0)
+    with launch_train.single_process_group(dev) as group, fleet_record(plan) as (
+            encodes, applies, updates), recorded_inputs(torch) as inputs:
+        runs = {"execute_wsync_broadcast": lambda b: sched.execute_wsync_broadcast(
+                    mesh_plan, v_new, group, ranks, base=b),
+                "broadcast_weights": lambda b: broadcast_weights(
+                    v_new, group, mesh_plan.broadcast, ranks, policy=policy, base=b)}
+        kernels.clear_launch_counts()
+        # -- (a) each topology: every retained version, then settle
+        for kind, fanout in FLEET_KINDS:
+            fleet = SyncFleet(engine(), names, device=dev, cfg=FleetConfig(
+                broadcast=kind, fanout=fanout, ckpt_every_publishes=10 ** 9))
+            schedule = sched.compile_broadcast_schedule(N_FLEET, kind=kind, fanout=fanout)
+            waves = []
+            for params in versions:
+                before, n_enc = dict(fleet.stats), len(updates)
+                fleet.publish(params)
+                rounds, ms = synced_ms(fleet.settle)
+                if len(updates) != n_enc + 1:
+                    raise AssertionError(f"fleet {kind}: {len(updates) - n_enc} encodes of "
+                                         f"one publish")
+                upd = updates[-1]
+                w = upd.wire_bytes
+                got = {k: fleet.stats[k] - before[k]
+                       for k in ("trainer_egress_bytes", "forwards", "forward_bytes")}
+                want = {"trainer_egress_bytes": schedule.root_degree * w,
+                        "forwards": schedule.n_edges - schedule.root_degree,
+                        "forward_bytes": (schedule.n_edges - schedule.root_degree) * w}
+                if (not fleet.verify_bitexact() or got != want or rounds != 1
+                        or fleet.stats["max_hop_depth"] != schedule.depth):
+                    raise AssertionError(
+                        f"fleet {kind}: v{upd.version} bit-exact {fleet.verify_bitexact()}, "
+                        f"rounds {rounds}, {got} (expected {want}), hop depth "
+                        f"{fleet.stats['max_hop_depth']} (schedule {schedule.depth})")
+                waves.append({"version": upd.version, "mode": upd.mode, "wire_bytes": w,
+                              "egress": got["trainer_egress_bytes"], "rounds": rounds,
+                              "settle_ms": ms})
+            topo[kind] = {"waves": waves, "forwards": fleet.stats["forwards"],
+                          "depth": fleet.stats["max_hop_depth"],
+                          "root_degree": schedule.root_degree}
+            del fleet
+        if cache.stats.misses != 1 + sum(kind != "star" for kind, _ in FLEET_KINDS):
+            raise AssertionError(f"fleet plan cache {cache.cache_info()}: one compile a "
+                                 f"schedule triple and one without")
+        topo_cache = cache.cache_info()
+
+        # -- (b) the tree under seeded chaos: publish at every third round
+        with tempfile.TemporaryDirectory(prefix="fleet_ckpt_") as ckpt_dir:
+            fault_plan = FaultPlan.generate(FaultConfig(**CHAOS, replicas=names))
+            fleet = SyncFleet(engine(), names, device=dev, fault_plan=fault_plan,
+                              cfg=FleetConfig(**CHAOS_FLEET, ckpt_dir=ckpt_dir))
+
+            def chaos_run():
+                pending = list(versions)
+                for r in range(CHAOS["rounds"]):
+                    if r % 3 == 0 and pending:
+                        fleet.publish(pending.pop(0))
+                    fleet.round()
+                return fleet.settle(max_rounds=80)
+
+            rounds, ms = synced_ms(chaos_run)
+            led, st = fleet.integrity_ledger(), fleet.stats
+            if (not fleet.verify_bitexact() or led["silent"] or st["quarantines"]
+                    or led["injected"] != led["seen"] + led["lost"]
+                    or st["max_link_failures"] > CHAOS_FLEET["max_retries"]
+                    or st["trainer_restarts"] != 1):
+                raise AssertionError(f"fleet chaos: bit-exact {fleet.verify_bitexact()}, "
+                                     f"ledger {led}, stats {st}")
+            chaos = {"settle_rounds": rounds, "rounds": CHAOS["rounds"] + rounds, "ms": ms,
+                     "ledger": led,
+                     "stats": dict(st), "trace_events": len(fleet.trace),
+                     "live": fleet.live_replicas(), "counts": dict(fleet.wire.counts)}
+            del fleet
+
+        # -- (c) in the mesh: a pipeline of 3 self-sends at one rank
+        outs = {}
+        for tag, fn in runs.items():
+            for btag, b in (("full", None), ("delta", v_prev)):
+                out, flag = fn(b)
+                if int(flag) or not bits_equal(out, v_new):
+                    raise AssertionError(f"fleet in-mesh {tag} {btag}: flag {int(flag)}, "
+                                         f"bit-identical {bits_equal(out, v_new)}")
+                outs[tag, btag] = out
+        if not all(bits_equal(outs["execute_wsync_broadcast", t], outs["broadcast_weights", t])
+                   for t in ("full", "delta")):
+            raise AssertionError("fleet in-mesh: the two twins disagree")
+        del outs
+        launches = kernels.launch_counts()
+        recorded = (inputs, shape_tallies())
+    with launch_train.single_process_group(dev) as group:  # times, not counted
+        mesh_ms = {f"{tag} {btag}": _wall_ms(lambda: fn(b), torch)
+                   for tag, fn in runs.items() for btag, b in (("full", None), ("delta", v_prev))}
+
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want.update(fleet_launches(encodes, applies))
+    levels = len(mesh_plan.broadcast.levels())
+    for mode in ("split_send", "delta"):
+        for k, v in p2p_launches(mode).items():
+            want[k] += len(runs) * levels * n_ws * v
+    if launches != want:
+        raise AssertionError(f"fleet launches {launches}, derived {want}")
+
+    print(f"fleet: {ARCH} full width, {len(versions)} retained versions to {N_FLEET} "
+          f"replicas on the card; plan cache after the topologies {topo_cache}; launches "
+          f"{launches} (derived from {len(updates)} encodes and {len(applies)} applied "
+          f"buckets, and the in-mesh runs)")
+    for kind, t in topo.items():
+        print(f"  {kind}: root degree {t['root_degree']}, forwards {t['forwards']}, hop "
+              f"depth {t['depth']}, every settle bit-exact; waves " + "; ".join(
+                  f"v{w['version']} {w['mode']} {w['wire_bytes']} B, egress {w['egress']} B, "
+                  f"{w['rounds']} round, settle {w['settle_ms']:.1f} ms" for w in t["waves"]))
+    print(f"  chaos (tree, fanout 2, FaultPlan.generate seed {CHAOS['seed']}, "
+          f"{CHAOS['rounds']} rounds, publishes at r % 3 == 0, then settle): "
+          f"{chaos['rounds']} rounds ({chaos['settle_rounds']} to settle), "
+          f"{chaos['ms']:.1f} ms, bit-exact, ledger {chaos['ledger']}, faults "
+          f"{chaos['counts']}, {chaos['trace_events']} trace events, live {chaos['live']}, "
+          f"stats {chaos['stats']}")
+    print("  in-mesh pipeline of 3 over ranks (0, 0, 0, 0), bit-identical, flag 0; ms (host "
+          "clock to a device sync, median of 5): " + ", ".join(
+              f"{k} {v:.2f}" for k, v in mesh_ms.items()) + f"; card {run_card()}")
+    return {"launches": launches, "recorded": recorded}
 
 
 def p2p_launches(strategy: str, *, n_chunks: int = 1, reduce: str = "") -> dict:
@@ -1526,7 +1773,7 @@ def _time_once(fn, torch):
 PEAK_OPS = 67e12
 
 
-def phase_times(comp, serve, sync, psum, p2p, dev, torch, np, worst, bw):
+def phase_times(comp, serve, sync, psum, p2p, fleet, dev, torch, np, worst, bw):
     """Each kernel and its plain version at the shapes its path gives it:
     encode_fused, decode_reduce and plane_split at the main path's AG
     bucket; pack and unpack at one KV leaf's exponent residuals at the plan's
@@ -1546,11 +1793,12 @@ def phase_times(comp, serve, sync, psum, p2p, dev, torch, np, worst, bw):
     # launches of each main-path run (counts set to 0 just before each)
     runs = {"serve_pd": serve["pd_launches"], "serve_pd_rans": serve["rans_launches"],
             "train": comp.launches, "psum": psum["launches"], "weight_sync": sync["launches"],
-            "p2p": p2p["launches"]}
+            "p2p": p2p["launches"], "fleet": fleet["launches"]}
     per_unit = {"serve_pd": ("pd_admission", N_REQ),
                 "serve_pd_rans": ("pd_rans_admission", N_RANS),
                 "train": ("train_step", STEPS), "psum": ("psum_phase", 1),
-                "weight_sync": ("publish", sync["n_publishes"]), "p2p": ("p2p_phase", 1)}
+                "weight_sync": ("publish", sync["n_publishes"]), "p2p": ("p2p_phase", 1),
+                "fleet": ("fleet_phase", 1)}
     rows = []
 
     def row(name, *, ms, plain_ms, nbytes, ops, err, **extra):
@@ -1579,7 +1827,8 @@ def phase_times(comp, serve, sync, psum, p2p, dev, torch, np, worst, bw):
     # input of the shape (recorded_inputs) and timed once a shape; every
     # launch a run tallied must be at a recorded shape
     recorded = {**serve["recorded"], "train": comp.recorded, "psum": psum["recorded"],
-                "weight_sync": sync["recorded"], "p2p": p2p["recorded"]}
+                "weight_sync": sync["recorded"], "p2p": p2p["recorded"],
+                "fleet": fleet["recorded"]}
 
     def encode_cost(x, w, blk):
         n, lo_w = x.numel(), codec.layout_of(x.dtype).lo_bits
@@ -1785,8 +2034,9 @@ def main() -> int:
     serve = phase_serve(dev, torch, np)
     comp, psum = phase_main(dev, torch)
     sync = phase_sync(dev, torch)
+    fleet = phase_fleet(sync, dev, torch)
     p2p = phase_p2p(serve, psum, sync, dev, torch)
-    rows = phase_times(comp, serve, sync, psum, p2p, dev, torch, np, worst,
+    rows = phase_times(comp, serve, sync, psum, p2p, fleet, dev, torch, np, worst,
                        card_bandwidth(name))
     print(f"card: {smi}")
     print(json.dumps({"kernels": rows}))

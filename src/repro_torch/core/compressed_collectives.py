@@ -145,6 +145,16 @@ class PendingPermute:
         return out.view(self._dtype).reshape(self._shape)
 
 
+def check_perm(perm) -> None:
+    """Refuse a ``perm`` that repeats a source or a target, on every rank
+    alike, as the reference's ``lax.ppermute`` refuses it: a rank that
+    checked only its own pairs would enter a collective that the offending
+    rank never joins."""
+    srcs, dsts = [s for s, _ in perm], [d for _, d in perm]
+    if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts):
+        raise ValueError(f"perm {perm} repeats a source or a target")
+
+
 def raw_ppermute_start(t: torch.Tensor, group, perm) -> PendingPermute:
     """Issue an uncompressed ppermute of ``t`` along ``perm`` (``(source,
     target)`` group ranks), as bytes, and return without waiting: one
@@ -152,11 +162,10 @@ def raw_ppermute_start(t: torch.Tensor, group, perm) -> PendingPermute:
     this rank's target and from its source.  Work queued after it on the
     current stream overlaps with the transfer (the reference gets this from
     XLA's scheduler when nothing depends on the send)."""
+    check_perm(perm)
     me, k = dist.get_rank(group), dist.get_world_size(group)
     dst = [d for s, d in perm if s == me]
     src = [s for s, d in perm if d == me]
-    if len(dst) > 1 or len(src) > 1:
-        raise ValueError(f"perm {perm} sends or receives twice at rank {me}")
     flat = t.contiguous().reshape(-1).view(torch.uint8)
     nbytes = flat.numel()
     out = flat.new_empty(nbytes if src else 0)

@@ -17,9 +17,9 @@ each bucket's width and the probe's estimates are recorded.
 
 The P2P kinds (``p2p``, ``kv``, ``wsync``) record their strategy
 (:data:`P2P_STRATEGIES`, default ``split_send``) in the plan and its key;
-``sched/executor.py`` replays them through ``core/split_send``.  The
-reference's broadcast schedules (its ``broadcast=`` argument of the wsync
-compiler) are not ported: a wsync plan is receiver-count-agnostic.  The
+``sched/executor.py`` replays them through ``core/split_send``.  A wsync
+plan may also carry a fan-out topology for a fleet size
+(:func:`compile_broadcast_schedule`, the ``broadcast=`` arguments).  The
 reference's ``fsdp_gather`` kind is not ported yet.
 """
 from __future__ import annotations
@@ -33,10 +33,12 @@ from repro_torch import kernels
 from repro_torch.core import calibrate, codec, packing
 from repro_torch.core.split_send import STRATEGIES as P2P_STRATEGIES
 from repro_torch.core.split_send import chunk_grid
-from repro_torch.sched.plan import (PATH_COMPRESSED, PATH_RAW, PATH_RAW_PSUM,
-                                    PATH_RAW_TWOSHOT, PATH_RING, PATH_TWO_SHOT,
-                                    BucketPlan, CommPlan, PhasePair, dtype_name,
-                                    policy_fingerprint, tree_signature)
+from repro_torch.sched.plan import (BROADCAST_KINDS, BROADCAST_PIPELINE,
+                                    BROADCAST_STAR, BROADCAST_TREE, PATH_COMPRESSED,
+                                    PATH_RAW, PATH_RAW_PSUM, PATH_RAW_TWOSHOT, PATH_RING,
+                                    PATH_TWO_SHOT, BroadcastSchedule, BucketPlan,
+                                    CommPlan, PhasePair, dtype_name, policy_fingerprint,
+                                    tree_signature)
 from repro_torch.tree_util import tree_flatten, tree_leaves
 
 
@@ -487,8 +489,36 @@ def delta_wire_bytes(n_padded: int, *, width: int, lo_width: int, block: int,
     return lo + exp
 
 
+def compile_broadcast_schedule(n_receivers: int, *, kind: str = BROADCAST_TREE,
+                               fanout: int = 2) -> BroadcastSchedule:
+    """Normalise (fleet size, requested kind, requested fan-out) into the
+    frozen :class:`BroadcastSchedule` a wsync plan carries: ``star`` widens
+    to ``n_receivers`` (every receiver a trainer child), ``pipeline``
+    narrows to 1 (a forwarding chain), ``tree`` keeps ``fanout`` clamped to
+    the fleet (3 replicas at fanout 8 are a star-shaped tree)."""
+    if kind not in BROADCAST_KINDS:
+        raise ValueError(f"unknown broadcast kind {kind!r}; expected one of "
+                         f"{BROADCAST_KINDS}")
+    if fanout < 1:
+        raise ValueError(f"fanout must be >= 1, got {fanout}")
+    n = int(n_receivers)
+    if kind == BROADCAST_STAR:
+        eff = max(n, 1)
+    elif kind == BROADCAST_PIPELINE:
+        eff = 1
+    else:
+        eff = min(int(fanout), max(n, 1))
+    return BroadcastSchedule(kind=kind, fanout=eff, n_receivers=n)
+
+
+def _schedule(broadcast, fanout: int, n_receivers: int):
+    return (None if broadcast is None else
+            compile_broadcast_schedule(n_receivers, kind=broadcast, fanout=fanout))
+
+
 def compile_wsync_plan(tree, axis_name, *, policy, n_dev: int,
-                       strategy: str = "split_send", key: tuple = None,
+                       strategy: str = "split_send", broadcast: str = None,
+                       fanout: int = 2, n_receivers: int = 0, key: tuple = None,
                        device=None) -> CommPlan:
     """Compile a weight-sync schedule (kind "wsync").
 
@@ -500,8 +530,15 @@ def compile_wsync_plan(tree, axis_name, *, policy, n_dev: int,
     time; the plan holds the schedule of both.  The host engine
     (``sync/engine.py``) and the in-mesh wire (``sched/executor.execute_wsync``)
     read it.  ``device`` (default: the tree's) picks the recorded kernel
-    routing."""
+    routing.
+
+    ``broadcast``/``fanout``/``n_receivers`` compile the fan-out topology
+    into the plan (``CommPlan.broadcast``): who forwards the encoded wire
+    to whom when one publish goes to ``n_receivers`` receivers of the same
+    base.  ``broadcast=None`` (default) leaves the plan without a receiver
+    count: the sender sends every copy itself."""
     _check_strategy(strategy)
+    schedule = _schedule(broadcast, fanout, n_receivers)
     leaves, _ = tree_flatten(tree)
     device = _device_of(leaves) if device is None else device
     backend, use_kernels = probe_backend(device)
@@ -524,33 +561,44 @@ def compile_wsync_plan(tree, axis_name, *, policy, n_dev: int,
                     exc_frac=exc))
         buckets.append(bucket)
     if key is None:
-        key = wsync_plan_key(tree, axis_name, policy, n_dev, device, strategy=strategy)
+        key = wsync_plan_key(tree, axis_name, policy, n_dev, device, strategy=strategy,
+                             broadcast=schedule)
     return CommPlan(key=key, kind="wsync", axis=axis_tuple(axis_name), n_dev=n_dev,
                     backend=backend, use_kernels=use_kernels,
                     buckets=tuple(buckets), raw_leaf_ix=raw_ix,
-                    n_leaves=len(leaves), strategy=strategy)
+                    n_leaves=len(leaves), strategy=strategy, broadcast=schedule)
 
 
 def wsync_plan_key(tree, axis_name, policy, n_dev: int, device=None, *,
-                   strategy: str = "split_send") -> tuple:
+                   strategy: str = "split_send",
+                   broadcast: BroadcastSchedule | None = None) -> tuple:
+    # the schedule triple is part of the key: a fleet size or fan-out change
+    # misses and recompiles (route_for also refuses a stale topology)
     if device is None:
         device = _device_of(tree_leaves(tree))
+    sched_key = (None if broadcast is None else
+                 (broadcast.kind, broadcast.fanout, broadcast.n_receivers))
     return ("wsync", tree_signature(tree), str(strategy), axis_tuple(axis_name),
-            int(n_dev), policy_fingerprint(policy, "weight"), probe_backend(device))
+            int(n_dev), policy_fingerprint(policy, "weight"), probe_backend(device),
+            sched_key)
 
 
 def cached_wsync_plan(tree, axis_name, *, policy, n_dev: int,
-                      strategy: str = "split_send", cache=None) -> CommPlan:
+                      strategy: str = "split_send", broadcast: str = None,
+                      fanout: int = 2, n_receivers: int = 0, cache=None) -> CommPlan:
     """Keyed-cache wrapper of :func:`compile_wsync_plan`, the weight-sync
     engine's entry point: a stable weight-tree signature compiles on the
-    first publish and hits on every later one."""
+    first publish and hits on every later one.  With a ``broadcast`` kind, a
+    stable fleet size hits and a changed one recompiles."""
     from repro_torch.sched.cache import default_cache
 
     cache = default_cache() if cache is None else cache
-    key = wsync_plan_key(tree, axis_name, policy, n_dev, strategy=strategy)
+    key = wsync_plan_key(tree, axis_name, policy, n_dev, strategy=strategy,
+                         broadcast=_schedule(broadcast, fanout, n_receivers))
     return cache.get_or_compile(
         key, lambda: compile_wsync_plan(tree, axis_name, policy=policy, n_dev=n_dev,
-                                        strategy=strategy, key=key))
+                                        strategy=strategy, broadcast=broadcast,
+                                        fanout=fanout, n_receivers=n_receivers, key=key))
 
 
 # ---------------------------------------------------------------------------

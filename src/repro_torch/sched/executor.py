@@ -28,7 +28,10 @@ Entry points:
     "kv"), over :func:`execute_kv_transfer`;
   * :func:`sync_weights_with_plan`: a weight pytree, full or as XOR deltas
     against a base version (the plan twin of ``sync/wire.sync_weights``,
-    kind "wsync"), over :func:`execute_wsync`.
+    kind "wsync"), over :func:`execute_wsync`;
+  * :func:`execute_wsync_broadcast`: a wsync plan's ``BroadcastSchedule``
+    as its sequence of hop levels (:func:`wsync_hop_perms`), each one
+    :func:`execute_wsync` (the plan twin of ``sync/wire.broadcast_weights``).
 
 Every function takes the ``torch.distributed`` group that carries the wire
 (``None``: the world), and the P2P kinds the ``perm`` of ``(source,
@@ -43,7 +46,7 @@ import torch.distributed as dist
 
 from repro_torch.core import codec
 from repro_torch.core.compressed_collectives import (
-    _no_flag, all_gather_compressed, psum_compressed_ring, psum_raw_twoshot,
+    _no_flag, all_gather_compressed, check_perm, psum_compressed_ring, psum_raw_twoshot,
     psum_safe, reduce_scatter_compressed)
 from repro_torch.core.policy import (WireReport, capture_wire_reports,
                                      record_wire_report)
@@ -426,3 +429,49 @@ def sync_weights_with_plan(tree, group, perm, *, axis_name="data", policy=None,
             tree, axis_name, policy=policy, n_dev=dist.get_world_size(group),
             strategy=strategy, cache=cache)
     return execute_wsync(plan, tree, group, perm, base=base)
+
+
+def wsync_hop_perms(schedule, ranks) -> tuple:
+    """Lower a :class:`~repro_torch.sched.plan.BroadcastSchedule` to one perm
+    a hop level for the in-mesh wire.  ``ranks[0]`` is the trainer's group
+    rank, ``ranks[1:]`` the receivers' in slot order (the distributor's
+    sorted-name order).  Level ``h`` sends from the hop-``h-1`` holders to
+    the hop-``h`` receivers, so replaying the levels in order delivers every
+    rank once: a star is one wide level, a pipeline a chain of one-pair
+    levels.  A rank list of another fleet size raises (a stale schedule)."""
+    ranks = tuple(ranks)
+    if len(ranks) != schedule.n_receivers + 1:
+        raise ValueError(f"stale broadcast schedule: compiled for "
+                         f"{schedule.n_receivers} receivers, got {len(ranks) - 1} ranks")
+    return tuple(tuple((ranks[p], ranks[c]) for p, c in level)
+                 for level in schedule.levels())
+
+
+def execute_wsync_broadcast(plan: CommPlan, tree, group, ranks, *, base=None):
+    """Run a wsync plan that carries a ``BroadcastSchedule`` as its hop
+    levels: level h re-sends what the hop-(h-1) holders received along that
+    level's perm (:func:`wsync_hop_perms`), one :func:`execute_wsync` each.
+
+    The in-mesh twin of the fleet's host broadcast, driven by the same
+    schedule; the host fleet forwards the encoded ``SyncUpdate`` as it is,
+    while each in-mesh level encodes again at its sources.  A level whose
+    perm repeats a source or a target (a star or tree node with more than
+    one child) raises ``ValueError`` before anything is sent, as the
+    reference's ``ppermute`` refuses it.  Returns (tree, flag): the tree each
+    rank holds after the last level (the sender's bits at the ranks that
+    level reaches; a rank it does not target holds what an untargeted
+    ppermute leaves, zeros or, for a delta, its own base) and the
+    ``torch.maximum`` of every level's flag, so a nonzero flag means some
+    level's delta overflowed and the caller must send in full."""
+    _check_kind(plan, "wsync")
+    if plan.broadcast is None:
+        raise ValueError("plan carries no BroadcastSchedule; use execute_wsync "
+                         "with an explicit perm")
+    levels = wsync_hop_perms(plan.broadcast, ranks)
+    for level in levels:
+        check_perm(level)
+    current, flag = tree, _no_flag(tree_flatten(tree)[0][0])
+    for level in levels:
+        current, f = execute_wsync(plan, current, group, list(level), base=base)
+        flag = torch.maximum(flag, f)
+    return current, flag

@@ -1,5 +1,5 @@
 """Communication-plan IR (paper §3.3, the Uzip-NCCL persistent kernel model);
-torch port of ``repro.sched.plan`` (without the wsync broadcast schedules).
+torch port of ``repro.sched.plan``.
 
 A ``CommPlan`` is the static, hashable record of everything a wire would
 otherwise re-derive at every call: leaf buckets, compress-vs-raw paths,
@@ -28,6 +28,117 @@ PATH_RAW_PSUM = "raw_psum"        # small: plain (f32-promoted) psum
 # single-phase buckets (reduce_scatter / all_gather / kv / wsync kinds):
 PATH_COMPRESSED = "compressed"
 PATH_RAW = "raw"
+
+# -- broadcast schedule kinds (kind "wsync" fan-out topologies) ---------------
+BROADCAST_STAR = "star"          # trainer -> every receiver directly
+BROADCAST_TREE = "tree"          # k-ary tree: interior receivers forward
+BROADCAST_PIPELINE = "pipeline"  # chain: every receiver forwards to one
+BROADCAST_KINDS = (BROADCAST_STAR, BROADCAST_TREE, BROADCAST_PIPELINE)
+
+
+@dataclasses.dataclass(frozen=True)
+class BroadcastSchedule:
+    """Who forwards the encoded weight-sync wire to whom (kind "wsync").
+
+    Slot 0 is the trainer (root); slots ``1..n_receivers`` are the
+    receivers, in the distributor's order (sorted replica names,
+    ``route_for``).  The three kinds are one arithmetic family over the
+    *effective* fan-out ``fanout``: the children of slot ``s`` are slots
+    ``fanout*s + 1 .. fanout*s + fanout`` (clipped to ``n_receivers``), a
+    k-ary heap rooted at the trainer.  ``star`` is ``fanout ==
+    n_receivers`` (depth 1), ``pipeline`` is ``fanout == 1`` (a chain of
+    depth n), ``tree`` anything between; ``compile.compile_broadcast_schedule``
+    normalises a requested fan-out into this form.
+
+    Every receiver of one schedule holds the same base version, so the
+    encoded ``SyncUpdate`` is the same for all of them (the engine's
+    per-(base, force) memo) and interior slots forward the received wire
+    as it is: CRC-checked at every hop, never decoded and re-encoded."""
+
+    kind: str
+    fanout: int  # effective children per node (already normalised)
+    n_receivers: int
+
+    def __post_init__(self):
+        if self.kind not in BROADCAST_KINDS:
+            raise ValueError(f"unknown broadcast kind {self.kind!r}; "
+                             f"expected one of {BROADCAST_KINDS}")
+        if self.n_receivers < 0:
+            raise ValueError(f"n_receivers must be >= 0, got {self.n_receivers}")
+        if self.fanout < 1:
+            raise ValueError(f"fanout must be >= 1, got {self.fanout}")
+        if self.kind == BROADCAST_STAR and self.fanout < self.n_receivers:
+            raise ValueError(f"star schedule needs fanout >= n_receivers, got "
+                             f"{self.fanout} < {self.n_receivers}")
+        if self.kind == BROADCAST_PIPELINE and self.fanout != 1:
+            raise ValueError(f"pipeline schedule is fanout 1, got {self.fanout}")
+
+    # -- topology (arithmetic; slot 0 = trainer) -----------------------------
+
+    def parent_of(self, slot: int) -> int:
+        if not 1 <= slot <= self.n_receivers:
+            raise ValueError(f"slot {slot} outside 1..{self.n_receivers}")
+        return (slot - 1) // self.fanout
+
+    def children_of(self, slot: int) -> tuple:
+        if not 0 <= slot <= self.n_receivers:
+            raise ValueError(f"slot {slot} outside 0..{self.n_receivers}")
+        lo = self.fanout * slot + 1
+        return tuple(range(lo, min(lo + self.fanout, self.n_receivers + 1)))
+
+    def hops_to(self, slot: int) -> int:
+        """Wire hops from the trainer to ``slot`` (root children: 1)."""
+        h = 0
+        while slot > 0:
+            slot = (slot - 1) // self.fanout
+            h += 1
+        return h
+
+    @property
+    def depth(self) -> int:
+        """Hops to the deepest receiver (star 1, pipeline n)."""
+        return self.hops_to(self.n_receivers) if self.n_receivers else 0
+
+    @property
+    def root_degree(self) -> int:
+        """The trainer's own sends a broadcast: the egress multiplier that
+        tree and pipeline shrink (star: n_receivers)."""
+        return len(self.children_of(0))
+
+    @property
+    def n_edges(self) -> int:
+        """Wire sends a broadcast: every receiver is the target of exactly
+        one edge, whatever the kind."""
+        return self.n_receivers
+
+    def edges(self) -> tuple:
+        """``((parent_slot, child_slot), ...)`` in slot order."""
+        return tuple((self.parent_of(s), s) for s in range(1, self.n_receivers + 1))
+
+    def levels(self) -> tuple:
+        """Edges grouped by hop depth: level h (1-based) holds the edges whose
+        target is h hops from the trainer, the in-mesh lowering order
+        (``sched/executor.wsync_hop_perms``)."""
+        by_depth: dict = {}
+        for p, c in self.edges():
+            by_depth.setdefault(self.hops_to(c), []).append((p, c))
+        return tuple(tuple(by_depth[h]) for h in sorted(by_depth))
+
+    def route_for(self, names) -> tuple:
+        """The slot topology on concrete receiver names: the trainer's own
+        sends as ``((name, subroute), ...)``, where ``subroute`` has the same
+        form for that receiver's subtree.  ``names`` must hold exactly
+        ``n_receivers`` entries (slot ``i + 1`` is ``names[i]``): a schedule
+        compiled for another fleet size raises instead of mis-routing."""
+        names = tuple(names)
+        if len(names) != self.n_receivers:
+            raise ValueError(f"stale broadcast schedule: compiled for "
+                             f"{self.n_receivers} receivers, routing {len(names)}")
+
+        def sub(slot):
+            return (names[slot - 1], tuple(sub(c) for c in self.children_of(slot)))
+
+        return tuple(sub(c) for c in self.children_of(0))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,7 +213,10 @@ class CommPlan:
     leaves outside every bucket (not a codec float, or 0-d for "kv"): summed
     with ``psum_safe`` (kind "psum") or moved as they are.  ``strategy`` is
     the P2P pipeline of "p2p", "kv" and "wsync" plans ("split_send",
-    "encode_send" or "chunked"); empty for the collectives."""
+    "encode_send" or "chunked"); empty for the collectives.  ``broadcast``
+    is the fan-out topology of a "wsync" plan compiled for a fleet size
+    (``BroadcastSchedule``); None for every other kind and for wsync plans
+    that hold no receiver count."""
 
     key: tuple  # the cache key this plan was compiled under (hashable)
     kind: str
@@ -114,6 +228,7 @@ class CommPlan:
     raw_leaf_ix: tuple = ()
     n_leaves: int = 0
     strategy: str = ""  # P2P pipeline (kinds "p2p", "kv", "wsync")
+    broadcast: BroadcastSchedule | None = None  # kind "wsync" only
 
     def _flat_buckets(self):
         for b in self.buckets:
@@ -171,6 +286,9 @@ class CommPlan:
             "raw_bytes": self.raw_bytes,
             "ratio": self.ratio,
             "delta_wire_bytes": self.delta_wire_bytes,
+            "broadcast": (None if self.broadcast is None else
+                          (self.broadcast.kind, self.broadcast.fanout,
+                           self.broadcast.n_receivers)),
         }
 
 

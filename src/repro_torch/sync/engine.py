@@ -223,10 +223,19 @@ class WeightSyncEngine:
         self._updates.clear()  # encoded updates are per version
         return self.store.publish(params)
 
-    def plan_for(self, params):
-        """The cached kind-"wsync" CommPlan of ``params``' signature."""
+    def plan_for(self, params, *, broadcast: Optional[str] = None, fanout: int = 2,
+                 n_receivers: int = 0):
+        """The cached kind-"wsync" CommPlan of ``params``' signature.
+
+        ``broadcast``/``fanout``/``n_receivers`` also compile the fan-out
+        topology into the plan (``CommPlan.broadcast``): the fleet asks here
+        for the schedule of each group of receivers of one base, so a stable
+        group size hits and a changed one recompiles.  Without a schedule
+        (what ``_encode_update`` asks for) the bucket schedule is the same
+        under every topology: forwarding never changes the bits."""
         return cached_wsync_plan(params, self.axis_name, policy=self.policy,
-                                 n_dev=1, cache=self.plan_cache)
+                                 n_dev=1, broadcast=broadcast, fanout=fanout,
+                                 n_receivers=n_receivers, cache=self.plan_cache)
 
     def update_for(self, replica, *, force: Optional[str] = None) -> SyncUpdate:
         """Encode the latest version for ``replica``: an XOR delta against its

@@ -1,5 +1,6 @@
 """The planless in-mesh weight sync (torch port of ``repro.sync.wire``, the
-kind-"wsync" reference path; the broadcast fan-out is not ported).
+kind-"wsync" reference path), and its fan-out over a ``BroadcastSchedule``
+(:func:`broadcast_weights`).
 
 A trainer rank ships its weight pytree along a ``perm`` of a process group.
 Codec-float leaves fuse into one flat bucket per dtype (sorted by dtype
@@ -19,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import codec
-from repro_torch.core.compressed_collectives import _no_flag
+from repro_torch.core.compressed_collectives import _no_flag, check_perm
 from repro_torch.core.policy import CompressionPolicy
 from repro_torch.core.split_send import send_raw_leaves, wsync_dispatch
 from repro_torch.sched.compile import _group_leaves
@@ -63,3 +64,27 @@ def sync_weights(tree, group, perm, *, policy: CompressionPolicy, base=None,
             out[i] = leaf
     send_raw_leaves(leaves, raw_ix, out, group, perm)
     return tree_unflatten(treedef, out), flag
+
+
+def broadcast_weights(tree, group, schedule, ranks, *, policy: CompressionPolicy,
+                      base=None, strategy: str = "split_send", axis_name="data"):
+    """The planless replay of a :class:`~repro_torch.sched.plan.BroadcastSchedule`
+    in the mesh: one :func:`sync_weights` a hop level, each level's perm
+    sending from the previous level's receivers
+    (``sched.executor.wsync_hop_perms``); the twin of
+    ``sched.executor.execute_wsync_broadcast``, which gives the same bits.
+    A level that repeats a source or a target raises ``ValueError`` before
+    anything is sent.  Returns (the tree each rank holds after the last
+    level, the ``torch.maximum`` of the levels' flags), as
+    ``execute_wsync_broadcast`` does."""
+    from repro_torch.sched.executor import wsync_hop_perms
+
+    levels = wsync_hop_perms(schedule, ranks)
+    for level in levels:
+        check_perm(level)
+    current, flag = tree, _no_flag(tree_flatten(tree)[0][0])
+    for level in levels:
+        current, f = sync_weights(current, group, list(level), policy=policy, base=base,
+                                  strategy=strategy, axis_name=axis_name)
+        flag = torch.maximum(flag, f)
+    return current, flag

@@ -629,3 +629,102 @@ def test_p2p_delta_kv_and_weight_sync_on_the_card_equal_the_cpu(cuda):
         assert (bits_equal({n: t.cpu() for n, t in a.items()}, b) if isinstance(a, dict)
                 else _same_bits(a, b)), k
     assert all(t.is_cuda for t in tree_flatten(got["kv_chunked"][0])[0])
+
+
+def _fleet_params(seed, cuda):
+    """Weights of a small fleet on the card: a bf16 and an f32 leaf and an
+    int32 step (raw), from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    return {"w": torch.from_numpy(rng.normal(0, 0.02, 4096).astype(np.float32)).to(
+                torch.bfloat16).to(cuda),
+            "b": torch.from_numpy(rng.normal(0, 1, 700).astype(np.float32)).to(cuda),
+            "step": torch.tensor(seed, dtype=torch.int32, device=cuda)}
+
+
+def _perturbed(params, seed):
+    """Up to three low bits flipped in ~30% of each float: a warm delta."""
+    g = torch.Generator(params["w"].device).manual_seed(seed)
+    out = dict(params)
+    for k, dt in (("w", torch.int16), ("b", torch.int32)):
+        bits = params[k].view(dt)
+        mask = torch.randint(0, 8, bits.shape, generator=g, device=bits.device, dtype=dt)
+        mask[torch.rand(bits.shape, generator=g, device=bits.device) > 0.3] = 0
+        out[k] = (bits ^ mask).view(params[k].dtype)
+    return out
+
+
+@pytest.mark.parametrize("kind,fanout", [("star", 2), ("tree", 2), ("pipeline", 1)])
+def test_fleet_on_the_card(cuda, kind, fanout):
+    """A fleet of 5 on the card (its default device): a full wave, then two
+    delta waves, every replica bit-exact with its weights on the card, one
+    encode a publish, the schedule's egress and forwards, and the launches:
+    a full encode encode_fused 1 a bucket, a delta pack 2 a bucket, every
+    applied bucket unpack 2."""
+    from repro_torch import sched
+    from repro_torch.core.policy import CompressionPolicy
+    from repro_torch.sched.cache import PlanCache
+    from repro_torch.sync import FleetConfig, SyncFleet, WeightSyncEngine
+    from repro_torch.tree_util import tree_leaves
+
+    n = 5
+    fleet = SyncFleet(WeightSyncEngine(policy=CompressionPolicy(min_bytes=0),
+                                       plan_cache=PlanCache()),
+                      [f"r{i}" for i in range(n)],
+                      cfg=FleetConfig(broadcast=kind, fanout=fanout,
+                                      ckpt_every_publishes=10 ** 9))
+    schedule = sched.compile_broadcast_schedule(n, kind=kind, fanout=fanout)
+    p = _fleet_params(1, cuda)
+    before = kernels.launch_counts()
+    for i in range(3):
+        p = p if i == 0 else _perturbed(p, i)
+        fleet.publish(p)
+        assert fleet.settle() == 1 and fleet.verify_bitexact()
+    buckets = 2  # bf16 and f32, both compressed at min_bytes=0
+    assert _launches(before) == {"encode_fused": buckets, "pack": 2 * 2 * buckets,
+                                 "unpack": 3 * n * 2 * buckets}
+    assert fleet.stats["forwards"] == 3 * (n - schedule.root_degree)
+    assert fleet.stats["max_hop_depth"] == schedule.depth
+    assert all(t.is_cuda for r in fleet.replicas.values() for t in tree_leaves(r.params))
+
+
+def test_fleet_chaos_with_a_trainer_restart_on_the_card(cuda, tmp_path):
+    """A chaos seed over a tree of 5 on the card: drops, corruptions, delays,
+    a kill, a join and a trainer restart from a checkpoint restored on the
+    card; it converges bit-exact with no silent corruption."""
+    from repro_torch.core.policy import CompressionPolicy
+    from repro_torch.runtime.faults import FaultConfig, FaultPlan
+    from repro_torch.sync import FleetConfig, SyncFleet, WeightSyncEngine
+    from repro_torch.tree_util import tree_leaves
+
+    names = tuple(f"r{i}" for i in range(5))
+    plan = FaultPlan.generate(FaultConfig(
+        seed=7, rounds=10, drop_rate=0.1, corrupt_rate=0.1, delay_rate=0.1, max_delay=2,
+        kills=1, joins=1, trainer_restarts=1, replicas=names))
+    fleet = SyncFleet(WeightSyncEngine(policy=CompressionPolicy(min_bytes=0)), names,
+                      fault_plan=plan, cfg=FleetConfig(broadcast="tree", fanout=2,
+                                                       max_retries=30, backoff_cap=2,
+                                                       ckpt_dir=str(tmp_path)))
+    p = _fleet_params(2, cuda)
+    for r in range(10):
+        if r % 3 == 0:
+            p = p if r == 0 else _perturbed(p, r)
+            fleet.publish(p)
+        fleet.round()
+    fleet.settle(max_rounds=80)
+    led = fleet.integrity_ledger()
+    assert fleet.verify_bitexact() and led["silent"] == 0
+    assert led["injected"] == led["seen"] + led["lost"]
+    assert fleet.stats["trainer_restarts"] == 1 and fleet.stats["quarantines"] == 0
+    assert all(t.is_cuda for t in tree_leaves(fleet.engine.store.latest()[0]))
+
+
+def test_checkpoint_restore_defaults_to_the_card(cuda, tmp_path):
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.tree_util import bits_equal, tree_leaves
+
+    state = {"params": _fleet_params(3, cuda), "version": np.asarray(3, np.int64)}
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, state)
+    got, step = mgr.restore(state)
+    assert step == 1 and all(t.is_cuda for t in tree_leaves(got))
+    assert bits_equal(got["params"], state["params"]) and int(got["version"]) == 3

@@ -383,10 +383,17 @@ def test_wsync_plan_key_misses_on_delta_width_change_and_refuses_broadcast():
         t, "data", dataclasses.replace(POL, profile=prof), 1)
     assert wsync_plan_key(t, "data", POL, 1) == wsync_plan_key(ttree(np_params(5)), "data",
                                                                 POL, 1)
-    with pytest.raises(TypeError, match="broadcast"):
-        compile_wsync_plan(t, "data", policy=POL, n_dev=1, broadcast="tree")
-    with pytest.raises(TypeError, match="broadcast"):
-        cached_wsync_plan(t, "data", policy=POL, n_dev=1, broadcast="star",
+    # a broadcast schedule enters the key (its triple ends it); an unknown
+    # broadcast kind is refused
+    tree_plan = compile_wsync_plan(t, "data", policy=POL, n_dev=1, broadcast="tree",
+                                   n_receivers=4)
+    assert tree_plan.key[:-1] == wsync_plan_key(t, "data", POL, 1)[:-1]
+    assert (tree_plan.key[-1], wsync_plan_key(t, "data", POL, 1)[-1]) == (("tree", 2, 4),
+                                                                          None)
+    with pytest.raises(ValueError, match="broadcast"):
+        compile_wsync_plan(t, "data", policy=POL, n_dev=1, broadcast="ring")
+    with pytest.raises(ValueError, match="broadcast"):
+        cached_wsync_plan(t, "data", policy=POL, n_dev=1, broadcast="ring",
                           cache=PlanCache())
 
 

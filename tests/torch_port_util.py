@@ -428,3 +428,158 @@ def split_send_rank(rank: int, world: int, out: str) -> None:
                     res[f"{tag}_{btag}_{ptag}_{i}"] = np_of(leaf)
                 res[f"flag_{tag}_{btag}_{ptag}"] = int(flag)
     np.savez(out, **res)
+
+
+# ---------------------------------------------------------------------------
+# the weight-sync fleet's tests (test_torch_faults.py, test_torch_broadcast.py):
+# one seeded numpy tree goes to the reference fleet as JAX arrays and to the
+# port's as tensors, and the two fleets are compared field for field
+# ---------------------------------------------------------------------------
+
+def fleet_params_np(seed: int = 0, *, n_w: int = 2048, n_b: int = 300,
+                    step: int = 7) -> dict:
+    """The weights of the reference's fleet tests as numpy arrays:
+    ``tests/test_faults.py::make_params`` (the defaults) and
+    ``tests/test_broadcast.py::fleet_params`` (``n_w=768, n_b=192,
+    step=seed``); the bf16 leaf is rounded by JAX, as there."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(seed)
+    return {"w": np.asarray(jnp.asarray(rng.normal(0, 0.02, (n_w,)), jnp.bfloat16)),
+            "b": np.asarray(jnp.asarray(rng.normal(0, 1, (n_b,)), jnp.float32)),
+            "step": np.asarray(step, np.int32)}
+
+
+def perturb_np(tree: dict, seed: int = 1) -> dict:
+    """The reference tests' ``perturb`` on a numpy tree: the same draws of
+    ``default_rng(seed)`` in the same (sorted key) order XOR up to three low
+    bits into ~30% of every codec float."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k in sorted(tree):
+        a = tree[k]
+        if a.dtype.name not in FORMATS:
+            out[k] = a
+            continue
+        u = _UINT[8 * a.dtype.itemsize]
+        mask = rng.integers(0, 8, a.shape).astype(np.uint64)
+        mask[rng.random(a.shape) > 0.3] = 0
+        out[k] = (a.view(u) ^ mask.astype(u)).view(a.dtype)
+    return out
+
+
+class FleetSide:
+    """One package's side of a fleet comparison: its fleet API, and its
+    tree of a numpy tree (``tree``)."""
+
+    def __init__(self, port: bool):
+        self.port = port
+        if port:
+            from repro_torch.core.policy import CompressionPolicy
+            from repro_torch.runtime import faults
+            from repro_torch.sched.cache import PlanCache
+            from repro_torch import sync
+            from repro_torch.tree_util import tree_leaves
+        else:
+            from repro.core.policy import CompressionPolicy
+            from repro.runtime import faults
+            from repro.sched.cache import PlanCache
+            from repro import sync
+            from jax.tree_util import tree_leaves
+        self.policy = CompressionPolicy(min_bytes=0)
+        self.faults, self.sync, self.PlanCache = faults, sync, PlanCache
+        self.tree_leaves = tree_leaves
+
+    def tree(self, np_tree: dict):
+        if self.port:
+            from repro_torch.models.transformer import numpy_to_torch
+
+            return {k: (numpy_to_torch(a, getattr(torch, a.dtype.name))
+                        if a.dtype.name in FORMATS else torch.from_numpy(a.copy()))
+                    for k, a in np_tree.items()}
+        import jax.numpy as jnp
+
+        return {k: jnp.asarray(a) for k, a in np_tree.items()}
+
+    def engine(self, cache=None):
+        return self.sync.WeightSyncEngine(policy=self.policy, plan_cache=cache)
+
+    def fleet(self, names, *, plan=None, cache=None, **cfg_kw):
+        kw = {"device": "cpu"} if self.port else {}
+        return self.sync.SyncFleet(self.engine(cache), names,
+                                   cfg=self.sync.FleetConfig(**cfg_kw), fault_plan=plan, **kw)
+
+
+def fleet_summary(fleet, side: FleetSide) -> dict:
+    """Everything the two packages' fleets must agree on: the trace, stats,
+    integrity ledger and wire counts, each replica's protocol state and
+    weight bits, the store's versions and the convergence checks."""
+    store = fleet.engine.store
+    return {
+        "trace": list(fleet.trace), "stats": dict(fleet.stats),
+        "ledger": fleet.integrity_ledger(), "counts": dict(fleet.wire.counts),
+        "sent": fleet.wire.sent, "pending": fleet.wire.pending(),
+        "store": (store.version, store.epoch, tuple(store.retained())),
+        "converged": fleet.converged(), "bitexact": fleet.verify_bitexact(),
+        "replicas": {n: (r.alive, r.version, r.epoch, r.applied, dict(r.rejects),
+                         r.stale_seen,
+                         None if r.params is None else tuple(
+                             np_of(leaf).tobytes() for leaf in side.tree_leaves(r.params)))
+                     for n, r in fleet.replicas.items()},
+        "orphans": sorted(fleet._orphans),
+        "links": {n: (k.failures, k.escalation, k.next_try, k.quarantined)
+                  for n, k in fleet._links.items()},
+    }
+
+
+def broadcast_rank(rank: int, world: int, out: str) -> None:
+    """The in-mesh broadcast of this rank's ``weight_trees`` over a pipeline
+    of k receivers on ranks ``(0, .., k)``, k = 1 .. world - 1, full and as a
+    delta, through ``execute_wsync_broadcast`` and ``broadcast_weights``;
+    then a star and a tree level (a source repeated) through both, and a raw
+    ppermute from rank 0 to every other rank: each must raise ``ValueError``
+    on every rank before anything is sent."""
+    from repro_torch import sched
+    from repro_torch.core import compressed_collectives as cc
+    from repro_torch.core.policy import CompressionPolicy
+    from repro_torch.sync.wire import broadcast_weights
+    from repro_torch.tree_util import tree_flatten
+
+    pol = CompressionPolicy(min_bytes=0)
+    tree, base = weight_trees(rank)
+    res = {}
+    for k in range(1, world):
+        ranks = tuple(range(k + 1))
+        schedule = sched.compile_broadcast_schedule(k, kind="pipeline")
+        plan = sched.compile_wsync_plan(tree, "data", policy=pol, n_dev=world,
+                                        broadcast="pipeline", n_receivers=k)
+        for btag, b in (("full", None), ("delta", base)):
+            runs = {"plan": lambda: sched.execute_wsync_broadcast(plan, tree, None, ranks,
+                                                                  base=b),
+                    "planless": lambda: broadcast_weights(tree, None, schedule, ranks,
+                                                          policy=pol, base=b)}
+            for tag, fn in runs.items():
+                got, flag = fn()
+                for i, leaf in enumerate(tree_flatten(got)[0]):
+                    res[f"{tag}_{btag}_{k}_{i}"] = np_of(leaf)
+                res[f"flag_{tag}_{btag}_{k}"] = int(flag)
+    ranks = tuple(range(world))
+    for kind in ("star", "tree"):
+        schedule = sched.compile_broadcast_schedule(world - 1, kind=kind, fanout=2)
+        plan = sched.compile_wsync_plan(tree, "data", policy=pol, n_dev=world,
+                                        broadcast=kind, n_receivers=world - 1)
+        for tag, fn in (("plan", lambda: sched.execute_wsync_broadcast(plan, tree, None,
+                                                                       ranks)),
+                        ("planless", lambda: broadcast_weights(tree, None, schedule, ranks,
+                                                               policy=pol))):
+            try:
+                fn()
+                res[f"raised_{tag}_{kind}"] = 0
+            except ValueError:
+                res[f"raised_{tag}_{kind}"] = 1
+    try:
+        cc.raw_ppermute(tree["b"], None, [(0, r) for r in range(1, world)])
+        res["raised_raw_ppermute"] = 0
+    except ValueError:
+        res["raised_raw_ppermute"] = 1
+    np.savez(out, **res)
