@@ -75,7 +75,13 @@ result line each:
             compressed step the launches must be 2 encodes, n_dp
             decode+reduces and n_dp + 2 unpacks (the reduce-scatter's
             exception patch per received chunk, the all-gather decode's
-            payload and lo planes); the raw twin launches nothing.  Then
+            payload and lo planes); the raw twin launches nothing.  Each
+            run goes through the launcher's StepRunner; the compressed one
+            writes a heartbeat a step and one asynchronous checkpoint of
+            the ZeRO-1 state after its last step, which try_resume restores
+            on the card bit-identical, and one more step from it gives the
+            loss and bits of the same step from a copy of the live state
+            (save and restore ms).  Then
             where a compressed step's time goes: forward+backward and each
             wire phase beside its raw twin (host clock, synchronised).
    psum   - on the same group, the gradient pytree of one forward+backward
@@ -179,11 +185,24 @@ result line each:
             (host clock to a device sync, median of 5; at one rank the wire
             is NCCL's copy to itself, so the times are the codec's
             schedule, not a network's).
-8. times  - each kernel and its plain version at the shapes its path
+8. obs    - one observability window at full width (obs.reset() inside
+            one capture_wire_reports()): a compressed train step through a
+            new launcher's StepRunner, psum_with_plan of the psum phase's
+            gradient bucket, a weight-sync publish and delta update of the
+            sync phase's last two versions, one PD serve admission (a packed
+            KV shipment) on the trained model, a tree wave (fanout 2) to 6
+            replicas; each result checked, the launches derived (encode_fused
+            5, decode_reduce 2, pack 6, unpack 24 for a delta update),
+            check_ledger_exactness ok, the plan totals equal to
+            summarize_wire_reports, the Chrome trace exported and parsed
+            back; then the cost of observability: the train step and the
+            weight-sync update with obs off and on, alternating, median of 3,
+            and the calls alone.  Prints one {"obs": ...} line.
+9. times  - each kernel and its plain version at the shapes its path
             gives it: encode_fused, decode_reduce and plane_split at the
             AG bucket, pack and unpack at one KV leaf (the row's ms), and
             encode_fused, decode_reduce, pack and unpack also at every
-            shape any run of phases 3-7 launched them at (``shapes``): each
+            shape any run of phases 3-8 launched them at (``shapes``): each
             run's first input of each shape, which recorded_inputs keeps,
             is held against the plain version, and every launch a run
             tallied must be at a recorded shape; each shape is timed once,
@@ -986,22 +1005,52 @@ def phase_serve(dev, torch, np):
                       "pd_rans": n_tok2 / t_rans}, "ship": ship}
 
 
+@contextlib.contextmanager
+def checkpoint_writes():
+    """While active, the ms of every checkpoint write (``CheckpointManager``'s
+    ``_write``: the .npy files, their sha256 and the manifest, on the async
+    save's thread) are appended to the yielded list."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+
+    write, times = CheckpointManager._write, []
+
+    def timed(self, *args):
+        t0 = time.perf_counter()
+        out = write(self, *args)
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    CheckpointManager._write = timed
+    try:
+        yield times
+    finally:
+        CheckpointManager._write = write
+
+
 def phase_main(dev, torch):
+    import tempfile
+
     from repro_torch import kernels
     from repro_torch.launch import train as launch_train
+    from repro_torch.runtime.fault_tolerance import RunnerConfig
     from repro_torch.train import step as step_lib
 
     runs = {}
-    with launch_train.single_process_group(dev) as group:
+    tmp = tempfile.TemporaryDirectory(prefix="main_ckpt_")
+    hb = os.path.join(tmp.name, "heartbeat.json")
+    # the compressed run checkpoints the state after its last step, once
+    rcfg = RunnerConfig(ckpt_dir=tmp.name, ckpt_every=STEPS - 1, heartbeat_path=hb)
+    with launch_train.single_process_group(dev) as group, tmp:
         n_dp = torch.distributed.get_world_size(group)
         for compress in (True, False):
-            with recorded_inputs(torch) as inputs:
+            with recorded_inputs(torch) as inputs, checkpoint_writes() as writes:
                 kernels.clear_launch_counts()
                 runs[compress] = launch_train.train(
                     ARCH, steps=STEPS, batch=BATCH, seq=SEQ, compress=compress,
-                    device=dev, seed=SEED, group=group)
+                    device=dev, seed=SEED, group=group, rcfg=rcfg if compress else None)
                 runs[compress].launches = kernels.launch_counts()
             runs[compress].recorded = (inputs, shape_tallies())
+            runs[compress].ckpt_write_ms = writes
         comp, raw = runs[True], runs[False]
         if comp.losses != raw.losses:
             raise AssertionError(f"loss curves differ: {comp.losses} vs {raw.losses}")
@@ -1043,9 +1092,68 @@ def phase_main(dev, torch):
         print(f"  wire ratio RS {pair.rs.ratio:.4f} AG {pair.ag.ratio:.4f} (plan:zero1 "
               f"{comp.wire_reports[0].ratio:.4f}); launches {comp.launches}; "
               f"losses and final parameter bytes identical")
+        phase_checkpoint(comp, group, hb, dev, torch)
         phase_breakdown(comp, group, dev, torch)
         psum = phase_psum(comp, group, dev, torch)
     return comp, psum
+
+
+def phase_checkpoint(comp, group, hb, dev, torch):
+    """The compressed run's StepRunner wrote a heartbeat each step and one
+    asynchronous checkpoint of the ZeRO-1 train state after its last step:
+    ``try_resume`` restores it on the card bit-identical to the live state,
+    and one more step from the restored state gives the loss and the bits of
+    the same step from (a copy of) the live state.  Prints the save's ms (the
+    train loop's host copy, from its ``train:checkpoint`` span, and the
+    background write) and the restore's."""
+    from repro_torch import obs
+    from repro_torch.data.pipeline import DataConfig, DataPipeline
+    from repro_torch.launch import train as launch_train
+    from repro_torch.runtime.fault_tolerance import heartbeat_age
+    from repro_torch.train import step as step_lib
+    from repro_torch.tree_util import bits_equal, tree_flatten, tree_unflatten
+
+    runner, state = comp.runner, comp.state
+    with open(hb) as f:
+        beat = json.load(f)
+    age = heartbeat_age(hb)
+    if beat["step"] != STEPS - 1 or age is None or age > 600:
+        raise AssertionError(f"heartbeat {beat} (age {age})")
+    submits = [s.dur * 1e3 for s in obs.spans() if s.name == "train:checkpoint"]
+    if runner.ckpt.available_steps() != (STEPS - 1,) or len(comp.ckpt_write_ms) != 1 \
+            or len(submits) != 1:
+        raise AssertionError(f"checkpoints {runner.ckpt.available_steps()}, writes "
+                             f"{comp.ckpt_write_ms}, train:checkpoint spans {submits}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored, start = runner.try_resume(state, device=dev)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    if restored is None or start != STEPS or restored.step != state.step \
+            or not bits_equal(restored.tree(), state.tree()):
+        raise AssertionError(f"try_resume gave step {start} (state step "
+                             f"{getattr(restored, 'step', None)}), bit-identical "
+                             f"{restored is not None and bits_equal(restored.tree(), state.tree())}")
+    leaves, treedef = tree_flatten(state.tree())
+    live = state.from_tree(tree_unflatten(treedef, [t.clone() for t in leaves]))
+    batch = DataPipeline(DataConfig(vocab=state.model.cfg.vocab, global_batch=BATCH,
+                                    seq_len=SEQ, seed=SEED)).tensors_at(STEPS, dev)
+    with launch_train.deterministic():
+        m_live = step_lib.train_step(live, batch, comp.tcfg, group=group)
+        m_rest = step_lib.train_step(restored, batch, comp.tcfg, group=group)
+    losses = (float(m_live["loss"]), float(m_rest["loss"]))
+    if losses[0] != losses[1] or not bits_equal(live.tree(), restored.tree()):
+        raise AssertionError(f"step {STEPS} from the restored state: losses {losses}, "
+                             f"bit-identical {bits_equal(live.tree(), restored.tree())}")
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    print(f"checkpoint: ZeRO-1 train state after step {STEPS - 1} ({len(leaves)} leaves, "
+          f"{nbytes} B) saved asynchronously by the StepRunner: host copy "
+          f"{submits[0]:.1f} ms (train:checkpoint span), background write "
+          f"{comp.ckpt_write_ms[0]:.1f} ms (.npy files, sha256, manifest); try_resume on "
+          f"the card {restore_ms:.1f} ms (sha256 verify, load, host-to-device), "
+          f"bit-identical; step {STEPS} from it: loss {losses[1]!r} = the live state's, "
+          f"bits identical; heartbeat step {beat['step']}, age {age:.2f} s; card {run_card()}")
+    del live, restored
 
 
 def _wall_ms(fn, torch, runs=5):
@@ -1738,6 +1846,233 @@ def phase_p2p(serve, psum, sync, dev, torch):
             "retried": retried}
 
 
+OBS_COST_RUNS = 3  # on/off rounds of the observability cost (median of 3 each)
+OBS_CALLS = 1000  # span and metric calls timed alone
+OBS_SPANS = ("train:step", "plan:zero1", "plan:psum", "plan_cache:compile", "sync:publish",
+             "sync:update", "sync:encode", "serve:admit", "serve:prefill", "serve:kv_ship",
+             "serve:decode_step", "p2p:encode", "p2p:pack", "p2p:decode", "fleet:round")
+
+
+def phase_obs(comp, psum, sync, dev, torch, np):
+    """The observability layer over the port's paths at full width, in one
+    fresh window (``obs.reset()`` inside one ``capture_wire_reports()``):
+    one compressed train step through a new launcher's StepRunner, one
+    psum_with_plan of the psum phase's gradient bucket, a weight-sync
+    publish and a delta update of the sync phase's last two versions to a
+    replica holding the older, one PD serve request (one packed KV
+    shipment) on the trained model, one fleet wave (tree, fanout 2) of the
+    newer version to N_FLEET replicas.  Checks each result, the launches
+    (derived as in the earlier phases), the ledger against the window's
+    reports (``check_ledger_exactness``), the plan totals against
+    ``summarize_wire_reports`` and the Chrome trace parsed back; prints one
+    ``{"obs": ...}`` line.  Then the cost of observability on the card: the
+    train step and the weight-sync update with obs off and on, alternating,
+    median of OBS_COST_RUNS each (host clock to a device sync), with the
+    spans and metric observations each records; and, since the host's
+    noise between runs exceeds that cost, the calls alone: a span's and a
+    metric observation's host time (OBS_CALLS of each) and the sample
+    store's on the weight-sync bucket (strided on the card; median of 3),
+    from which each part's cost is estimated."""
+    import collections
+    import statistics
+    import tempfile
+
+    from repro_torch import kernels, obs, sched
+    from repro_torch.core import codec
+    from repro_torch.core.policy import CompressionPolicy, capture_wire_reports
+    from repro_torch.launch import train as launch_train
+    from repro_torch.obs import regret
+    from repro_torch.roofline.analysis import summarize_wire_reports
+    from repro_torch.runtime.fault_tolerance import RunnerConfig
+    from repro_torch.sched.cache import PlanCache
+    from repro_torch.serve.engine import Request, ServeConfig, ServeEngine
+    from repro_torch.sync import FleetConfig, SyncFleet, WeightSyncEngine, apply_update
+    from repro_torch.tree_util import bits_equal, tree_flatten
+
+    v_prev, v_new = sync["versions"]
+    policy, bucket, model = sync["policy"], psum["bucket"], comp.state.model
+    names = tuple(f"r{i}" for i in range(N_FLEET))
+    ws_plan = sched.compile_wsync_plan(v_new, "data", policy=policy, n_dev=1)
+    prompt = np.random.default_rng(SEED).integers(0, model.cfg.vocab, PROMPT).astype(np.int32)
+    obs.set_enabled(True)
+    with tempfile.TemporaryDirectory(prefix="obs_ckpt_") as tmp, \
+            launch_train.single_process_group(dev) as group, launch_train.deterministic():
+        state, _, runner, _ = launch_train.build(ARCH, batch=BATCH, seq=SEQ,
+                                                 rcfg=RunnerConfig(ckpt_dir=tmp), device=dev,
+                                                 seed=SEED, group=group)
+        with capture_wire_reports() as captured, recorded_inputs(torch) as inputs, \
+                fleet_record(ws_plan) as (encodes, applies, _):
+            obs.reset()
+            kernels.clear_launch_counts()
+            state, losses = runner.train(state, num_steps=1, log_every=0)
+            red, flag = sched.psum_with_plan({"g": bucket}, group, policy=CompressionPolicy(),
+                                             cache=PlanCache())
+            eng = WeightSyncEngine(policy=policy, plan_cache=PlanCache())
+            eng.publish(v_prev)
+            eng.ack("rollout", 1)  # the replica holds the older version
+            eng.publish(v_new)
+            upd = eng.update_for("rollout")
+            held = apply_update(upd, base_params=v_prev, device=dev)
+            srv = ServeEngine(model.cfg, model, ServeConfig(
+                batch_slots=1, max_len=MAX_LEN, prefill_chunk=PROMPT, pd_disaggregated=True),
+                kv_policy=CompressionPolicy(min_bytes=0), kv_plan_cache=PlanCache())
+            srv.submit(Request(rid=0, prompt=prompt, max_new=4))
+            (req,) = srv.run()
+            fleet = SyncFleet(WeightSyncEngine(policy=policy, plan_cache=PlanCache()), names,
+                              device=dev, cfg=FleetConfig(broadcast="tree", fanout=2,
+                                                          ckpt_every_publishes=10 ** 9))
+            fleet.publish(v_new)
+            rounds = fleet.settle()
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()
+        recorded = (inputs, shape_tallies())
+        if (losses[0] != losses[0] or int(flag) or not bits_equal(red["g"], bucket)
+                or not bits_equal(held, v_new) or len(req.out) != 4
+                or not all(0 <= t < model.cfg.vocab for t in req.out)
+                or not fleet.verify_bitexact() or rounds != 1):
+            raise AssertionError(f"obs window: loss {losses}, psum flag {int(flag)} "
+                                 f"identical {bits_equal(red['g'], bucket)}, update "
+                                 f"{upd.mode} identical {bits_equal(held, v_new)}, serve "
+                                 f"{req.out}, fleet bit-exact {fleet.verify_bitexact()} in "
+                                 f"{rounds} rounds")
+        want = dict.fromkeys(kernels.KERNELS, 0)
+        for k, v in two_shot_launches(True, True, 1).items():  # the step, the psum
+            want[k] += 2 * v
+        for k, v in fleet_launches(encodes, [*applies, upd.mode]).items():
+            want[k] += v
+        want["pack"] += 4  # the PD admission's shipment: k and v, two planes each
+        want["unpack"] += 4
+        if launches != want:
+            raise AssertionError(f"obs window launches {launches}, derived {want}")
+
+        exact = regret.check_ledger_exactness(captured)
+        if not exact["ok"]:
+            raise AssertionError(f"obs ledger != the window's reports: {exact['diffs']}")
+        snap = obs.snapshot()
+        summ = summarize_wire_reports([r for r in captured if r.name.startswith("plan:")])
+        counters = snap["counters"]
+        plan_totals = {k.split("=", 1)[1]: {
+            "exec": n, "raw_bytes": counters["plan_wire_raw_bytes_total"].get(k, 0),
+            "wire_bytes": counters["plan_wire_bytes_total"].get(k, 0)}
+            for k, n in counters["plan_exec_total"].items()}
+        summary = {name.split(":", 1)[1]: {"exec": d["n"], "raw_bytes": d["raw_bytes"],
+                                            "wire_bytes": d["wire_bytes"]}
+                   for name, d in summ["by_name"].items()}
+        if plan_totals != summary or set(plan_totals) != {"zero1", "psum"}:
+            raise AssertionError(f"plan totals {plan_totals} != summarize_wire_reports "
+                                 f"{summary}")
+        spans = collections.Counter(s.name for s in obs.spans())
+        if not set(OBS_SPANS) <= set(spans) or spans["train:step"] != 1:
+            raise AssertionError(f"obs spans {dict(spans)}, expected each of {OBS_SPANS}")
+        path = obs.export_chrome_trace(os.path.join(obs.trace_dir(),
+                                                    "trace_chip_smoke_obs.json"))
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        if len(events) != sum(spans.values()) or collections.Counter(
+                e["name"] for e in events) != spans:
+            raise AssertionError(f"the Chrome trace {path} holds {len(events)} events, the "
+                                 f"span buffer {sum(spans.values())}")
+        line = {
+            "spans": dict(sorted(spans.items())), "ledger_exact": exact["ok"],
+            "plan_totals": plan_totals, "summarize_wire_reports": summary,
+            "ledger_by_kind": regret.ledger_totals()["by_kind"],
+            "drift": obs.drift.detector().report().to_dict(),
+            "regret_top3": [r.to_dict() for r in regret.width_regret()[:3]],
+            "recorder_series": len(obs.recorder().series()),
+            "trace": {"path": path, "bytes": os.path.getsize(path), "events": len(events)},
+            "launches": launches, "update_mode": upd.mode}
+
+        # -- the cost of observability: off and on, alternating, not counted
+        batch = {k: torch.from_numpy(v) for k, v in runner.pipeline.batch_at(1).items()}
+
+        def train_step_ms():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runner.run_step(state, batch)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        def update_ms():
+            e = WeightSyncEngine(policy=policy, plan_cache=eng.plan_cache)
+            e.publish(v_prev)
+            e.ack("rollout", 1)
+            e.publish(v_new)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e.update_for("rollout")
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        def n_recorded():
+            """(spans, metric observations) in the buffers so far."""
+            rec = obs.recorder()
+            return len(obs.spans()), sum(
+                len(rec.samples(k.partition("|")[0], labels_key=k.partition("|")[2]))
+                for k in rec.series())
+
+        obs.reset()
+        cost = {}
+        for name, fn in (("train_step", train_step_ms), ("weight_sync_update", update_ms)):
+            times = {False: [], True: []}
+            for enabled in (False, True):  # a warm-up each
+                obs.set_enabled(enabled)
+                fn()
+            for _ in range(OBS_COST_RUNS):
+                for enabled in (False, True):
+                    obs.set_enabled(enabled)
+                    before = n_recorded()
+                    times[enabled].append(fn())
+                    calls = [b - a for a, b in zip(before, n_recorded())]
+            obs.set_enabled(True)
+            cost[name] = {"off_ms": statistics.median(times[False]),
+                          "on_ms": statistics.median(times[True]),
+                          "off_runs_ms": times[False], "on_runs_ms": times[True],
+                          "spans": calls[0], "metric_observations": calls[1]}
+
+        # -- the calls alone: host time of a span and of a metric observation,
+        # and the sample store on the weight-sync bucket (a stride on the card,
+        # then at most SAMPLE_MAX_ELEMS values to the host)
+        t0 = time.perf_counter()
+        for _ in range(OBS_CALLS):
+            with obs.span("train:step"):
+                pass
+        span_us = (time.perf_counter() - t0) / OBS_CALLS * 1e6
+        t0 = time.perf_counter()
+        for _ in range(OBS_CALLS):
+            obs.metric("plan_exec_total").inc(kind="zero1")
+        metric_us = (time.perf_counter() - t0) / OBS_CALLS * 1e6
+        ws_bucket = codec.pad_flat_bits(codec.concat_members(
+            tree_flatten(v_new)[0], ws_plan.buckets[0].members), ws_plan.buckets[0].block)
+
+        def sample_ms():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            regret.record_sample("wsync_host", "bfloat16", ws_bucket)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        sample_ms()
+        sample = statistics.median(sample_ms() for _ in range(3))
+        for name, c in cost.items():
+            c["estimate_ms"] = (c["spans"] * span_us + c["metric_observations"] * metric_us) \
+                / 1e3 + (sample if name == "weight_sync_update" else 0.0)
+        line["cost"] = cost
+        line["cost_parts"] = {"span_us": span_us, "metric_observation_us": metric_us,
+                              "sample_store_ms": sample, "sample_of": ws_bucket.numel()}
+        line["card"] = run_card()
+        obs.reset()
+    print(f"obs: one window at full width (a StepRunner train step, psum_with_plan of the "
+          f"gradient bucket, a weight-sync {upd.mode} update, one PD KV shipment, a tree "
+          f"wave to {N_FLEET} replicas): ledger exact, plan totals = summarize_wire_reports, "
+          f"{len(events)} trace events; launches {launches}; obs cost, ms (median of "
+          f"{OBS_COST_RUNS}, off -> on; the calls alone): " + ", ".join(
+              f"{k} {v['off_ms']:.2f} -> {v['on_ms']:.2f} ({v['spans']} spans, "
+              f"{v['metric_observations']} metric observations: {v['estimate_ms']:.3f})"
+              for k, v in cost.items()))
+    print(json.dumps({"obs": line}))
+    return {"launches": launches, "recorded": recorded, "cost": cost}
+
+
 def _time(fn, torch, runs=TIMED_RUNS, reps=1):
     """Median ms of one call of ``fn`` over ``runs`` windows of ``reps``
     calls (CUDA events around each window), after two warm-ups.  With one
@@ -1773,7 +2108,7 @@ def _time_once(fn, torch):
 PEAK_OPS = 67e12
 
 
-def phase_times(comp, serve, sync, psum, p2p, fleet, dev, torch, np, worst, bw):
+def phase_times(comp, serve, sync, psum, p2p, fleet, obs_run, dev, torch, np, worst, bw):
     """Each kernel and its plain version at the shapes its path gives it:
     encode_fused, decode_reduce and plane_split at the main path's AG
     bucket; pack and unpack at one KV leaf's exponent residuals at the plan's
@@ -1793,12 +2128,12 @@ def phase_times(comp, serve, sync, psum, p2p, fleet, dev, torch, np, worst, bw):
     # launches of each main-path run (counts set to 0 just before each)
     runs = {"serve_pd": serve["pd_launches"], "serve_pd_rans": serve["rans_launches"],
             "train": comp.launches, "psum": psum["launches"], "weight_sync": sync["launches"],
-            "p2p": p2p["launches"], "fleet": fleet["launches"]}
+            "p2p": p2p["launches"], "fleet": fleet["launches"], "obs": obs_run["launches"]}
     per_unit = {"serve_pd": ("pd_admission", N_REQ),
                 "serve_pd_rans": ("pd_rans_admission", N_RANS),
                 "train": ("train_step", STEPS), "psum": ("psum_phase", 1),
                 "weight_sync": ("publish", sync["n_publishes"]), "p2p": ("p2p_phase", 1),
-                "fleet": ("fleet_phase", 1)}
+                "fleet": ("fleet_phase", 1), "obs": ("obs_phase", 1)}
     rows = []
 
     def row(name, *, ms, plain_ms, nbytes, ops, err, **extra):
@@ -1828,7 +2163,7 @@ def phase_times(comp, serve, sync, psum, p2p, fleet, dev, torch, np, worst, bw):
     # launch a run tallied must be at a recorded shape
     recorded = {**serve["recorded"], "train": comp.recorded, "psum": psum["recorded"],
                 "weight_sync": sync["recorded"], "p2p": p2p["recorded"],
-                "fleet": fleet["recorded"]}
+                "fleet": fleet["recorded"], "obs": obs_run["recorded"]}
 
     def encode_cost(x, w, blk):
         n, lo_w = x.numel(), codec.layout_of(x.dtype).lo_bits
@@ -2036,7 +2371,8 @@ def main() -> int:
     sync = phase_sync(dev, torch)
     fleet = phase_fleet(sync, dev, torch)
     p2p = phase_p2p(serve, psum, sync, dev, torch)
-    rows = phase_times(comp, serve, sync, psum, p2p, fleet, dev, torch, np, worst,
+    obs_run = phase_obs(comp, psum, sync, dev, torch, np)
+    rows = phase_times(comp, serve, sync, psum, p2p, fleet, obs_run, dev, torch, np, worst,
                        card_bandwidth(name))
     print(f"card: {smi}")
     print(json.dumps({"kernels": rows}))

@@ -17,7 +17,9 @@ checkpoints: one ``.npy`` file a leaf (named by its path in the tree), a
 from ``ml_dtypes``), so the port saves those tensors as their unsigned bits
 under the manifest's dtype name and views them back on restore; the
 reference's files hold such arrays as raw void bytes, which restore the
-same way.
+same way.  A state that is not a tree but can be rebuilt from one (a
+``train.step.TrainState``: ``tree()`` and ``from_tree``) saves as its tree,
+and restores through ``state_like.from_tree``.
 
 Not ported yet: ``save_plans``/``restore_plans`` (with the plan cache's
 persistence) and ``restore(shardings=)`` (with ``launch/mesh.py``).
@@ -55,6 +57,12 @@ def _tree_paths(tree, prefix: str = ""):
             yield from _tree_paths(t, f"{prefix}{i}/")
     elif tree is not None:
         yield prefix[:-1], tree
+
+
+def _tree_of(state):
+    """The tree a checkpoint holds for ``state``: its ``tree()`` when it can
+    be rebuilt from one (``from_tree``), else ``state`` itself."""
+    return state.tree() if hasattr(state, "from_tree") else state
 
 
 def _host(leaf) -> tuple:
@@ -100,13 +108,14 @@ class CheckpointManager:
     def save(self, step: int, state) -> str:
         """Write ``state`` (a tree of tensors and numpy arrays) as ``step``;
         returns the checkpoint's directory."""
-        return self._write(step, [(n, *_host(leaf)) for n, leaf in _tree_paths(state)])
+        return self._write(step, [(n, *_host(leaf))
+                                  for n, leaf in _tree_paths(_tree_of(state))])
 
     def save_async(self, step: int, state) -> None:
         """Copy ``state`` to the host now and write it in a background
         thread; :meth:`wait` joins it and raises its error, if any."""
         self.wait()  # one save in flight at a time
-        host = [(n, *_host(leaf)) for n, leaf in _tree_paths(state)]
+        host = [(n, *_host(leaf)) for n, leaf in _tree_paths(_tree_of(state))]
 
         def work():
             try:
@@ -174,9 +183,10 @@ class CheckpointManager:
     def restore(self, state_like, *, step: Optional[int] = None, device="cuda",
                 verify: bool = True):
         """Load a checkpoint (the latest unless ``step``) into the structure
-        of ``state_like``, every leaf a tensor on ``device``.  Returns
-        (state, step); a file whose sha256 differs from the manifest's
-        raises ``IOError``."""
+        of ``state_like``, every leaf a tensor on ``device`` (a state with
+        ``from_tree`` is rebuilt from the restored tree).  Returns (state,
+        step); a file whose sha256 differs from the manifest's raises
+        ``IOError``."""
         from repro_torch.tree_util import tree_flatten, tree_unflatten
 
         dev = kernels.resolve_device(device)
@@ -187,11 +197,13 @@ class CheckpointManager:
         d = os.path.join(self.dir, f"step_{step:08d}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
+        like = _tree_of(state_like)
         out = []
-        for name, _ in _tree_paths(state_like):
+        for name, _ in _tree_paths(like):
             ent = manifest["files"][name]
             path = os.path.join(d, ent["file"])
             if verify and _sha256(path) != ent["sha256"]:
                 raise IOError(f"checksum mismatch for {name} in {d}")
             out.append(_restore(np.load(path), ent["dtype"], dev))
-        return tree_unflatten(tree_flatten(state_like)[1], out), step
+        tree = tree_unflatten(tree_flatten(like)[1], out)
+        return (tree if like is state_like else state_like.from_tree(tree)), step

@@ -9,6 +9,7 @@ batches are identical to the reference's for the same config.
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator
 
 import numpy as np
 import torch
@@ -32,7 +33,9 @@ class DataPipeline:
     ``batch_at(step)`` returns this process's slice of the global batch as
     numpy ``{"tokens": (b, S) int32, "labels": (b, S) int32}``, ``labels``
     the next-token shift of ``tokens``; ``tensors_at(step, device)`` the same
-    as int64 tensors on ``device``."""
+    as int64 tensors on ``device``.  Iterating yields the batches from the
+    pipeline's position on, which ``state_dict`` reads and ``skip_to`` moves
+    (a resumed run skips to the step after its checkpoint)."""
 
     def __init__(self, cfg: DataConfig, *, process_index: int = 0,
                  process_count: int = 1):
@@ -44,6 +47,7 @@ class DataPipeline:
         self.cfg = cfg
         self.process_index = process_index
         self.local_batch = cfg.global_batch // process_count
+        self._step = 0
         ranks = np.arange(1, cfg.vocab + 1, dtype=np.float64)
         w = ranks ** (-cfg.zipf_a)
         self._cdf = np.cumsum(w / w.sum())
@@ -64,3 +68,17 @@ class DataPipeline:
         dev = kernels.resolve_device(device)
         return {k: torch.from_numpy(v.astype(np.int64)).to(dev)
                 for k, v in self.batch_at(step).items()}
+
+    # -- iterator / checkpoint protocol ------------------------------------
+
+    def __iter__(self) -> Iterator[dict]:
+        while True:
+            b = self.batch_at(self._step)
+            self._step += 1  # before yield: state_dict() is always exact
+            yield b
+
+    def state_dict(self) -> dict:
+        return {"step": self._step}
+
+    def skip_to(self, step: int) -> None:
+        self._step = int(step)

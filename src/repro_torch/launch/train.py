@@ -1,17 +1,21 @@
 """Training driver (torch port of ``repro.launch.train``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm_135m \\
-        --steps 3 --batch 8 --seq 512 [--no-compress] [--smoke] [--device cpu]
+        --steps 3 --batch 8 --seq 512 [--no-compress] [--smoke] [--device cpu] \\
+        [--ckpt-dir DIR] [--ckpt-every N] [--heartbeat FILE] [--sigterm] [--resume]
 
 Wires together: config registry -> data pipeline -> ZeRO-1 train step over
-the compressed two-shot wire, each step replaying the run's ``zero1`` plan
-(compiled on the first step, a plan-cache hit on every later one).  A
-compressed step whose overflow flag fires is rerun with
-``CompressionPolicy.disabled()`` over the plan of that policy (the
-reference's StepRunner retry); the retries are counted.  Under
-``torchrun`` the process group comes from the environment; otherwise a
-single-process group is made (NCCL on the GPU, gloo on the CPU).
-Checkpointing, heartbeat and straggler detection are not ported yet.
+the compressed two-shot wire (+ its compression-disabled twin) -> the
+fault-tolerant ``runtime/fault_tolerance.StepRunner``.  Each step replays
+the run's ``zero1`` plan (compiled on the first step, a plan-cache hit on
+every later one).  The runner reruns a compressed step whose overflow flag
+fires with ``CompressionPolicy.disabled()``, over the plan of that policy,
+and counts the retry; it also writes asynchronous checkpoints of the train
+state every ``--ckpt-every`` steps, a heartbeat file, counts stragglers,
+flushes a checkpoint on SIGTERM (``--sigterm``) and resumes from the newest
+good checkpoint (``--resume``).  Under ``torchrun`` the process group comes
+from the environment; otherwise a single-process group is made (NCCL on the
+GPU, gloo on the CPU).
 """
 from __future__ import annotations
 
@@ -20,7 +24,6 @@ import contextlib
 import dataclasses
 import os
 import tempfile
-import time
 
 import torch
 import torch.distributed as dist
@@ -29,6 +32,7 @@ from repro_torch import configs, kernels
 from repro_torch.core.policy import CompressionPolicy, capture_wire_reports
 from repro_torch.data.pipeline import DataConfig, DataPipeline
 from repro_torch.optim.optimizers import OptimConfig
+from repro_torch.runtime.fault_tolerance import RunnerConfig, StepRunner
 from repro_torch.sched.cache import PlanCache
 from repro_torch.train import step as step_lib
 
@@ -89,6 +93,9 @@ def deterministic():
         det.fill_uninitialized_memory = was[2]
 
 
+DEFAULT_CKPT_DIR = os.path.join(tempfile.gettempdir(), "repro_torch_ckpt")
+
+
 @dataclasses.dataclass
 class TrainRun:
     state: step_lib.TrainState
@@ -98,14 +105,31 @@ class TrainRun:
     retries: int
     wire_reports: list
     plan_cache: PlanCache  # the run's zero1 plans: one miss a policy, then hits
+    runner: StepRunner
+    start_step: int = 0  # > 0 when the run resumed from a checkpoint
 
 
-def train(arch: str, *, steps: int, batch: int, seq: int, compress: bool = True,
+def _plan_step(tcfg: step_lib.TrainConfig, group, dev, plan_cache: PlanCache):
+    """The StepRunner's step: the batch to ``dev``, then one ZeRO-1 step
+    replaying ``tcfg``'s zero1 plan from ``plan_cache``.  The train state is
+    updated in place (the overflow guard leaves it as it was)."""
+    def step(state, batch):
+        batch = {k: v.to(device=dev, dtype=torch.int64) for k, v in batch.items()}
+        plan = step_lib.zero1_plan(state, tcfg, group, cache=plan_cache)
+        return state, step_lib.train_step(state, batch, tcfg, group=group, plan=plan)
+    return step
+
+
+def build(arch: str, *, batch: int, seq: int, rcfg: RunnerConfig, compress: bool = True,
           smoke: bool = False, device="cuda", seed: int = 0, lr: float = 3e-4,
-          warmup: int = 20, optimizer: str = "adamw",
-          compress_min_bytes: int = 0, group=None, log=None) -> TrainRun:
-    """Train ``steps`` ZeRO-1 steps from a random init made from ``seed``.
-    ``group`` is the data-parallel process group (default: the world)."""
+          warmup: int = 20, optimizer: str = "adamw", compress_min_bytes: int = 0,
+          group=None) -> tuple:
+    """``(state, tcfg, runner, plan_cache)``: the random init made from
+    ``seed``, its train config, and a ``rcfg`` StepRunner over the data
+    pipeline whose step is the compressed ZeRO-1 step and whose fallback is
+    the compression-disabled one (none when the run is uncompressed); both
+    replay their zero1 plans from ``plan_cache``.  ``group`` is the
+    data-parallel process group (default: the world)."""
     dev = kernels.resolve_device(device)
     cfg = configs.get_smoke(arch) if smoke else configs.get(arch)
     policy = (CompressionPolicy(min_bytes=compress_min_bytes) if compress
@@ -113,7 +137,11 @@ def train(arch: str, *, steps: int, batch: int, seq: int, compress: bool = True,
     tcfg = step_lib.TrainConfig(
         loss_chunk=min(1024, seq), policy=policy,
         optim=OptimConfig(name=optimizer, lr=lr, warmup_steps=warmup))
-    raw_tcfg = dataclasses.replace(tcfg, policy=CompressionPolicy.disabled())
+    plan_cache = PlanCache()
+    fallback = None
+    if policy.enabled:
+        raw_tcfg = dataclasses.replace(tcfg, policy=CompressionPolicy.disabled())
+        fallback = _plan_step(raw_tcfg, group, dev, plan_cache)
     state = step_lib.build_train_state(
         cfg, tcfg, generator=torch.Generator().manual_seed(seed), group=group,
         device=dev)
@@ -121,30 +149,43 @@ def train(arch: str, *, steps: int, batch: int, seq: int, compress: bool = True,
         DataConfig(vocab=cfg.vocab, global_batch=batch, seq_len=seq, seed=seed),
         process_index=dist.get_rank(group),
         process_count=dist.get_world_size(group))
-    run = TrainRun(state=state, tcfg=tcfg, losses=[], step_ms=[], retries=0,
-                   wire_reports=[], plan_cache=PlanCache())
-    with deterministic(), capture_wire_reports() as reports:
-        for s in range(steps):
-            b = pipe.tensors_at(s, dev)
-            t0 = time.perf_counter()
-            plan = step_lib.zero1_plan(state, tcfg, group, cache=run.plan_cache)
-            m = step_lib.train_step(state, b, tcfg, group=group, plan=plan)
-            # on overflow the guard kept the old state: rerun the step raw,
-            # which cannot overflow
-            tries = int(m["overflow"] != 0)
-            if tries:
-                raw_plan = step_lib.zero1_plan(state, raw_tcfg, group,
-                                               cache=run.plan_cache)
-                m = step_lib.train_step(state, b, raw_tcfg, group=group, plan=raw_plan)
-            loss = float(m["loss"])  # waits for the step to finish
-            run.step_ms.append((time.perf_counter() - t0) * 1e3)
-            run.losses.append(loss)
-            run.retries += tries
-            if log:
-                log(f"step {s} loss {loss:.6f} gnorm {float(m['gnorm']):.4f} "
-                    f"retries {tries} {run.step_ms[-1]:.1f} ms")
-    run.wire_reports = list(reports)
-    return run
+    runner = StepRunner(_plan_step(tcfg, group, dev, plan_cache), fallback, rcfg,
+                        pipeline=pipe)
+    return state, tcfg, runner, plan_cache
+
+
+def train(arch: str, *, steps: int, batch: int, seq: int, compress: bool = True,
+          smoke: bool = False, device="cuda", seed: int = 0, lr: float = 3e-4,
+          warmup: int = 20, optimizer: str = "adamw", compress_min_bytes: int = 0,
+          group=None, rcfg: RunnerConfig = None, resume: bool = False,
+          log=None) -> TrainRun:
+    """Train ``steps`` ZeRO-1 steps through the StepRunner of :func:`build`
+    (``rcfg``: its checkpoint, heartbeat and straggler settings; by default
+    checkpoints go to a temporary directory that the run removes).
+    ``resume`` first restores the newest good checkpoint of
+    ``rcfg.ckpt_dir`` and continues after its step.  ``log`` gets one line
+    a step."""
+    with contextlib.ExitStack() as stack:
+        if rcfg is None:
+            rcfg = RunnerConfig(ckpt_dir=stack.enter_context(tempfile.TemporaryDirectory()))
+        state, tcfg, runner, plan_cache = build(
+            arch, batch=batch, seq=seq, rcfg=rcfg, compress=compress, smoke=smoke,
+            device=device, seed=seed, lr=lr, warmup=warmup, optimizer=optimizer,
+            compress_min_bytes=compress_min_bytes, group=group)
+        start = 0
+        if resume:
+            resumed, start = runner.try_resume(state, device=device)
+            if resumed is not None:
+                state = resumed
+                if log:
+                    log(f"resumed from step {start}")
+        with deterministic(), capture_wire_reports() as reports:
+            state, losses = runner.train(state, start_step=start, num_steps=steps,
+                                         log_every=1 if log else 0, log_fn=log)
+    return TrainRun(state=state, tcfg=tcfg, losses=losses,
+                    step_ms=[t * 1e3 for t in runner.times], retries=runner.retries,
+                    wire_reports=list(reports), plan_cache=plan_cache, runner=runner,
+                    start_step=start)
 
 
 def main(argv=None):
@@ -161,16 +202,24 @@ def main(argv=None):
     ap.add_argument("--no-compress", action="store_true")
     ap.add_argument("--compress-min-bytes", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--ckpt-dir", default=DEFAULT_CKPT_DIR)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--heartbeat", default=None)
+    ap.add_argument("--sigterm", action="store_true")
+    ap.add_argument("--resume", action="store_true")
     args = ap.parse_args(argv)
 
+    rcfg = RunnerConfig(ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                        heartbeat_path=args.heartbeat, install_sigterm=args.sigterm)
     with launcher_group(args.device) as dev:
         run = train(args.arch, steps=args.steps, batch=args.batch,
                     seq=args.seq, compress=not args.no_compress,
                     smoke=args.smoke, device=dev, seed=args.seed,
                     lr=args.lr, warmup=args.warmup, optimizer=args.optimizer,
-                    compress_min_bytes=args.compress_min_bytes, log=print)
-    print(f"final loss {run.losses[-1]:.4f} | retries {run.retries} | "
-          f"compressed={not args.no_compress}")
+                    compress_min_bytes=args.compress_min_bytes, rcfg=rcfg,
+                    resume=args.resume, log=print)
+    print(f"final loss {run.losses[-1]:.4f} | stragglers {run.runner.stragglers} | "
+          f"retries {run.retries} | compressed={not args.no_compress}")
 
 
 if __name__ == "__main__":

@@ -10,6 +10,13 @@ and the rANS kernels for the ``rans`` codec), and the wire is a
 :class:`Message` of numpy arrays with the reference's dtypes, so a message
 encoded by either package decodes in the other.
 
+Observability (``obs``): the ``p2p:encode`` and ``p2p:decode`` spans, the
+stage spans ``p2p:split`` and ``p2p:entropy_code`` (rANS) or ``p2p:pack``
+(packed) around the intervals the stage timers close at a device sync, the
+encode and decode seconds histograms, and each encode's bytes in the
+per-bucket ledger under the host kind ``p2p_host`` with a bounded sample of
+its payload for the width-regret analysis.
+
 Pipeline timing model (paper Fig. 4d):
     T_split_send = T_split + max(T_lo_wire, T_encode) + T_exp_wire
     T_encode_send = T_split + T_encode + (T_lo_wire + T_exp_wire)
@@ -25,7 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch import kernels
+from repro_torch import kernels, obs
 from repro_torch.core import ans, codec, packing
 from repro_torch.core.calibrate import choose_width
 
@@ -168,31 +175,57 @@ class Compressor:
         used instead of a probe), the per-(class, dtype) width cache, else a
         one-time ``calibrate.choose_width`` probe on the live data.  Stage
         times are host clock up to a device sync."""
-        shape, flat = self._flat(x)
+        with obs.span("p2p:encode", codec=self.codec_name,
+                      tensor_class=tensor_class) as sp:
+            shape, flat = self._flat(x)
+            msg = self._encode_impl(shape, flat, tensor_class=tensor_class,
+                                    reuse_table=reuse_table, plan=plan)
+            sp.args["raw_bytes"] = msg.raw_bytes
+            sp.args["wire_bytes"] = msg.wire_bytes()
+        obs.metric("p2p_encode_seconds").observe(msg.t_split + msg.t_encode,
+                                                 codec=self.codec_name)
+        if obs.enabled():
+            # host-path wire ledger + recalibration sample, under its own
+            # kind so the plan-kind exactness check stays exact
+            w_used = int(msg.width or 0)
+            obs.metric("bucket_wire_raw_bytes_total").inc(
+                msg.raw_bytes, kind="p2p_host", dtype=msg.dtype_name, width=w_used)
+            obs.metric("bucket_wire_bytes_total").inc(
+                msg.wire_bytes(), kind="p2p_host", dtype=msg.dtype_name, width=w_used)
+            from repro_torch.obs import regret as regret_lib
+
+            regret_lib.record_sample("p2p_host", msg.dtype_name, flat)
+        return msg
+
+    def _encode_impl(self, shape: tuple, flat: torch.Tensor, *, tensor_class: str,
+                     reuse_table: bool, plan) -> Message:
         lay = codec.layout_of(flat.dtype)
         dev = flat.device
         if self.codec_name == "rans":
-            t0 = time.perf_counter()
-            exp, lo_packed = self._split_lo(flat, lay)
-            _sync(dev)
-            t1 = time.perf_counter()
-            key = (tensor_class, lay.name) if reuse_table else None
-            table = self._table_cache.get(key)
-            if table is None:
-                table = ans.build_freq_table(exp)
-                if key is not None:
-                    self._table_cache[key] = table
-            stream = ans.encode(exp, table, lanes=self.lanes)
-            lens = host_array(stream.lens, np.int32)
-            exp_payload = {
-                "words": host_array(stream.words, np.uint16),
-                "lens": lens,
-                "freq": host_array(table.freq, np.uint32),
-                "n": exp.shape[0],
-                "used_bytes": int(lens.sum()) * 2,
-            }
-            width = 0
-            t_split, t_encode = t1 - t0, time.perf_counter() - t1
+            with obs.span("p2p:split", nbytes=flat.numel() * lay.total_bits // 8):
+                t0 = time.perf_counter()
+                exp, lo_packed = self._split_lo(flat, lay)
+                _sync(dev)
+                t_split = time.perf_counter() - t0
+            with obs.span("p2p:entropy_code", lanes=self.lanes):
+                t1 = time.perf_counter()
+                key = (tensor_class, lay.name) if reuse_table else None
+                table = self._table_cache.get(key)
+                if table is None:
+                    table = ans.build_freq_table(exp)
+                    if key is not None:
+                        self._table_cache[key] = table
+                stream = ans.encode(exp, table, lanes=self.lanes)
+                lens = host_array(stream.lens, np.int32)
+                exp_payload = {
+                    "words": host_array(stream.words, np.uint16),
+                    "lens": lens,
+                    "freq": host_array(table.freq, np.uint32),
+                    "n": exp.shape[0],
+                    "used_bytes": int(lens.sum()) * 2,
+                }
+                width = 0
+                t_encode = time.perf_counter() - t1
         else:
             width = None
             if plan is not None:  # decided-once schedule beats re-probing
@@ -202,11 +235,12 @@ class Compressor:
             if width is None:
                 width = choose_width(flat, block=self.block).width
                 self._width_cache[(tensor_class, lay.name)] = width
-            t0 = time.perf_counter()
-            exp, lo_packed = self._split_lo(flat, lay)
-            pk = packing.pack_exponents(exp, width=width, block=self.block)
-            _sync(dev)
-            t_total = time.perf_counter() - t0
+            with obs.span("p2p:pack", width=width):
+                t0 = time.perf_counter()
+                exp, lo_packed = self._split_lo(flat, lay)
+                pk = packing.pack_exponents(exp, width=width, block=self.block)
+                _sync(dev)
+                t_total = time.perf_counter() - t0
             # one pipeline: attribute stage times by plane bytes
             lo_frac = lay.lo_bits / (lay.lo_bits + max(width, 1))
             t_split = t_total * lo_frac
@@ -231,6 +265,14 @@ class Compressor:
 
     def decode(self, msg: Message) -> torch.Tensor:
         """The tensor of ``msg`` on this compressor's device, bit-exact."""
+        t0 = time.perf_counter()
+        with obs.span("p2p:decode", codec=msg.codec, raw_bytes=msg.raw_bytes):
+            out = self._decode_impl(msg)
+        obs.metric("p2p_decode_seconds").observe(time.perf_counter() - t0,
+                                                 codec=msg.codec)
+        return out
+
+    def _decode_impl(self, msg: Message) -> torch.Tensor:
         lay = codec.LAYOUTS[msg.dtype_name]
         dev = self.device
         n = int(np.prod(msg.shape)) if msg.shape else 1

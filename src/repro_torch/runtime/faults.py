@@ -20,7 +20,9 @@ and the reference's plan of the same seed gives the same ones (numpy's
     (``core.integrity.flip_bit``).  Payloads without array content (acks,
     nacks) pass unchanged: control messages are only dropped or delayed.
 
-Every injected fault is counted in ``FaultyWire.counts``.
+Every injected fault is counted in ``FaultyWire.counts``, in the ``obs``
+counter ``fault_injected_total`` by kind, and marked on the trace by a
+``fault:inject`` instant.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core import integrity, packing
 
 FAULT_KINDS = ("drop", "corrupt", "delay", "kill", "join", "trainer_restart")
@@ -300,16 +303,18 @@ class FaultyWire:
             if bad is None:  # nothing to corrupt: deliver it as it is
                 self._queues.setdefault(dst, []).append((payload, False))
                 return
-            self.counts[kind] += 1
+            self._count(kind, dst)
             self._queues.setdefault(dst, []).append((bad, True))
         elif kind == "drop":
-            self.counts[kind] += 1
+            self._count(kind, dst)
         elif kind == "delay":
-            self.counts[kind] += 1
+            self._count(kind, dst)
             self._delayed.append((self.round + max(int(arg), 1), dst, (payload, False)))
-        # the reference also counts each fault in its metrics registry
-        # (fault_injected_total by kind) and marks a fault:inject instant on
-        # its trace here; they come with the port of ``obs``
+
+    def _count(self, kind: str, dst) -> None:
+        self.counts[kind] += 1
+        obs.metric("fault_injected_total").inc(kind=kind)
+        obs.instant("fault:inject", kind=kind, dst=str(dst), round=self.round)
 
     def advance_round(self) -> None:
         """Start a new delivery round: matured delayed messages become

@@ -6,7 +6,10 @@ The key is everything the compiled schedule depends on (tree signature,
 policy fingerprint, axis names, device count, kind, kernel routing), so any
 change that could alter the schedule misses and recompiles.  The store is an
 LRU bounded by ``capacity`` (``None`` = unbounded); hits, misses and
-evictions are counted.
+evictions are counted.  Every lookup mirrors the counts into the ``obs``
+gauges (``plan_cache_*``, labeled ``default`` for the process cache and
+``local`` for private instances), marks a hit with a ``plan_cache:hit``
+instant and times a miss's compile in a ``plan_cache:compile`` span.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import dataclasses
 import threading
 from typing import Callable, Optional
 
+from repro_torch import obs
 from repro_torch.sched.plan import CommPlan
 
 
@@ -45,6 +49,25 @@ class PlanCache:
         self.capacity = capacity
         self.stats = CacheStats()
 
+    def _obs_label(self) -> str:
+        """Gauge label: the process cache is "default", private instances
+        (tests, runs) are "local", so they cannot overwrite its series."""
+        return "default" if self is globals().get("_DEFAULT") else "local"
+
+    def _export_obs(self) -> None:
+        """Mirror :meth:`cache_info` into the metrics registry (no-op when
+        obs is off)."""
+        if not obs.enabled():
+            return
+        label = self._obs_label()
+        with self._lock:
+            hits, misses = self.stats.hits, self.stats.misses
+            evictions, size = self.stats.evictions, len(self._plans)
+        obs.metric("plan_cache_hits").set(hits, cache=label)
+        obs.metric("plan_cache_misses").set(misses, cache=label)
+        obs.metric("plan_cache_evictions").set(evictions, cache=label)
+        obs.metric("plan_cache_size").set(size, cache=label)
+
     def get_or_compile(self, key: tuple, compile_fn: Callable[[], CommPlan]) -> CommPlan:
         """Return the plan for ``key``, compiling (and storing) on a miss."""
         with self._lock:
@@ -52,10 +75,16 @@ class PlanCache:
             if plan is not None:
                 self._plans.move_to_end(key)
                 self.stats.hits += 1
-                return plan
+        if plan is not None:
+            obs.instant("plan_cache:hit", kind=getattr(plan, "kind", "?"),
+                        cache=self._obs_label())
+            self._export_obs()
+            return plan
         # compile outside the lock: compiling is pure, so a racing double
         # compile is wasted work, not a fault
-        plan = compile_fn()
+        with obs.span("plan_cache:compile", cache=self._obs_label()) as sp:
+            plan = compile_fn()
+            sp.args["kind"] = getattr(plan, "kind", "?")
         with self._lock:
             self._plans.setdefault(key, plan)
             self._plans.move_to_end(key)
@@ -63,6 +92,7 @@ class PlanCache:
             while self.capacity is not None and len(self._plans) > self.capacity:
                 self._plans.popitem(last=False)
                 self.stats.evictions += 1
+        self._export_obs()
         return plan
 
     def cache_info(self) -> dict:
@@ -88,11 +118,13 @@ class PlanCache:
         :meth:`reset_stats`)."""
         with self._lock:
             self._plans.clear()
+        self._export_obs()
 
     def reset_stats(self) -> None:
         """Zero the hit/miss/eviction counters without touching the plans."""
         with self._lock:
             self.stats = CacheStats()
+        self._export_obs()
 
 
 # The process-default cache, bounded so that signature churn in a

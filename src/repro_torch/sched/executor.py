@@ -12,7 +12,14 @@ its signature (``sched/cache.py``).
 Wire accounting: a plan execution records ONE consolidated ``WireReport``
 (name ``plan:<kind>``) in place of the per-wire reports of its buckets,
 which it captures (``policy.capture_wire_reports``) and folds, keeping the
-raw and wire totals and the fused/unfused HBM split.
+raw and wire totals and the fused/unfused HBM split.  The same record feeds
+the ``obs`` registry (``plan_exec_total``, the plan wire totals and ratio)
+and the drift detector, and each bucket's reports feed the per-bucket
+ledger (``bucket_wire_*_total`` by kind, dtype and width), so the ledger's
+per-kind sums equal the consolidated reports'.  The port replays a plan
+eagerly: its ``plan:<kind>`` span and ``plan_exec_total`` fire once per
+execution (the reference's once per trace under ``jit``), and the span is
+the host's time to replay the plan, whose kernels run asynchronously.
 
 Entry points:
   * :func:`psum_with_plan`: pytree all-reduce (the plan twin of
@@ -41,9 +48,12 @@ on.  The host serve and weight-sync engines also read the ``kv`` and
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.distributed as dist
 
+from repro_torch import obs
 from repro_torch.core import codec
 from repro_torch.core.compressed_collectives import (
     _no_flag, all_gather_compressed, check_perm, psum_compressed_ring, psum_raw_twoshot,
@@ -51,6 +61,7 @@ from repro_torch.core.compressed_collectives import (
 from repro_torch.core.policy import (WireReport, capture_wire_reports,
                                      record_wire_report)
 from repro_torch.core.split_send import p2p_dispatch, send_raw_leaves, wsync_dispatch
+from repro_torch.obs import drift as drift_lib
 from repro_torch.sched import compile as sched_compile
 from repro_torch.sched.cache import PlanCache, default_cache
 from repro_torch.sched.plan import (PATH_COMPRESSED, PATH_RAW_PSUM, PATH_RAW_TWOSHOT,
@@ -77,13 +88,53 @@ def consolidate_reports(plan: CommPlan, caught) -> WireReport | None:
     )
 
 
+def _plan_span(plan: CommPlan):
+    """Span of one plan execution (``plan:<kind>``): the host's wall clock
+    of the eager replay."""
+    return obs.span(f"plan:{plan.kind}", plan_key=f"{hash(plan.key) & 0xFFFFFFFF:08x}",
+                    buckets=len(plan.buckets))
+
+
 def _emit(plan: CommPlan, caught) -> None:
-    """Record the consolidated WireReport of one plan execution.  The
-    reference also feeds its metrics registry and its plan-drift monitor
-    from this record here; they come with the port of ``obs``."""
+    """Record the consolidated WireReport of one plan execution and mirror
+    it into the metrics registry, both from the SAME record, so the
+    snapshot's per-kind wire totals equal ``summarize_wire_reports`` over
+    the ``plan:*`` reports of the same run."""
     rep = consolidate_reports(plan, caught)
     if rep is not None:
         record_wire_report(rep)
+    obs.metric("plan_exec_total").inc(kind=plan.kind)
+    if rep is not None:
+        obs.metric("plan_wire_raw_bytes_total").inc(rep.raw_bytes, kind=plan.kind)
+        obs.metric("plan_wire_bytes_total").inc(rep.wire_bytes, kind=plan.kind)
+        obs.metric("plan_wire_ratio").set(rep.ratio, kind=plan.kind)
+        obs.metric("plan_wire_ratio_hist").observe(rep.ratio, kind=plan.kind)
+        # executor wires are sized from shapes when the plan compiles, so
+        # live == predicted unless a plan is replayed against another mix
+        drift_lib.observe_plan(plan, rep)
+
+
+@contextlib.contextmanager
+def _bucket_ledger(plan: CommPlan, dtype_name: str, width: int):
+    """Per-bucket wire ledger: capture ONE bucket's wire reports, forward
+    them as they are to the enclosing plan capture (so consolidation sees
+    what it would without the ledger), and ledger the bucket's raw and wire
+    byte sums under (kind, dtype, width), the data of ``obs/regret.py``.
+    No-op when obs is disabled."""
+    if not obs.enabled():
+        yield
+        return
+    with capture_wire_reports() as inner:
+        yield
+    for r in inner:
+        record_wire_report(r)
+    if inner:
+        obs.metric("bucket_wire_raw_bytes_total").inc(
+            sum(r.raw_bytes for r in inner), kind=plan.kind, dtype=dtype_name,
+            width=width)
+        obs.metric("bucket_wire_bytes_total").inc(
+            sum(r.wire_bytes for r in inner), kind=plan.kind, dtype=dtype_name,
+            width=width)
 
 
 def _label(plan: CommPlan):
@@ -156,18 +207,20 @@ def execute_psum(plan: CommPlan, tree, group=None):
     label = _label(plan)
     out = list(leaves)
     flag = _no_flag(leaves[0])
-    with capture_wire_reports() as caught:
+    with _plan_span(plan), capture_wire_reports() as caught:
         for b in plan.buckets:
             parts = [leaves[i].reshape(-1) for i, _, _ in b.members]
             bucket = torch.cat(parts) if len(parts) > 1 else parts[0]
-            red, f = _exec_psum_bucket(b, bucket, group, label)
+            with _bucket_ledger(plan, b.dtype_name, b.width):
+                red, f = _exec_psum_bucket(b, bucket, group, label)
             flag = torch.maximum(flag, f)
             off = 0
             for i, shape, size in b.members:
                 out[i] = red[off: off + size].reshape(shape)
                 off += size
-        for i in plan.raw_leaf_ix:
-            out[i] = psum_safe(leaves[i], group)
+        with _bucket_ledger(plan, "raw", 0):
+            for i in plan.raw_leaf_ix:
+                out[i] = psum_safe(leaves[i], group)
     _emit(plan, caught)
     return tree_unflatten(treedef, out), flag
 
@@ -217,8 +270,10 @@ def reduce_scatter_with_plan(x: torch.Tensor, group=None, *, axis_name="data",
     if plan is None:
         plan = _flat_plan("reduce_scatter", x, group, axis_name, policy, tensor_class,
                           cache)
-    with capture_wire_reports() as caught:
-        out = _exec_reduce_scatter(plan.buckets[0], x, group, _label(plan))
+    b = plan.buckets[0]
+    with _plan_span(plan), capture_wire_reports() as caught:
+        with _bucket_ledger(plan, b.dtype_name, b.width):
+            out = _exec_reduce_scatter(b, x, group, _label(plan))
     _emit(plan, caught)
     return out
 
@@ -230,8 +285,10 @@ def all_gather_with_plan(y: torch.Tensor, group=None, *, axis_name="data",
     if plan is None:
         plan = _flat_plan("all_gather", y, group, axis_name, policy, tensor_class,
                           cache)
-    with capture_wire_reports() as caught:
-        out = _exec_all_gather(plan.buckets[0], y, group, _label(plan))
+    b = plan.buckets[0]
+    with _plan_span(plan), capture_wire_reports() as caught:
+        with _bucket_ledger(plan, b.dtype_name, b.width):
+            out = _exec_all_gather(b, y, group, _label(plan))
     _emit(plan, caught)
     return out
 
@@ -250,26 +307,32 @@ class Zero1Execution:
         self.group = group
         self._cap = capture_wire_reports()
         self._caught = None
+        self._span = None
 
     def __enter__(self):
+        self._span = _plan_span(self.plan)
+        self._span.__enter__()
         self._caught = self._cap.__enter__()
         return self
 
     def __exit__(self, *exc):
         self._cap.__exit__(*exc)
+        self._span.__exit__(*exc)
         if exc[0] is None:
             _emit(self.plan, self._caught)
         return False
 
     def reduce_scatter(self, i: int, gbucket: torch.Tensor):
         """Bucket ``i``'s RS phase: (f32 shard, flag)."""
-        return _exec_reduce_scatter(self.plan.buckets[i].rs, gbucket, self.group,
-                                    _label(self.plan))
+        b = self.plan.buckets[i].rs
+        with _bucket_ledger(self.plan, b.dtype_name, b.width):
+            return _exec_reduce_scatter(b, gbucket, self.group, _label(self.plan))
 
     def all_gather(self, i: int, shard: torch.Tensor):
         """Bucket ``i``'s AG phase: (gathered, flag)."""
-        return _exec_all_gather(self.plan.buckets[i].ag, shard, self.group,
-                                _label(self.plan))
+        b = self.plan.buckets[i].ag
+        with _bucket_ledger(self.plan, b.dtype_name, b.width):
+            return _exec_all_gather(b, shard, self.group, _label(self.plan))
 
 
 # ---------------------------------------------------------------------------
@@ -313,9 +376,11 @@ def execute_p2p(plan: CommPlan, x: torch.Tensor, group, perm, *, reduce_into=Non
     for a reducing receiver.  Records one ``plan:p2p`` WireReport."""
     _check_kind(plan, "p2p")
     _check_leaves(plan, [x], "tensor")
-    with capture_wire_reports() as caught:
-        out = _exec_p2p_bucket(plan.buckets[0], x, group, perm, strategy=plan.strategy,
-                               label=_label(plan), reduce_into=reduce_into)
+    b = plan.buckets[0]
+    with _plan_span(plan), capture_wire_reports() as caught:
+        with _bucket_ledger(plan, b.dtype_name, b.width):
+            out = _exec_p2p_bucket(b, x, group, perm, strategy=plan.strategy,
+                                   label=_label(plan), reduce_into=reduce_into)
     _emit(plan, caught)
     return out
 
@@ -347,14 +412,17 @@ def execute_kv_transfer(plan: CommPlan, cache, group, perm):
     _check_leaves(plan, leaves, "cache")
     out = list(leaves)
     flag = _no_flag(leaves[0])
-    with capture_wire_reports() as caught:
+    with _plan_span(plan), capture_wire_reports() as caught:
         for b in plan.buckets:
-            got, f = _exec_p2p_bucket(b, codec.concat_members(leaves, b.members), group,
-                                      perm, strategy=plan.strategy, label=_label(plan))
+            with _bucket_ledger(plan, b.dtype_name, b.width):
+                got, f = _exec_p2p_bucket(b, codec.concat_members(leaves, b.members),
+                                          group, perm, strategy=plan.strategy,
+                                          label=_label(plan))
             flag = torch.maximum(flag, f)
             for i, leaf in codec.split_members(got, b.members):
                 out[i] = leaf
-        send_raw_leaves(leaves, plan.raw_leaf_ix, out, group, perm)
+        with _bucket_ledger(plan, "raw", 0):
+            send_raw_leaves(leaves, plan.raw_leaf_ix, out, group, perm)
     _emit(plan, caught)
     return tree_unflatten(treedef, out), flag
 
@@ -395,21 +463,23 @@ def execute_wsync(plan: CommPlan, tree, group, perm, *, base=None):
     _check_leaves(plan, leaves, "weight")
     out = list(leaves)
     flag = _no_flag(leaves[0])
-    with capture_wire_reports() as caught:
+    with _plan_span(plan), capture_wire_reports() as caught:
         for b in plan.buckets:
             bucket = codec.concat_members(leaves, b.members)
             bucket_base = (None if base_leaves is None
                            else codec.concat_members(base_leaves, b.members))
-            got, f = wsync_dispatch(
-                bucket, bucket_base, group, perm, compressed=b.path == PATH_COMPRESSED,
-                width=b.width, delta_width=b.delta_width,
-                delta_lo_width=b.delta_lo_width, block=b.block, exc_frac=b.exc_frac,
-                strategy=plan.strategy, fused=b.fused, encode_fused=b.encode_fused,
-                axis_name=_label(plan))
+            with _bucket_ledger(plan, b.dtype_name, b.width):
+                got, f = wsync_dispatch(
+                    bucket, bucket_base, group, perm,
+                    compressed=b.path == PATH_COMPRESSED, width=b.width,
+                    delta_width=b.delta_width, delta_lo_width=b.delta_lo_width,
+                    block=b.block, exc_frac=b.exc_frac, strategy=plan.strategy,
+                    fused=b.fused, encode_fused=b.encode_fused, axis_name=_label(plan))
             flag = torch.maximum(flag, f)
             for i, leaf in codec.split_members(got, b.members):
                 out[i] = leaf
-        send_raw_leaves(leaves, plan.raw_leaf_ix, out, group, perm)
+        with _bucket_ledger(plan, "raw", 0):
+            send_raw_leaves(leaves, plan.raw_leaf_ix, out, group, perm)
     _emit(plan, caught)
     return tree_unflatten(treedef, out), flag
 

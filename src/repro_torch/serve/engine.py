@@ -18,6 +18,13 @@ the weight-sync wire (``sync/engine.py``).  The reference's semantics are
 kept where they look odd: one engine-wide ``pos = max(slot pos)`` per decode step, prompts
 left-padded with zeros to a multiple of ``prefill_chunk``, and the splice
 of an admitted cache on the stacked dimension 1.  Sampling is greedy.
+
+Observability (``obs``): the ``serve:admit``, ``serve:prefill``,
+``serve:kv_ship`` and ``serve:decode_step`` spans, the queue, slot and
+token metrics, ingest rejects and KV-ship retries, and each shipment's live
+wire ratio against its plan's in the drift detector.  A span reads the
+host clock: an admission's span ends when its host work does, and the
+decode step's when the sampled tokens reach the host.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.integrity import WireIntegrityError
 from repro_torch.models import transformer
 from repro_torch.models.config import ArchConfig
@@ -126,12 +134,14 @@ class ServeEngine:
         from repro_torch.sync.engine import apply_update, verify_update
 
         if update.checksum is not None and not verify_update(update):
+            obs.metric("serve_ingest_rejects_total").inc(reason="checksum")
             raise WireIntegrityError(
                 f"update v{update.version} failed its payload checksum; "
                 f"re-send it (escalate delta -> full -> raw)")
         if update.base_version is not None:
             if (update.base_version != self.weight_version
                     or update.epoch != self.weight_epoch):
+                obs.metric("serve_ingest_rejects_total").inc(reason="fence")
                 raise ValueError(
                     f"delta update v{update.version} assumes base "
                     f"v{update.base_version}@e{update.epoch} but this engine "
@@ -157,6 +167,7 @@ class ServeEngine:
     def submit(self, req: Request):
         req.out = []
         self.queue.append(req)
+        obs.metric("serve_queue_depth").set(len(self.queue))
 
     @staticmethod
     def _splice_impl(batched_cache: dict, one_cache: dict, slot: int) -> dict:
@@ -179,30 +190,39 @@ class ServeEngine:
         return batched_cache
 
     def _admit(self):
+        admitted = 0
         for s in range(self.scfg.batch_slots):
             if self.slots[s] is not None or not self.queue:
                 continue
             req = self.queue.pop(0)
-            pad = -len(req.prompt) % self.scfg.prefill_chunk
-            toks = np.concatenate([np.zeros(pad, np.int32), req.prompt])
-            one_cache = transformer.init_cache(self.cfg, 1, self.scfg.max_len,
-                                               self.device)
-            logits, one_cache = transformer.prefill(
-                self.model, torch.from_numpy(toks[None].astype(np.int64)).to(self.device),
-                one_cache)
-            if self.scfg.pd_disaggregated:
-                one_cache = self._ship_kv(one_cache)
-            nxt = sample(logits[:, -1], self.scfg.temperature)
-            self._splice_impl(self.cache, one_cache, s)
-            self.tokens[s, 0] = nxt[0]
-            req.out.append(int(nxt[0]))
-            if req.max_new <= 1:  # the prefill's token was the whole budget
-                req.done = True
-                self.finished.append(req)
-                continue
-            self.slots[s] = req
-            self.pos[s] = len(toks)
-            self.budget[s] = req.max_new - 1  # 1st token from prefill
+            admitted += 1
+            with obs.span("serve:admit", rid=req.rid, slot=s):
+                pad = -len(req.prompt) % self.scfg.prefill_chunk
+                toks = np.concatenate([np.zeros(pad, np.int32), req.prompt])
+                one_cache = transformer.init_cache(self.cfg, 1, self.scfg.max_len,
+                                                   self.device)
+                with obs.span("serve:prefill", tokens=len(toks)):
+                    logits, one_cache = transformer.prefill(
+                        self.model,
+                        torch.from_numpy(toks[None].astype(np.int64)).to(self.device),
+                        one_cache)
+                if self.scfg.pd_disaggregated:
+                    one_cache = self._ship_kv(one_cache)
+                nxt = sample(logits[:, -1], self.scfg.temperature)
+                self._splice_impl(self.cache, one_cache, s)
+                self.tokens[s, 0] = nxt[0]
+                req.out.append(int(nxt[0]))
+                if req.max_new <= 1:  # the prefill's token was the whole budget
+                    req.done = True
+                    self.finished.append(req)
+                    continue
+                self.slots[s] = req
+                self.pos[s] = len(toks)
+                self.budget[s] = req.max_new - 1  # 1st token from prefill
+        if admitted:
+            obs.metric("serve_admitted_total").inc(admitted)
+        obs.metric("serve_queue_depth").set(len(self.queue))
+        obs.metric("serve_active_slots").set(sum(r is not None for r in self.slots))
 
     def _ship_kv(self, one_cache: dict) -> dict:
         """Cross the prefill -> decode boundary: pack the prefilled cache with
@@ -214,23 +234,48 @@ class ServeEngine:
         on a mismatch the shipment is re-packed from the prefill cache that
         is still held, at most ``_kv_max_tries`` times.  ``kv_fault_injector``
         (None outside tests) interposes on the wire between pack and
-        unpack."""
+        unpack.  Each retry counts in ``serve_kv_retries_total``."""
         from repro_torch.serve.kv_transfer import ship_cache, unpack_cache
 
-        last_err = None
-        for _ in range(max(self._kv_max_tries, 1)):
-            wire, _ = ship_cache(one_cache, self.kv_compressor,
-                                 policy=self.kv_policy,
-                                 plan_cache=self.kv_plan_cache)
-            if self.kv_fault_injector is not None:
-                wire = self.kv_fault_injector(wire)
-            try:
-                return unpack_cache(wire, self.kv_compressor)
-            except WireIntegrityError as e:
-                last_err = e
-        raise WireIntegrityError(
-            f"KV shipment failed integrity {self._kv_max_tries} times"
-        ) from last_err
+        with obs.span("serve:kv_ship"):
+            last_err = None
+            for _ in range(max(self._kv_max_tries, 1)):
+                wire, plan = ship_cache(one_cache, self.kv_compressor,
+                                        policy=self.kv_policy,
+                                        plan_cache=self.kv_plan_cache)
+                if self.kv_fault_injector is not None:
+                    wire = self.kv_fault_injector(wire)
+                try:
+                    out = unpack_cache(wire, self.kv_compressor)
+                except WireIntegrityError as e:
+                    last_err = e
+                    obs.metric("serve_kv_retries_total").inc()
+                    continue
+                self._observe_kv_drift(wire, plan)
+                return out
+            raise WireIntegrityError(
+                f"KV shipment failed integrity {self._kv_max_tries} times"
+            ) from last_err
+
+    @staticmethod
+    def _observe_kv_drift(wire: dict, plan) -> None:
+        """Feed one KV shipment's live wire ratio into the drift detector
+        against its plan's compile-time prediction.  The packed codec's
+        wire is sized from shapes (stationary traffic observes live ==
+        predicted); the rANS codec's ``used_bytes`` is the data-dependent
+        term a KV distribution shift moves."""
+        if not obs.enabled() or plan is None:
+            return
+        from repro_torch.obs import drift as drift_lib
+
+        live_wire = live_raw = 0
+        for m in wire.get("messages", ()):
+            if hasattr(m, "wire_bytes"):
+                live_wire += m.wire_bytes()
+                live_raw += m.raw_bytes
+        if live_raw > 0 and plan.raw_bytes > 0:
+            drift_lib.observe((plan.key, "host"), plan.kind, plan.ratio,
+                              live_wire / live_raw)
 
     # -- decode loop -----------------------------------------------------------
 
@@ -241,25 +286,32 @@ class ServeEngine:
             if all(s is None for s in self.slots):
                 return False
         # engine-wide cache pos = max slot pos (slot caches padded before it)
-        self.cache["pos"] = torch.tensor(int(self.pos.max()), dtype=torch.int32,
-                                         device=self.device)
-        logits, self.cache = transformer.decode_step(self.model, self.tokens,
-                                                     self.cache)
-        nxt = sample(logits[:, -1], self.scfg.temperature)
-        self.tokens = nxt[:, None]
-        host = nxt.cpu().numpy()
-        for s, req in enumerate(self.slots):
-            if req is None:
-                continue
-            t = int(host[s])
-            req.out.append(t)
-            self.pos[s] += 1
-            self.budget[s] -= 1
-            if self.budget[s] <= 0 or t == self.scfg.eos_token or \
-               self.pos[s] >= self.scfg.max_len - 1:
-                req.done = True
-                self.finished.append(req)
-                self.slots[s] = None
+        active = sum(r is not None for r in self.slots)
+        with obs.span("serve:decode_step", active=active):
+            self.cache["pos"] = torch.tensor(int(self.pos.max()), dtype=torch.int32,
+                                             device=self.device)
+            logits, self.cache = transformer.decode_step(self.model, self.tokens,
+                                                         self.cache)
+            nxt = sample(logits[:, -1], self.scfg.temperature)
+            self.tokens = nxt[:, None]
+            host = nxt.cpu().numpy()
+            produced = 0
+            for s, req in enumerate(self.slots):
+                if req is None:
+                    continue
+                t = int(host[s])
+                req.out.append(t)
+                produced += 1
+                self.pos[s] += 1
+                self.budget[s] -= 1
+                if self.budget[s] <= 0 or t == self.scfg.eos_token or \
+                   self.pos[s] >= self.scfg.max_len - 1:
+                    req.done = True
+                    self.finished.append(req)
+                    self.slots[s] = None
+        obs.metric("serve_decode_steps_total").inc()
+        obs.metric("serve_tokens_total").inc(produced)
+        obs.metric("serve_tokens_per_step").set(produced)
         self._admit()
         return True
 

@@ -20,6 +20,13 @@ The codec runs on the device of the published tensors (the encode_fused and
 pack kernels on CUDA); an update's messages are numpy arrays with the
 reference's dtypes (:func:`host_message`), so either package decodes an
 update that the other encoded.
+
+Observability (``obs``): the ``sync:publish``, ``sync:update`` and
+``sync:encode`` spans and the ``sync:memo_hit`` instant; publish, update,
+bucket-route, memo and per-replica lag metrics; each bucket's bytes in the
+per-bucket ledger under the host kind ``wsync_host``, a bounded sample of
+its payload for the width-regret analysis, and each update's live wire
+ratio against the plan's prediction in the drift detector.
 """
 from __future__ import annotations
 
@@ -30,9 +37,11 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch import kernels
+from repro_torch import kernels, obs
 from repro_torch.core import codec, integrity, packing
 from repro_torch.core.policy import CompressionPolicy
+from repro_torch.obs import drift as drift_lib
+from repro_torch.obs import regret as regret_lib
 from repro_torch.p2p.engine import host_array
 from repro_torch.sched.compile import cached_wsync_plan
 from repro_torch.sched.plan import PATH_COMPRESSED
@@ -221,7 +230,20 @@ class WeightSyncEngine:
     def publish(self, params) -> int:
         """Keep ``params`` (a tree of tensors) as the next weight version."""
         self._updates.clear()  # encoded updates are per version
-        return self.store.publish(params)
+        with obs.span("sync:publish"):
+            version = self.store.publish(params)
+        obs.metric("sync_publish_total").inc()
+        self._export_lag()  # every replica just fell one version behind
+        return version
+
+    def _export_lag(self) -> None:
+        """Per-replica version-lag gauges (latest - acked, epoch-current)."""
+        if not obs.enabled():
+            return
+        gauge = obs.metric("sync_replica_version_lag")
+        latest = self.store.version
+        for r in self.store.acked_replicas():
+            gauge.set(latest - self.store.acked_version(r), replica=str(r))
 
     def plan_for(self, params, *, broadcast: Optional[str] = None, fanout: int = 2,
                  n_receivers: int = 0):
@@ -249,13 +271,21 @@ class WeightSyncEngine:
         bucket uncompressed."""
         if force not in FORCE_MODES:
             raise ValueError(f"force must be one of {FORCE_MODES}, got {force!r}")
-        params, version = self.store.latest()
-        base_version = None if force is not None else self.store.base_for(replica)
-        key = (base_version, force)
-        update = self._updates.get(key)
-        if update is None:
+        with obs.span("sync:update", replica=str(replica)) as sp:
+            params, version = self.store.latest()
+            base_version = None if force is not None else self.store.base_for(replica)
+            sp.args["version"] = version
+            key = (base_version, force)
+            cached = self._updates.get(key)
+            if cached is not None:
+                obs.instant("sync:memo_hit", version=version, base=base_version)
+                obs.metric("sync_memo_hits_total").inc()
+                return cached
             update = self._encode_update(params, version, base_version, force)
             self._updates[key] = update
+        obs.metric("sync_updates_total").inc(mode=update.mode)
+        obs.metric("sync_update_wire_bytes_total").inc(update.wire_bytes,
+                                                       mode=update.mode)
         return update
 
     def _encode_update(self, params, version: int, base_version,
@@ -267,36 +297,53 @@ class WeightSyncEngine:
         buckets = []
         wire = 0
         used_delta = False
-        for b in plan.buckets:
-            bucket = codec.concat_members(leaves, b.members)
-            msg = None
-            if b.path == PATH_COMPRESSED and force != MODE_RAW:
-                # pad to the block grid, so the plan's bytes are this wire's
-                bucket = codec.pad_flat_bits(bucket, b.block)
-                if base_leaves is not None and b.delta_width:
-                    base_bucket = codec.pad_flat_bits(
-                        codec.concat_members(base_leaves, b.members), b.block)
-                    m = packing.encode_delta(bucket, base_bucket, width=b.delta_width,
-                                             lo_width=b.delta_lo_width, block=b.block,
-                                             exc_frac=b.exc_frac)
-                    if not m.overflow:  # else: fall through to full
-                        mode, msg = MODE_DELTA, host_message(m)
-                        used_delta = True
-                if msg is None:
-                    m = packing.encode_message(bucket, width=b.width, block=b.block,
-                                               exc_frac=b.exc_frac)
-                    if int(m.exp.overflow):
-                        # even the full wire's exceptions overflowed: ship the
-                        # bucket raw rather than corrupt it
-                        mode, msg = MODE_RAW, _raw_wire(bucket, b.dtype_name)
-                    else:
-                        mode, msg = MODE_FULL, host_message(m)
-            else:
-                mode, msg = MODE_RAW, _raw_wire(bucket, b.dtype_name)
-            wire += msg.nbytes if mode == MODE_RAW else msg.wire_bytes()
-            buckets.append((b.dtype_name, b.members, mode, msg))
-        raw_leaves = tuple((i, leaves[i].detach().cpu().numpy())
-                           for i in plan.raw_leaf_ix)
+        bucket_counter = obs.metric("sync_buckets_total")
+        with obs.span("sync:encode", version=version,
+                      base=base_version if base_version is not None else -1):
+            for b in plan.buckets:
+                bucket = codec.concat_members(leaves, b.members)
+                msg = base_bucket = None
+                if b.path == PATH_COMPRESSED and force != MODE_RAW:
+                    # pad to the block grid, so the plan's bytes are this wire's
+                    bucket = codec.pad_flat_bits(bucket, b.block)
+                    if base_leaves is not None and b.delta_width:
+                        base_bucket = codec.pad_flat_bits(
+                            codec.concat_members(base_leaves, b.members), b.block)
+                        m = packing.encode_delta(bucket, base_bucket,
+                                                 width=b.delta_width,
+                                                 lo_width=b.delta_lo_width,
+                                                 block=b.block, exc_frac=b.exc_frac)
+                        if not m.overflow:  # else: fall through to full
+                            mode, msg = MODE_DELTA, host_message(m)
+                            used_delta = True
+                    if msg is None:
+                        m = packing.encode_message(bucket, width=b.width, block=b.block,
+                                                   exc_frac=b.exc_frac)
+                        if int(m.exp.overflow):
+                            # even the full wire's exceptions overflowed: ship
+                            # the bucket raw rather than corrupt it
+                            mode, msg = MODE_RAW, _raw_wire(bucket, b.dtype_name)
+                        else:
+                            mode, msg = MODE_FULL, host_message(m)
+                else:
+                    mode, msg = MODE_RAW, _raw_wire(bucket, b.dtype_name)
+                b_wire = msg.nbytes if mode == MODE_RAW else msg.wire_bytes()
+                wire += b_wire
+                bucket_counter.inc(mode=mode)
+                if obs.enabled():
+                    # host-path ledger + recalibration sample, under its own
+                    # kind so the plan-kind exactness check stays exact
+                    w_used = {MODE_DELTA: b.delta_width, MODE_FULL: b.width}.get(mode, 0)
+                    obs.metric("bucket_wire_raw_bytes_total").inc(
+                        bucket.numel() * bucket.element_size(), kind="wsync_host",
+                        dtype=b.dtype_name, width=w_used)
+                    obs.metric("bucket_wire_bytes_total").inc(
+                        b_wire, kind="wsync_host", dtype=b.dtype_name, width=w_used)
+                    regret_lib.record_sample("wsync_host", b.dtype_name, bucket,
+                                             base=base_bucket)
+                buckets.append((b.dtype_name, b.members, mode, msg))
+            raw_leaves = tuple((i, leaves[i].detach().cpu().numpy())
+                               for i in plan.raw_leaf_ix)
         wire += sum(arr.nbytes for _, arr in raw_leaves)
         raw_total = sum(leaf.numel() * leaf.element_size() for leaf in leaves
                         if isinstance(leaf, torch.Tensor))
@@ -307,11 +354,28 @@ class WeightSyncEngine:
             buckets=tuple(buckets), raw_leaves=raw_leaves, wire_bytes=int(wire),
             raw_bytes=int(raw_total))
         update.checksum = update_checksum(update)
+        if obs.enabled() and force is None and raw_total > 0:
+            # drift: the plan predicts this send's mode mix (delta when a base
+            # is acked and the widths are calibrated, full otherwise); every
+            # wire size is fixed by shapes, so a stationary workload observes
+            # live == predicted and only the data-dependent fallbacks (delta
+            # or full overflow) diverge: the stale-calibration signal
+            comp = [bb for bb in plan.buckets if bb.compressed]
+            delta_planned = base_leaves is not None and any(bb.delta_width for bb in comp)
+            pred = ((plan.delta_wire_bytes if delta_planned else plan.wire_bytes)
+                    + sum(bb.raw_bytes for bb in plan.buckets if not bb.compressed)
+                    + sum(arr.nbytes for _, arr in raw_leaves))
+            drift_lib.observe((plan.key, "host"), plan.kind, pred / raw_total,
+                              update.ratio)
         return update
 
     def ack(self, replica, version: int, epoch: Optional[int] = None) -> bool:
         """Record a replica's applied version (epoch-fenced)."""
-        return self.store.ack(replica, version, epoch)
+        ok = self.store.ack(replica, version, epoch)
+        if ok:
+            obs.metric("sync_replica_version_lag").set(
+                self.store.version - version, replica=str(replica))
+        return ok
 
     def advance_epoch(self) -> int:
         """Fence all acks (trainer restart or restore): the next sends are

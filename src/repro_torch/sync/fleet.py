@@ -39,9 +39,10 @@ Given a seeded :class:`~repro_torch.runtime.faults.FaultPlan` everything is
 deterministic: the trace (``SyncFleet.trace``), ``stats`` and
 ``integrity_ledger()`` replay exactly, and equal the reference fleet's on
 the same publishes.  Replicas hold their weights as tensors on the fleet's
-``device``.  The reference's metrics, spans and instants (``obs``) are not
-ported yet: each is marked ``# obs seam:`` where it goes, and ``stats``
-keeps every count they would read.
+``device``.  The fleet records the reference's ``obs`` metrics, spans and
+instants (``fleet_*``, ``sync_integrity_failures_total``, the
+``fleet:round`` and ``fleet:restart`` spans, the ``fleet:forward``
+instant) beside the ``stats`` they mirror.
 """
 from __future__ import annotations
 
@@ -49,7 +50,7 @@ import dataclasses
 import tempfile
 from typing import Optional
 
-from repro_torch import kernels
+from repro_torch import kernels, obs
 from repro_torch.runtime.faults import FaultPlan, FaultyWire
 from repro_torch.sched.plan import BROADCAST_KINDS, BROADCAST_STAR
 from repro_torch.sync.engine import (MODE_FULL, MODE_RAW, SyncUpdate, WeightSyncEngine,
@@ -120,7 +121,7 @@ class Replica:
         """Process one delivered update; returns an ack or a nack."""
         if not verify_update(update):
             self.rejects["checksum"] += 1
-            # obs seam: sync_integrity_failures_total{reason=checksum}
+            obs.metric("sync_integrity_failures_total").inc(reason="checksum")
             return {"type": "nack", "replica": self.name, "reason": "checksum",
                     "version": update.version}
         if (self.version is not None and update.epoch == self.epoch
@@ -135,7 +136,7 @@ class Replica:
                     or update.epoch != self.epoch):
                 # an XOR against any other bits would be garbage: fence it
                 self.rejects["base_fence"] += 1
-                # obs seam: sync_integrity_failures_total{reason=base_fence}
+                obs.metric("sync_integrity_failures_total").inc(reason="base_fence")
                 return {"type": "nack", "replica": self.name, "reason": "base_fence",
                         "version": update.version}
             self.params = apply_update(update, base_params=self.params, device=self.device)
@@ -204,7 +205,7 @@ class SyncFleet:
         rep = Replica(name, self.device)
         self.replicas[name] = rep
         self._links[name] = _Link()
-        # obs seam: fleet_live_replicas gauge
+        self._export_live()
         return rep
 
     def join(self, name: str) -> Replica:
@@ -223,10 +224,13 @@ class SyncFleet:
         rep.alive = False
         rep.params = None  # its memory is gone
         self.trace.append((self._round, f"kill {name}"))
-        # obs seam: fleet_live_replicas gauge
+        self._export_live()
 
     def live_replicas(self) -> tuple:
         return tuple(n for n, r in self.replicas.items() if r.alive)
+
+    def _export_live(self) -> None:
+        obs.metric("fleet_live_replicas").set(len(self.live_replicas()))
 
     def _targets(self) -> tuple:
         """Replicas the protocol still owes convergence: live, not
@@ -260,23 +264,23 @@ class SyncFleet:
         from the latest checkpoint on the fleet's device (possibly rewinding
         versions) and the epoch is fenced, so every next send is full until
         the replicas ack under the new epoch."""
-        # obs seam: the fleet:restart span around this body
-        ckpt = self.ckpt()
-        if ckpt.latest_step() is None:
-            # nothing snapshotted yet: take one now (a real trainer
-            # checkpoints before it serves)
-            ckpt.save(self._publishes, self.engine.store.state_dict())
-        state_like = self.engine.store.state_dict()
-        restored, _ = ckpt.restore(state_like, device=self.device)
-        old = self.engine
-        self.engine = WeightSyncEngine(policy=old.policy, axis_name=old.axis_name,
-                                       history=self.cfg.history,
-                                       plan_cache=old.plan_cache)
-        self.engine.store = VersionedStore.from_state_dict(restored,
-                                                           history=self.cfg.history)
-        self.engine.advance_epoch()  # the fence: full sends only
-        for link in self._links.values():
-            link.reset_hard()  # the trainer's memory is gone
+        with obs.span("fleet:restart", round=self._round):
+            ckpt = self.ckpt()
+            if ckpt.latest_step() is None:
+                # nothing snapshotted yet: take one now (a real trainer
+                # checkpoints before it serves)
+                ckpt.save(self._publishes, self.engine.store.state_dict())
+            state_like = self.engine.store.state_dict()
+            restored, _ = ckpt.restore(state_like, device=self.device)
+            old = self.engine
+            self.engine = WeightSyncEngine(policy=old.policy, axis_name=old.axis_name,
+                                           history=self.cfg.history,
+                                           plan_cache=old.plan_cache)
+            self.engine.store = VersionedStore.from_state_dict(restored,
+                                                               history=self.cfg.history)
+            self.engine.advance_epoch()  # the fence: full sends only
+            for link in self._links.values():
+                link.reset_hard()  # the trainer's memory is gone
         self.stats["trainer_restarts"] += 1
         self.trace.append((self._round, f"trainer_restart v{self.engine.store.version}"
                            f"@e{self.engine.store.epoch}"))
@@ -290,19 +294,20 @@ class SyncFleet:
         apply and answer, and sends left unanswered become timeouts.  Never
         waits on any one replica."""
         self._round += 1
-        # obs seam: the fleet:round span around this body; fleet_rounds_total
-        if self.fault_plan is not None:
-            for ev in self.fault_plan.events_for_round(self._round):
-                self._apply_event(ev)
-        self.wire.advance_round()
-        sent = self._send_updates()
-        self._deliver_to_replicas()
-        responded = self._drain_trainer()
-        for name in sent - responded:
-            self.stats["timeouts"] += 1
-            # a lost message is not a corrupt one: retry on the same rung,
-            # later
-            self._record_failure(name, escalate=False, reason="timeout")
+        with obs.span("fleet:round", round=self._round):
+            obs.metric("fleet_rounds_total").inc()
+            if self.fault_plan is not None:
+                for ev in self.fault_plan.events_for_round(self._round):
+                    self._apply_event(ev)
+            self.wire.advance_round()
+            sent = self._send_updates()
+            self._deliver_to_replicas()
+            responded = self._drain_trainer()
+            for name in sent - responded:
+                self.stats["timeouts"] += 1
+                # a lost message is not a corrupt one: retry on the same
+                # rung, later
+                self._record_failure(name, escalate=False, reason="timeout")
         return {"round": self._round, "sent": len(sent), "responded": len(responded)}
 
     def _apply_event(self, ev) -> None:
@@ -384,8 +389,9 @@ class SyncFleet:
         hop-1 :class:`RoutedUpdate` when ``name`` must forward a subtree."""
         payload = update if not route else RoutedUpdate(update, tuple(route), hop=1)
         self.wire.send(name, payload)
-        self.stats["trainer_egress_bytes"] += int(update.wire_bytes)
-        # obs seam: fleet_trainer_egress_bytes_total
+        w = int(update.wire_bytes)
+        self.stats["trainer_egress_bytes"] += w
+        obs.metric("fleet_trainer_egress_bytes_total").inc(w)
 
     def _deliver_to_replicas(self) -> None:
         # delivery is multi-hop: a verified interior wire re-enters the
@@ -414,7 +420,7 @@ class SyncFleet:
                         self.stats["corrupt_seen"] += 1
                     if hop > self.stats["max_hop_depth"]:
                         self.stats["max_hop_depth"] = hop
-                        # obs seam: fleet_hop_depth gauge
+                        obs.metric("fleet_hop_depth").set(hop)
                     resp = rep.receive(update)
                     self.wire.send(TRAINER, resp)
                     if route and not (resp["type"] == "nack" and resp["reason"] == "checksum"):
@@ -430,8 +436,9 @@ class SyncFleet:
             self.wire.send(child, RoutedUpdate(update, tuple(subroute), hop + 1))
             self.stats["forwards"] += 1
             self.stats["forward_bytes"] += w
-            # obs seam: fleet_forwards_total, fleet_forwarded_bytes_total and
-            # the fleet:forward instant (src name, dst child, hop + 1)
+            obs.metric("fleet_forwards_total").inc()
+            obs.metric("fleet_forwarded_bytes_total").inc(w)
+            obs.instant("fleet:forward", src=name, dst=child, hop=hop + 1)
 
     def _orphan_subtree(self, at: str, route) -> None:
         """Re-parent every receiver below a dead forwarder: direct full sends
@@ -440,7 +447,7 @@ class SyncFleet:
             if child not in self._orphans:
                 self._orphans.add(child)
                 self.stats["reparents"] += 1
-                # obs seam: fleet_reparents_total
+                obs.metric("fleet_reparents_total").inc()
                 self.trace.append((self._round, f"reparent {child} (via dead {at})"))
             self._orphan_subtree(at, subroute)
 
@@ -474,17 +481,18 @@ class SyncFleet:
         self.stats["retries"] += 1
         self.stats["max_link_failures"] = max(self.stats["max_link_failures"],
                                               link.failures)
-        # obs seam: fleet_retries_total
+        obs.metric("fleet_retries_total").inc()
         if escalate and link.escalation < 2:
             link.escalation += 1
             self.stats["escalations"] += 1
-            # obs seam: fleet_escalations_total{to=...}
+            obs.metric("fleet_escalations_total").inc(
+                to=(MODE_FULL, MODE_RAW)[link.escalation - 1])
             self.trace.append((self._round, f"escalate {name} -> "
                                f"{(MODE_FULL, MODE_RAW)[link.escalation - 1]} ({reason})"))
         if link.failures > self.cfg.max_retries:
             link.quarantined = True
             self.stats["quarantines"] += 1
-            # obs seam: fleet_quarantines_total
+            obs.metric("fleet_quarantines_total").inc()
             self.trace.append((self._round, f"quarantine {name}"))
             return
         backoff = min(int(self.cfg.backoff_base
@@ -511,8 +519,9 @@ class SyncFleet:
                 raise RuntimeError(f"fleet failed to converge within {max_rounds} rounds "
                                    f"(round {self._round}, stats {self.stats})")
             self.round()
-        # obs seam: fleet_convergence_rounds gauge
-        return self._round - start
+        rounds = self._round - start
+        obs.metric("fleet_convergence_rounds").set(rounds)
+        return rounds
 
     def integrity_ledger(self) -> dict:
         """The corruption accounting the chaos checks hold, per delivery, so

@@ -10,9 +10,10 @@ hit).
 
 Losslessness: every compressed wire carries an overflow flag.  With
 ``guard_overflow`` a step whose flag fires keeps the old parameters and
-optimizer state and does not advance the step counter; the launcher then
-reruns it uncompressed (``launch/train.py``).  :func:`make_publish_hook`
-hands the weights to the weight-sync engine after a step.
+optimizer state and does not advance the step counter; the launcher's
+``runtime/fault_tolerance.StepRunner`` then reruns it uncompressed.
+:func:`make_publish_hook` hands the weights to the weight-sync engine after
+a step.
 """
 from __future__ import annotations
 
@@ -43,6 +44,21 @@ class TrainState:
     opt: dict  # this rank's ZeRO-1 shard state (zero1_init_local)
     meta: zero1_lib.BucketMeta
     step: int = 0
+
+    def tree(self) -> dict:
+        """The state as the reference's train-state tree ``{"params",
+        "opt", "step"}`` (what a checkpoint saves); the parameters share
+        the model's storage."""
+        return {"params": self.model.tree(), "opt": self.opt,
+                "step": torch.tensor(self.step, dtype=torch.int32)}
+
+    def from_tree(self, tree: dict) -> "TrainState":
+        """A new state holding ``tree`` (a restored :meth:`tree`), with this
+        state's config and bucket layout."""
+        model = transformer.Transformer(self.model.cfg,
+                                        dict(transformer.tree_paths(tree["params"])))
+        return TrainState(model=model, opt=tree["opt"], meta=self.meta,
+                          step=int(tree["step"]))
 
 
 def chunked_ce_loss(head: torch.Tensor, hidden: torch.Tensor,

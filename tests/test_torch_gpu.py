@@ -728,3 +728,80 @@ def test_checkpoint_restore_defaults_to_the_card(cuda, tmp_path):
     got, step = mgr.restore(state)
     assert step == 1 and all(t.is_cuda for t in tree_leaves(got))
     assert bits_equal(got["params"], state["params"]) and int(got["version"]) == 3
+
+
+# ---------------------------------------------------------------------------
+# observability on the card: no launch and no bit changes with it
+# ---------------------------------------------------------------------------
+
+def test_kernel_launches_are_the_same_with_obs_on_and_off(cuda):
+    """A psum plan, a weight-sync full and delta update and a p2p encode and
+    decode of each codec on the card: the same launches of every kernel and
+    the same bits with obs on and off."""
+    from repro_torch import obs, sched
+    from repro_torch.core.policy import CompressionPolicy
+    from repro_torch.launch.train import single_process_group
+    from repro_torch.sched.cache import PlanCache
+    from repro_torch.sync import WeightSyncEngine, apply_update
+    from torch_port_util import np_of
+
+    x = to_torch((np.arange(1 << 16) % 8192 + 0x3800).astype(np.uint16), "bfloat16").to(cuda)
+
+    def run():
+        kernels.clear_launch_counts()
+        with single_process_group(cuda) as g:
+            res, flag = sched.psum_with_plan({"x": x}, g, policy=CompressionPolicy(min_bytes=0),
+                                             cache=PlanCache())
+        eng = WeightSyncEngine(policy=CompressionPolicy(min_bytes=0))
+        eng.publish({"w": x})
+        u1 = eng.update_for("r")
+        held = apply_update(u1, device=cuda)
+        eng.ack("r", u1.version)
+        eng.publish({"w": x * 1.0078125})
+        held2 = apply_update(eng.update_for("r"), base_params=held, device=cuda)
+        outs = [res["x"], held2["w"]]
+        for codec_name in ("packed", "rans"):
+            comp = Compressor(codec_name=codec_name, device=cuda)
+            outs.append(comp.decode(comp.encode(x)))
+        torch.cuda.synchronize()
+        return kernels.launch_counts(), int(flag), [np_of(t).tobytes() for t in outs]
+
+    obs.set_enabled(True)
+    obs.reset()
+    try:
+        on = run()
+        assert obs.spans() and obs.snapshot()["counters"]
+        obs.reset()
+        obs.set_enabled(False)
+        off = run()
+        assert obs.spans() == () and obs.snapshot()["counters"] == {}
+    finally:
+        obs.set_enabled(None)
+        obs.reset()
+    assert off == on and sum(on[0].values()) > 0 and on[1] == 0
+
+
+def test_regret_sample_of_a_cuda_bucket_is_strided_on_the_card(cuda):
+    """The sample store strides a CUDA bucket on the card and copies at most
+    SAMPLE_MAX_ELEMS values to the host: every stride-th value, bit for bit,
+    its base paired with it."""
+    from repro_torch import obs
+    from repro_torch.obs import regret
+    from repro_torch.tree_util import bits_equal
+
+    n = regret.SAMPLE_MAX_ELEMS * 5 + 123
+    x = to_torch(np.arange(n).astype(np.uint16), "bfloat16").to(cuda)
+    base = x.flip(0)
+    obs.set_enabled(True)
+    obs.reset()
+    try:
+        regret.record_sample("wsync_host", "bfloat16", x, base=base)
+        (s,) = regret.samples()[("wsync_host", "bfloat16")]
+    finally:
+        obs.set_enabled(None)
+        obs.reset()
+    stride = -(-n // regret.SAMPLE_MAX_ELEMS)
+    assert s.x.device.type == s.base.device.type == "cpu" and s.elems == n
+    assert s.x.numel() == s.base.numel() <= regret.SAMPLE_MAX_ELEMS
+    assert bits_equal(s.x, x[::stride].contiguous().cpu())
+    assert bits_equal(s.base, base[::stride].contiguous().cpu())

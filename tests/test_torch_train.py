@@ -22,6 +22,7 @@ Tolerances, with their reasons:
   (measured: 2e-3).
 """
 import ast
+import re
 import dataclasses
 import os
 import subprocess
@@ -292,7 +293,8 @@ def test_launch_cli_trains_on_the_cpu(capsys):
     launch_train.main(["--arch", "smollm-135m", "--smoke", "--steps", "2",
                        "--batch", "2", "--seq", "16", "--device", "cpu"])
     out = capsys.readouterr().out
-    assert "step 1 loss" in out and "retries 0 | compressed=True" in out
+    # the StepRunner's log line pads the step to six columns, as the reference's
+    assert re.search(r"step +1 loss", out) and "retries 0 | compressed=True" in out
 
 
 def _imports(path: Path) -> set:

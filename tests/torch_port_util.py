@@ -583,3 +583,25 @@ def broadcast_rank(rank: int, world: int, out: str) -> None:
     except ValueError:
         res["raised_raw_ppermute"] = 1
     np.savez(out, **res)
+
+
+def obs_psum_rank(rank: int, world: int, out: str) -> None:
+    """One ``psum_with_plan`` of this rank's ``_psum_tree`` in a fresh
+    ``obs`` window: the registry's counters (JSON), the span names, and
+    whether the per-bucket ledger equals the window's consolidated
+    reports (``check_ledger_exactness``)."""
+    import json
+
+    from repro_torch import obs, sched
+    from repro_torch.core.policy import CompressionPolicy, capture_wire_reports
+    from repro_torch.obs import regret
+    from repro_torch.sched.cache import PlanCache
+
+    obs.set_enabled(True)
+    with capture_wire_reports() as reports:
+        obs.reset()
+        sched.psum_with_plan(_psum_tree(rank), None, policy=CompressionPolicy(min_bytes=0),
+                             cache=PlanCache())
+    np.savez(out, counters=np.array(json.dumps(obs.snapshot()["counters"])),
+             spans=np.array(json.dumps([s.name for s in obs.spans()])),
+             exact=int(regret.check_ledger_exactness(reports)["ok"]))
