@@ -84,6 +84,8 @@ result line each:
             (save and restore ms).  Then
             where a compressed step's time goes: forward+backward and each
             wire phase beside its raw twin (host clock, synchronised).
+            Forward+backward is timed with each layer rematerialised (the
+            launcher's TrainConfig.remat default) and without.
    psum   - on the same group, the gradient pytree of one forward+backward
             of the trained model at batch 8 x 512 through psum_with_plan
             with the default policy (its one bf16 bucket on the two-shot,
@@ -108,6 +110,24 @@ result line each:
             field at the plan's widths.  Prints each policy's ms (host
             clock to a device sync, median of 5), the wire ratio, and the
             card's name and power limit.
+4b. fsdp  - smollm_135m at full width, compressed FSDP (partition="fsdp", 2
+            microbatches, remat) on a new single-rank NCCL group, batch 8 x
+            seq 512: 3 compressed steps, then 3 of the raw twin from the same
+            weights, through the launcher's StepRunner.  The 7 stacked
+            projections and the embedding are sharded (fsdp_min_bytes 1
+            MiB; the norms stay replicated), each gathered on a cached
+            fsdp_gather plan: 4 signatures ((576, 576), (192, 576), (1536,
+            576), (49152, 576), the sharded dim moved last), so each run's
+            plan cache holds 4 misses and every other gather hits.  A step
+            (fsdp_work): per microbatch 7 x 30 + 1 = 211 forward gathers,
+            210 more in the rematerialised backward and 211 reduce-scatters;
+            launches (fsdp_launches) an all-gather encode_fused 1 and unpack
+            2, a reduce-scatter encode_fused 1, decode_reduce 1 and unpack 1;
+            the raw twin none.  Losses and the final train state (shards and
+            moments) identical.  Prints the step ms of both twins beside the
+            main phase's ZeRO-1 steps, the AG and RS wire ratios, and the
+            all-gather decodes' ms a step (each signature's decode, median
+            of 5, times its gathers) and its share of the compressed step.
 5. sync   - RL weight sync of smollm_135m at full width and depth
             (``launch/rl_weight_sync.run``): the ZeRO-1 trainer of the main
             phase (compressed, lr 1e-5, warm-up 3), 3 warm-up steps,
@@ -202,7 +222,8 @@ result line each:
             gives it: encode_fused, decode_reduce and plane_split at the
             AG bucket, pack and unpack at one KV leaf (the row's ms), and
             encode_fused, decode_reduce, pack and unpack also at every
-            shape any run of phases 3-8 launched them at (``shapes``): each
+            shape any run of phases 3-8 (fsdp included) launched them at
+            (``shapes``): each
             run's first input of each shape, which recorded_inputs keeps,
             is held against the plain version, and every launch a run
             tallied must be at a recorded shape; each shape is timed once,
@@ -225,6 +246,7 @@ The last line is ``{"ok": true, "device": {...}}``; the line before it the
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import importlib
 import json
 import os
@@ -1171,7 +1193,8 @@ def _wall_ms(fn, torch, runs=5):
 
 
 def phase_breakdown(run, group, dev, torch):
-    """Where a compressed step's time goes: forward+backward, then each
+    """Where a compressed step's time goes: forward+backward (with each layer
+    rematerialised, as the launcher's steps run, and without), then each
     wire phase of the ZeRO-1 step, compressed beside its raw twin, on the
     main path's bucket; the all-gather split into encode and decode (the
     unpack kernel, then plain PyTorch for the zero-escape decode and merge)."""
@@ -1192,13 +1215,16 @@ def phase_breakdown(run, group, dev, torch):
     w_ag = min(pol.width_for("weight") + prof.ag_extra_bits, 8)
     kw = {"block": prof.block, "exc_frac": prof.exc_frac}
 
-    def fwd_bwd():
+    def fwd_bwd(cfg=tcfg):
         for p in leaves:
             p.grad = None
-        step_lib.loss_fn(state.model, batch, tcfg).backward()
+        step_lib.loss_fn(state.model, batch, cfg).backward()
 
     with launch_train.deterministic(), capture_wire_reports():
-        ms = {"forward+backward": _wall_ms(fwd_bwd, torch)}
+        # the launcher's steps remat every layer (TrainConfig.remat, the default)
+        ms = {"forward+backward without remat": _wall_ms(
+            lambda: fwd_bwd(dataclasses.replace(tcfg, remat=False)), torch),
+              "forward+backward": _wall_ms(fwd_bwd, torch)}
         (gb,) = zero1.flatten_buckets(state.meta, [p.grad for p in leaves])
         for p in leaves:
             p.grad = None
@@ -1220,6 +1246,128 @@ def phase_breakdown(run, group, dev, torch):
     print("  breakdown, ms (median of 5): "
           + ", ".join(f"{k} {v:.2f}" for k, v in ms.items()))
     return ms
+
+
+FSDP_MICRO = 2  # microbatches of the fsdp phase's steps
+
+
+def fsdp_work(state, tcfg) -> tuple:
+    """``(all-gathers, reduce-scatters, {signature: all-gathers}, {signature:
+    a shard})`` of one FSDP step, from the state's sharded dims: a forward
+    gathers each sharded top-level leaf once and each sharded block leaf
+    once a layer, the rematerialised layers gather their leaves again in
+    the backward, each forward gather's backward is one reduce-scatter, and
+    all of it happens once a microbatch.  A signature is the gathered
+    shard's shape with its sharded dim moved last (the ``fsdp_gather`` plan
+    key's shape)."""
+    from repro_torch.models import transformer
+
+    repeats = state.model.cfg.repeats
+    per_sig, shards, rs = {}, {}, 0
+    for path, d in transformer.tree_paths(state.fsdp_dims):
+        if d < 0:
+            continue
+        leaf = state.model.params[path].detach()
+        block = path.startswith("blocks/")
+        shard = leaf[0].movedim(d - 1, -1) if block else leaf.movedim(d, -1)
+        n_fwd = repeats if block else 1
+        sig = tuple(shard.shape)
+        per_sig[sig] = per_sig.get(sig, 0) + tcfg.microbatches * n_fwd * (
+            2 if block and tcfg.remat else 1)
+        shards.setdefault(sig, shard)
+        rs += tcfg.microbatches * n_fwd
+    return sum(per_sig.values()), rs, per_sig, shards
+
+
+def fsdp_launches(n_ag: int, n_rs: int, n_dev: int) -> dict:
+    """Kernel launches of ``n_ag`` compressed FSDP all-gathers and ``n_rs``
+    reduce-scatters over n_dev ranks: an all-gather encodes its shard once
+    (encode_fused) and decodes the gathered payload and lo planes (unpack
+    twice); a reduce-scatter encodes its n_dev rows once, and its fused
+    receive runs decode_reduce and an exception-patch unpack a chunk."""
+    return {"encode_fused": n_ag + n_rs, "decode_reduce": n_rs * n_dev,
+            "unpack": 2 * n_ag + n_rs * n_dev}
+
+
+def phase_fsdp(main, dev, torch):
+    """Compressed FSDP training of smollm_135m at full width on a one-rank
+    NCCL group (``partition="fsdp"``, 2 microbatches, remat), batch 8 x seq
+    512: 3 compressed steps, then 3 of the raw twin from the same weights,
+    through the launcher's StepRunner.  Losses and the final train state
+    (shards and optimizer moments) must be identical, the launches and the
+    plan caches' misses (one a signature) and hits those of
+    :func:`fsdp_work`; the all-gather decodes' share of a step is timed at
+    each signature (unpack x 2 and the plain zero-escape merge)."""
+    from repro_torch import kernels
+    from repro_torch.core import compressed_collectives as cc
+    from repro_torch.launch import train as launch_train
+    from repro_torch.tree_util import bits_equal
+
+    runs, t0 = {}, time.perf_counter()
+    with launch_train.single_process_group(dev) as group:
+        n_dp = torch.distributed.get_world_size(group)
+        for compress in (True, False):
+            with recorded_inputs(torch) as inputs:
+                kernels.clear_launch_counts()
+                runs[compress] = launch_train.train(
+                    ARCH, steps=STEPS, batch=BATCH, seq=SEQ, compress=compress,
+                    device=dev, seed=SEED, group=group, partition="fsdp",
+                    microbatches=FSDP_MICRO)
+                runs[compress].launches = kernels.launch_counts()
+            runs[compress].recorded = (inputs, shape_tallies())
+        comp, raw = runs[True], runs[False]
+        if comp.losses != raw.losses or any(s != s or abs(s) == float("inf")
+                                            for s in comp.losses):
+            raise AssertionError(f"fsdp loss curves {comp.losses} vs {raw.losses}")
+        if not bits_equal(comp.state.tree(), raw.state.tree()):
+            raise AssertionError("fsdp final train states differ between the twins")
+        n_ag, n_rs, per_sig, shards = fsdp_work(comp.state, comp.tcfg)
+        expect = dict.fromkeys(kernels.KERNELS, 0)
+        expect.update({k: STEPS * v for k, v in fsdp_launches(n_ag, n_rs, n_dp).items()})
+        if comp.launches != expect or any(raw.launches.values()):
+            raise AssertionError(f"fsdp launch counts {comp.launches} (raw twin "
+                                 f"{raw.launches}), expected {expect}")
+        want = (len(per_sig), STEPS * n_ag - len(per_sig))
+        for run in (comp, raw):
+            st = run.plan_cache.stats
+            if (st.misses, st.hits) != want or run.retries:
+                raise AssertionError(f"fsdp plan cache {run.plan_cache.cache_info()}, "
+                                     f"expected (misses, hits) {want}, retries {run.retries}")
+        names = [r.name for r in comp.wire_reports]
+        if names.count("all_gather") != STEPS * n_ag \
+                or names.count("reduce_scatter") != STEPS * n_rs or raw.wire_reports:
+            raise AssertionError(f"fsdp wire reports: {len(names)}")
+        ratio = {n: sum(r.wire_bytes for r in comp.wire_reports if r.name == n)
+                 / sum(r.raw_bytes for r in comp.wire_reports if r.name == n)
+                 for n in ("all_gather", "reduce_scatter")}
+        # the all-gather decodes of one step: each signature's wire (of a
+        # trained shard) decoded, median of 5, times its all-gathers a step
+        pol = comp.tcfg.policy
+        w_ag, block = pol.width_for("weight"), pol.profile.block
+        decode_ms = 0.0
+        for sig, shard in shards.items():
+            x = cc._pad_flat(shard.reshape(-1), block)
+            wire = cc._encode_chunks(x[None], width=w_ag, block=block,
+                                     exc_frac=pol.profile.exc_frac)
+            decode_ms += per_sig[sig] * _wall_ms(lambda: cc._decode_chunks(
+                wire, dtype=x.dtype, n=x.shape[0], width=w_ag, block=block), torch)
+    step_ms = sorted(comp.step_ms[1:])[len(comp.step_ms[1:]) // 2]
+    print(f"fsdp: {ARCH} full width, FSDP n_dp={n_dp}, batch {BATCH} x seq {SEQ}, "
+          f"{FSDP_MICRO} microbatches, remat {comp.tcfg.remat}; a step: {n_ag} all-gathers, "
+          f"{n_rs} reduce-scatters; {len(per_sig)} gather signatures {per_sig}")
+    print(f"  compressed losses {comp.losses} step_ms {[round(t, 1) for t in comp.step_ms]}")
+    print(f"  raw twin   losses {raw.losses} step_ms {[round(t, 1) for t in raw.step_ms]}")
+    print(f"  ZeRO-1 (main phase) step_ms {[round(t, 1) for t in main.step_ms]}")
+    print(f"  fsdp_gather plan cache (misses, hits): compressed "
+          f"{(comp.plan_cache.stats.misses, comp.plan_cache.stats.hits)}, raw twin "
+          f"{(raw.plan_cache.stats.misses, raw.plan_cache.stats.hits)}")
+    print(f"  wire ratio AG {ratio['all_gather']:.4f} RS {ratio['reduce_scatter']:.4f}; "
+          f"launches {comp.launches}; AG decodes {decode_ms:.1f} ms a step = "
+          f"{decode_ms / step_ms:.3f} of the compressed step ({step_ms:.1f} ms); losses "
+          f"and final train states identical; the phase {time.perf_counter() - t0:.1f} s; "
+          f"card {run_card()}")
+    return {"launches": comp.launches, "recorded": comp.recorded, "step_ms": comp.step_ms,
+            "raw_step_ms": raw.step_ms, "ratio": ratio, "decode_ms": decode_ms}
 
 
 def two_shot_launches(fused_encode: bool, fused_decode: bool, n_dev: int) -> dict:
@@ -2108,7 +2256,8 @@ def _time_once(fn, torch):
 PEAK_OPS = 67e12
 
 
-def phase_times(comp, serve, sync, psum, p2p, fleet, obs_run, dev, torch, np, worst, bw):
+def phase_times(comp, fsdp, serve, sync, psum, p2p, fleet, obs_run, dev, torch, np, worst,
+                bw):
     """Each kernel and its plain version at the shapes its path gives it:
     encode_fused, decode_reduce and plane_split at the main path's AG
     bucket; pack and unpack at one KV leaf's exponent residuals at the plan's
@@ -2127,11 +2276,13 @@ def phase_times(comp, serve, sync, psum, p2p, fleet, obs_run, dev, torch, np, wo
 
     # launches of each main-path run (counts set to 0 just before each)
     runs = {"serve_pd": serve["pd_launches"], "serve_pd_rans": serve["rans_launches"],
-            "train": comp.launches, "psum": psum["launches"], "weight_sync": sync["launches"],
+            "train": comp.launches, "fsdp": fsdp["launches"], "psum": psum["launches"],
+            "weight_sync": sync["launches"],
             "p2p": p2p["launches"], "fleet": fleet["launches"], "obs": obs_run["launches"]}
     per_unit = {"serve_pd": ("pd_admission", N_REQ),
                 "serve_pd_rans": ("pd_rans_admission", N_RANS),
-                "train": ("train_step", STEPS), "psum": ("psum_phase", 1),
+                "train": ("train_step", STEPS), "fsdp": ("fsdp_step", STEPS),
+                "psum": ("psum_phase", 1),
                 "weight_sync": ("publish", sync["n_publishes"]), "p2p": ("p2p_phase", 1),
                 "fleet": ("fleet_phase", 1), "obs": ("obs_phase", 1)}
     rows = []
@@ -2161,7 +2312,8 @@ def phase_times(comp, serve, sync, psum, p2p, fleet, obs_run, dev, torch, np, wo
     # launched them at, held against the plain version on each run's first
     # input of the shape (recorded_inputs) and timed once a shape; every
     # launch a run tallied must be at a recorded shape
-    recorded = {**serve["recorded"], "train": comp.recorded, "psum": psum["recorded"],
+    recorded = {**serve["recorded"], "train": comp.recorded, "fsdp": fsdp["recorded"],
+                "psum": psum["recorded"],
                 "weight_sync": sync["recorded"], "p2p": p2p["recorded"],
                 "fleet": fleet["recorded"], "obs": obs_run["recorded"]}
 
@@ -2368,12 +2520,13 @@ def main() -> int:
     phase_check_wire(dev, torch, np)
     serve = phase_serve(dev, torch, np)
     comp, psum = phase_main(dev, torch)
+    fsdp = phase_fsdp(comp, dev, torch)
     sync = phase_sync(dev, torch)
     fleet = phase_fleet(sync, dev, torch)
     p2p = phase_p2p(serve, psum, sync, dev, torch)
     obs_run = phase_obs(comp, psum, sync, dev, torch, np)
-    rows = phase_times(comp, serve, sync, psum, p2p, fleet, obs_run, dev, torch, np, worst,
-                       card_bandwidth(name))
+    rows = phase_times(comp, fsdp, serve, sync, psum, p2p, fleet, obs_run, dev, torch, np,
+                       worst, card_bandwidth(name))
     print(f"card: {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

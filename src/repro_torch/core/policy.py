@@ -135,3 +135,24 @@ def capture_wire_reports():
         yield sink
     finally:
         stack.pop()
+
+
+def current_sinks() -> list:
+    """The calling thread's capture stack, to hand to :func:`report_into`."""
+    return _sinks()
+
+
+@contextlib.contextmanager
+def report_into(stack: list):
+    """Send the calling thread's wire reports to ``stack``, another thread's
+    capture stack (:func:`current_sinks`), while active.  The autograd
+    engine runs a CUDA graph's backward on a device thread of its own; the
+    FSDP gather's reduce-scatter and a rematerialised layer's gathers run
+    there while the thread that called ``backward`` waits, and report into
+    that thread's capture."""
+    prev = getattr(_SINK_STACKS, "stack", None)
+    _SINK_STACKS.stack = stack
+    try:
+        yield
+    finally:
+        _SINK_STACKS.stack = prev

@@ -1,16 +1,20 @@
 """Training driver (torch port of ``repro.launch.train``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm_135m \\
-        --steps 3 --batch 8 --seq 512 [--no-compress] [--smoke] [--device cpu] \\
+        --steps 3 --batch 8 --seq 512 [--partition {zero1,fsdp}] [--microbatches K] \\
+        [--no-compress] [--smoke] [--device cpu] \\
         [--ckpt-dir DIR] [--ckpt-every N] [--heartbeat FILE] [--sigterm] [--resume]
 
-Wires together: config registry -> data pipeline -> ZeRO-1 train step over
-the compressed two-shot wire (+ its compression-disabled twin) -> the
+Wires together: config registry -> data pipeline -> the train step of the
+partition over the compressed wires (ZeRO-1's two-shot, or FSDP's gathers
+and their reduce-scatters; + its compression-disabled twin) -> the
 fault-tolerant ``runtime/fault_tolerance.StepRunner``.  Each step replays
-the run's ``zero1`` plan (compiled on the first step, a plan-cache hit on
-every later one).  The runner reruns a compressed step whose overflow flag
-fires with ``CompressionPolicy.disabled()``, over the plan of that policy,
-and counts the retry; it also writes asynchronous checkpoints of the train
+the run's plans (``zero1``, or one ``fsdp_gather`` plan a leaf signature:
+compiled on first sight, a plan-cache hit every later time).  The runner
+reruns a compressed step whose overflow flag fires with
+``CompressionPolicy.disabled()``, over the plans of that policy (the FSDP
+step reports no overflow, as the reference's), and counts the retry; it
+also writes asynchronous checkpoints of the train
 state every ``--ckpt-every`` steps, a heartbeat file, counts stragglers,
 flushes a checkpoint on SIGTERM (``--sigterm``) and resumes from the newest
 good checkpoint (``--resume``).  Under ``torchrun`` the process group comes
@@ -104,17 +108,20 @@ class TrainRun:
     step_ms: list
     retries: int
     wire_reports: list
-    plan_cache: PlanCache  # the run's zero1 plans: one miss a policy, then hits
+    plan_cache: PlanCache  # the run's plans: one miss a signature and policy, then hits
     runner: StepRunner
     start_step: int = 0  # > 0 when the run resumed from a checkpoint
 
 
 def _plan_step(tcfg: step_lib.TrainConfig, group, dev, plan_cache: PlanCache):
-    """The StepRunner's step: the batch to ``dev``, then one ZeRO-1 step
-    replaying ``tcfg``'s zero1 plan from ``plan_cache``.  The train state is
-    updated in place (the overflow guard leaves it as it was)."""
+    """The StepRunner's step: the batch to ``dev``, then one step of
+    ``tcfg.partition`` replaying its plans from ``plan_cache``.  The train
+    state is updated in place (the overflow guard leaves it as it was)."""
     def step(state, batch):
         batch = {k: v.to(device=dev, dtype=torch.int64) for k, v in batch.items()}
+        if tcfg.partition == "fsdp":
+            return state, step_lib.fsdp_train_step(state, batch, tcfg, group=group,
+                                                   cache=plan_cache)
         plan = step_lib.zero1_plan(state, tcfg, group, cache=plan_cache)
         return state, step_lib.train_step(state, batch, tcfg, group=group, plan=plan)
     return step
@@ -123,19 +130,21 @@ def _plan_step(tcfg: step_lib.TrainConfig, group, dev, plan_cache: PlanCache):
 def build(arch: str, *, batch: int, seq: int, rcfg: RunnerConfig, compress: bool = True,
           smoke: bool = False, device="cuda", seed: int = 0, lr: float = 3e-4,
           warmup: int = 20, optimizer: str = "adamw", compress_min_bytes: int = 0,
-          group=None) -> tuple:
+          partition: str = "zero1", microbatches: int = 1, group=None) -> tuple:
     """``(state, tcfg, runner, plan_cache)``: the random init made from
     ``seed``, its train config, and a ``rcfg`` StepRunner over the data
-    pipeline whose step is the compressed ZeRO-1 step and whose fallback is
-    the compression-disabled one (none when the run is uncompressed); both
-    replay their zero1 plans from ``plan_cache``.  ``group`` is the
-    data-parallel process group (default: the world)."""
+    pipeline whose step is the compressed step of ``partition`` ("zero1" or
+    "fsdp", over ``microbatches`` microbatches) and whose fallback is the
+    compression-disabled one (none when the run is uncompressed); both
+    replay their plans from ``plan_cache``.  ``group`` is the data-parallel
+    process group (default: the world)."""
     dev = kernels.resolve_device(device)
     cfg = configs.get_smoke(arch) if smoke else configs.get(arch)
     policy = (CompressionPolicy(min_bytes=compress_min_bytes) if compress
               else CompressionPolicy.disabled())
     tcfg = step_lib.TrainConfig(
-        loss_chunk=min(1024, seq), policy=policy,
+        microbatches=microbatches, partition=partition, loss_chunk=min(1024, seq),
+        policy=policy,
         optim=OptimConfig(name=optimizer, lr=lr, warmup_steps=warmup))
     plan_cache = PlanCache()
     fallback = None
@@ -157,9 +166,9 @@ def build(arch: str, *, batch: int, seq: int, rcfg: RunnerConfig, compress: bool
 def train(arch: str, *, steps: int, batch: int, seq: int, compress: bool = True,
           smoke: bool = False, device="cuda", seed: int = 0, lr: float = 3e-4,
           warmup: int = 20, optimizer: str = "adamw", compress_min_bytes: int = 0,
-          group=None, rcfg: RunnerConfig = None, resume: bool = False,
-          log=None) -> TrainRun:
-    """Train ``steps`` ZeRO-1 steps through the StepRunner of :func:`build`
+          partition: str = "zero1", microbatches: int = 1, group=None,
+          rcfg: RunnerConfig = None, resume: bool = False, log=None) -> TrainRun:
+    """Train ``steps`` steps of ``partition`` through the StepRunner of :func:`build`
     (``rcfg``: its checkpoint, heartbeat and straggler settings; by default
     checkpoints go to a temporary directory that the run removes).
     ``resume`` first restores the newest good checkpoint of
@@ -171,7 +180,8 @@ def train(arch: str, *, steps: int, batch: int, seq: int, compress: bool = True,
         state, tcfg, runner, plan_cache = build(
             arch, batch=batch, seq=seq, rcfg=rcfg, compress=compress, smoke=smoke,
             device=device, seed=seed, lr=lr, warmup=warmup, optimizer=optimizer,
-            compress_min_bytes=compress_min_bytes, group=group)
+            compress_min_bytes=compress_min_bytes, partition=partition,
+            microbatches=microbatches, group=group)
         start = 0
         if resume:
             resumed, start = runner.try_resume(state, device=device)
@@ -195,6 +205,8 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--partition", default="zero1", choices=["zero1", "fsdp"])
     ap.add_argument("--optimizer", default="adamw", choices=["adamw", "adafactor"])
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--warmup", type=int, default=20)
@@ -216,10 +228,12 @@ def main(argv=None):
                     seq=args.seq, compress=not args.no_compress,
                     smoke=args.smoke, device=dev, seed=args.seed,
                     lr=args.lr, warmup=args.warmup, optimizer=args.optimizer,
-                    compress_min_bytes=args.compress_min_bytes, rcfg=rcfg,
+                    compress_min_bytes=args.compress_min_bytes,
+                    partition=args.partition, microbatches=args.microbatches, rcfg=rcfg,
                     resume=args.resume, log=print)
     print(f"final loss {run.losses[-1]:.4f} | stragglers {run.runner.stragglers} | "
-          f"retries {run.retries} | compressed={not args.no_compress}")
+          f"retries {run.retries} | compressed={not args.no_compress} | "
+          f"partition={args.partition}")
 
 
 if __name__ == "__main__":

@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import kernels
 from repro_torch.core import codec
@@ -44,6 +45,31 @@ def _tree_shapes(cfg: ArchConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         tree["lm_head"] = ((cfg.vocab, cfg.d_model), 0.02)
+    return tree
+
+
+# per leaf of one dense layer, the dims that the reference's tensor-parallel
+# layout (``repro.models.transformer.specs``) puts on its 'model' mesh axis:
+# the column dim of q/k/v and the FFN's input projections, the row dim of the
+# output projections
+_LAYER_MODEL_AXIS_DIMS = {"norm1": (), "norm2": (),
+                          "mixer": {"wq": (1,), "wk": (1,), "wv": (1,), "wo": (0,)},
+                          "ffn": {"w1": (1,), "w3": (1,), "w2": (0,)}}
+
+
+def model_axis_dims(cfg: ArchConfig) -> dict:
+    """The parameter tree of :func:`abstract_params` with, at each leaf, the
+    tuple of dims the reference gives to its 'model' axis (the embedding's
+    vocabulary rows; the blocks' dims shifted past the stacked one).  The
+    port runs no tensor parallelism, but FSDP leaves these dims alone as
+    the reference does, so both shard the same dim of every leaf."""
+    tree = {"embed": (0,), "final_norm": (),
+            "blocks": tuple({k: v if not isinstance(v, dict) else
+                             {n: tuple(d + 1 for d in ds) for n, ds in v.items()}
+                             for k, v in _LAYER_MODEL_AXIS_DIMS.items()}
+                            for _ in cfg.pattern)}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = (0,)
     return tree
 
 
@@ -104,29 +130,53 @@ class Transformer(nn.Module):
                 "ffn": {k: get(f"ffn/{k}") for k in ("w1", "w2", "w3")}}
 
     def run_layers(self, h: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
-                   cache: dict | None = None, cache_pos: int | None = None):
+                   cache: dict | None = None, cache_pos: int | None = None, *,
+                   block_param_fn=None, remat: bool = False,
+                   final_norm: torch.Tensor | None = None):
         """Every layer over hidden states ``h`` (B, S, D), then the final
-        norm.  ``cache``/``cache_pos``: the KV cache written in place (see
-        ``layers.attention``)."""
+        norm (``final_norm``: its weight, default the model's).
+        ``cache``/``cache_pos``: the KV cache written in place (see
+        ``layers.attention``).  ``block_param_fn(layer_params,
+        pattern_index)`` maps each layer's parameters (its slice of the
+        stacked leaves) before the layer runs: the FSDP step gathers them
+        there.  ``remat``: each layer, hook included, runs under
+        ``torch.utils.checkpoint``, so its backward recomputes it, gathers
+        and all, as the reference's ``jax.checkpoint`` of its layer does."""
         cfg = self.cfg
         for r in range(cfg.repeats):
             for pi, spec in enumerate(cfg.pattern):
-                p = self._layer(pi, r)
                 kv = None
                 if cache is not None:
                     c = cache["blocks"][pi]["kv"]
                     kv = {"k": c["k"][r], "v": c["v"][r]}
-                h = h + L.attention(p["mixer"], L.rms_norm(h, p["norm1"], cfg.norm_eps),
-                                    cfg, spec, cos, sin, kv, cache_pos)
-                h = h + L.swiglu(p["ffn"], L.rms_norm(h, p["norm2"], cfg.norm_eps))
-        return L.rms_norm(h, self.params["final_norm"], cfg.norm_eps)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+                def layer(h, pi=pi, r=r, spec=spec, kv=kv):
+                    p = self._layer(pi, r)
+                    if block_param_fn is not None:
+                        p = block_param_fn(p, pi)
+                    h = h + L.attention(p["mixer"], L.rms_norm(h, p["norm1"], cfg.norm_eps),
+                                        cfg, spec, cos, sin, kv, cache_pos)
+                    return h + L.swiglu(p["ffn"], L.rms_norm(h, p["norm2"], cfg.norm_eps))
+
+                # the layer draws no random numbers: no RNG state to keep
+                h = (checkpoint(layer, h, use_reentrant=False, preserve_rng_state=False)
+                     if remat else layer(h))
+        w = self.params["final_norm"] if final_norm is None else final_norm
+        return L.rms_norm(h, w, cfg.norm_eps)
+
+    def forward(self, tokens: torch.Tensor, *, top: dict | None = None,
+                block_param_fn=None, remat: bool = False) -> torch.Tensor:
+        """Hidden states before the head.  ``top``: top-level leaves
+        (``embed``, ``final_norm``) to use in place of the model's, as the
+        FSDP step passes them gathered; ``block_param_fn`` and ``remat`` as
+        in :meth:`run_layers`."""
         cfg = self.cfg
-        h = torch.nn.functional.embedding(tokens, self.params["embed"])
+        top = {} if top is None else top
+        h = torch.nn.functional.embedding(tokens, top.get("embed", self.params["embed"]))
         cos, sin = L.rope_table(torch.arange(tokens.shape[1], device=tokens.device),
                                 cfg.hd, cfg.rope_theta)
-        return self.run_layers(h, cos, sin)
+        return self.run_layers(h, cos, sin, block_param_fn=block_param_fn, remat=remat,
+                               final_norm=top.get("final_norm"))
 
 
 def init(cfg: ArchConfig, *, generator: torch.Generator, device="cuda") -> Transformer:
@@ -146,6 +196,21 @@ def init(cfg: ArchConfig, *, generator: torch.Generator, device="cuda") -> Trans
             t = (torch.randn(shape, generator=generator) * scale).to(dt)
         tensors[path] = t.to(dev)
     return Transformer(cfg, tensors)
+
+
+def abstract_params(cfg: ArchConfig) -> dict:
+    """The parameter tree as ``meta`` tensors (shapes and dtypes, no
+    storage), block leaves stacked over repeats."""
+    dt = codec.LAYOUTS[cfg.dtype].dtype
+    shapes = dict(tree_paths(_tree_shapes(cfg)))
+
+    def leaf(path):
+        shape = tuple(shapes[path][0])
+        if path.startswith("blocks/"):
+            shape = (cfg.repeats,) + shape
+        return torch.empty(shape, dtype=dt, device="meta")
+
+    return _map_paths(_tree_shapes(cfg), leaf)
 
 
 def numpy_to_torch(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:

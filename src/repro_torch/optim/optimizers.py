@@ -1,11 +1,21 @@
-"""Optimizer configuration and learning-rate schedule (torch port of
-``repro.optim.optimizers``; the update rules live in ``zero1.py``)."""
+"""Optimizers: AdamW and Adafactor as plain functions over trees of tensors
+(torch port of ``repro.optim.optimizers``).
+
+``init``/``update`` take any tree of the port's ``tree_util`` (nested dicts,
+tuples, lists): the FSDP step updates its local shards with them.  The
+math runs in f32, moments and factors are f32, and each new parameter is
+cast back to its dtype, as in the reference.  ZeRO-1 updates its flat
+shards in ``zero1.py``.
+"""
 from __future__ import annotations
 
 import dataclasses
 import math
 
 import torch
+
+from repro_torch.tree_util import (tree_flatten, tree_flatten_up_to, tree_leaves, tree_map,
+                                   tree_unflatten)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,3 +45,136 @@ def lr_at(cfg: OptimConfig, step: torch.Tensor) -> torch.Tensor:
     cos = 0.5 * (1 + torch.cos(math.pi * prog))
     frac = cfg.min_lr_frac + (1 - cfg.min_lr_frac) * cos
     return cfg.lr * warm * frac
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of every leaf's f32 sum of squares, leaves in tree
+    order."""
+    sq = [torch.sum(torch.square(t.to(torch.float32))) for t in tree_leaves(tree)]
+    return torch.sqrt(torch.sum(torch.stack(sq)))
+
+
+def clip_by_global_norm(tree, max_norm: float, *, pre_norm=None):
+    """``tree`` scaled by ``min(1, max_norm / norm)`` in f32, each leaf cast
+    back to its dtype; returns (clipped tree, norm)."""
+    g = pre_norm if pre_norm is not None else global_norm(tree)
+    scale = torch.clamp(max_norm / torch.clamp(g, min=1e-12), max=1.0)
+    return tree_map(lambda t: (t.to(torch.float32) * scale).to(t.dtype), tree), g
+
+
+# ---------------------------------------------------------------------------
+# AdamW
+# ---------------------------------------------------------------------------
+
+def _zeros_f32(t: torch.Tensor, shape=None) -> torch.Tensor:
+    return torch.zeros(t.shape if shape is None else shape, dtype=torch.float32,
+                       device=t.device)
+
+
+def adamw_init(params) -> dict:
+    """f32 first and second moments shaped like ``params``, and the step
+    count (int32)."""
+    dev = tree_leaves(params)[0].device
+    return {"m": tree_map(_zeros_f32, params), "v": tree_map(_zeros_f32, params),
+            "count": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def adamw_update(cfg: OptimConfig, grads, state: dict, params) -> tuple:
+    """One AdamW step over matching trees, in f32, each new parameter cast
+    back to its dtype.  Returns (new_params, new_state)."""
+    c = state["count"] + 1
+    lr = lr_at(cfg, c)
+    b1, b2 = cfg.b1, cfg.b2
+    cf = c.to(torch.float32)
+    bc1, bc2 = 1 - b1 ** cf, 1 - b2 ** cf
+
+    def upd(g, m, v, p):
+        g = g.to(torch.float32)
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * torch.square(g)
+        step = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) \
+            + cfg.weight_decay * p.to(torch.float32)
+        return (p.to(torch.float32) - lr * step).to(p.dtype), m, v
+
+    flat_g, tdef = tree_flatten(grads)
+    out = [upd(g, m, v, p) for g, m, v, p in zip(
+        flat_g, tree_flatten_up_to(tdef, state["m"]), tree_flatten_up_to(tdef, state["v"]),
+        tree_flatten_up_to(tdef, params), strict=True)]
+    return (tree_unflatten(tdef, [o[0] for o in out]),
+            {"m": tree_unflatten(tdef, [o[1] for o in out]),
+             "v": tree_unflatten(tdef, [o[2] for o in out]), "count": c})
+
+
+# ---------------------------------------------------------------------------
+# Adafactor (factored second moments: O(n + m) instead of O(nm))
+# ---------------------------------------------------------------------------
+
+def _factored(shape, min_dim: int) -> bool:
+    return len(shape) >= 2 and shape[-1] >= min_dim and shape[-2] >= min_dim
+
+
+def adafactor_init(params, *, min_dim: int = 128) -> dict:
+    """Per leaf f32 row and column factors ``{"vr", "vc"}`` when its last two
+    dims reach ``min_dim``, else a full ``{"v"}``; and the step count."""
+    def one(p):
+        s = tuple(p.shape)
+        if _factored(s, min_dim):
+            return {"vr": _zeros_f32(p, s[:-1]), "vc": _zeros_f32(p, s[:-2] + s[-1:])}
+        return {"v": _zeros_f32(p)}
+
+    leaves, tdef = tree_flatten(params)
+    return {"f": tree_unflatten(tdef, [one(p) for p in leaves]),
+            "count": torch.zeros((), dtype=torch.int32, device=leaves[0].device)}
+
+
+def adafactor_update(cfg: OptimConfig, grads, state: dict, params) -> tuple:
+    """One Adafactor step (decay ``1 - c**-decay_rate``, the RMS-1 update
+    clip, decoupled weight decay) in f32.  Returns (new_params, new_state)."""
+    c = state["count"] + 1
+    lr = lr_at(cfg, c)
+    beta = 1.0 - c.to(torch.float32) ** (-cfg.decay_rate)
+    eps = 1e-30
+
+    def upd(g, f, p):
+        g = g.to(torch.float32)
+        g2 = torch.square(g) + eps
+        if "vr" in f:
+            vr = beta * f["vr"] + (1 - beta) * torch.mean(g2, dim=-1)
+            vc = beta * f["vc"] + (1 - beta) * torch.mean(g2, dim=-2)
+            r = vr / torch.clamp(torch.mean(vr, dim=-1, keepdim=True), min=eps)
+            u = g / (torch.sqrt(r)[..., None] * torch.sqrt(vc)[..., None, :] + 1e-12)
+            nf = {"vr": vr, "vc": vc}
+        else:
+            v = beta * f["v"] + (1 - beta) * g2
+            u = g / (torch.sqrt(v) + 1e-12)
+            nf = {"v": v}
+        rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-30)
+        u = u / torch.clamp(rms, min=1.0)
+        step = u + cfg.weight_decay * p.to(torch.float32)
+        return (p.to(torch.float32) - lr * step).to(p.dtype), nf
+
+    flat_g, tdef = tree_flatten(grads)
+    out = [upd(g, f, p) for g, f, p in zip(flat_g, tree_flatten_up_to(tdef, state["f"]),
+                                           tree_flatten_up_to(tdef, params), strict=True)]
+    return (tree_unflatten(tdef, [o[0] for o in out]),
+            {"f": tree_unflatten(tdef, [o[1] for o in out]), "count": c})
+
+
+# ---------------------------------------------------------------------------
+# dispatch
+# ---------------------------------------------------------------------------
+
+def init(cfg: OptimConfig, params) -> dict:
+    if cfg.name == "adamw":
+        return adamw_init(params)
+    if cfg.name == "adafactor":
+        return adafactor_init(params, min_dim=cfg.factored_min_dim)
+    raise ValueError(cfg.name)
+
+
+def update(cfg: OptimConfig, grads, state: dict, params) -> tuple:
+    if cfg.name == "adamw":
+        return adamw_update(cfg, grads, state, params)
+    if cfg.name == "adafactor":
+        return adafactor_update(cfg, grads, state, params)
+    raise ValueError(cfg.name)

@@ -3,26 +3,28 @@
 are compiled once into a ``CommPlan`` (``plan.py``, ``compile.py``), cached
 on the signature of what they ship (``cache.py``) and replayed by
 ``executor.py``: the collective kinds ``psum``, ``reduce_scatter``,
-``all_gather`` and ``zero1``, and the P2P kinds ``p2p``, ``kv`` and
-``wsync`` (the host serve and weight-sync engines also read ``kv`` and
-``wsync`` plans; a ``wsync`` plan may carry a ``BroadcastSchedule``, the
-fleet's fan-out)."""
-from repro_torch.sched.compile import (PLAN_KINDS, cached_kv_plan, cached_p2p_plan,
-                                       cached_wsync_plan, compile_broadcast_schedule,
+``all_gather``, ``zero1`` and ``fsdp_gather``, and the P2P kinds ``p2p``,
+``kv`` and ``wsync`` (the host serve and weight-sync engines also read
+``kv`` and ``wsync`` plans; a ``wsync`` plan may carry a
+``BroadcastSchedule``, the fleet's fan-out)."""
+from repro_torch.sched.compile import (PLAN_KINDS, cached_fsdp_gather_plan, cached_kv_plan,
+                                       cached_p2p_plan, cached_wsync_plan,
+                                       compile_broadcast_schedule, compile_fsdp_gather_plan,
                                        compile_kv_plan, compile_p2p_plan,
                                        compile_wsync_plan)
 from repro_torch.sched.executor import (Zero1Execution, all_gather_with_plan,
                                         execute_kv_transfer, execute_p2p, execute_psum,
                                         execute_wsync, execute_wsync_broadcast,
-                                        p2p_send_with_plan, psum_with_plan,
+                                        gather_from_plan, p2p_send_with_plan, psum_with_plan,
                                         reduce_scatter_with_plan, sync_weights_with_plan,
                                         transfer_cache_with_plan, wsync_hop_perms)
 from repro_torch.sched.plan import BROADCAST_KINDS, BroadcastSchedule
 
 __all__ = ["BROADCAST_KINDS", "BroadcastSchedule", "PLAN_KINDS", "Zero1Execution",
-           "all_gather_with_plan", "cached_kv_plan", "cached_p2p_plan",
-           "cached_wsync_plan", "compile_broadcast_schedule", "compile_kv_plan",
-           "compile_p2p_plan", "compile_wsync_plan", "execute_kv_transfer",
-           "execute_p2p", "execute_psum", "execute_wsync", "execute_wsync_broadcast",
+           "all_gather_with_plan", "cached_fsdp_gather_plan", "cached_kv_plan",
+           "cached_p2p_plan", "cached_wsync_plan", "compile_broadcast_schedule",
+           "compile_fsdp_gather_plan", "compile_kv_plan", "compile_p2p_plan",
+           "compile_wsync_plan", "execute_kv_transfer", "execute_p2p", "execute_psum",
+           "execute_wsync", "execute_wsync_broadcast", "gather_from_plan",
            "p2p_send_with_plan", "psum_with_plan", "reduce_scatter_with_plan",
            "sync_weights_with_plan", "transfer_cache_with_plan", "wsync_hop_perms"]

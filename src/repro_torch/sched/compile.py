@@ -20,7 +20,9 @@ The P2P kinds (``p2p``, ``kv``, ``wsync``) record their strategy
 ``sched/executor.py`` replays them through ``core/split_send``.  A wsync
 plan may also carry a fan-out topology for a fleet size
 (:func:`compile_broadcast_schedule`, the ``broadcast=`` arguments).  The
-reference's ``fsdp_gather`` kind is not ported yet.
+``fsdp_gather`` kind schedules one FSDP leaf's gather (its forward
+all-gather and backward reduce-scatter); ``sched/executor.gather_from_plan``
+replays it through ``optim/fsdp``.
 """
 from __future__ import annotations
 
@@ -351,6 +353,70 @@ def cached_zero1_plan(meta, *, policy, axis_name, n_dev: int, device="cuda",
 
 
 # ---------------------------------------------------------------------------
+# FSDP gather: the weight AG forward and the gradient RS backward
+# ---------------------------------------------------------------------------
+
+def compile_fsdp_gather_plan(local_shape: tuple, dtype_name: str, axis_name, *, policy,
+                             n_dev: int, key: tuple = None, device="cuda") -> CommPlan:
+    """Schedule of one FSDP leaf's gather (kind "fsdp_gather"): ``ag_width``
+    is the forward (weight-class all-gather) width, ``width`` the backward
+    (gradient-class reduce-scatter) width, ``chunk`` the block-padded row a
+    destination gets.  Whether a leaf is sharded is the train step's plan
+    (``train/step.plan_fsdp_tree``); this plan only schedules the wire, so
+    only ``policy.enabled`` gates it."""
+    backend, use_kernels = probe_backend(device)
+    length = math.prod(local_shape)
+    dt = codec.LAYOUTS[dtype_name].dtype
+    itemsize = _itemsize(dt)
+    block = policy.profile.block
+    if key is None:
+        key = fsdp_gather_plan_key(local_shape, dtype_name, axis_name, policy, n_dev,
+                                   device)
+    base = dict(dtype_name=dtype_name, members=((0, tuple(local_shape), length),),
+                length=length, n_dev=n_dev)
+    if not policy.enabled:
+        bucket = BucketPlan(path=PATH_RAW, width=8, ag_width=8, fused=False,
+                            raw_bytes=(n_dev + 1) * length * itemsize, **base)
+    else:
+        w_bwd, w_fwd = policy.width_for("gradient"), policy.width_for("weight")
+        exc = policy.profile.exc_frac
+        padded = _pad_up(length, block)  # the AG shard and each RS row
+        bucket = BucketPlan(
+            path=PATH_COMPRESSED, width=w_bwd, ag_width=w_fwd, block=block, exc_frac=exc,
+            fused=policy.fused_decode_reduce, encode_fused=policy.fused_encode,
+            chunk=padded,
+            wire_bytes=(n_dev * encoded_wire_bytes(1, padded, dt, width=w_fwd, block=block,
+                                                   exc_frac=exc)
+                        + encoded_wire_bytes(n_dev, padded, dt, width=w_bwd, block=block,
+                                             exc_frac=exc)),
+            raw_bytes=2 * n_dev * padded * itemsize, **base)
+    return CommPlan(key=key, kind="fsdp_gather", axis=axis_tuple(axis_name), n_dev=n_dev,
+                    backend=backend, use_kernels=use_kernels, buckets=(bucket,),
+                    n_leaves=1)
+
+
+def fsdp_gather_plan_key(local_shape, dtype_name: str, axis_name, policy, n_dev: int,
+                         device="cuda") -> tuple:
+    return ("fsdp_gather", tuple(local_shape), str(dtype_name), axis_tuple(axis_name),
+            int(n_dev), policy_fingerprint(policy), probe_backend(device))
+
+
+def cached_fsdp_gather_plan(local_shape, dtype_name: str, axis_name, *, policy,
+                            n_dev: int, device="cuda", cache=None) -> CommPlan:
+    """Keyed-cache wrapper of :func:`compile_fsdp_gather_plan`, the FSDP
+    step's entry point: every layer's leaf of one signature replays one
+    plan."""
+    from repro_torch.sched.cache import default_cache
+
+    cache = default_cache() if cache is None else cache
+    key = fsdp_gather_plan_key(local_shape, dtype_name, axis_name, policy, n_dev, device)
+    return cache.get_or_compile(
+        key, lambda: compile_fsdp_gather_plan(tuple(local_shape), dtype_name, axis_name,
+                                              policy=policy, n_dev=n_dev, key=key,
+                                              device=device))
+
+
+# ---------------------------------------------------------------------------
 # P2P: one tensor over the split-send pipeline or a baseline (paper §3.2)
 # ---------------------------------------------------------------------------
 
@@ -602,8 +668,7 @@ def cached_wsync_plan(tree, axis_name, *, policy, n_dev: int,
 
 
 # ---------------------------------------------------------------------------
-# kind registry: CommPlan.kind -> compiler.  The reference's "fsdp_gather"
-# kind comes with FSDP.
+# kind registry: CommPlan.kind -> compiler
 # ---------------------------------------------------------------------------
 
 PLAN_KINDS = {
@@ -611,6 +676,7 @@ PLAN_KINDS = {
     "reduce_scatter": compile_reduce_scatter_plan,
     "all_gather": compile_all_gather_plan,
     "zero1": compile_zero1_plan,
+    "fsdp_gather": compile_fsdp_gather_plan,
     "p2p": compile_p2p_plan,
     "kv": compile_kv_plan,
     "wsync": compile_wsync_plan,

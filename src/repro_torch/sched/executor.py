@@ -28,6 +28,10 @@ Entry points:
   * :func:`all_gather_with_plan`: flat local shard -> gathered buckets;
   * :class:`Zero1Execution`: ZeRO-1's two phases around its update
     (``optim/zero1.zero1_step``);
+  * :func:`gather_from_plan`: one FSDP leaf's gather, all-gather forward and
+    reduce-scatter backward (kind "fsdp_gather", ``optim/fsdp``); its wires
+    record their own ``all_gather``/``reduce_scatter`` reports, as the
+    reference's do;
   * :func:`p2p_send_with_plan`: one P2P send (the plan twin of
     ``core/split_send.p2p_send``, kind "p2p"), over :func:`execute_p2p`;
   * :func:`transfer_cache_with_plan`: a KV-cache pytree over the in-mesh
@@ -333,6 +337,25 @@ class Zero1Execution:
         b = self.plan.buckets[i].ag
         with _bucket_ledger(self.plan, b.dtype_name, b.width):
             return _exec_all_gather(b, shard, self.group, _label(self.plan))
+
+
+# ---------------------------------------------------------------------------
+# FSDP gather (kind "fsdp_gather")
+# ---------------------------------------------------------------------------
+
+def gather_from_plan(plan: CommPlan, group=None):
+    """The FSDP gather of a compiled ``fsdp_gather`` plan over ``group``:
+    ``fn(local) -> (full, flag)``, its forward the weight all-gather at
+    ``ag_width``, its backward the gradient reduce-scatter at ``width``
+    with the plan's fused knobs (``optim/fsdp.GatherWire``)."""
+    from repro_torch.optim.fsdp import GatherWire
+
+    _check_kind(plan, "fsdp_gather")
+    b = plan.buckets[0]
+    wire = GatherWire(plan.axis, b.ag_width, b.width, b.block, b.exc_frac,
+                      b.path == PATH_COMPRESSED, b.members[0][1], b.dtype_name, b.fused,
+                      b.encode_fused)
+    return lambda local: wire(local, group)
 
 
 # ---------------------------------------------------------------------------

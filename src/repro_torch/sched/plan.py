@@ -203,7 +203,9 @@ class CommPlan:
 
     ``kind``: "psum" (pytree two-shot or ring all-reduce), "reduce_scatter"
     and "all_gather" (flat single-bucket phases), "zero1" (per-dtype RS/AG
-    ``PhasePair``s with the optimizer update between), "kv" (a KV-cache
+    ``PhasePair``s with the optimizer update between), "fsdp_gather" (one
+    FSDP leaf's weight all-gather, ``ag_width``, and its gradient
+    reduce-scatter, ``width``, in one ``BucketPlan``), "kv" (a KV-cache
     pytree shipped leaf-bucketed over the P2P pipeline) or
     "wsync" (a versioned weight pytree sent to replicas with per-bucket
     XOR-delta-vs-full gating, the delta schedule in each ``BucketPlan``) or

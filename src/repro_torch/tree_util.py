@@ -53,6 +53,37 @@ def tree_leaves(tree) -> list:
     return tree_flatten(tree)[0]
 
 
+def tree_map(fn, tree):
+    """``tree`` with every leaf replaced by ``fn(leaf)``."""
+    leaves, treedef = tree_flatten(tree)
+    return tree_unflatten(treedef, [fn(x) for x in leaves])
+
+
+def tree_flatten_up_to(treedef: tuple, tree) -> list:
+    """The subtrees of ``tree`` at the leaves of ``treedef`` (a prefix of
+    ``tree``'s structure), in leaf order: ``jax`` treedefs'
+    ``flatten_up_to``."""
+    out: list = []
+
+    def walk(d, t):
+        kind, keys, subs = d
+        if kind == "leaf":
+            out.append(t)
+        elif kind == "dict":
+            if not isinstance(t, dict) or tuple(sorted(t)) != keys:
+                raise ValueError(f"tree does not match the structure: {t!r:.80}")
+            for k, s in zip(keys, subs):
+                walk(s, t[k])
+        elif kind != "none":
+            if not isinstance(t, (tuple, list)) or len(t) != len(subs):
+                raise ValueError(f"tree does not match the structure: {t!r:.80}")
+            for s, x in zip(subs, t):
+                walk(s, x)
+
+    walk(treedef, tree)
+    return out
+
+
 def bits_equal(a, b) -> bool:
     """Two trees of tensors hold the same leaves bit for bit."""
     la, lb = tree_leaves(a), tree_leaves(b)

@@ -492,6 +492,34 @@ def test_psum_with_plan_on_the_card_equals_the_cpu(cuda, knobs):
     assert launched == {k: 2 * v for k, v in per_bucket.items() if v}  # two buckets
 
 
+@pytest.mark.parametrize("fused", [True, False])
+def test_fsdp_gather_on_the_card_equals_the_cpu(cuda, fused):
+    """One FSDP gather and its backward at one rank: the card's bits are the
+    CPU's, through the CUDA kernels (an all-gather and a reduce-scatter, as
+    one two-shot bucket launches them)."""
+    from repro_torch.launch.train import single_process_group
+    from repro_torch.optim.fsdp import GatherWire
+
+    wire = GatherWire(("data",), 5, 5, 512, 0.02, True, (64, 40), "bfloat16", fused, fused)
+    x = to_torch(grad_like_bits("bfloat16", 2560, seed=51), "bfloat16").reshape(64, 40)
+    ct = to_torch(grad_like_bits("bfloat16", 2560, seed=52), "bfloat16").reshape(64, 40)
+    out = {}
+    for dev in ("cpu", cuda):
+        with single_process_group(dev) as g:
+            local = x.to(dev).requires_grad_()
+            before = kernels.launch_counts()
+            full, flag = wire(local, g)
+            (grad,) = torch.autograd.grad(full, local, ct.to(dev))
+            out[str(dev)] = (full, grad, int(flag), _launches(before))
+    (full, grad, flag, launched), (want, want_grad, _, none) = out["cuda"], out["cpu"]
+    assert flag == 0 and not none and full.is_cuda and grad.is_cuda
+    assert _same_bits(full, want) and _same_bits(grad, want_grad, nan_as_nan=True)
+    expect = chip_smoke.two_shot_launches(fused, fused, n_dev=1)
+    assert launched == {k: v for k, v in expect.items() if v}
+    if fused:
+        assert {k: v for k, v in chip_smoke.fsdp_launches(1, 1, 1).items() if v} == launched
+
+
 def test_hierarchical_all_to_all_and_ppermute_on_the_card_equal_the_cpu(cuda):
     from repro_torch.core.policy import CompressionPolicy
     from repro_torch.launch.train import single_process_group

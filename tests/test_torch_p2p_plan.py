@@ -129,7 +129,7 @@ def test_p2p_plan_chunked_grid_and_unknown_strategy():
                     (sched_compile.compile_wsync_plan, {"k": x})):
         with pytest.raises(ValueError, match="strategy"):
             fn(arg, "data", policy=POL, n_dev=1, strategy="warp_send", device="cpu")
-    assert set(sched_compile.PLAN_KINDS) == set(jsched.PLAN_KINDS) - {"fsdp_gather"}
+    assert set(sched_compile.PLAN_KINDS) == set(jsched.PLAN_KINDS)
     assert sched_compile.P2P_STRATEGIES == jsched.compile.P2P_STRATEGIES
 
 

@@ -202,7 +202,7 @@ def test_encoded_wire_bytes_is_a_real_encode(fmt, n_chunks, chunk, width, fused)
 
 
 def test_plan_kinds_are_the_reference_kinds_ported_so_far():
-    assert set(sched_compile.PLAN_KINDS) == set(jcompile.PLAN_KINDS) - {"fsdp_gather"}
+    assert set(sched_compile.PLAN_KINDS) == set(jcompile.PLAN_KINDS)
     for kind, fn in sched_compile.PLAN_KINDS.items():
         assert fn.__name__ == jcompile.PLAN_KINDS[kind].__name__
 

@@ -13,13 +13,19 @@ Tolerances, with their reasons:
   cancellation carries into the small entries); so a bf16 weight may round
   the other way: at most 0.1% of them, by one bf16 ulp (measured: 1 of
   68 096);
+* AdamW and Adafactor (``optimizers.update``) on the same gradients: the
+  same bounds as the ZeRO-1 update (f32 weights, moments and factors within
+  1e-6 of the leaf's largest magnitude; bf16 weights one ulp apart at most,
+  at most 0.1% of them);
 * a whole train step: the bf16 backward rounds in other places, so
   gradients differ in their last bits.  AdamW's first step moves every
   weight by about ``lr`` times the gradient's sign, so a near-zero
   gradient whose sign flips moves a weight by ``2 lr`` and one bf16
   rounding: weights within ``2 lr_1 + 2**-7 |w|``, with at most 1% of them
   different (measured: 0.6%); loss relative 1e-4; grad norm relative 1e-2
-  (measured: 2e-3).
+  (measured: 2e-3).  The same at 2 microbatches;
+* 4 microbatches against 1 (the reference's ``test_microbatch_equivalence``):
+  the last of 3 losses within 0.05, as the gradients accumulate in bf16.
 """
 import ast
 import re
@@ -54,6 +60,7 @@ from repro_torch.models import transformer
 from repro_torch.optim import optimizers as opt
 from repro_torch.optim import zero1
 from repro_torch.train import step as step_lib
+from repro_torch.tree_util import tree_leaves
 from torch_port_util import np_of, run_gloo_ranks, train_twin_rank
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -186,9 +193,18 @@ def test_zero1_step_matches_reference_on_the_same_gradients(reference, optimizer
 def test_train_step_matches_reference(reference):
     """One whole compressed ZeRO-1 step (forward, backward, RS, update, AG)
     against ``repro.train.step`` on a one-device mesh, ``min_bytes=0``."""
+    _step_matches_reference(reference, 1)
+
+
+def test_train_step_at_two_microbatches_matches_reference(reference):
+    _step_matches_reference(reference, 2)
+
+
+def _step_matches_reference(reference, microbatches):
     _, _, tree, batch = reference
     jcfg = jconfigs.get_smoke(ARCH)
     jtcfg = jstep.TrainConfig(policy=JPolicy(min_bytes=0), loss_chunk=16,
+                              microbatches=microbatches,
                               optim=jopt.OptimConfig(lr=LR, warmup_steps=WARMUP))
     mesh = make_smoke_mesh(1)
     jstate, _ = jstep.build_train_state(jcfg, jtcfg, mesh, jax.random.PRNGKey(0))
@@ -197,6 +213,7 @@ def test_train_step_matches_reference(reference):
     jnew, jm = jax.jit(jfn)(jstate, batch)
 
     tcfg = step_lib.TrainConfig(loss_chunk=16, policy=CompressionPolicy(min_bytes=0),
+                                microbatches=microbatches,
                                 optim=opt.OptimConfig(lr=LR, warmup_steps=WARMUP))
     model = transformer.load_reference_params(tree, configs.get_smoke(ARCH), "cpu")
     state = step_lib.TrainState(model=model, opt=zero1.load_reference_zero1_state(opt_tree, "cpu"),
@@ -216,6 +233,86 @@ def test_train_step_matches_reference(reference):
         n_diff += int((g != w).sum())
         n_all += g.size
     assert n_diff <= 0.01 * n_all, (n_diff, n_all)
+
+
+OPT_SHAPES = {"a": ((130, 256), "bfloat16"), "b": ((3, 128, 129), "float32"),
+              "c": ((48,), "bfloat16"), "d": ((2, 48, 128), "bfloat16")}
+
+
+@pytest.mark.parametrize("optimizer", ["adamw", "adafactor"])
+def test_optimizer_updates_match_reference(optimizer):
+    """Two ``optimizers.update`` steps of a tree with factored (last two
+    dims >= 128) and unfactored leaves, on the same gradients."""
+    rng = np.random.default_rng(41)
+    params = {k: rng.normal(0, 0.5, s).astype(np.float32) for k, (s, _) in OPT_SHAPES.items()}
+    grads = {k: rng.normal(0, 0.02, s).astype(np.float32) for k, (s, _) in OPT_SHAPES.items()}
+    jp = {k: jnp.asarray(v, OPT_SHAPES[k][1]) for k, v in params.items()}
+    jg = {k: jnp.asarray(v, OPT_SHAPES[k][1]) for k, v in grads.items()}
+    tp = {k: torch.from_numpy(v).to(getattr(torch, OPT_SHAPES[k][1])) for k, v in params.items()}
+    tg = {k: torch.from_numpy(v).to(getattr(torch, OPT_SHAPES[k][1])) for k, v in grads.items()}
+    for k in params:
+        assert np.array_equal(np_of(tp[k]), np_of(jp[k]))
+    jocfg = jopt.OptimConfig(name=optimizer, lr=LR, warmup_steps=WARMUP)
+    ocfg = opt.OptimConfig(name=optimizer, lr=LR, warmup_steps=WARMUP)
+    jst, st = jopt.init(jocfg, jp), opt.init(ocfg, tp)
+    if optimizer == "adafactor":
+        assert {k: sorted(v) for k, v in st["f"].items()} == \
+            {k: sorted(v) for k, v in jst["f"].items()}
+        assert sorted(st["f"]["a"]) == ["vc", "vr"] and sorted(st["f"]["b"]) == ["vc", "vr"]
+    for _ in range(2):
+        jp, jst = jopt.update(jocfg, jg, jst, jp)
+        tp, st = opt.update(ocfg, tg, st, tp)
+    assert int(st["count"]) == int(jst["count"]) == 2
+    for k in params:
+        g, w = tp[k].float().numpy(), np.asarray(jp[k], np.float32)
+        if OPT_SHAPES[k][1] == "float32":  # as the ZeRO-1 f32 master
+            np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-6 * np.abs(w).max(),
+                                       err_msg=k)
+            continue
+        np.testing.assert_allclose(g, w, rtol=2.0 ** -7, atol=0, err_msg=k)
+        assert (g != w).sum() <= 1e-3 * g.size, k
+    mine = jax.tree_util.tree_leaves(jax.tree_util.tree_map(np.asarray, jst))
+    for got, want in zip(tree_leaves(st), mine, strict=True):
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6,
+                                   atol=1e-6 * float(np.abs(want).max()))
+
+
+def test_global_norm_and_clip_match_reference():
+    rng = np.random.default_rng(5)
+    tree = {k: rng.normal(0, 3.0, s).astype(np.float32) for k, (s, _) in OPT_SHAPES.items()}
+    jt = jax.tree_util.tree_map(jnp.asarray, tree)
+    tt = {k: torch.from_numpy(v) for k, v in tree.items()}
+    assert float(opt.global_norm(tt)) == pytest.approx(float(jopt.global_norm(jt)), rel=1e-6)
+    clipped, norm = opt.clip_by_global_norm(tt, 1.0)
+    jclipped, jnorm = jopt.clip_by_global_norm(jt, 1.0)
+    assert float(norm) == pytest.approx(float(jnorm), rel=1e-6)
+    for k in tree:
+        np.testing.assert_allclose(clipped[k].numpy(), np.asarray(jclipped[k]), rtol=1e-6)
+    same, _ = opt.clip_by_global_norm(tt, 1e9)
+    assert all(torch.equal(same[k], tt[k]) for k in tree)
+
+
+def test_microbatches_approximate_one_batch():
+    """k = 4 microbatches against 1 (the reference's
+    ``test_microbatch_equivalence``), raw, 3 steps on the same batch."""
+    cfg = configs.get_smoke(ARCH)
+    batch = DataPipeline(DataConfig(vocab=cfg.vocab, global_batch=BATCH,
+                                    seq_len=SEQ)).tensors_at(0, "cpu")
+    last = {}
+    with launch_train.single_process_group("cpu") as group, launch_train.deterministic():
+        for k in (1, 4):
+            tcfg = step_lib.TrainConfig(microbatches=k, loss_chunk=16,
+                                        policy=CompressionPolicy.disabled(),
+                                        optim=opt.OptimConfig(lr=LR, warmup_steps=WARMUP))
+            state = step_lib.build_train_state(cfg, tcfg,
+                                               generator=torch.Generator().manual_seed(0),
+                                               group=group, device="cpu")
+            for _ in range(3):
+                last[k] = float(step_lib.train_step(state, batch, tcfg, group=group)["loss"])
+        with pytest.raises(ValueError, match="microbatches"):
+            step_lib.train_step(state, batch, dataclasses.replace(tcfg, microbatches=3),
+                                group=group)
+    assert abs(last[1] - last[4]) < 0.05, last
 
 
 def _smoke_train(compress, **kw):

@@ -605,3 +605,90 @@ def obs_psum_rank(rank: int, world: int, out: str) -> None:
     np.savez(out, counters=np.array(json.dumps(obs.snapshot()["counters"])),
              spans=np.array(json.dumps([s.name for s in obs.spans()])),
              exact=int(regret.check_ledger_exactness(reports)["ok"]))
+
+
+# ---------------------------------------------------------------------------
+# worker of the FSDP multi-rank tests
+# ---------------------------------------------------------------------------
+
+# local shard shapes (last dim sharded) of the gathered tree; "n" (7,) does
+# not divide 2 or 4 ranks, so it stays replicated
+FSDP_LOCAL = {"a": ((64, 40), "bfloat16"), "b": ((3, 40, 8), "bfloat16"),
+              "c": ((300, 6), "float32"), "n": ((7,), "bfloat16")}
+FSDP_VARIANTS = {"fused": {}, "unfused": {"fused_encode": False, "fused_decode_reduce": False},
+                 "raw": {"enabled": False}}
+
+
+def fsdp_bits(shape, fmt: str, seed: int) -> np.ndarray:
+    """Seeded gradient-like bits with all-zero and exception blocks and no
+    Inf, NaN or subnormal (their sums are not what this checks)."""
+    n = int(np.prod(shape))
+    bits = grad_like_bits(fmt, n, seed, subnormals=False)
+    bits[1300:1310] = 0
+    return bits.reshape(shape)
+
+
+def fsdp_full_shape(shape, world: int) -> tuple:
+    return tuple(shape[:-1]) + (shape[-1] * world,)
+
+
+def fsdp_rank(rank: int, world: int, out: str, steps: int, batch: int, seq: int) -> None:
+    """On this rank: ``gather_tree`` of its seeded shards (``FSDP_LOCAL``,
+    seed 200 + rank) under each of FSDP_VARIANTS, the gathered leaves and,
+    after a backward of seeded cotangents (seed 300 + rank), the shards'
+    gradients; then ``steps`` FSDP train steps of smollm SMOKE at 2
+    microbatches (``fsdp_min_bytes=0``), compressed and raw, from the same
+    seed: losses, gnorms and the final shards' bytes."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.core.policy import CompressionPolicy
+    from repro_torch.data.pipeline import DataConfig, DataPipeline
+    from repro_torch.launch.train import deterministic
+    from repro_torch.optim import fsdp
+    from repro_torch.optim.optimizers import OptimConfig
+    from repro_torch.sched.cache import PlanCache
+    from repro_torch.train import step as step_lib
+
+    res = {}
+    base = CompressionPolicy(min_bytes=0)
+    for name, kw in FSDP_VARIANTS.items():
+        tree = {k: to_torch(fsdp_bits(s, d, 200 + rank + 10 * i), d).requires_grad_()
+                for i, (k, (s, d)) in enumerate(FSDP_LOCAL.items())}
+        plan = fsdp.plan_fsdp(tree, world, min_shard_bytes=0)
+        full, flag = fsdp.gather_tree(plan, tree, policy=dataclasses.replace(base, **kw),
+                                      cache=PlanCache())
+        outs, cts = [], []
+        for i, (k, (s, d)) in enumerate(FSDP_LOCAL.items()):
+            res[f"{name}_full_{k}"] = np_of(full[k])
+            if full[k] is not tree[k]:
+                outs.append(full[k])
+                cts.append(to_torch(fsdp_bits(fsdp_full_shape(s, world), d,
+                                              300 + rank + 10 * i), d))
+        torch.autograd.backward(outs, cts)
+        for k, t in tree.items():
+            if t.grad is not None:
+                res[f"{name}_grad_{k}"] = np_of(t.grad)
+        res[f"{name}_flag"] = int(flag)
+        res[f"{name}_mask"] = np.array(plan.mask_leaves)
+    cfg = configs.get_smoke("smollm_135m")
+    pipe = DataPipeline(DataConfig(vocab=cfg.vocab, global_batch=batch, seq_len=seq),
+                        process_index=rank, process_count=world)
+    for tag, pol in (("comp", base), ("rawtrain", CompressionPolicy.disabled())):
+        tcfg = step_lib.TrainConfig(partition="fsdp", microbatches=2, fsdp_min_bytes=0,
+                                    loss_chunk=16, policy=pol,
+                                    optim=OptimConfig(lr=1e-3, warmup_steps=2))
+        state = step_lib.build_train_state(cfg, tcfg, generator=torch.Generator().manual_seed(0),
+                                           device="cpu")
+        losses, gnorms, cache = [], [], PlanCache()
+        with deterministic():
+            for i in range(steps):
+                m = step_lib.fsdp_train_step(state, pipe.tensors_at(i, "cpu"), tcfg,
+                                             cache=cache)
+                losses.append(float(m["loss"]))
+                gnorms.append(float(m["gnorm"]))
+        res[f"{tag}_losses"], res[f"{tag}_gnorms"] = np.array(losses), np.array(gnorms)
+        res[f"{tag}_params"] = np.concatenate(
+            [np_of(p).view(np.uint8).reshape(-1) for p in state.model.leaves()])
+        res[f"{tag}_misses"], res[f"{tag}_hits"] = cache.stats.misses, cache.stats.hits
+    np.savez(out, **res)
