@@ -81,7 +81,10 @@ result line each:
             the ZeRO-1 state after its last step, which try_resume restores
             on the card bit-identical, and one more step from it gives the
             loss and bits of the same step from a copy of the live state
-            (save and restore ms).  Then
+            (save and restore ms).  The run's plans are saved beside the
+            checkpoint (CheckpointManager.save_plans) and restored into a
+            fresh PlanCache; the resumed step replays its zero1 plan from
+            it: 0 misses, 1 hit.  Then
             where a compressed step's time goes: forward+backward and each
             wire phase beside its raw twin (host clock, synchronised).
             Forward+backward is timed with each layer rematerialised (the
@@ -239,6 +242,34 @@ result line each:
             clock64 over per steps, median of 5) at the SM clock nvidia-smi
             reads while the kernels run; and tables_ms, the wrapper's table
             ops, which ms includes.
+10. zoo   - then every earlier phase's state is freed (only the kernels
+            rows stay) and the dense zoo runs at full width, each model
+            drawn on the card by a CUDA generator seeded 0, run, and freed
+            before the next, its peak memory printed: glm4-9b at full depth
+            (40 layers, 9.40 B parameters) and gemma3-27b (2 prefix
+            layers, then 10 x (5 local layers, window 1024, and 1 global),
+            tied, 27.0 B, at full depth; a model whose bf16 weights pass
+            the free memory fails the phase) each serve greedy requests
+            (glm4 4 x 512 + 32 tokens on 4 slots, max_len 1024; gemma3 2 x 1536 + 16 on
+            2 slots, max_len 2048: the prompts pass the window) colocated,
+            then PD over the packed host KV wire (a fresh PlanCache: 1
+            miss, then hits): identical tokens; each admission packs and
+            unpacks each cache leaf twice (glm4 2 leaves, gemma3 16 of two
+            shapes); one prefilled cache shipped bit-identical (pack and
+            unpack ms, wire ratio); tokens/s of each mode.  qwen2-vl-72b at
+            full width, its repeats cut to 4 (80 layers to 4): one prefill
+            of 2 x 512 tokens whose first 128 positions are
+            registry.make_batch's vision_embeds, its cache over the host
+            wire bit-identical (pack and unpack 4 each), 8 greedy decode
+            steps from the shipped and the original cache identical.
+            tinyllama-1.1b at full width and depth through the launcher's
+            ZeRO-1 path (batch 8 x 512, remat): 2 compressed steps, then 2
+            raw; loss bits and final parameters identical; one bf16 bucket
+            of ~1.1 G values; launches two_shot_launches a step.  Each
+            run's launches are counted from 0 and its kernels held bit for
+            bit against their plain versions on its recorded inputs and
+            timed at each new shape (time_path_shapes), inside the phase;
+            merge_zoo adds both to the kernels rows.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 ``kernels`` JSON.  Any failed phase exits non-zero and prints no result.
@@ -835,13 +866,15 @@ SHAPED = {"encode_fused": ("encode_fused", "encode_fused"),
 
 
 @contextlib.contextmanager
-def recorded_inputs(torch):
+def recorded_inputs(torch, host: bool = False):
     """While active, the wrappers of SHAPED keep a copy of the arguments of
     their first launch at each shape, under the shape the launch was
     tallied at (``kernels.launch_shapes``): ``{kernel: {shape: args}}``, the
-    inputs the path gives each kernel.  A launch that does not go through
-    the wrapper's module attribute is tallied and not recorded, which the
-    caller's comparison of the two shows."""
+    inputs the path gives each kernel (``host``: the copies in host memory,
+    for a run that needs the card's; ``time_path_shapes`` moves them back).
+    A launch that does not go through the wrapper's module attribute is
+    tallied and not recorded, which the caller's comparison of the two
+    shows."""
     from repro_torch import kernels
 
     inputs = {name: {} for name in SHAPED}
@@ -854,7 +887,8 @@ def recorded_inputs(torch):
             sig = (_name, *((a.dtype, tuple(a.shape)) if isinstance(a, torch.Tensor) else a
                             for a in args))
             copy = None if sig in seen else tuple(
-                a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+                (a.to("cpu", copy=True) if host else a.clone())
+                if isinstance(a, torch.Tensor) else a for a in args)
             seen.add(sig)
             before = kernels.launch_shapes(_name)
             out = _fn(*args)
@@ -1132,6 +1166,7 @@ def phase_checkpoint(comp, group, hb, dev, torch):
     from repro_torch.data.pipeline import DataConfig, DataPipeline
     from repro_torch.launch import train as launch_train
     from repro_torch.runtime.fault_tolerance import heartbeat_age
+    from repro_torch.sched.cache import PlanCache
     from repro_torch.train import step as step_lib
     from repro_torch.tree_util import bits_equal, tree_flatten, tree_unflatten
 
@@ -1156,17 +1191,31 @@ def phase_checkpoint(comp, group, hb, dev, torch):
         raise AssertionError(f"try_resume gave step {start} (state step "
                              f"{getattr(restored, 'step', None)}), bit-identical "
                              f"{restored is not None and bits_equal(restored.tree(), state.tree())}")
+    # the run's plans beside the checkpoint, restored into a fresh cache
+    n_saved = len(comp.plan_cache)
+    t0 = time.perf_counter()
+    plan_file = runner.ckpt.save_plans(comp.plan_cache)
+    save_plans_ms = (time.perf_counter() - t0) * 1e3
+    resumed_plans = PlanCache()
+    t0 = time.perf_counter()
+    n_restored = runner.ckpt.restore_plans(resumed_plans, device=dev)
+    restore_plans_ms = (time.perf_counter() - t0) * 1e3
+    if n_restored != n_saved or n_saved < 1:
+        raise AssertionError(f"restored {n_restored} of {n_saved} plans")
     leaves, treedef = tree_flatten(state.tree())
     live = state.from_tree(tree_unflatten(treedef, [t.clone() for t in leaves]))
     batch = DataPipeline(DataConfig(vocab=state.model.cfg.vocab, global_batch=BATCH,
                                     seq_len=SEQ, seed=SEED)).tensors_at(STEPS, dev)
     with launch_train.deterministic():
         m_live = step_lib.train_step(live, batch, comp.tcfg, group=group)
-        m_rest = step_lib.train_step(restored, batch, comp.tcfg, group=group)
+        plan = step_lib.zero1_plan(restored, comp.tcfg, group, cache=resumed_plans)
+        m_rest = step_lib.train_step(restored, batch, comp.tcfg, group=group, plan=plan)
     losses = (float(m_live["loss"]), float(m_rest["loss"]))
     if losses[0] != losses[1] or not bits_equal(live.tree(), restored.tree()):
         raise AssertionError(f"step {STEPS} from the restored state: losses {losses}, "
                              f"bit-identical {bits_equal(live.tree(), restored.tree())}")
+    if (resumed_plans.stats.misses, resumed_plans.stats.hits) != (0, 1):
+        raise AssertionError(f"the resumed step compiled plans: {resumed_plans.cache_info()}")
     nbytes = sum(t.numel() * t.element_size() for t in leaves)
     print(f"checkpoint: ZeRO-1 train state after step {STEPS - 1} ({len(leaves)} leaves, "
           f"{nbytes} B) saved asynchronously by the StepRunner: host copy "
@@ -1175,7 +1224,349 @@ def phase_checkpoint(comp, group, hb, dev, torch):
           f"the card {restore_ms:.1f} ms (sha256 verify, load, host-to-device), "
           f"bit-identical; step {STEPS} from it: loss {losses[1]!r} = the live state's, "
           f"bits identical; heartbeat step {beat['step']}, age {age:.2f} s; card {run_card()}")
+    print(f"  plans: {n_saved} saved beside the checkpoint ({os.path.basename(plan_file)}, "
+          f"{save_plans_ms:.2f} ms), {n_restored} restored into a fresh PlanCache "
+          f"({restore_plans_ms:.2f} ms); the resumed step compiled 0 plans (0 misses, 1 hit) "
+          f"and gave the live step's loss and bits")
     del live, restored
+
+
+# zoo phase: serve runs (requests, prompt tokens, new tokens, slots, cache
+# length), qwen2-vl's cut depth and prefill, tinyllama's training run
+ZOO_SERVE = {"glm4_9b": dict(n_req=4, prompt=512, new=32, slots=4, max_len=1024),
+             "gemma3_27b": dict(n_req=2, prompt=1536, new=16, slots=2, max_len=2048)}
+QWEN_REPEATS, QWEN_BATCH, QWEN_SEQ, QWEN_DECODE, QWEN_MAX_LEN = 4, 2, 512, 8, 1024
+TINY_BATCH, TINY_SEQ, TINY_STEPS = 8, 512, 2
+
+
+def _gib(n: float) -> str:
+    return f"{n / 2**30:.2f} GiB"
+
+
+def zoo_model(cfg, dev, torch):
+    """A model of ``cfg`` drawn on the card by a CUDA generator seeded SEED
+    (a CPU generator would take minutes for billions of weights)."""
+    from repro_torch.models import transformer
+
+    return transformer.init(cfg, generator=torch.Generator(dev).manual_seed(SEED), device=dev)
+
+
+def zoo_serve(tag, cfg, model, sp, dev, torch, np):
+    """Greedy serving of ``sp["n_req"]`` requests through ServeEngine,
+    colocated, then PD over the compressed host KV wire (a fresh PlanCache:
+    1 miss, then hits): identical tokens; each admission packs and unpacks
+    every cache leaf twice (lo plane, exponent residuals) and the
+    colocated run launches nothing.  Then one admission's prefilled cache
+    over the host wire: every leaf bit-identical, pack and unpack ms, wire
+    ratio.  Returns the PD run's launches, recorded inputs and numbers."""
+    from repro_torch import kernels
+    from repro_torch.core.policy import CompressionPolicy
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer
+    from repro_torch.p2p.engine import Compressor
+    from repro_torch.sched.cache import PlanCache
+    from repro_torch.serve import kv_transfer
+    from repro_torch.serve.engine import Request, ServeConfig, ServeEngine
+    from repro_torch.tree_util import bits_equal, tree_flatten
+
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab, sp["prompt"]).astype(np.int32)
+               for _ in range(sp["n_req"])]
+
+    def serve(pd, reqs, max_new, plan_cache=None):
+        scfg = ServeConfig(batch_slots=sp["slots"], max_len=sp["max_len"],
+                           prefill_chunk=sp["prompt"], pd_disaggregated=pd)
+        eng = ServeEngine(cfg, model, scfg, kv_plan_cache=plan_cache,
+                          kv_policy=CompressionPolicy(min_bytes=0) if pd else None)
+        for i, p in enumerate(reqs):
+            eng.submit(Request(rid=i, prompt=p, max_new=max_new))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        return sorted((r.rid, tuple(r.out)) for r in done), time.perf_counter() - t0
+
+    with launch_train.deterministic():
+        serve(False, prompts[:1], 2)  # warm-up, neither counted nor timed
+        serve(True, prompts[:1], 2, PlanCache())
+        kernels.clear_launch_counts()
+        colocated, t_col = serve(False, prompts, sp["new"])
+        col_launches = kernels.launch_counts()
+        pc = PlanCache()
+        with recorded_inputs(torch) as inputs:
+            kernels.clear_launch_counts()
+            pd, t_pd = serve(True, prompts, sp["new"], pc)
+            pd_launches = kernels.launch_counts()
+        recorded = (inputs, shape_tallies())
+    # a cache leaf (k or v) a prefix layer and a pattern position
+    n_leaves = 2 * (len(cfg.prefix) + len(cfg.pattern))
+    expect = dict.fromkeys(kernels.KERNELS, 0)
+    expect.update(pack=2 * n_leaves * sp["n_req"], unpack=2 * n_leaves * sp["n_req"])
+    if pd != colocated:
+        raise AssertionError(f"{tag}: PD tokens differ from colocated: {pd} vs {colocated}")
+    if len(pd) != sp["n_req"] or any(len(o) != sp["new"] or not all(
+            0 <= t < cfg.vocab for t in o) for _, o in pd):
+        raise AssertionError(f"{tag}: unexpected serve output {pd}")
+    if (pc.stats.misses, pc.stats.hits) != (1, sp["n_req"] - 1):
+        raise AssertionError(f"{tag}: plan cache {pc.cache_info()}")
+    if pd_launches != expect or any(col_launches.values()):
+        raise AssertionError(f"{tag}: serve launches {pd_launches} (colocated "
+                             f"{col_launches}), expected {expect}")
+    (plan,) = pc._plans.values()
+    toks = torch.from_numpy(prompts[0][None].astype(np.int64)).to(dev)
+    with launch_train.deterministic():
+        _, cache = transformer.prefill(model, toks,
+                                       transformer.init_cache(cfg, 1, sp["max_len"], dev))
+    eng = Compressor(codec_name="packed", device=dev)
+    wire = kv_transfer.pack_cache(cache, eng, plan=plan)
+    if not bits_equal(kv_transfer.unpack_cache(wire, eng), cache):
+        raise AssertionError(f"{tag}: a shipped cache is not bit-identical")
+    msgs = [m for m in wire["messages"] if hasattr(m, "wire_bytes")]
+    shapes = sorted({tuple(t.shape) for t in tree_flatten(cache)[0] if t.dim()})
+    # where a run's time goes: an admission's prefill, a batched decode step
+    batched = transformer.init_cache(cfg, sp["slots"], sp["max_len"], dev)
+    batched["pos"] = torch.tensor(sp["prompt"], dtype=torch.int32, device=dev)
+    cur = torch.zeros((sp["slots"], 1), dtype=torch.int32, device=dev)
+    with launch_train.deterministic():
+        parts = {"prefill_ms": _wall_ms(lambda: transformer.prefill(
+                     model, toks, transformer.init_cache(cfg, 1, sp["max_len"], dev)),
+                     torch, runs=3),
+                 "decode_step_ms": _wall_ms(lambda: transformer.decode_step(model, cur, batched),
+                                            torch, runs=3)}
+    del batched
+    out = {"launches": pd_launches, "recorded": recorded, **parts,
+           "tok_s": {"colocated": sp["n_req"] * sp["new"] / t_col,
+                     "pd": sp["n_req"] * sp["new"] / t_pd},
+           "ratio": sum(m.wire_bytes() for m in msgs) / sum(m.raw_bytes for m in msgs),
+           "pack_ms": _wall_ms(lambda: kv_transfer.pack_cache(cache, eng, plan=plan), torch,
+                               runs=3),
+           "unpack_ms": _wall_ms(lambda: kv_transfer.unpack_cache(wire, eng), torch, runs=3),
+           "leaves": len(msgs), "shapes": shapes, "width": plan.width_for_dtype("bfloat16")}
+    print(f"  {tag}: {sp['n_req']} requests x {sp['prompt']} prompt + {sp['new']} new "
+          f"tokens, {sp['slots']} slots, max_len {sp['max_len']}: PD tokens identical to "
+          f"colocated; plan cache 1 miss {sp['n_req'] - 1} hits; launches {pd_launches}; "
+          f"tokens/s colocated {out['tok_s']['colocated']:.1f} ({t_col * 1e3:.1f} ms), PD "
+          f"{out['tok_s']['pd']:.1f} ({t_pd * 1e3:.1f} ms)")
+    print(f"  {tag} shipment: {len(msgs)} leaves of shapes {shapes} bf16, bit-identical; "
+          f"wire ratio {out['ratio']:.4f} (width {out['width']}); pack "
+          f"{out['pack_ms']:.2f} ms, unpack {out['unpack_ms']:.2f} ms (median of 3)")
+    print(f"  {tag} breakdown, ms (host clock to a device sync, median of 3): prefill 1 x "
+          f"{sp['prompt']} {out['prefill_ms']:.2f}, decode step {sp['slots']} slots "
+          f"{out['decode_step_ms']:.2f}")
+    return out
+
+
+def merge_shapes(into: dict, more: dict) -> dict:
+    """Per-shape entries of ``time_path_shapes`` merged: a shape already
+    there keeps its times and adds the other's launches."""
+    for name, by_key in more.items():
+        for key, entry in by_key.items():
+            have = into.setdefault(name, {}).get(key)
+            if have is None:
+                into[name][key] = entry
+            else:
+                have["launches"] += entry["launches"]
+                have["launches_by_run"].update(entry["launches_by_run"])
+    return into
+
+
+def phase_zoo(dev, torch, np, bw):
+    """The dense zoo at full width, each model drawn from SEED on the card,
+    run, held, its kernels' new shapes timed, and freed before the next:
+    glm4-9b and gemma3-27b at full depth served colocated and PD (a model
+    whose weights do not fit fails the phase); qwen2-vl-72b cut in depth:
+    a prefill with vision embeddings, its cache over the host wire and
+    greedy decode from both; tinyllama-1.1b trained through the launcher's
+    ZeRO-1 path, compressed and raw.  Returns the launches of each run and the timed shapes."""
+    import gc
+
+    from repro_torch import configs, kernels
+    from repro_torch.core.policy import CompressionPolicy
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import registry, transformer
+    from repro_torch.p2p.engine import Compressor
+    from repro_torch.sched.cache import PlanCache
+    from repro_torch.serve import kv_transfer
+    from repro_torch.tree_util import bits_equal, tree_flatten, tree_unflatten
+
+    t_phase = time.perf_counter()
+    launches, shapes, peaks = {}, {}, {}
+
+    def fresh():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def timed(run, recorded):
+        merge_shapes(shapes, time_path_shapes({run: recorded}, {run: launches[run]}, bw, dev,
+                                              torch))
+
+    fresh()
+    print(f"zoo: card {run_card()}; {_gib(torch.cuda.mem_get_info(dev)[0])} free, "
+          f"{_gib(torch.cuda.memory_allocated(dev))} still allocated")
+    # -- glm4-9b and gemma3-27b: served colocated, then PD ------------------
+    for arch, sp in ZOO_SERVE.items():
+        fresh()
+        cfg = configs.get(arch)
+        weights, free = cfg.param_count() * 2, torch.cuda.mem_get_info(dev)[0]
+        if weights > free:
+            raise AssertionError(f"{arch} does not fit at full depth: {_gib(weights)} of "
+                                 f"bf16 weights, {_gib(free)} free")
+        model = zoo_model(cfg, dev, torch)
+        print(f"zoo {arch}: d_model {cfg.d_model}, head_dim {cfg.hd}, {cfg.kv_heads} KV heads, "
+              f"{cfg.n_layers} layers, full depth; {cfg.param_count() / 1e9:.2f} B parameters, "
+              f"{cfg.param_count() * 2 / 1e9:.1f} GB bf16; windows "
+              f"{[s.window for s in (*cfg.prefix, *cfg.pattern)]}")
+        out = zoo_serve(arch, cfg, model, sp, dev, torch, np)
+        run = f"zoo_{arch}_pd"
+        launches[run] = out.pop("launches")
+        recorded = out.pop("recorded")
+        del model
+        peaks[arch] = torch.cuda.max_memory_allocated(dev)
+        print(f"  {arch} peak memory {_gib(peaks[arch])}")
+        gc.collect()
+        timed(run, recorded)
+        del recorded
+    # -- qwen2-vl-72b at a cut depth: prefill with vision embeddings --------
+    fresh()
+    full = configs.get("qwen2_vl_72b")
+    cfg = dataclasses.replace(full, repeats=QWEN_REPEATS)
+    model = zoo_model(cfg, dev, torch)
+    batch = registry.make_batch(cfg, QWEN_BATCH, QWEN_SEQ, rng=np.random.default_rng(SEED),
+                                device=dev)
+    with launch_train.deterministic():
+        logits, cache = transformer.prefill(
+            model, batch["tokens"], transformer.init_cache(cfg, QWEN_BATCH, QWEN_MAX_LEN, dev),
+            vision_embeds=batch["vision_embeds"])
+        eng = Compressor(codec_name="packed", device=dev)
+        pc = PlanCache()
+        with recorded_inputs(torch) as inputs:
+            kernels.clear_launch_counts()
+            wire, plan = kv_transfer.ship_cache(cache, eng, policy=CompressionPolicy(min_bytes=0),
+                                                plan_cache=pc)
+            back = kv_transfer.unpack_cache(wire, eng)
+            launches["zoo_qwen2_vl_ship"] = kernels.launch_counts()
+        recorded = (inputs, shape_tallies())
+        if not bits_equal(back, cache):
+            raise AssertionError("qwen2-vl: the shipped cache is not bit-identical")
+        leaves, treedef = tree_flatten(cache)
+
+        def greedy(c):
+            c = tree_unflatten(treedef, [t.clone() for t in tree_flatten(c)[0]])
+            tok = torch.argmax(logits[:, -1], -1)
+            out = [tok.tolist()]
+            for _ in range(QWEN_DECODE - 1):
+                lg, c = transformer.decode_step(model, tok[:, None], c)
+                tok = torch.argmax(lg[:, -1], -1)
+                out.append(tok.tolist())
+            return out
+
+        from_ship, from_cache = greedy(back), greedy(cache)
+    n_leaves = sum(1 for t in leaves if t.dim())
+    expect = dict.fromkeys(kernels.KERNELS, 0)
+    expect.update(pack=2 * n_leaves, unpack=2 * n_leaves)
+    if launches["zoo_qwen2_vl_ship"] != expect:
+        raise AssertionError(f"qwen2-vl shipment launches {launches['zoo_qwen2_vl_ship']}, "
+                             f"expected {expect}")
+    if from_ship != from_cache or not bool(torch.isfinite(logits.float()).all()):
+        raise AssertionError(f"qwen2-vl: decode from the shipped cache {from_ship} vs "
+                             f"{from_cache}")
+    msgs = [m for m in wire["messages"] if hasattr(m, "wire_bytes")]
+    ratio = sum(m.wire_bytes() for m in msgs) / sum(m.raw_bytes for m in msgs)
+    print(f"zoo qwen2_vl_72b: d_model {cfg.d_model}, {cfg.n_heads} heads, {cfg.kv_heads} KV "
+          f"heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}; depth cut to {cfg.n_layers} of "
+          f"{full.n_layers} layers (repeats {cfg.repeats} of {full.repeats}): "
+          f"{cfg.param_count() / 1e9:.2f} B of {full.param_count() / 1e9:.1f} B parameters")
+    print(f"  prefill of {QWEN_BATCH} x {QWEN_SEQ} tokens, the first "
+          f"{batch['vision_embeds'].shape[1]} positions vision_embeds "
+          f"(registry.make_batch); cache ({n_leaves} leaves of "
+          f"{tuple(leaves[0].shape)} bf16) over the host wire bit-identical, ratio "
+          f"{ratio:.4f}; {QWEN_DECODE} greedy decode steps from it identical to the "
+          f"original's {from_cache}; launches {launches['zoo_qwen2_vl_ship']}")
+    del model, cache, back, wire, logits, batch, leaves
+    peaks["qwen2_vl_72b"] = torch.cuda.max_memory_allocated(dev)
+    print(f"  qwen2_vl_72b peak memory {_gib(peaks['qwen2_vl_72b'])}")
+    gc.collect()
+    timed("zoo_qwen2_vl_ship", recorded)
+    del recorded
+    # -- tinyllama-1.1b: the launcher's ZeRO-1 path, compressed then raw ----
+    # the twins one after the other: the compressed run's final weights wait
+    # in host memory, and its kernels' inputs too (its all-gather decode's
+    # plain int64 merge takes ~35 GB at this bucket)
+    fresh()
+    runs, recorded, finals = {}, None, {}
+    with launch_train.single_process_group(dev) as group:
+        n_dp = torch.distributed.get_world_size(group)
+        for compress in (True, False):
+            with recorded_inputs(torch, host=True) as inputs:
+                kernels.clear_launch_counts()
+                run = launch_train.train(
+                    "tinyllama_1_1b", steps=TINY_STEPS, batch=TINY_BATCH, seq=TINY_SEQ,
+                    compress=compress, device=dev, seed=SEED, group=group)
+                run.launches = kernels.launch_counts()
+            if compress:
+                recorded = (inputs, shape_tallies())
+            finals[compress] = tree_flatten(run.state.model.tree())[0]
+            finals[compress] = [t.cpu() for t in finals[compress]]
+            runs[compress] = {"losses": run.losses, "step_ms": run.step_ms,
+                              "launches": run.launches, "n": run.state.meta.padded[0],
+                              "buckets": len(run.state.meta.dtype_names)}
+            del run
+            gc.collect()
+            torch.cuda.empty_cache()
+    comp, raw = runs[True], runs[False]
+    expect = dict.fromkeys(kernels.KERNELS, 0)
+    expect.update({k: TINY_STEPS * comp["buckets"] * v
+                   for k, v in two_shot_launches(True, True, n_dp).items()})
+    if comp["losses"] != raw["losses"] or any(s != s for s in comp["losses"]):
+        raise AssertionError(f"tinyllama losses differ: {comp['losses']} vs {raw['losses']}")
+    if comp["launches"] != expect or any(raw["launches"].values()):
+        raise AssertionError(f"tinyllama launches {comp['launches']} (raw {raw['launches']}), "
+                             f"expected {expect}")
+    if not bits_equal(finals[True], finals[False]):
+        raise AssertionError("tinyllama: final parameters differ between the twins")
+    launches["zoo_tinyllama_train"] = comp["launches"]
+    cfg = configs.get("tinyllama_1_1b")
+    print(f"zoo tinyllama_1_1b: full width and depth ({cfg.n_layers} layers, "
+          f"{cfg.param_count() / 1e9:.3f} B parameters), launcher ZeRO-1 n_dp={n_dp}, batch "
+          f"{TINY_BATCH} x seq {TINY_SEQ}, remat: bucket n={comp['n']} "
+          f"(param_count {cfg.param_count()}); compressed losses {comp['losses']} step_ms "
+          f"{[round(t, 1) for t in comp['step_ms']]}; raw losses {raw['losses']} step_ms "
+          f"{[round(t, 1) for t in raw['step_ms']]}: loss bits and final parameters "
+          f"identical; launches {comp['launches']}")
+    del finals
+    peaks["tinyllama_1_1b"] = torch.cuda.max_memory_allocated(dev)
+    print(f"  tinyllama_1_1b peak memory {_gib(peaks['tinyllama_1_1b'])}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("zoo_tinyllama_train", recorded)
+    del recorded
+    fresh()
+    seconds = time.perf_counter() - t_phase
+    print(f"zoo: {seconds:.1f} s; peak memory by model "
+          f"{ {k: _gib(v) for k, v in peaks.items()} }")
+    return {"launches": launches, "shapes": shapes, "seconds": seconds, "peaks": peaks}
+
+
+# per zoo run: the unit its launches are counted per, and how many
+ZOO_UNITS = {"zoo_glm4_9b_pd": ("glm4_pd_admission", ZOO_SERVE["glm4_9b"]["n_req"]),
+             "zoo_gemma3_27b_pd": ("gemma3_pd_admission", ZOO_SERVE["gemma3_27b"]["n_req"]),
+             "zoo_qwen2_vl_ship": ("qwen2_vl_shipment", 1),
+             "zoo_tinyllama_train": ("tinyllama_train_step", TINY_STEPS)}
+
+
+def merge_zoo(rows: list, zoo: dict) -> None:
+    """Add the zoo phase's launches (by run and per unit) and its timed
+    shapes to the ``kernels`` rows of phase_times."""
+    for row in rows:
+        by_run = {r: c[row["name"]] for r, c in zoo["launches"].items() if c[row["name"]]}
+        row["launches"] += sum(by_run.values())
+        row["launches_by_run"].update(by_run)
+        row["launches_per"].update({ZOO_UNITS[r][0]: n / ZOO_UNITS[r][1]
+                                    for r, n in by_run.items()})
+        if "shapes" in row:
+            merge_shapes({row["name"]: row["shapes"]},
+                         {row["name"]: zoo["shapes"].get(row["name"], {})})
 
 
 def _wall_ms(fn, torch, runs=5):
@@ -2250,6 +2641,78 @@ def _time_once(fn, torch):
     return a.elapsed_time(b), out
 
 
+def time_path_shapes(recorded, runs, bw, dev, torch) -> dict:
+    """encode_fused, decode_reduce, pack and unpack at each shape the runs
+    of ``recorded`` (``{run: (inputs, tallies)}`` of ``recorded_inputs`` and
+    ``shape_tallies``) launched them at: each held against its plain
+    version on the first run's input of the shape, then timed once a shape
+    with its bound.  Every launch a run tallied (``runs[run][kernel]``
+    launches) must be at a recorded shape.  Returns ``{kernel: {shape key:
+    entry}}``."""
+    from repro_torch.core import codec
+    from repro_torch.kernels import bitpack, ref
+    from repro_torch.kernels import decode_reduce as dr
+    from repro_torch.kernels import encode_fused as ef
+
+    def same(name, got, want):
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{name} differs from its plain version at the path's shape")
+
+    def encode_cost(x, w, blk):
+        n, lo_w = x.numel(), codec.layout_of(x.dtype).lo_bits
+        return n * x.element_size() + n // 32 * (w + lo_w) * 4 + n // blk * 8, 0
+
+    per_shape = {  # kernel: (wrapper, plain version, (bytes, operations) of its args)
+        "encode_fused": (ef.encode_fused, ref.encode_fused, encode_cost),
+        "decode_reduce": (dr.decode_reduce, ref.decode_reduce, lambda pay, lo, gb, a, dt, w: (
+            pay.shape[0] * (w + lo.shape[1] + 1) * 4 + a.numel() * 8, a.numel())),
+        "pack": (bitpack.pack, ref.pack, lambda vals, w: (
+            vals.numel() * vals.element_size() + vals.numel() // 32 * w * 4, 0)),
+        "unpack": (bitpack.unpack, ref.unpack, lambda words, w: (
+            words.shape[0] * w * 4 + words.shape[0] * 32 * 4, 0))}
+
+    def held(name, kernel, plain, args):
+        """Check the kernel on ``args``; returns a call of it to time."""
+        if name == "decode_reduce":  # in place: each call on its own accumulator
+            pay_, lo_, gb_, acc_, dt_, w_ = args
+            if not same_f32(kernel(pay_, lo_, gb_, acc_.clone(), dt_, w_), plain(*args),
+                            torch)[0]:
+                raise AssertionError(f"decode_reduce differs from plain at {args[-2:]}")
+            work_ = acc_.clone()
+            return lambda: kernel(pay_, lo_, gb_, work_, dt_, w_)
+        got_, want_ = kernel(*args), plain(*args)
+        same(name, got_ if name == "encode_fused" else [got_],
+             want_ if name == "encode_fused" else [want_])
+        return lambda: kernel(*args)
+
+    path_shapes = {}
+    for name, (kernel, plain, cost) in per_shape.items():
+        by_shape = {}  # shape -> (the first run's input, {run: launches})
+        for r, (inputs, tallies) in recorded.items():
+            tally = tallies[name]
+            if not set(tally) <= set(inputs[name]) or sum(tally.values()) != runs[r][name]:
+                raise AssertionError(f"{r} {name}: launches tallied at {tally}, inputs "
+                                     f"recorded at {list(inputs[name])}, {runs[r][name]} "
+                                     f"launches")
+            for shape, count in tally.items():
+                args = tuple(a.to(dev) if isinstance(a, torch.Tensor) else a
+                             for a in inputs[name][shape])
+                call = held(name, kernel, plain, args)
+                by_shape.setdefault(shape, (args, call, {}))[2][r] = count
+        path_shapes[name] = {}
+        for shape, (args, call, by) in by_shape.items():
+            nbytes, ops = cost(*args)
+            bytes_ms, ops_ms = nbytes / bw * 1e3, ops / PEAK_OPS * 1e3
+            key = "_".join(str(v).removeprefix("torch.") for v in shape)
+            path_shapes[name][key] = entry = {
+                "launches": sum(by.values()), "launches_by_run": by,
+                "ms": _time(call, torch), "plain_ms": _time(lambda a=args: plain(*a), torch),
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+            print(f"times: {name} at {key}: {entry}")
+    return path_shapes
+
+
 # Peak rates for the bound: f32 outside the tensor cores; the integer
 # operations of the rANS kernels are counted at the same rate, which the
 # card's int32 rate does not exceed, so the bound stays a lower bound.
@@ -2309,64 +2772,13 @@ def phase_times(comp, fsdp, serve, sync, psum, p2p, fleet, obs_run, dev, torch, 
             raise AssertionError(f"{name} differs from its plain version at the path's shape")
 
     # -- encode_fused, decode_reduce, pack and unpack at each shape a run
-    # launched them at, held against the plain version on each run's first
-    # input of the shape (recorded_inputs) and timed once a shape; every
-    # launch a run tallied must be at a recorded shape
+    # launched them at (the zoo phase times its own shapes, which merge_zoo
+    # adds to these rows)
     recorded = {**serve["recorded"], "train": comp.recorded, "fsdp": fsdp["recorded"],
                 "psum": psum["recorded"],
                 "weight_sync": sync["recorded"], "p2p": p2p["recorded"],
                 "fleet": fleet["recorded"], "obs": obs_run["recorded"]}
-
-    def encode_cost(x, w, blk):
-        n, lo_w = x.numel(), codec.layout_of(x.dtype).lo_bits
-        return n * x.element_size() + n // 32 * (w + lo_w) * 4 + n // blk * 8, 0
-
-    per_shape = {  # kernel: (wrapper, plain version, (bytes, operations) of its args)
-        "encode_fused": (ef.encode_fused, ref.encode_fused, encode_cost),
-        "decode_reduce": (dr.decode_reduce, ref.decode_reduce, lambda pay, lo, gb, a, dt, w: (
-            pay.shape[0] * (w + lo.shape[1] + 1) * 4 + a.numel() * 8, a.numel())),
-        "pack": (bitpack.pack, ref.pack, lambda vals, w: (
-            vals.numel() * vals.element_size() + vals.numel() // 32 * w * 4, 0)),
-        "unpack": (bitpack.unpack, ref.unpack, lambda words, w: (
-            words.shape[0] * w * 4 + words.shape[0] * 32 * 4, 0))}
-
-    def held(name, kernel, plain, args):
-        """Check the kernel on ``args``; returns a call of it to time."""
-        if name == "decode_reduce":  # in place: each call on its own accumulator
-            pay_, lo_, gb_, acc_, dt_, w_ = args
-            if not same_f32(kernel(pay_, lo_, gb_, acc_.clone(), dt_, w_), plain(*args),
-                            torch)[0]:
-                raise AssertionError(f"decode_reduce differs from plain at {args[-2:]}")
-            work_ = acc_.clone()
-            return lambda: kernel(pay_, lo_, gb_, work_, dt_, w_)
-        got_, want_ = kernel(*args), plain(*args)
-        same(name, got_ if name == "encode_fused" else [got_],
-             want_ if name == "encode_fused" else [want_])
-        return lambda: kernel(*args)
-
-    path_shapes = {}
-    for name, (kernel, plain, cost) in per_shape.items():
-        by_shape = {}  # shape -> (the first run's input, {run: launches})
-        for r, (inputs, tallies) in recorded.items():
-            tally = tallies[name]
-            if not set(tally) <= set(inputs[name]) or sum(tally.values()) != runs[r][name]:
-                raise AssertionError(f"{r} {name}: launches tallied at {tally}, inputs "
-                                     f"recorded at {list(inputs[name])}, {runs[r][name]} "
-                                     f"launches")
-            for shape, count in tally.items():
-                call = held(name, kernel, plain, inputs[name][shape])
-                by_shape.setdefault(shape, (inputs[name][shape], call, {}))[2][r] = count
-        path_shapes[name] = {}
-        for shape, (args, call, by) in by_shape.items():
-            nbytes, ops = cost(*args)
-            bytes_ms, ops_ms = nbytes / bw * 1e3, ops / PEAK_OPS * 1e3
-            key = "_".join(str(v).removeprefix("torch.") for v in shape)
-            path_shapes[name][key] = entry = {
-                "launches": sum(by.values()), "launches_by_run": by,
-                "ms": _time(call, torch), "plain_ms": _time(lambda a=args: plain(*a), torch),
-                "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-            print(f"times: {name} at {key}: {entry}")
+    path_shapes = time_path_shapes(recorded, runs, bw, dev, torch)
 
     # -- the main path's AG input: the trained bf16 parameter bucket ---------
     meta = comp.state.meta
@@ -2525,8 +2937,12 @@ def main() -> int:
     fleet = phase_fleet(sync, dev, torch)
     p2p = phase_p2p(serve, psum, sync, dev, torch)
     obs_run = phase_obs(comp, psum, sync, dev, torch, np)
+    bw = card_bandwidth(name)
     rows = phase_times(comp, fsdp, serve, sync, psum, p2p, fleet, obs_run, dev, torch, np,
-                       worst, card_bandwidth(name))
+                       worst, bw)
+    # the zoo's models take the card alone: only the rows stay
+    del comp, fsdp, serve, sync, psum, p2p, fleet, obs_run
+    merge_zoo(rows, phase_zoo(dev, torch, np, bw))
     print(f"card: {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,10 @@
     tensor out, and raises ``IOError`` on a mismatch;
   * **async**: ``save_async`` copies the tensors to the host (the only part
     that blocks) and writes in a background thread;
-  * **retention**: the ``keep`` newest checkpoints stay.
+  * **retention**: the ``keep`` newest checkpoints stay;
+  * **plans**: ``save_plans`` writes the communication plan cache next to
+    the checkpoints and ``restore_plans`` loads it into a cache, so a
+    resumed run replays its wires' schedules without compiling them.
 
 The layout is the reference's, so either package restores the other's
 checkpoints: one ``.npy`` file a leaf (named by its path in the tree), a
@@ -21,8 +24,7 @@ same way.  A state that is not a tree but can be rebuilt from one (a
 ``train.step.TrainState``: ``tree()`` and ``from_tree``) saves as its tree,
 and restores through ``state_like.from_tree``.
 
-Not ported yet: ``save_plans``/``restore_plans`` (with the plan cache's
-persistence) and ``restore(shardings=)`` (with ``launch/mesh.py``).
+Not ported yet: ``restore(shardings=)`` (with ``launch/mesh.py``).
 """
 from __future__ import annotations
 
@@ -164,6 +166,31 @@ class CheckpointManager:
                        if d.startswith("step_") and not d.endswith(".tmp"))
         for d in ckpts[: -self.keep] if self.keep > 0 else []:
             shutil.rmtree(os.path.join(self.dir, d))
+
+    # -- plan-cache persistence ----------------------------------------------
+
+    PLAN_CACHE_FILE = "plan_cache.pkl"
+
+    def save_plans(self, cache=None) -> str:
+        """Write the plan cache (default: the process cache) next to the
+        checkpoints.  Plans are keyed by wire signature, not by step: one
+        file serves every step, rewritten on each save.  Returns its path."""
+        from repro_torch.sched import cache as sched_cache
+
+        path = os.path.join(self.dir, self.PLAN_CACHE_FILE)
+        sched_cache.save_plans(path, cache)
+        return path
+
+    def restore_plans(self, cache=None, *, device="cuda") -> int:
+        """Load the saved plan cache into ``cache`` (default: the process
+        cache), keeping the plans compiled for ``device``'s backend.
+        Returns the number of plans inserted (0 when no file was saved)."""
+        from repro_torch.sched import cache as sched_cache
+
+        path = os.path.join(self.dir, self.PLAN_CACHE_FILE)
+        if not os.path.exists(path):
+            return 0
+        return sched_cache.load_plans(path, cache, device=device)
 
     # -- restore --------------------------------------------------------------
 

@@ -1,11 +1,19 @@
 """Architecture registry (torch port of ``repro.configs``; only the
-architectures whose layers are ported).  ``get(name)`` returns the full
-ArchConfig, ``get_smoke(name)`` a reduced same-family config."""
+architectures whose layers are ported, in the reference's order).
+``get(name)`` returns the full ArchConfig, ``get_smoke(name)`` a reduced
+same-family config."""
 from __future__ import annotations
 
 import importlib
 
-ARCHS = ["smollm_135m"]
+ARCHS = [
+    "tinyllama_1_1b",
+    "mistral_nemo_12b",
+    "gemma3_27b",
+    "smollm_135m",
+    "qwen2_vl_72b",
+    "glm4_9b",
+]
 
 ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 
@@ -23,3 +31,7 @@ def get(name: str):
 
 def get_smoke(name: str):
     return _module(name).SMOKE
+
+
+def list_archs():
+    return list(ARCHS)

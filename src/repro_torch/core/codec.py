@@ -89,12 +89,20 @@ def split_planes(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return exp.to(torch.uint8), lo
 
 
+# values a decode merges at a time where a wire is larger (1.1 G values
+# merged whole would hold tens of GB of temporaries)
+MERGE_SLICE = 1 << 24
+
+
 def merge_bits(exp: torch.Tensor, lo: torch.Tensor, lay: FloatLayout) -> torch.Tensor:
-    """Merge int64 exponent and lo values into int64 bit patterns, truncated
-    to the format's width (exponents wider than ``exp_bits`` wrap exactly as
-    the reference's shift in the format's unsigned dtype does)."""
-    exp = exp.to(torch.int64)
-    lo = lo.to(torch.int64)
+    """Merge integer exponent and lo values into bit patterns, truncated to
+    the format's width (exponents wider than ``exp_bits`` wrap exactly as the
+    reference's shift in the format's unsigned dtype does).  Formats under
+    32 bits compute in int32 (a shift's low bits do not depend on the width),
+    float32 in int64; the result has that dtype."""
+    wide = torch.int32 if lay.total_bits < 32 else torch.int64
+    exp = exp.to(wide)
+    lo = lo.to(wide)
     sign = (lo >> lay.mant_bits) & 1
     mant = lo & ((1 << lay.mant_bits) - 1)
     bits = (sign << (lay.total_bits - 1)) | (exp << lay.mant_bits) | mant

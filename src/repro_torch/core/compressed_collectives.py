@@ -234,14 +234,24 @@ def _encode_chunks(x2d: torch.Tensor, *, width: int, block: int,
 
 
 def _decode_chunks(wire: dict, *, dtype, n: int, width: int, block: int):
-    """Decode every chunk of a wire dict.  Returns (vals (C, n), flag)."""
+    """Decode every chunk of a wire dict.  Returns (vals (C, n), flag).  A
+    wire of more than ``codec.MERGE_SLICE`` values a chunk merges that many
+    columns at a time into the output."""
     lay = codec.layout_of(dtype)
     C = wire["payload"].shape[0]
     exp = packing.unpack_blocks(wire["payload"], wire["bases"], wire["exc_idx"],
                                 wire["exc_raw"], width=width, block=block)
-    lo = packing.bitplane_unpack(wire["lo"].reshape(-1, lay.lo_bits), lay.lo_bits)
-    bits = codec.merge_bits(exp[:, :n], lo.reshape(C, -1)[:, :n], lay)
-    return codec.from_bits(bits, lay), wire["overflow"].max()
+    lo = packing.bitplane_unpack(wire["lo"].reshape(-1, lay.lo_bits),
+                                 lay.lo_bits).reshape(C, -1)
+    if n <= codec.MERGE_SLICE:
+        return codec.from_bits(codec.merge_bits(exp[:, :n], lo[:, :n], lay), lay), \
+            wire["overflow"].max()
+    out = torch.empty((C, n), dtype=lay.dtype, device=exp.device)
+    for s0 in range(0, n, codec.MERGE_SLICE):
+        s1 = min(s0 + codec.MERGE_SLICE, n)
+        out[:, s0:s1] = codec.from_bits(codec.merge_bits(exp[:, s0:s1], lo[:, s0:s1], lay),
+                                        lay)
+    return out, wire["overflow"].max()
 
 
 def wire_nbytes(wire: dict) -> int:

@@ -90,14 +90,28 @@ def decode_reduce(payload: torch.Tensor, lo_planes: torch.Tensor,
                   dtype_name: str, width: int) -> torch.Tensor:
     """Zero-escape wire decode + f32 accumulate: returns ``acc + decode``
     (a new tensor).  Code 0 is exponent 0, code r > 0 is ``(r + base - 1)
-    & 0xFF``; the exponent is merged in the format's own width."""
+    & 0xFF``; the exponent is merged in the format's own width.  A wire of
+    more than ``codec.MERGE_SLICE`` values decodes that many at a time."""
     lay = codec.LAYOUTS[dtype_name]
-    resid = unpack(payload, width).reshape(-1, packing.GROUP)
-    gb = packing._as_u32(group_bases)[:, None]
-    exp = torch.where(resid == 0, 0, (resid + gb - 1) & 0xFF).reshape(-1)
-    lo = unpack(lo_planes, lay.lo_bits)
-    vals = codec.from_bits(codec.merge_bits(exp, lo, lay), lay).to(torch.float32)
-    return acc.reshape(-1) + vals
+    G = packing.GROUP
+
+    def decode(g0, g1):
+        resid = unpack(payload[g0:g1], width).reshape(-1, G)
+        gb = packing._as_u32(group_bases[g0:g1])[:, None]
+        exp = torch.where(resid == 0, 0, (resid + gb - 1) & 0xFF).reshape(-1)
+        lo = unpack(lo_planes[g0:g1], lay.lo_bits)
+        return codec.from_bits(codec.merge_bits(exp, lo, lay), lay).to(torch.float32)
+
+    acc = acc.reshape(-1)
+    n_g, step = payload.shape[0], codec.MERGE_SLICE // G
+    if n_g <= step:
+        return acc + decode(0, n_g)
+    out = torch.empty(acc.shape, dtype=torch.promote_types(acc.dtype, torch.float32),
+                      device=acc.device)
+    for g0 in range(0, n_g, step):
+        g1 = min(g0 + step, n_g)
+        out[g0 * G:g1 * G] = acc[g0 * G:g1 * G] + decode(g0, g1)
+    return out
 
 
 # --- rans (dense emission; the reference's ``kernels/ref.py`` formulation) ----

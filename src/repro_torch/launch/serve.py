@@ -4,9 +4,11 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_135m \\
         --smoke --requests 16 --max-new 24 [--pd] [--device cpu]
 
-Random weights from ``--seed``, random prompts of ``--prompt-len`` tokens
-from the same seed; greedy decoding.  ``--pd`` ships every admitted cache
-over the compressed host wire (PD disaggregation).
+Every ported architecture (``repro_torch.configs.ARCHS``) serves, at full
+size without ``--smoke``.  Random weights from ``--seed``, drawn on the
+device; random prompts of ``--prompt-len`` tokens from the same seed;
+greedy decoding.  ``--pd`` ships every admitted cache over the compressed
+host wire (PD disaggregation).
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ def main(argv=None):
 
     dev = kernels.resolve_device(args.device)
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
-    model = transformer.init(cfg, generator=torch.Generator().manual_seed(args.seed),
+    model = transformer.init(cfg, generator=torch.Generator(dev).manual_seed(args.seed),
                              device=dev)
     eng = ServeEngine(cfg, model, ServeConfig(
         batch_slots=args.slots, max_len=args.max_len,

@@ -1,14 +1,24 @@
 """Architecture configuration schema (torch port of ``repro.models.config``;
-the dense fields only: MoE, MLA, Mamba, xLSTM and encoder fields wait)."""
+the dense fields only: MoE, MLA, Mamba, xLSTM and encoder fields wait).
+
+A model is a prefix of unstacked layers, then a super-block ``pattern``
+repeated ``repeats`` times (each pattern position's parameters stacked over
+the repeats): gemma's 5:1 local:global layout is a 6-layer pattern with
+its 2 remainder local layers in the prefix.
+"""
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Sequence
 
+# layer kinds of the reference that the port does not build yet
+UNPORTED_MIXERS = ("mla", "mamba", "mlstm", "slstm")
+UNPORTED_FFNS = ("moe", "none")
+
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
-    """One position inside the repeating super-block."""
+    """One position inside the repeating super-block (or the prefix)."""
 
     mixer: str = "attn"  # attn (the only mixer ported so far)
     ffn: str = "swiglu"  # swiglu
@@ -23,25 +33,49 @@ class ArchConfig:
     kv_heads: int
     d_ff: int
     vocab: int
-    # layer layout: pattern x repeats (parameters stacked over repeats)
+    # layer layout: prefix (unstacked) + pattern x repeats (stacked)
     pattern: Sequence[LayerSpec] = (LayerSpec(),)
     repeats: int = 1
+    prefix: Sequence[LayerSpec] = ()
     head_dim: Optional[int] = None  # default d_model // n_heads
+    frontend: str = "none"  # none | vision_stub (patch embeddings enter the batch)
     rope_theta: float = 10000.0
+    mrope: bool = False  # qwen2-vl M-RoPE: text-only positions make it plain RoPE
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
+    sub_quadratic: bool = False  # eligible for long-context serving cells
+    notes: str = ""
 
     @property
     def n_layers(self) -> int:
-        return len(self.pattern) * self.repeats
+        return len(self.prefix) + len(self.pattern) * self.repeats
 
     @property
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
     def param_count(self) -> int:
-        d, hd = self.d_model, self.hd
+        """Exact parameter count (the element count of ``transformer.init``):
+        embeddings (one table when tied), the final norm, and per layer its
+        mixer, FFN and two norms."""
+        d = self.d_model
         total = self.vocab * d * (1 if self.tie_embeddings else 2) + d
-        attn = d * self.n_heads * hd * 2 + 2 * d * self.kv_heads * hd
-        return total + self.n_layers * (attn + 3 * d * self.d_ff + 2 * d)
+        for s in list(self.prefix) + list(self.pattern) * self.repeats:
+            total += self._mixer_params(s.mixer) + self._ffn_params(s.ffn) + 2 * d
+        return total
+
+    def _mixer_params(self, mixer: str) -> int:
+        if mixer == "attn":
+            d, hd = self.d_model, self.hd
+            return 2 * d * self.n_heads * hd + 2 * d * self.kv_heads * hd
+        if mixer in UNPORTED_MIXERS:
+            raise NotImplementedError(f"mixer {mixer!r} is not ported yet")
+        raise ValueError(mixer)
+
+    def _ffn_params(self, ffn: str) -> int:
+        if ffn == "swiglu":
+            return 3 * self.d_model * self.d_ff
+        if ffn in UNPORTED_FFNS:
+            raise NotImplementedError(f"ffn {ffn!r} is not ported yet")
+        raise ValueError(ffn)

@@ -1,6 +1,6 @@
 """Dense building blocks (torch port of ``repro.models.layers``): RMSNorm,
-RoPE, GQA causal attention with its KV-cache forms (prefill, decode) as
-plain PyTorch math, SwiGLU.
+RoPE, GQA causal attention (global or sliding-window) with its KV-cache
+forms (prefill, decode) as plain PyTorch math, SwiGLU.
 
 The reference's rounding points are kept: RMSNorm normalises in f32 and
 casts back before the weight; q is pre-scaled in f32 and cast back to the
@@ -26,7 +26,10 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def rope_table(positions: torch.Tensor, dim: int, theta: float):
-    """positions (S,) -> cos/sin (S, dim//2), f32.  The angles are the
+    """positions (S,) -> cos/sin (S, dim//2), f32.  Also the table of M-RoPE
+    (``ArchConfig.mrope``): with the vision frontend stubbed, every position
+    is a text position, whose three M-RoPE sections are equal, which makes
+    it plain RoPE (as in the reference).  The angles are the
     reference's f32 products; cos and sin are taken in f64 and rounded, which
     agrees with XLA's f32 cos/sin far more often than torch's f32 ones do
     (measured on the CPU: 0.9% vs 5% of a 1024 x 8 table differ)."""

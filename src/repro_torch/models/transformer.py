@@ -1,12 +1,17 @@
 """Dense decoder stack (torch port of ``repro.models.transformer``).
 
-Parameters keep the reference's layout: per pattern position, every layer
-leaf is STACKED over repeats (``(repeats, ...)``), and the parameters are
-registered in the order of the reference's ``jax.tree_util.tree_leaves``,
-named by their path in the reference's tree (``blocks/0/ffn/w1``, ...,
-``embed``, ``final_norm``).  So the ZeRO-1 bucket of the port holds the
-same bytes as ``zero1.flatten_buckets`` of the reference for the same
-weights, and :func:`load_reference_params` carries weights across.
+Parameters keep the reference's layout: the prefix layers ``prefix_<i>``
+are unstacked and run first; per pattern position, every layer leaf is
+STACKED over repeats (``(repeats, ...)``).  The parameters are registered
+in the order of the reference's ``jax.tree_util.tree_leaves`` (dict keys
+sorted as strings: ``blocks/...``, ``embed``, ``final_norm``, ``lm_head``,
+then ``prefix_0``, ``prefix_1``, ``prefix_10``, ``prefix_2``, ...), named by
+their path in the reference's tree (``blocks/0/ffn/w1``, ...,
+``prefix_0/mixer/wq``).  So the ZeRO-1 bucket of the port holds the same
+bytes as ``zero1.flatten_buckets`` of the reference for the same weights,
+and :func:`load_reference_params` carries weights across.  A batch's
+``vision_embeds`` (the VLM frontend stub) replace the leading positions'
+token embeddings.
 """
 from __future__ import annotations
 
@@ -35,7 +40,7 @@ def _layer_shapes(cfg: ArchConfig) -> dict:
 
 
 def _tree_shapes(cfg: ArchConfig) -> dict:
-    for spec in cfg.pattern:
+    for spec in (*cfg.prefix, *cfg.pattern):
         if spec.mixer != "attn" or spec.ffn != "swiglu":
             raise NotImplementedError(f"layer {spec} is not ported yet")
     tree = {
@@ -45,6 +50,8 @@ def _tree_shapes(cfg: ArchConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         tree["lm_head"] = ((cfg.vocab, cfg.d_model), 0.02)
+    for i in range(len(cfg.prefix)):
+        tree[f"prefix_{i}"] = _layer_shapes(cfg)
     return tree
 
 
@@ -60,16 +67,19 @@ _LAYER_MODEL_AXIS_DIMS = {"norm1": (), "norm2": (),
 def model_axis_dims(cfg: ArchConfig) -> dict:
     """The parameter tree of :func:`abstract_params` with, at each leaf, the
     tuple of dims the reference gives to its 'model' axis (the embedding's
-    vocabulary rows; the blocks' dims shifted past the stacked one).  The
-    port runs no tensor parallelism, but FSDP leaves these dims alone as
-    the reference does, so both shard the same dim of every leaf."""
+    vocabulary rows; the blocks' dims shifted past the stacked one, the
+    prefix layers' as they are).  The port runs no tensor parallelism, but
+    FSDP leaves these dims alone as the reference does, so both shard the
+    same dim of every leaf."""
+    stacked = {k: v if not isinstance(v, dict) else
+               {n: tuple(d + 1 for d in ds) for n, ds in v.items()}
+               for k, v in _LAYER_MODEL_AXIS_DIMS.items()}
     tree = {"embed": (0,), "final_norm": (),
-            "blocks": tuple({k: v if not isinstance(v, dict) else
-                             {n: tuple(d + 1 for d in ds) for n, ds in v.items()}
-                             for k, v in _LAYER_MODEL_AXIS_DIMS.items()}
-                            for _ in cfg.pattern)}
+            "blocks": tuple(stacked for _ in cfg.pattern)}
     if not cfg.tie_embeddings:
         tree["lm_head"] = (0,)
+    for i in range(len(cfg.prefix)):
+        tree[f"prefix_{i}"] = _LAYER_MODEL_AXIS_DIMS
     return tree
 
 
@@ -122,68 +132,94 @@ class Transformer(nn.Module):
     def head(self) -> torch.Tensor:
         return self.params["embed" if self.cfg.tie_embeddings else "lm_head"]
 
-    def _layer(self, pi: int, r: int) -> dict:
-        pre = f"blocks/{pi}/"
-        get = lambda k: self.params[pre + k][r]  # noqa: E731
+    def _layer(self, pre: str, r: int | None, top: dict) -> dict:
+        """One layer's parameters: the leaves under ``pre`` (``blocks/<pi>/``
+        sliced at repeat ``r``, or ``prefix_<i>/`` whole, taken from ``top``
+        where it holds them)."""
+        if r is None:
+            get = lambda k: top.get(pre + k, self.params[pre + k])  # noqa: E731
+        else:
+            get = lambda k: self.params[pre + k][r]  # noqa: E731
         return {"norm1": get("norm1"), "norm2": get("norm2"),
                 "mixer": {k: get(f"mixer/{k}") for k in ("wq", "wk", "wv", "wo")},
                 "ffn": {k: get(f"ffn/{k}") for k in ("w1", "w2", "w3")}}
 
     def run_layers(self, h: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                    cache: dict | None = None, cache_pos: int | None = None, *,
-                   block_param_fn=None, remat: bool = False,
-                   final_norm: torch.Tensor | None = None):
-        """Every layer over hidden states ``h`` (B, S, D), then the final
-        norm (``final_norm``: its weight, default the model's).
+                   top: dict | None = None, block_param_fn=None, remat: bool = False):
+        """Every layer over hidden states ``h`` (B, S, D), the prefix layers
+        first, then the final norm.  ``top``: unstacked leaves by path
+        (``final_norm``, ``prefix_<i>/...``) to use in place of the model's.
         ``cache``/``cache_pos``: the KV cache written in place (see
-        ``layers.attention``).  ``block_param_fn(layer_params,
-        pattern_index)`` maps each layer's parameters (its slice of the
-        stacked leaves) before the layer runs: the FSDP step gathers them
-        there.  ``remat``: each layer, hook included, runs under
-        ``torch.utils.checkpoint``, so its backward recomputes it, gathers
-        and all, as the reference's ``jax.checkpoint`` of its layer does."""
-        cfg = self.cfg
-        for r in range(cfg.repeats):
-            for pi, spec in enumerate(cfg.pattern):
-                kv = None
-                if cache is not None:
-                    c = cache["blocks"][pi]["kv"]
-                    kv = {"k": c["k"][r], "v": c["v"][r]}
-
-                def layer(h, pi=pi, r=r, spec=spec, kv=kv):
-                    p = self._layer(pi, r)
-                    if block_param_fn is not None:
-                        p = block_param_fn(p, pi)
-                    h = h + L.attention(p["mixer"], L.rms_norm(h, p["norm1"], cfg.norm_eps),
-                                        cfg, spec, cos, sin, kv, cache_pos)
-                    return h + L.swiglu(p["ffn"], L.rms_norm(h, p["norm2"], cfg.norm_eps))
-
-                # the layer draws no random numbers: no RNG state to keep
-                h = (checkpoint(layer, h, use_reentrant=False, preserve_rng_state=False)
-                     if remat else layer(h))
-        w = self.params["final_norm"] if final_norm is None else final_norm
-        return L.rms_norm(h, w, cfg.norm_eps)
-
-    def forward(self, tokens: torch.Tensor, *, top: dict | None = None,
-                block_param_fn=None, remat: bool = False) -> torch.Tensor:
-        """Hidden states before the head.  ``top``: top-level leaves
-        (``embed``, ``final_norm``) to use in place of the model's, as the
-        FSDP step passes them gathered; ``block_param_fn`` and ``remat`` as
-        in :meth:`run_layers`."""
+        ``layers.attention``).  ``block_param_fn(layer_params, index)`` maps
+        each layer's parameters before the layer runs, as the reference's
+        hook: ``index`` is the pattern position of a stacked layer (its
+        slice of the stacked leaves) and ``-i - 1`` for prefix layer ``i``;
+        the FSDP step gathers stacked layers there.  ``remat``: each layer,
+        hook included, runs under ``torch.utils.checkpoint``, so its backward
+        recomputes it, gathers and all, as the reference's
+        ``jax.checkpoint`` of its layer does."""
         cfg = self.cfg
         top = {} if top is None else top
-        h = torch.nn.functional.embedding(tokens, top.get("embed", self.params["embed"]))
+        layers = [(f"prefix_{i}/", None, -i - 1, spec, f"prefix_{i}")
+                  for i, spec in enumerate(cfg.prefix)]
+        layers += [(f"blocks/{pi}/", r, pi, spec, pi)
+                   for r in range(cfg.repeats) for pi, spec in enumerate(cfg.pattern)]
+        for pre, r, idx, spec, where in layers:
+            kv = None
+            if cache is not None:
+                c = (cache[where] if r is None else cache["blocks"][where])["kv"]
+                kv = c if r is None else {"k": c["k"][r], "v": c["v"][r]}
+
+            def layer(h, pre=pre, r=r, idx=idx, spec=spec, kv=kv):
+                p = self._layer(pre, r, top)
+                if block_param_fn is not None:
+                    p = block_param_fn(p, idx)
+                h = h + L.attention(p["mixer"], L.rms_norm(h, p["norm1"], cfg.norm_eps),
+                                    cfg, spec, cos, sin, kv, cache_pos)
+                return h + L.swiglu(p["ffn"], L.rms_norm(h, p["norm2"], cfg.norm_eps))
+
+            # the layer draws no random numbers: no RNG state to keep
+            h = (checkpoint(layer, h, use_reentrant=False, preserve_rng_state=False)
+                 if remat else layer(h))
+        return L.rms_norm(h, top.get("final_norm", self.params["final_norm"]),
+                          cfg.norm_eps)
+
+    def embed(self, tokens: torch.Tensor, vision_embeds: torch.Tensor | None = None,
+              table: torch.Tensor | None = None) -> torch.Tensor:
+        """Token embeddings (from ``table``, default the model's), with the
+        VLM stub's ``vision_embeds`` (B, Sv, D) replacing the leading Sv
+        positions."""
+        h = torch.nn.functional.embedding(
+            tokens, self.params["embed"] if table is None else table)
+        if vision_embeds is not None:
+            ve = vision_embeds.to(h.dtype)
+            h = torch.cat([ve, h[:, ve.shape[1]:]], 1)
+        return h
+
+    def forward(self, tokens: torch.Tensor, *, vision_embeds: torch.Tensor | None = None,
+                top: dict | None = None, block_param_fn=None,
+                remat: bool = False) -> torch.Tensor:
+        """Hidden states before the head.  ``top``: the unstacked leaves by
+        path (``embed``, ``final_norm``, ``prefix_<i>/...``) to use in place
+        of the model's, as the FSDP step passes them gathered;
+        ``block_param_fn`` and ``remat`` as in :meth:`run_layers`."""
+        cfg = self.cfg
+        top = {} if top is None else top
+        h = self.embed(tokens, vision_embeds, top.get("embed"))
         cos, sin = L.rope_table(torch.arange(tokens.shape[1], device=tokens.device),
                                 cfg.hd, cfg.rope_theta)
-        return self.run_layers(h, cos, sin, block_param_fn=block_param_fn, remat=remat,
-                               final_norm=top.get("final_norm"))
+        return self.run_layers(h, cos, sin, top=top, block_param_fn=block_param_fn,
+                               remat=remat)
 
 
 def init(cfg: ArchConfig, *, generator: torch.Generator, device="cuda") -> Transformer:
     """Random initialisation with the reference's scales (normal * 0.02 for
     embeddings, normal / sqrt(fan_in) for dense layers, ones for norms).
-    Draws come from ``generator`` (a CPU generator: the weights are the
-    same on every device) in parameter order."""
+    Draws come from ``generator`` in parameter order, on the generator's
+    device: a CPU generator gives the same weights on every device, a CUDA
+    one draws a model of billions of parameters in seconds (with one f32
+    temporary of its largest leaf on the card)."""
     dev = kernels.resolve_device(device)
     dt = codec.LAYOUTS[cfg.dtype].dtype
     tensors = {}
@@ -191,10 +227,11 @@ def init(cfg: ArchConfig, *, generator: torch.Generator, device="cuda") -> Trans
         if path.startswith("blocks/"):
             shape = (cfg.repeats,) + tuple(shape)
         if scale is None:
-            t = torch.ones(shape, dtype=dt)
+            t = torch.ones(shape, dtype=dt, device=dev)
         else:
-            t = (torch.randn(shape, generator=generator) * scale).to(dt)
-        tensors[path] = t.to(dev)
+            t = torch.randn(shape, generator=generator, device=generator.device)
+            t = t.mul_(scale).to(device=dev, dtype=dt)
+        tensors[path] = t
     return Transformer(cfg, tensors)
 
 
@@ -236,16 +273,24 @@ def load_reference_params(tree, cfg: ArchConfig, device="cuda") -> Transformer:
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda") -> dict:
-    """The reference's cache pytree: ``{"pos": int32 scalar, "blocks":
-    ({"kv": {"k", "v"}},) per pattern position}``, k and v zeros of
-    ``(repeats, batch, max_len, kv_heads, hd)`` in the model dtype."""
+    """The reference's cache pytree: ``{"pos": int32 scalar, "prefix_<i>":
+    {"kv": {"k", "v"}} per prefix layer, "blocks": ({"kv": {"k", "v"}},) per
+    pattern position}``; k and v zeros of ``(batch, max_len, kv_heads, hd)``
+    for a prefix layer and ``(repeats, batch, max_len, kv_heads, hd)`` for a
+    pattern position, in the model dtype."""
     dev = kernels.resolve_device(device)
     dt = codec.LAYOUTS[cfg.dtype].dtype
-    shape = (cfg.repeats, batch, max_len, cfg.kv_heads, cfg.hd)
-    blocks = tuple({"kv": {"k": torch.zeros(shape, dtype=dt, device=dev),
-                           "v": torch.zeros(shape, dtype=dt, device=dev)}}
-                   for _ in cfg.pattern)
-    return {"pos": torch.zeros((), dtype=torch.int32, device=dev), "blocks": blocks}
+
+    def kv(*lead):
+        shape = (*lead, batch, max_len, cfg.kv_heads, cfg.hd)
+        return {"kv": {"k": torch.zeros(shape, dtype=dt, device=dev),
+                       "v": torch.zeros(shape, dtype=dt, device=dev)}}
+
+    cache = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
+    for i in range(len(cfg.prefix)):
+        cache[f"prefix_{i}"] = kv()
+    cache["blocks"] = tuple(kv(cfg.repeats) for _ in cfg.pattern)
+    return cache
 
 
 def logits_from_hidden(model: Transformer, h: torch.Tensor) -> torch.Tensor:
@@ -253,18 +298,20 @@ def logits_from_hidden(model: Transformer, h: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def prefill(model: Transformer, tokens: torch.Tensor, cache: dict) -> tuple:
-    """Prefill forward over ``tokens`` (B, S): the causal forward that also
+def prefill(model: Transformer, tokens: torch.Tensor, cache: dict, *,
+            vision_embeds: torch.Tensor | None = None) -> tuple:
+    """Prefill forward over ``tokens`` (B, S), ``vision_embeds`` (B, Sv, D)
+    replacing the leading positions if given: the causal forward that also
     fills the cache at positions [0, S).  The cache's K/V tensors are written
     in place; returns (last-position logits (B, 1, V), the cache with
     ``pos = S``).  The cache is what PD disaggregation ships."""
     S = tokens.shape[1]
-    h = torch.nn.functional.embedding(tokens, model.params["embed"])
+    h = model.embed(tokens, vision_embeds)
     cos, sin = L.rope_table(torch.arange(S, device=tokens.device), model.cfg.hd,
                             model.cfg.rope_theta)
     h = model.run_layers(h, cos, sin, cache)
     pos = torch.tensor(S, dtype=torch.int32, device=tokens.device)
-    return logits_from_hidden(model, h[:, -1:]), {"pos": pos, "blocks": cache["blocks"]}
+    return logits_from_hidden(model, h[:, -1:]), dict(cache, pos=pos)
 
 
 @torch.no_grad()
@@ -273,9 +320,8 @@ def decode_step(model: Transformer, tokens: torch.Tensor, cache: dict) -> tuple:
     for the whole batch, as the reference).  K/V are written in place;
     returns (logits (B, 1, V), the cache with ``pos + 1``)."""
     pos = int(cache["pos"])
-    h = torch.nn.functional.embedding(tokens, model.params["embed"])
+    h = model.embed(tokens)
     cos, sin = L.rope_table(torch.full((1,), pos, device=tokens.device),
                             model.cfg.hd, model.cfg.rope_theta)
     h = model.run_layers(h, cos, sin, cache, pos)
-    return logits_from_hidden(model, h), {"pos": cache["pos"] + 1,
-                                          "blocks": cache["blocks"]}
+    return logits_from_hidden(model, h), dict(cache, pos=cache["pos"] + 1)

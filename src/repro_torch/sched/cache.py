@@ -1,12 +1,15 @@
-"""Keyed CommPlan cache (torch port of ``repro.sched.cache``; saving and
-loading plans come later): a repeated wire signature hits a precompiled
-plan instead of re-deriving its decisions.
+"""Keyed CommPlan cache (torch port of ``repro.sched.cache``): a repeated
+wire signature hits a precompiled plan instead of re-deriving its
+decisions.
 
 The key is everything the compiled schedule depends on (tree signature,
 policy fingerprint, axis names, device count, kind, kernel routing), so any
 change that could alter the schedule misses and recompiles.  The store is an
-LRU bounded by ``capacity`` (``None`` = unbounded); hits, misses and
-evictions are counted.  Every lookup mirrors the counts into the ``obs``
+LRU bounded by ``capacity`` (``None`` = unbounded; the process cache's is
+``REPRO_PLAN_CACHE_CAP``, default 512); hits, misses and evictions are
+counted.  :func:`save_plans` and :func:`load_plans` carry the plans across
+a restart (next to a checkpoint: ``CheckpointManager.save_plans``).  Every
+lookup mirrors the counts into the ``obs``
 gauges (``plan_cache_*``, labeled ``default`` for the process cache and
 ``local`` for private instances), marks a hit with a ``plan_cache:hit``
 instant and times a miss's compile in a ``plan_cache:compile`` span.
@@ -15,6 +18,8 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import os
+import pickle
 import threading
 from typing import Callable, Optional
 
@@ -89,11 +94,14 @@ class PlanCache:
             self._plans.setdefault(key, plan)
             self._plans.move_to_end(key)
             self.stats.misses += 1
-            while self.capacity is not None and len(self._plans) > self.capacity:
-                self._plans.popitem(last=False)
-                self.stats.evictions += 1
+            self._evict_over_capacity_locked()
         self._export_obs()
         return plan
+
+    def _evict_over_capacity_locked(self) -> None:
+        while self.capacity is not None and len(self._plans) > self.capacity:
+            self._plans.popitem(last=False)
+            self.stats.evictions += 1
 
     def cache_info(self) -> dict:
         """Hits, misses, evictions, size, capacity and hit rate."""
@@ -127,10 +135,80 @@ class PlanCache:
         self._export_obs()
 
 
+# ---------------------------------------------------------------------------
+# Plan persistence: a CommPlan is pure hashable data (no tensors, devices or
+# process groups; dtypes by name), so the compiled schedules pickle next to a
+# checkpoint and reload after a restart.  Each plan carries the key it was
+# compiled under (``CommPlan.key``), so the file is a tuple of plans.
+# ---------------------------------------------------------------------------
+
+# v2: CommPlan holds the ``broadcast`` field (BroadcastSchedule); files of
+# another version are refused rather than half-loaded
+_PLANS_VERSION = 2
+
+
+def save_plans(path: str, cache: "PlanCache" = None) -> int:
+    """Write every plan of ``cache`` (default: the process cache) to
+    ``path`` (atomically: a temporary file, then a rename).  Returns the
+    number saved."""
+    cache = default_cache() if cache is None else cache
+    with cache._lock:
+        plans = tuple(cache._plans.values())
+    tmp = path + ".tmp"
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(tmp, "wb") as f:
+        pickle.dump({"version": _PLANS_VERSION, "plans": plans}, f)
+    os.replace(tmp, path)
+    return len(plans)
+
+
+def load_plans(path: str, cache: "PlanCache" = None, *, validate_backend: bool = True,
+               device="cuda") -> int:
+    """Load the plans :func:`save_plans` wrote into ``cache`` (default: the
+    process cache), each under its own compile key.
+
+    ``validate_backend`` (default) drops the plans whose recorded device and
+    kernel routing differ from ``compile.probe_backend(device)``: a plan
+    compiled on the card is not kept in a CPU process, nor the other way
+    round (its key, which holds the probe, would never be looked up).
+    Entries already present stay as they are, and loading counts as neither
+    hit nor miss.  Returns the number of plans inserted."""
+    with open(path, "rb") as f:
+        payload = pickle.load(f)
+    if payload.get("version") != _PLANS_VERSION:
+        raise ValueError(f"unsupported plan-cache version in {path}: "
+                         f"{payload.get('version')}")
+    cache = default_cache() if cache is None else cache
+    probe = None
+    if validate_backend:
+        from repro_torch.sched.compile import probe_backend
+
+        probe = probe_backend(device)
+    loaded = 0
+    with cache._lock:
+        for plan in payload["plans"]:
+            if probe is not None and (plan.backend, plan.use_kernels) != probe:
+                continue
+            if plan.key not in cache._plans:
+                cache._plans[plan.key] = plan
+                loaded += 1
+        cache._evict_over_capacity_locked()
+    return loaded
+
+
 # The process-default cache, bounded so that signature churn in a
 # long-running loop cannot leak; tests make private PlanCache instances.
-_DEFAULT = PlanCache(capacity=512)
+_DEFAULT = PlanCache(capacity=int(os.environ.get("REPRO_PLAN_CACHE_CAP", "512")))
 
 
 def default_cache() -> PlanCache:
     return _DEFAULT
+
+
+def cache_stats() -> CacheStats:
+    return _DEFAULT.stats
+
+
+def cache_info() -> dict:
+    """``cache_info()`` of the process-default plan cache."""
+    return _DEFAULT.cache_info()

@@ -111,7 +111,8 @@ def chunked_ce_loss(head: torch.Tensor, hidden: torch.Tensor,
 
 
 def loss_fn(model: transformer.Transformer, batch: dict, tcfg: TrainConfig):
-    hidden = model(batch["tokens"], remat=tcfg.remat)
+    hidden = model(batch["tokens"], vision_embeds=batch.get("vision_embeds"),
+                   remat=tcfg.remat)
     return chunked_ce_loss(model.head(), hidden, batch["labels"], tcfg.loss_chunk)
 
 
@@ -306,23 +307,28 @@ def _gather_leaves(tree, dims, tcfg: TrainConfig, group, cache):
 def fsdp_loss_fn(state: TrainState, batch: dict, tcfg: TrainConfig, *, group=None,
                  cache=None) -> torch.Tensor:
     """Mean token cross-entropy of the sharded model: the top-level leaves
-    gathered once, each layer's leaves gathered inside the layer (with the
+    (the embeddings, the final norm and the prefix layers, by path) gathered
+    once, each stacked layer's leaves gathered inside the layer (with the
     layer under ``remat``, so its backward gathers them again)."""
-    model, dims = state.model, state.fsdp_dims
-    top = {k: model.params[k] for k in dims if k != "blocks"}
+    model = state.model
+    dims = dict(transformer.tree_paths(state.fsdp_dims))
+    top = {k: p for k, p in model.params.items() if not k.startswith("blocks/")}
     top_full = _gather_leaves(top, {k: dims[k] for k in top}, tcfg, group, cache)
     # a layer's slice of a stacked leaf: its sharded dim less the stacked one
-    layer_dims = [tree_map(lambda d: d - 1 if d > 0 else -1, b) for b in dims["blocks"]]
+    layer_dims = [tree_map(lambda d: d - 1 if d > 0 else -1, b)
+                  for b in state.fsdp_dims["blocks"]]
     sinks = current_sinks()
 
-    def gather_layer(p, pi):
+    def gather_layer(p, idx):
+        if idx < 0:  # a prefix layer: gathered with the top-level leaves
+            return p
         # a rematerialised layer gathers again on the autograd engine's
         # thread (on CUDA): its wires report into this caller's capture
         with report_into(sinks):
-            return _gather_leaves(p, layer_dims[pi], tcfg, group, cache)
+            return _gather_leaves(p, layer_dims[idx], tcfg, group, cache)
 
-    hidden = model(batch["tokens"], top=top_full, remat=tcfg.remat,
-                   block_param_fn=gather_layer)
+    hidden = model(batch["tokens"], vision_embeds=batch.get("vision_embeds"), top=top_full,
+                   remat=tcfg.remat, block_param_fn=gather_layer)
     head = top_full["embed" if model.cfg.tie_embeddings else "lm_head"]
     return chunked_ce_loss(head, hidden, batch["labels"], tcfg.loss_chunk)
 

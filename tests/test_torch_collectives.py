@@ -20,6 +20,7 @@ from jax.sharding import PartitionSpec as P
 from repro.core import compressed_collectives as jcc
 from repro.core import policy as jpolicy
 from repro.launch.mesh import make_smoke_mesh
+from repro_torch.core import codec
 from repro_torch.core import compressed_collectives as cc
 from repro_torch.core import policy
 from repro_torch.launch.train import single_process_group
@@ -58,6 +59,20 @@ def test_encode_and_decode_chunks_match_reference(fmt):
     jvals, jflag = jcc._decode_chunks(jwire, dtype=jnp.dtype(fmt), n=CHUNK,
                                       width=5, block=512)
     assert_bits_equal(vals, jvals, f"{fmt} decode")
+    assert int(flag) == int(jflag) == 0
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_decode_chunks_in_slices_matches_reference(fmt, monkeypatch):
+    """A chunk of more than MERGE_SLICE values merges a slice of columns at
+    a time (1000 here: the last slice ragged) with the reference's bits."""
+    wire, jwire = _wires(fmt, 5)
+    monkeypatch.setattr(codec, "MERGE_SLICE", 1000)
+    vals, flag = cc._decode_chunks(wire, dtype=getattr(torch, fmt), n=CHUNK,
+                                   width=5, block=512)
+    jvals, jflag = jcc._decode_chunks(jwire, dtype=jnp.dtype(fmt), n=CHUNK,
+                                      width=5, block=512)
+    assert_bits_equal(vals, jvals, f"{fmt} sliced decode")
     assert int(flag) == int(jflag) == 0
 
 

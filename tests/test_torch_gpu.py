@@ -833,3 +833,90 @@ def test_regret_sample_of_a_cuda_bucket_is_strided_on_the_card(cuda):
     assert s.x.numel() == s.base.numel() <= regret.SAMPLE_MAX_ELEMS
     assert bits_equal(s.x, x[::stride].contiguous().cpu())
     assert bits_equal(s.base, base[::stride].contiguous().cpu())
+
+
+# ---------------------------------------------------------------------------
+# the dense zoo and plan persistence on the card
+# ---------------------------------------------------------------------------
+
+def _zoo_archs():
+    from repro_torch import configs
+
+    return configs.ARCHS
+
+
+@pytest.mark.parametrize("arch", _zoo_archs())
+def test_zoo_smoke_models_serve_pd_as_colocated_on_the_card(cuda, arch):
+    """Each ported arch's SMOKE model, drawn on the card by a CUDA
+    generator: PD serving over the compressed host KV wire gives the
+    colocated tokens, and each admission packs and unpacks every cache leaf
+    twice on the card (a prefix layer's leaves included)."""
+    from repro_torch import configs
+    from repro_torch.core.policy import CompressionPolicy
+    from repro_torch.models import transformer
+    from repro_torch.sched.cache import PlanCache
+    from repro_torch.serve.engine import Request, ServeConfig, ServeEngine
+
+    cfg = configs.get_smoke(arch)
+    model = transformer.init(cfg, generator=torch.Generator(cuda).manual_seed(0), device=cuda)
+    assert all(p.is_cuda for p in model.leaves())
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, 24).astype(np.int32) for _ in range(3)]
+
+    def serve(pd):
+        eng = ServeEngine(cfg, model, ServeConfig(batch_slots=2, max_len=64, prefill_chunk=24,
+                                                  pd_disaggregated=pd),
+                          kv_policy=CompressionPolicy(min_bytes=0) if pd else None,
+                          kv_plan_cache=PlanCache() if pd else None)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new=5))
+        return sorted((r.rid, tuple(r.out)) for r in eng.run())
+
+    colocated = serve(False)
+    kernels.clear_launch_counts()
+    pd = serve(True)
+    counts = kernels.launch_counts()
+    leaves = 2 * (len(cfg.prefix) + len(cfg.pattern))
+    assert pd == colocated
+    assert counts["pack"] == counts["unpack"] == 2 * leaves * len(prompts)
+
+
+def test_vision_batch_and_cuda_draws_on_the_card(cuda):
+    from repro_torch import configs
+    from repro_torch.models import registry, transformer
+    from repro_torch.tree_util import bits_equal
+
+    cfg = configs.get_smoke("qwen2_vl_72b")
+    got = registry.make_batch(cfg, 2, 16, rng=np.random.default_rng(1), device=cuda)
+    want = registry.make_batch(cfg, 2, 16, rng=np.random.default_rng(1), device="cpu")
+    assert all(t.is_cuda for t in got.values())
+    assert bits_equal({k: v.cpu() for k, v in got.items()}, want)
+    draw = lambda: transformer.init(cfg, generator=torch.Generator(cuda).manual_seed(5),  # noqa: E731
+                                    device=cuda)
+    a, b = draw(), draw()
+    assert bits_equal(a.tree(), b.tree())
+    with torch.no_grad():
+        h = a(got["tokens"], vision_embeds=got["vision_embeds"])
+    assert h.is_cuda and bool(torch.isfinite(h.float()).all())
+
+
+def test_plans_compiled_on_the_card_are_dropped_in_a_cpu_process(cuda, tmp_path):
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core.policy import CompressionPolicy
+    from repro_torch.sched import compile as sched_compile
+    from repro_torch.sched.cache import PlanCache
+
+    cache = {"pos": torch.zeros((), dtype=torch.int32, device=cuda),
+             "kv": torch.randn((2, 64, 2, 16), device=cuda).to(torch.bfloat16)}
+    pc = PlanCache()
+    plan = sched_compile.cached_kv_plan(cache, "data", policy=CompressionPolicy(min_bytes=0),
+                                        n_dev=1, plan_cache=pc)
+    assert (plan.backend, plan.use_kernels) == ("cuda", True)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save_plans(pc)
+    assert mgr.restore_plans(PlanCache(), device="cpu") == 0
+    back = PlanCache()
+    assert mgr.restore_plans(back, device=cuda) == 1
+    again = sched_compile.cached_kv_plan(cache, "data", policy=CompressionPolicy(min_bytes=0),
+                                         n_dev=1, plan_cache=back)
+    assert again == plan and (back.stats.misses, back.stats.hits) == (0, 1)

@@ -27,7 +27,7 @@ from repro.kernels import ops as jops
 from repro.kernels import plane_split as jplane_split
 from repro.kernels import ref as jref
 from repro_torch import kernels
-from repro_torch.core import packing
+from repro_torch.core import codec, packing
 from repro_torch.kernels import decode_reduce, encode_fused, ops, plane_split, ref
 from torch_port_util import (FORMATS, assert_bits_equal, grad_like_bits,
                              np_of, to_jax, to_torch)
@@ -156,6 +156,23 @@ def test_plain_decode_reduce_matches_pallas_interpret(fmt, width):
     # 0x7ff00000 in torch; every other bit matches
     assert np.array_equal(g[~nan], w[~nan]), fmt
     assert np.array_equal(np.isnan(got.numpy()), np.isnan(np.asarray(want)))
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_plain_decode_reduce_in_slices_matches_pallas_interpret(fmt, monkeypatch):
+    """A wire of more than MERGE_SLICE values decodes a slice at a time
+    (100 groups here: slices of 100, 100 and 56) with the same bits."""
+    pay, lo, gb, acc = _decode_inputs(fmt, 5, 256, seed=12)
+    whole = ref.decode_reduce(pay, lo, gb, torch.from_numpy(acc), fmt, 5)
+    monkeypatch.setattr(codec, "MERGE_SLICE", 100 * packing.GROUP)
+    got = ref.decode_reduce(pay, lo, gb, torch.from_numpy(acc), fmt, 5)
+    assert_bits_equal(got, whole, f"{fmt} sliced")
+    want = np.asarray(jdecode_reduce.decode_reduce(
+        jnp.asarray(np_of(pay)), jnp.asarray(np_of(lo)), jnp.asarray(np_of(gb)),
+        jnp.asarray(acc), fmt, 5, interpret=True))
+    nan = np.isnan(got.numpy()) & np.isnan(want)
+    assert np.array_equal(np_of(got)[~nan], want.view(np.uint32)[~nan]), fmt
+    assert np.array_equal(np.isnan(got.numpy()), np.isnan(want))
 
 
 def test_plain_decode_reduce_keeps_ieee_subnormals():

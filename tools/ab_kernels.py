@@ -149,6 +149,35 @@ def worker() -> None:
     print(json.dumps(out))
 
 
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+
+
+def run_trees(script: str, parent: str, rounds: int) -> dict:
+    """``script --worker`` run once a process, each under one tree's
+    ``src`` (the earlier tree ``parent``, the current one this checkout's),
+    ``rounds`` rounds in ROUND's orders; returns each tree's worker results
+    (the last JSON line of each run, without its ``tree`` key)."""
+    trees = {"earlier": os.path.abspath(parent), "current": ROOT}
+    runs = {"earlier": [], "current": []}
+    for which in [w for r in range(rounds) for w in ROUND[r % 2]]:
+        env = dict(os.environ, PYTHONPATH=os.path.join(trees[which], "src"))
+        proc = subprocess.run([sys.executable, script, "--worker"],
+                              env=env, capture_output=True, text=True)
+        if proc.returncode:
+            print(proc.stdout, proc.stderr, file=sys.stderr)
+            raise RuntimeError(f"{which} tree: worker exit {proc.returncode}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        if os.path.realpath(res.pop("tree")) != os.path.realpath(
+                os.path.join(trees[which], "src", "repro_torch")):
+            raise RuntimeError(f"{which} worker imported another tree's repro_torch")
+        runs[which].append(res)
+    return runs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="an earlier commit's tree")
@@ -168,24 +197,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("ab_kernels: needs a CUDA GPU", file=sys.stderr)
         return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
+    smi = card()
     print(smi)
-    trees = {"earlier": os.path.abspath(args.parent), "current": ROOT}
-    runs = {"earlier": [], "current": []}
-    for which in [w for r in range(args.rounds) for w in ROUND[r % 2]]:
-        env = dict(os.environ, PYTHONPATH=os.path.join(trees[which], "src"))
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker"],
-                              env=env, capture_output=True, text=True)
-        if proc.returncode:
-            print(proc.stdout, proc.stderr, file=sys.stderr)
-            raise RuntimeError(f"{which} tree: worker exit {proc.returncode}")
-        res = json.loads(proc.stdout.strip().splitlines()[-1])
-        if os.path.realpath(res.pop("tree")) != os.path.realpath(
-                os.path.join(trees[which], "src", "repro_torch")):
-            raise RuntimeError(f"{which} worker imported another tree's repro_torch")
-        runs[which].append(res)
+    runs = run_trees(os.path.abspath(__file__), args.parent, args.rounds)
 
     bw = chip_smoke.card_bandwidth(torch.cuda.get_device_name(0))
     rows, failed = {}, []
