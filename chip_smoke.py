@@ -1237,6 +1237,12 @@ ZOO_SERVE = {"glm4_9b": dict(n_req=4, prompt=512, new=32, slots=4, max_len=1024)
              "gemma3_27b": dict(n_req=2, prompt=1536, new=16, slots=2, max_len=2048)}
 QWEN_REPEATS, QWEN_BATCH, QWEN_SEQ, QWEN_DECODE, QWEN_MAX_LEN = 4, 2, 512, 8, 1024
 TINY_BATCH, TINY_SEQ, TINY_STEPS = 8, 512, 2
+# deepseek-v2-lite: served at full depth after the dense models; trained at
+# full width with the depth cut to the dense prefix layer and REPEATS MoE
+# layers, 8 x 512 = 4096 tokens a step (the capacity regime: C = 480)
+DEEPSEEK = "deepseek_v2_lite_16b"
+DEEPSEEK_SERVE = dict(n_req=4, prompt=512, new=32, slots=4, max_len=1024)
+DEEPSEEK_REPEATS, DEEPSEEK_BATCH, DEEPSEEK_SEQ, DEEPSEEK_STEPS = 1, 8, 512, 2
 
 
 def _gib(n: float) -> str:
@@ -1341,19 +1347,60 @@ def zoo_serve(tag, cfg, model, sp, dev, torch, np):
            "pack_ms": _wall_ms(lambda: kv_transfer.pack_cache(cache, eng, plan=plan), torch,
                                runs=3),
            "unpack_ms": _wall_ms(lambda: kv_transfer.unpack_cache(wire, eng), torch, runs=3),
-           "leaves": len(msgs), "shapes": shapes, "width": plan.width_for_dtype("bfloat16")}
+           "leaves": len(msgs), "shapes": shapes, "width": plan.width_for_dtype("bfloat16"),
+           "raw_bytes": sum(m.raw_bytes for m in msgs),
+           "wire_bytes": sum(m.wire_bytes() for m in msgs)}
     print(f"  {tag}: {sp['n_req']} requests x {sp['prompt']} prompt + {sp['new']} new "
           f"tokens, {sp['slots']} slots, max_len {sp['max_len']}: PD tokens identical to "
           f"colocated; plan cache 1 miss {sp['n_req'] - 1} hits; launches {pd_launches}; "
           f"tokens/s colocated {out['tok_s']['colocated']:.1f} ({t_col * 1e3:.1f} ms), PD "
           f"{out['tok_s']['pd']:.1f} ({t_pd * 1e3:.1f} ms)")
     print(f"  {tag} shipment: {len(msgs)} leaves of shapes {shapes} bf16, bit-identical; "
-          f"wire ratio {out['ratio']:.4f} (width {out['width']}); pack "
-          f"{out['pack_ms']:.2f} ms, unpack {out['unpack_ms']:.2f} ms (median of 3)")
+          f"{out['raw_bytes']} bytes a request, {out['wire_bytes']} on the wire, ratio "
+          f"{out['ratio']:.4f} (width {out['width']}); pack {out['pack_ms']:.2f} ms, unpack "
+          f"{out['unpack_ms']:.2f} ms (median of 3)")
     print(f"  {tag} breakdown, ms (host clock to a device sync, median of 3): prefill 1 x "
           f"{sp['prompt']} {out['prefill_ms']:.2f}, decode step {sp['slots']} slots "
           f"{out['decode_step_ms']:.2f}")
     return out
+
+
+def moe_gradient_stats(encoded: dict, names: list, meta, torch) -> dict:
+    """What an MoE model's gradients give the codec, read from
+    ``encoded``, the inputs encode_fused recorded in a one-rank ZeRO-1 run
+    (``recorded_inputs``): the first is the first step's gradient bucket,
+    which the reduce-scatter encodes before the all-gather encodes the
+    weights.  Returns its 512-value blocks, how many are all zero (the
+    codec's zero escape), of those the ones inside the routed experts'
+    leaves and inside the embedding (rows of tokens the step did not
+    see), and per MoE layer (by parameter path) the experts whose three
+    gradient leaves are all zero: no token of the step was kept by them."""
+    from repro_torch.optim import zero1
+
+    bucket = next(iter(encoded.values()))[0].reshape(-1)
+    blocks = bucket.numel() // 512
+    zero = (bucket[:blocks * 512].view(blocks, 512) == 0).all(1)
+    inside = {"experts": 0, "embed": 0}
+    off = 0
+    for i, _, size in meta.members[0]:
+        part = "embed" if names[i] == "embed" else "experts" if "/ffn/we" in names[i] else None
+        if part:  # the blocks wholly inside the leaf
+            inside[part] += int(zero[-(-off // 512):(off + size) // 512].sum())
+        off += size
+    grads = dict(zip(names, zero1.unflatten_buckets(meta, [bucket],
+                                                    [bucket.new_empty(0)] * len(names))))
+    idle = {}
+    for name in names:
+        if name.endswith("ffn/we1"):
+            pre = name.removesuffix("we1")
+            lead = grads[name].shape[:-2]  # (E,) or (repeats, E)
+            used = sum((grads[pre + w].reshape(*lead, -1) != 0).any(-1).to(torch.int64)
+                       for w in ("we1", "we2", "we3"))
+            idle[pre.removesuffix("/ffn/")] = (used == 0).sum(-1).tolist()
+    n_zero = int(zero.sum())
+    return {"blocks": blocks, "zero_blocks": n_zero, "zero_share": n_zero / blocks,
+            "zero_in_experts": inside["experts"], "zero_in_embed": inside["embed"],
+            "idle_experts": idle}
 
 
 def merge_shapes(into: dict, more: dict) -> dict:
@@ -1371,19 +1418,23 @@ def merge_shapes(into: dict, more: dict) -> dict:
 
 
 def phase_zoo(dev, torch, np, bw):
-    """The dense zoo at full width, each model drawn from SEED on the card,
+    """The model zoo at full width, each model drawn from SEED on the card,
     run, held, its kernels' new shapes timed, and freed before the next:
     glm4-9b and gemma3-27b at full depth served colocated and PD (a model
-    whose weights do not fit fails the phase); qwen2-vl-72b cut in depth:
-    a prefill with vision embeddings, its cache over the host wire and
-    greedy decode from both; tinyllama-1.1b trained through the launcher's
-    ZeRO-1 path, compressed and raw.  Returns the launches of each run and the timed shapes."""
+    whose weights and init draw do not fit fails the phase); qwen2-vl-72b
+    cut in depth: a prefill with vision embeddings, its cache over the host
+    wire and greedy decode from both; tinyllama-1.1b trained through the
+    launcher's ZeRO-1 path, compressed and raw; deepseek-v2-lite-16b (MLA
+    and MoE) served at full depth over its latent KV cache, then trained at
+    full width and a cut depth like tinyllama.  Returns the launches of
+    each run and the timed shapes."""
     import gc
 
     from repro_torch import configs, kernels
     from repro_torch.core.policy import CompressionPolicy
     from repro_torch.launch import train as launch_train
     from repro_torch.models import registry, transformer
+    from repro_torch.models.layers import moe_capacity
     from repro_torch.p2p.engine import Compressor
     from repro_torch.sched.cache import PlanCache
     from repro_torch.serve import kv_transfer
@@ -1404,19 +1455,25 @@ def phase_zoo(dev, torch, np, bw):
     fresh()
     print(f"zoo: card {run_card()}; {_gib(torch.cuda.mem_get_info(dev)[0])} free, "
           f"{_gib(torch.cuda.memory_allocated(dev))} still allocated")
-    # -- glm4-9b and gemma3-27b: served colocated, then PD ------------------
-    for arch, sp in ZOO_SERVE.items():
+    def serve_full(arch, sp):
+        """``arch`` at full width and depth served colocated, then PD."""
         fresh()
         cfg = configs.get(arch)
-        weights, free = cfg.param_count() * 2, torch.cuda.mem_get_info(dev)[0]
-        if weights > free:
-            raise AssertionError(f"{arch} does not fit at full depth: {_gib(weights)} of "
-                                 f"bf16 weights, {_gib(free)} free")
+        # the bf16 weights and the f32 draw of the largest leaf (transformer.init)
+        largest = max(t.numel() for _, t in transformer.tree_paths(
+            transformer.abstract_params(cfg)))
+        need, free = cfg.param_count() * 2 + largest * 4, torch.cuda.mem_get_info(dev)[0]
+        if need > free:
+            raise AssertionError(f"{arch} does not fit at full depth: {_gib(need)} of bf16 "
+                                 f"weights and the f32 draw of a {largest}-value leaf, "
+                                 f"{_gib(free)} free")
         model = zoo_model(cfg, dev, torch)
         print(f"zoo {arch}: d_model {cfg.d_model}, head_dim {cfg.hd}, {cfg.kv_heads} KV heads, "
-              f"{cfg.n_layers} layers, full depth; {cfg.param_count() / 1e9:.2f} B parameters, "
-              f"{cfg.param_count() * 2 / 1e9:.1f} GB bf16; windows "
-              f"{[s.window for s in (*cfg.prefix, *cfg.pattern)]}")
+              f"{cfg.n_layers} layers, full depth; {cfg.param_count() / 1e9:.2f} B parameters "
+              f"({cfg.active_param_count() / 1e9:.2f} B active), "
+              f"{cfg.param_count() * 2 / 1e9:.1f} GB bf16; layers "
+              f"{[(s.mixer, s.ffn, s.window) for s in (*cfg.prefix, *cfg.pattern)]}; "
+              f"weights and init draw {_gib(need)}")
         out = zoo_serve(arch, cfg, model, sp, dev, torch, np)
         run = f"zoo_{arch}_pd"
         launches[run] = out.pop("launches")
@@ -1426,7 +1483,54 @@ def phase_zoo(dev, torch, np, bw):
         print(f"  {arch} peak memory {_gib(peaks[arch])}")
         gc.collect()
         timed(run, recorded)
-        del recorded
+
+    def train_twins(arch, steps, batch, seq, cfg=None):
+        """The launcher's ZeRO-1 path for ``arch`` (at ``cfg`` where given, a
+        cut depth), compressed then raw, one after the other (the
+        compressed run's final weights wait in host memory, and its
+        kernels' inputs too: its all-gather decode's plain merge takes tens
+        of GB at a bucket of a billion values): identical loss bits,
+        final weights and launches; the raw run launches nothing.  Returns
+        (the compressed run's numbers, the raw run's, its recorded inputs,
+        the compressed run's parameter names, its bucket layout and n_dp)."""
+        fresh()
+        runs, recorded, finals = {}, None, {}
+        with launch_train.single_process_group(dev) as group:
+            n_dp = torch.distributed.get_world_size(group)
+            for compress in (True, False):
+                with recorded_inputs(torch, host=True) as inputs:
+                    kernels.clear_launch_counts()
+                    run = launch_train.train(cfg or arch, steps=steps, batch=batch,
+                                             seq=seq, compress=compress, device=dev,
+                                             seed=SEED, group=group)
+                    run.launches = kernels.launch_counts()
+                if compress:
+                    recorded = (inputs, shape_tallies())
+                    names, meta = list(run.state.model.params), run.state.meta
+                finals[compress] = [t.cpu() for t in tree_flatten(run.state.model.tree())[0]]
+                runs[compress] = {"losses": run.losses, "step_ms": run.step_ms,
+                                  "launches": run.launches, "n": run.state.meta.padded[0],
+                                  "buckets": len(run.state.meta.dtype_names)}
+                del run
+                gc.collect()
+                torch.cuda.empty_cache()
+        comp, raw = runs[True], runs[False]
+        expect = dict.fromkeys(kernels.KERNELS, 0)
+        expect.update({k: steps * comp["buckets"] * v
+                       for k, v in two_shot_launches(True, True, n_dp).items()})
+        if comp["losses"] != raw["losses"] or any(s != s for s in comp["losses"]):
+            raise AssertionError(f"{arch} losses differ: {comp['losses']} vs {raw['losses']}")
+        if comp["launches"] != expect or any(raw["launches"].values()):
+            raise AssertionError(f"{arch} launches {comp['launches']} (raw {raw['launches']}), "
+                                 f"expected {expect}")
+        if not bits_equal(finals[True], finals[False]):
+            raise AssertionError(f"{arch}: final parameters differ between the twins")
+        del finals
+        return comp, raw, recorded, names, meta, n_dp
+
+    # -- glm4-9b and gemma3-27b: served colocated, then PD ------------------
+    for arch, sp in ZOO_SERVE.items():
+        serve_full(arch, sp)
     # -- qwen2-vl-72b at a cut depth: prefill with vision embeddings --------
     fresh()
     full = configs.get("qwen2_vl_72b")
@@ -1490,41 +1594,8 @@ def phase_zoo(dev, torch, np, bw):
     timed("zoo_qwen2_vl_ship", recorded)
     del recorded
     # -- tinyllama-1.1b: the launcher's ZeRO-1 path, compressed then raw ----
-    # the twins one after the other: the compressed run's final weights wait
-    # in host memory, and its kernels' inputs too (its all-gather decode's
-    # plain int64 merge takes ~35 GB at this bucket)
-    fresh()
-    runs, recorded, finals = {}, None, {}
-    with launch_train.single_process_group(dev) as group:
-        n_dp = torch.distributed.get_world_size(group)
-        for compress in (True, False):
-            with recorded_inputs(torch, host=True) as inputs:
-                kernels.clear_launch_counts()
-                run = launch_train.train(
-                    "tinyllama_1_1b", steps=TINY_STEPS, batch=TINY_BATCH, seq=TINY_SEQ,
-                    compress=compress, device=dev, seed=SEED, group=group)
-                run.launches = kernels.launch_counts()
-            if compress:
-                recorded = (inputs, shape_tallies())
-            finals[compress] = tree_flatten(run.state.model.tree())[0]
-            finals[compress] = [t.cpu() for t in finals[compress]]
-            runs[compress] = {"losses": run.losses, "step_ms": run.step_ms,
-                              "launches": run.launches, "n": run.state.meta.padded[0],
-                              "buckets": len(run.state.meta.dtype_names)}
-            del run
-            gc.collect()
-            torch.cuda.empty_cache()
-    comp, raw = runs[True], runs[False]
-    expect = dict.fromkeys(kernels.KERNELS, 0)
-    expect.update({k: TINY_STEPS * comp["buckets"] * v
-                   for k, v in two_shot_launches(True, True, n_dp).items()})
-    if comp["losses"] != raw["losses"] or any(s != s for s in comp["losses"]):
-        raise AssertionError(f"tinyllama losses differ: {comp['losses']} vs {raw['losses']}")
-    if comp["launches"] != expect or any(raw["launches"].values()):
-        raise AssertionError(f"tinyllama launches {comp['launches']} (raw {raw['launches']}), "
-                             f"expected {expect}")
-    if not bits_equal(finals[True], finals[False]):
-        raise AssertionError("tinyllama: final parameters differ between the twins")
+    comp, raw, recorded, _, _, n_dp = train_twins("tinyllama_1_1b", TINY_STEPS, TINY_BATCH,
+                                                  TINY_SEQ)
     launches["zoo_tinyllama_train"] = comp["launches"]
     cfg = configs.get("tinyllama_1_1b")
     print(f"zoo tinyllama_1_1b: full width and depth ({cfg.n_layers} layers, "
@@ -1534,12 +1605,41 @@ def phase_zoo(dev, torch, np, bw):
           f"{[round(t, 1) for t in comp['step_ms']]}; raw losses {raw['losses']} step_ms "
           f"{[round(t, 1) for t in raw['step_ms']]}: loss bits and final parameters "
           f"identical; launches {comp['launches']}")
-    del finals
     peaks["tinyllama_1_1b"] = torch.cuda.max_memory_allocated(dev)
     print(f"  tinyllama_1_1b peak memory {_gib(peaks['tinyllama_1_1b'])}")
     gc.collect()
     torch.cuda.empty_cache()
     timed("zoo_tinyllama_train", recorded)
+    del recorded
+    # -- deepseek-v2-lite-16b: MLA + MoE served at full depth ---------------
+    serve_full(DEEPSEEK, DEEPSEEK_SERVE)
+    # -- and trained at full width, the depth cut: ZeRO-1 twins -------------
+    full = configs.get(DEEPSEEK)
+    cfg = dataclasses.replace(full, repeats=DEEPSEEK_REPEATS)
+    comp, raw, recorded, names, meta, n_dp = train_twins(
+        DEEPSEEK, DEEPSEEK_STEPS, DEEPSEEK_BATCH, DEEPSEEK_SEQ, cfg)
+    launches["zoo_deepseek_train"] = comp["launches"]
+    experts = moe_gradient_stats(recorded[0]["encode_fused"], names, meta, torch)
+    print(f"zoo {DEEPSEEK} train: full width, depth cut to {cfg.n_layers} of {full.n_layers} "
+          f"layers (the dense prefix and {DEEPSEEK_REPEATS} MoE), "
+          f"{cfg.param_count() / 1e9:.3f} B parameters, launcher ZeRO-1 n_dp={n_dp}, batch "
+          f"{DEEPSEEK_BATCH} x seq {DEEPSEEK_SEQ} (C = "
+          f"{moe_capacity(cfg, DEEPSEEK_BATCH * DEEPSEEK_SEQ)} slots an expert), remat: "
+          f"bucket n={comp['n']} (param_count {cfg.param_count()}); compressed losses "
+          f"{comp['losses']} step_ms {[round(t, 1) for t in comp['step_ms']]}; raw losses "
+          f"{raw['losses']} step_ms {[round(t, 1) for t in raw['step_ms']]}: loss bits and "
+          f"final parameters identical; launches {comp['launches']}")
+    print(f"  {DEEPSEEK} first step's gradient bucket: {experts['zero_blocks']} of "
+          f"{experts['blocks']} 512-value blocks all zero ({experts['zero_share']:.6f}), "
+          f"{experts['zero_in_experts']} of them in the routed experts' leaves and "
+          f"{experts['zero_in_embed']} in the embedding (rows of tokens the step did not "
+          f"see); experts with no token (all-zero expert gradients) by MoE layer "
+          f"{experts['idle_experts']} of {cfg.moe.n_experts}")
+    peaks["deepseek_train"] = torch.cuda.max_memory_allocated(dev)
+    print(f"  {DEEPSEEK} train peak memory {_gib(peaks['deepseek_train'])}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("zoo_deepseek_train", recorded)
     del recorded
     fresh()
     seconds = time.perf_counter() - t_phase
@@ -1552,7 +1652,9 @@ def phase_zoo(dev, torch, np, bw):
 ZOO_UNITS = {"zoo_glm4_9b_pd": ("glm4_pd_admission", ZOO_SERVE["glm4_9b"]["n_req"]),
              "zoo_gemma3_27b_pd": ("gemma3_pd_admission", ZOO_SERVE["gemma3_27b"]["n_req"]),
              "zoo_qwen2_vl_ship": ("qwen2_vl_shipment", 1),
-             "zoo_tinyllama_train": ("tinyllama_train_step", TINY_STEPS)}
+             "zoo_tinyllama_train": ("tinyllama_train_step", TINY_STEPS),
+             f"zoo_{DEEPSEEK}_pd": ("deepseek_pd_admission", DEEPSEEK_SERVE["n_req"]),
+             "zoo_deepseek_train": ("deepseek_train_step", DEEPSEEK_STEPS)}
 
 
 def merge_zoo(rows: list, zoo: dict) -> None:

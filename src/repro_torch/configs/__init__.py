@@ -12,6 +12,8 @@ ARCHS = [
     "gemma3_27b",
     "smollm_135m",
     "qwen2_vl_72b",
+    "deepseek_v2_lite_16b",
+    "deepseek_v3_671b",
     "glm4_9b",
 ]
 

@@ -35,6 +35,7 @@ import torch.distributed as dist
 from repro_torch import configs, kernels
 from repro_torch.core.policy import CompressionPolicy, capture_wire_reports
 from repro_torch.data.pipeline import DataConfig, DataPipeline
+from repro_torch.models.config import ArchConfig
 from repro_torch.optim.optimizers import OptimConfig
 from repro_torch.runtime.fault_tolerance import RunnerConfig, StepRunner
 from repro_torch.sched.cache import PlanCache
@@ -127,19 +128,25 @@ def _plan_step(tcfg: step_lib.TrainConfig, group, dev, plan_cache: PlanCache):
     return step
 
 
-def build(arch: str, *, batch: int, seq: int, rcfg: RunnerConfig, compress: bool = True,
-          smoke: bool = False, device="cuda", seed: int = 0, lr: float = 3e-4,
-          warmup: int = 20, optimizer: str = "adamw", compress_min_bytes: int = 0,
-          partition: str = "zero1", microbatches: int = 1, group=None) -> tuple:
-    """``(state, tcfg, runner, plan_cache)``: the random init made from
-    ``seed``, its train config, and a ``rcfg`` StepRunner over the data
-    pipeline whose step is the compressed step of ``partition`` ("zero1" or
-    "fsdp", over ``microbatches`` microbatches) and whose fallback is the
-    compression-disabled one (none when the run is uncompressed); both
-    replay their plans from ``plan_cache``.  ``group`` is the data-parallel
-    process group (default: the world)."""
+def build(arch: str | ArchConfig, *, batch: int, seq: int, rcfg: RunnerConfig,
+          compress: bool = True, smoke: bool = False, device="cuda", seed: int = 0,
+          lr: float = 3e-4, warmup: int = 20, optimizer: str = "adamw",
+          compress_min_bytes: int = 0, partition: str = "zero1", microbatches: int = 1,
+          group=None) -> tuple:
+    """``(state, tcfg, runner, plan_cache)``: the random init of ``arch``
+    (a name: its config, or with ``smoke`` its SMOKE config; or an
+    ``ArchConfig`` as it is) made from ``seed``, its train config, and a
+    ``rcfg`` StepRunner over the data pipeline whose step is the compressed
+    step of ``partition`` ("zero1" or "fsdp", over ``microbatches``
+    microbatches) and whose fallback is the compression-disabled one (none
+    when the run is uncompressed); both replay their plans from
+    ``plan_cache``.  ``group`` is the data-parallel process group (default:
+    the world)."""
     dev = kernels.resolve_device(device)
-    cfg = configs.get_smoke(arch) if smoke else configs.get(arch)
+    if isinstance(arch, ArchConfig):
+        cfg = arch
+    else:
+        cfg = configs.get_smoke(arch) if smoke else configs.get(arch)
     policy = (CompressionPolicy(min_bytes=compress_min_bytes) if compress
               else CompressionPolicy.disabled())
     tcfg = step_lib.TrainConfig(
@@ -163,11 +170,11 @@ def build(arch: str, *, batch: int, seq: int, rcfg: RunnerConfig, compress: bool
     return state, tcfg, runner, plan_cache
 
 
-def train(arch: str, *, steps: int, batch: int, seq: int, compress: bool = True,
-          smoke: bool = False, device="cuda", seed: int = 0, lr: float = 3e-4,
-          warmup: int = 20, optimizer: str = "adamw", compress_min_bytes: int = 0,
-          partition: str = "zero1", microbatches: int = 1, group=None,
-          rcfg: RunnerConfig = None, resume: bool = False, log=None) -> TrainRun:
+def train(arch: str | ArchConfig, *, steps: int, batch: int, seq: int,
+          compress: bool = True, smoke: bool = False, device="cuda", seed: int = 0,
+          lr: float = 3e-4, warmup: int = 20, optimizer: str = "adamw",
+          compress_min_bytes: int = 0, partition: str = "zero1", microbatches: int = 1,
+          group=None, rcfg: RunnerConfig = None, resume: bool = False, log=None) -> TrainRun:
     """Train ``steps`` steps of ``partition`` through the StepRunner of :func:`build`
     (``rcfg``: its checkpoint, heartbeat and straggler settings; by default
     checkpoints go to a temporary directory that the run removes).

@@ -1,5 +1,5 @@
 """Architecture configuration schema (torch port of ``repro.models.config``;
-the dense fields only: MoE, MLA, Mamba, xLSTM and encoder fields wait).
+the dense, MoE and MLA fields: Mamba, xLSTM and encoder fields wait).
 
 A model is a prefix of unstacked layers, then a super-block ``pattern``
 repeated ``repeats`` times (each pattern position's parameters stacked over
@@ -12,16 +12,31 @@ import dataclasses
 from typing import Optional, Sequence
 
 # layer kinds of the reference that the port does not build yet
-UNPORTED_MIXERS = ("mla", "mamba", "mlstm", "slstm")
-UNPORTED_FFNS = ("moe", "none")
+UNPORTED_MIXERS = ("mamba", "mlstm", "slstm")
+UNPORTED_FFNS = ("none",)
+
+
+@dataclasses.dataclass(frozen=True)
+class MoECfg:
+    n_experts: int = 0  # routed experts
+    top_k: int = 0
+    n_shared: int = 0  # always-on shared experts
+    d_expert: int = 0  # expert FFN hidden size
+
+
+@dataclasses.dataclass(frozen=True)
+class MLACfg:
+    kv_lora: int = 512  # latent dim for compressed KV
+    q_lora: int = 0  # 0 = full-rank queries (counted, never built: see param_count)
+    rope_dim: int = 64  # decoupled RoPE sub-dim per head
 
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
     """One position inside the repeating super-block (or the prefix)."""
 
-    mixer: str = "attn"  # attn (the only mixer ported so far)
-    ffn: str = "swiglu"  # swiglu
+    mixer: str = "attn"  # attn | mla
+    ffn: str = "swiglu"  # swiglu | moe
     window: Optional[int] = None  # sliding-window size; None = global attn
 
 
@@ -38,6 +53,8 @@ class ArchConfig:
     repeats: int = 1
     prefix: Sequence[LayerSpec] = ()
     head_dim: Optional[int] = None  # default d_model // n_heads
+    moe: MoECfg = MoECfg()
+    mla: MLACfg = MLACfg()
     frontend: str = "none"  # none | vision_stub (patch embeddings enter the batch)
     rope_theta: float = 10000.0
     mrope: bool = False  # qwen2-vl M-RoPE: text-only positions make it plain RoPE
@@ -66,9 +83,16 @@ class ArchConfig:
         return total
 
     def _mixer_params(self, mixer: str) -> int:
+        d, hd = self.d_model, self.hd
         if mixer == "attn":
-            d, hd = self.d_model, self.hd
             return 2 * d * self.n_heads * hd + 2 * d * self.kv_heads * hd
+        if mixer == "mla":
+            # the reference's count: a q_lora path counts two factors, but
+            # its init (and this port's) always builds the full-rank wq
+            m, qd = self.mla, self.n_heads * (hd + self.mla.rope_dim)
+            q = d * qd if not m.q_lora else d * m.q_lora + m.q_lora * qd
+            return (q + d * (m.kv_lora + m.rope_dim) + m.kv_lora * self.n_heads * 2 * hd
+                    + self.n_heads * hd * d)
         if mixer in UNPORTED_MIXERS:
             raise NotImplementedError(f"mixer {mixer!r} is not ported yet")
         raise ValueError(mixer)
@@ -76,6 +100,19 @@ class ArchConfig:
     def _ffn_params(self, ffn: str) -> int:
         if ffn == "swiglu":
             return 3 * self.d_model * self.d_ff
+        if ffn == "moe":  # routed and shared experts, the router
+            m = self.moe
+            return (m.n_experts + m.n_shared) * 3 * self.d_model * m.d_expert + \
+                self.d_model * m.n_experts
         if ffn in UNPORTED_FFNS:
             raise NotImplementedError(f"ffn {ffn!r} is not ported yet")
         raise ValueError(ffn)
+
+    def active_param_count(self) -> int:
+        """Parameters a token uses: an MoE layer's top-k routed experts and
+        its shared ones, not the rest."""
+        m = self.moe
+        specs = list(self.prefix) + list(self.pattern) * self.repeats
+        n_moe = sum(s.ffn == "moe" for s in specs)
+        return self.param_count() - n_moe * (m.n_experts - m.top_k) * 3 * self.d_model * \
+            m.d_expert

@@ -1,6 +1,8 @@
-"""Dense building blocks (torch port of ``repro.models.layers``): RMSNorm,
-RoPE, GQA causal attention (global or sliding-window) with its KV-cache
-forms (prefill, decode) as plain PyTorch math, SwiGLU.
+"""Building blocks (torch port of ``repro.models.layers``): RMSNorm, RoPE,
+GQA causal attention (global or sliding-window) and DeepSeek's latent
+attention (MLA) with their KV-cache forms (prefill, decode), SwiGLU and the
+capacity-based top-k MoE, as plain PyTorch math (the reference computes
+them in plain ``jnp``, outside Pallas).
 
 The reference's rounding points are kept: RMSNorm normalises in f32 and
 casts back before the weight; q is pre-scaled in f32 and cast back to the
@@ -12,6 +14,7 @@ greedy tokens follow the reference's.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -49,8 +52,8 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             window) -> torch.Tensor:
     """Causal attention of the training forward, one softmax over the whole
-    sequence: q (B, S, H, hd), k/v (B, S, Hkv, hd) -> (B, S, H, hd) in q's
-    dtype."""
+    sequence: q/k (B, S, H or Hkv, hd), v (B, S, Hkv, dv) -> (B, S, H, dv)
+    in q's dtype; the scale is 1/sqrt(hd), q's width."""
     B, S, H, hd = q.shape
     Hkv = k.shape[2]
     qs = (q.to(torch.float32) * (1.0 / math.sqrt(hd))).to(q.dtype)
@@ -72,8 +75,8 @@ def _attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """The reference's chunked flash attention (``_attend_chunked``), the
     forward in its arithmetic: q pre-scaled in f32 and cast back, then per
     (q chunk, kv tile) an online softmax in f32 (running max, rescaled sum
-    and accumulator), divided at the end.  q (B, Sq, H, hd), k/v (B, Sk,
-    Hkv, hd); returns (B, Sq, H, hd) in q's dtype."""
+    and accumulator), divided at the end.  q/k (B, Sq or Sk, H or Hkv, hd),
+    v (B, Sk, Hkv, dv); returns (B, Sq, H, dv) in q's dtype."""
     B, Sq, H, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -171,3 +174,174 @@ def attention(p: dict, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec,
 
 def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ p["w1"]) * (x @ p["w3"])) @ p["w2"]
+
+
+def mla_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec,
+                  cos: torch.Tensor, sin: torch.Tensor, cache: dict | None = None,
+                  cache_pos: int | None = None) -> torch.Tensor:
+    """DeepSeek's multi-head latent attention (the reference's
+    ``mla_attention``).  p: {w_dkv, w_krope, w_uk, w_uv, wq, wo} of one
+    layer; cos/sin: the table at ``cfg.mla.rope_dim``.
+
+    The cache holds the latents, ``{"c_kv": (B, max_len, kv_lora),
+    "k_rope": (B, max_len, rope_dim)}``, written in place as in
+    :func:`attention` (prefill at [0, S), decode at ``cache_pos``).  Per-head
+    keys and values are rebuilt from ``c_kv`` at every call; the rotated
+    ``k_rope`` is one head, broadcast to all.  Scores are those of the
+    augmented vectors ``[q_nope | q_rope] . [k_nope | k_rope]``, so the
+    scale is 1/sqrt(hd + rope_dim) while values are hd wide.  No window."""
+    B, S, _ = x.shape
+    hd, H, r = cfg.hd, cfg.n_heads, cfg.mla.rope_dim
+    c_kv = x @ p["w_dkv"]
+    k_rope = apply_rope((x @ p["w_krope"])[:, :, None, :], cos, sin)[:, :, 0]
+    q = (x @ p["wq"]).reshape(B, S, H, hd + r)
+    q_aug = torch.cat([q[..., :hd], apply_rope(q[..., hd:], cos, sin)], -1)
+    if cache is not None and cache_pos is None:
+        cache["c_kv"][:, :S] = c_kv
+        cache["k_rope"][:, :S] = k_rope
+    elif cache is not None:
+        at = min(max(cache_pos, 0), cache["c_kv"].shape[1] - S)
+        cache["c_kv"][:, at:at + S] = c_kv
+        cache["k_rope"][:, at:at + S] = k_rope
+        c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    Sk = c_kv.shape[1]
+    k_aug = torch.cat([(c_kv @ p["w_uk"]).reshape(B, Sk, H, hd),
+                       k_rope[:, :, None, :].expand(B, Sk, H, r)], -1)
+    v = (c_kv @ p["w_uv"]).reshape(B, Sk, H, hd)
+    if cache is None:
+        out = _attend(q_aug, k_aug, v, None)
+    elif cache_pos is None:
+        out = _attend_chunked(q_aug, k_aug, v, causal=True, window=None)
+    else:
+        out = _decode_attend(q_aug, k_aug, v, cache_pos, None)
+    return out.reshape(B, S, H * hd) @ p["wo"]
+
+
+def moe_capacity(cfg: ArchConfig, n_tokens: int, capacity_factor: float = 1.25,
+                 dropless_below: int = 512) -> int:
+    """Slots an expert has: all ``n_tokens`` up to ``dropless_below`` (no
+    token can be dropped: an expert takes a token at most once), else
+    ``n_tokens * top_k / n_experts * capacity_factor``."""
+    m = cfg.moe
+    if n_tokens <= dropless_below:
+        return n_tokens
+    return max(1, int(n_tokens * m.top_k / m.n_experts * capacity_factor))
+
+
+def moe_route(logits: torch.Tensor, cfg: ArchConfig, capacity: int) -> tuple:
+    """The reference's routing and dispatch tables from router logits (T, E)
+    in f32: ``gates`` (T, k) f32 and ``eids`` (T, k), the top-k of the
+    softmax with ties to the lower expert id (a stable descending sort, as
+    ``jax.lax.top_k``), gates renormalised by max(sum, 1e-9); ``slot``
+    (E, C), the flat pick index (token * k + j) each expert slot takes, T*k
+    where empty; ``where`` (T*k,), the slot (e * C + c) each pick went to,
+    E*C where dropped.
+
+    Picks fill an expert's slots in token order (a stable sort of the flat
+    expert ids).  The reference writes its slot table with every
+    overflowing pick clipped onto slot C-1 carrying the empty marker, and
+    the last write stands: an expert with more than C picks keeps only C-1
+    (a fault of the reference that the port keeps, ROADMAP Queue C).  Here
+    that is a formula, not a write to a repeated index: the pick at rank
+    C-1 is dropped too when its expert has more than C."""
+    m = cfg.moe
+    T, k, E, C = logits.shape[0], m.top_k, m.n_experts, capacity
+    dev = logits.device
+    probs, ranked = torch.sort(torch.softmax(logits, -1), dim=-1, descending=True,
+                               stable=True)
+    gates, eids = probs[:, :k], ranked[:, :k]
+    total = gates[:, 0]
+    for j in range(1, k):
+        total = total + gates[:, j]
+    gates = gates / torch.clamp_min(total, 1e-9)[:, None]
+    flat_e = eids.reshape(-1)
+    order = torch.sort(flat_e, stable=True).indices
+    sorted_e = flat_e[order]
+    experts = torch.arange(E, device=dev)
+    start = torch.searchsorted(sorted_e, experts)
+    count = torch.searchsorted(sorted_e, experts, right=True) - start
+
+    def kept(rank, n):  # the slot table's fill, its C-1 quirk included
+        return (rank < n) & (rank < C) & ~((rank == C - 1) & (n > C))
+
+    rank = torch.arange(T * k, device=dev) - start[sorted_e]
+    placed = torch.where(kept(rank, count[sorted_e]), sorted_e * C + rank, E * C)
+    where = placed[torch.argsort(order)]
+    c = torch.arange(C, device=dev)[None]
+    slot = torch.where(kept(c, count[:, None]),
+                       order[torch.clamp_max(start[:, None] + c, T * k - 1)], T * k)
+    return gates, eids, slot, where
+
+
+def moe_combine(weighted: torch.Tensor, where: torch.Tensor,
+                eids: torch.Tensor) -> torch.Tensor:
+    """Each token's gated expert outputs summed in f32: ``weighted`` (E*C,
+    D), slot by slot; ``where`` (T*k,) and ``eids`` (T, k) from
+    :func:`moe_route`.  A token's kept picks add in ascending expert id onto
+    0.0, the order of the reference's slot-order (expert-major) scatter-add;
+    a dropped pick reads an appended zero row, which leaves the sum as it
+    is (a sum begun at +0.0 is never -0.0)."""
+    (T, k), D = eids.shape, weighted.shape[1]
+    picks = torch.gather(where.reshape(T, k), 1, torch.sort(eids, -1).indices)
+    contrib = F.embedding(picks, torch.cat([weighted, weighted.new_zeros(1, D)]))
+    out = contrib.new_zeros(T, D)
+    for j in range(k):
+        out = out + contrib[:, j]
+    return out
+
+
+class MoEDispatch(NamedTuple):
+    """One MoE layer's routing and expert products (:func:`moe_dispatch`):
+    ``gates``, ``eids``, ``slot`` and ``where`` as :func:`moe_route`;
+    ``tok`` (E, C), the token each slot holds (T where empty); ``xg`` (E,
+    C, D), those tokens (a zero row where empty); ``h`` (E, C, D), the
+    expert SwiGLU's outputs."""
+    gates: torch.Tensor
+    eids: torch.Tensor
+    slot: torch.Tensor
+    where: torch.Tensor
+    tok: torch.Tensor
+    xg: torch.Tensor
+    h: torch.Tensor
+
+
+def moe_dispatch(p: dict, xt: torch.Tensor, cfg: ArchConfig, capacity: int) -> MoEDispatch:
+    """Route tokens ``xt`` (T, D) as :func:`moe_route` over the bf16 router
+    product cast to f32, gather each expert's C slots' tokens into (E, C,
+    D) and run the expert SwiGLU as batched products.  The gather is
+    ``F.embedding`` over ``xt`` with a zero row appended (see :func:`moe`)."""
+    T, D = xt.shape
+    k = cfg.moe.top_k
+    gates, eids, slot, where = moe_route((xt @ p["router"]).to(torch.float32), cfg, capacity)
+    tok = torch.where(slot < T * k, slot // k, T)
+    xg = F.embedding(tok, torch.cat([xt, xt.new_zeros(1, D)]))
+    h = torch.bmm(F.silu(torch.bmm(xg, p["we1"])) * torch.bmm(xg, p["we3"]), p["we2"])
+    return MoEDispatch(gates, eids, slot, where, tok, xg, h)
+
+
+def moe(p: dict, x: torch.Tensor, cfg: ArchConfig, *, capacity_factor: float = 1.25,
+        dropless_below: int = 512) -> torch.Tensor:
+    """Capacity-based top-k MoE with shared experts (the reference's
+    ``moe``): x (B, S, D) -> (B, S, D).  Routing, dispatch and the expert
+    SwiGLU as :func:`moe_dispatch`; each slot's output times its gate (f32)
+    goes back to its token (:func:`moe_combine`); the sum is cast to the
+    model dtype and the shared experts' SwiGLU added.
+
+    Every gather of a float is ``F.embedding`` over a table with a zero row
+    appended: its CUDA backward is deterministic, and a slot's row receives
+    the gradient of at most one pick.  So no float scatter-add or index-add
+    (atomic on CUDA) runs, forward or backward."""
+    B, S, D = x.shape
+    E = cfg.moe.n_experts
+    T = B * S
+    C = moe_capacity(cfg, T, capacity_factor, dropless_below)
+    xt = x.reshape(T, D)
+    d = moe_dispatch(p, xt, cfg, C)
+    gate_of_slot = F.embedding(d.slot, torch.cat([d.gates.reshape(-1, 1),
+                                                  d.gates.new_zeros(1, 1)]))  # (E, C, 1)
+    out = moe_combine((d.h.to(torch.float32) * gate_of_slot).reshape(E * C, D), d.where,
+                      d.eids)
+    y = out.to(x.dtype)
+    if cfg.moe.n_shared:
+        y = y + swiglu(p["shared"], xt)
+    return y.reshape(B, S, D)

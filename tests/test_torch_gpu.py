@@ -920,3 +920,106 @@ def test_plans_compiled_on_the_card_are_dropped_in_a_cpu_process(cuda, tmp_path)
     again = sched_compile.cached_kv_plan(cache, "data", policy=CompressionPolicy(min_bytes=0),
                                          n_dev=1, plan_cache=back)
     assert again == plan and (back.stats.misses, back.stats.hits) == (0, 1)
+
+
+# ---------------------------------------------------------------------------
+# MoE and MLA on the card
+# ---------------------------------------------------------------------------
+
+def _deepseek_layer(device):
+    """deepseek-v2-lite SMOKE's MoE + MLA layer weights, drawn on the CPU
+    from seed 0 and moved to ``device``."""
+    from repro_torch import configs
+    from repro_torch.models import transformer
+
+    cfg = configs.get_smoke("deepseek_v2_lite_16b")
+    g = torch.Generator().manual_seed(0)
+    tree = {}
+    for path, (shape, scale) in transformer.tree_paths(
+            transformer._layer_shapes(cfg, cfg.pattern[0])):
+        t = torch.ones(shape) if scale is None else torch.randn(shape, generator=g) * scale
+        node = tree
+        *keys, last = path.split("/")
+        for k in keys:
+            node = node.setdefault(k, {})
+        node[last] = t.to(torch.bfloat16).to(device)
+    return cfg, tree
+
+
+@pytest.mark.parametrize("n_tok", [64, 1024])
+def test_moe_forward_and_backward_are_bit_identical_twice_on_the_card(cuda, n_tok):
+    """The MoE layer's output and every gradient (input, router, experts,
+    shared expert), dropless (64 tokens) and at capacity (1024), twice
+    under the launcher's deterministic setting: the same bits, as the
+    compressed and raw training twins need (no float scatter-add or
+    index-add runs, forward or backward).  The same inputs on the CPU:
+    the routing (expert picks, the slot table, each pick's slot) equal,
+    the output and gradients within ``test_torch_moe_mla``'s tolerances
+    against the reference (1/64 of the largest magnitude, ``we1``'s
+    1/32)."""
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer
+    from repro_torch.tree_util import bits_equal, tree_leaves, tree_map
+
+    cfg, tree = _deepseek_layer("cpu")
+    x0 = torch.randn((2, n_tok // 2, cfg.d_model),
+                     generator=torch.Generator().manual_seed(1)).to(torch.bfloat16)
+    ct = torch.linspace(-1, 1, x0.numel()).view_as(x0)
+
+    def run(dev):
+        p = tree_map(lambda t: t.to(dev, copy=True).requires_grad_(True), tree["ffn"])
+        x = x0.to(dev, copy=True).requires_grad_(True)
+        with launch_train.deterministic():
+            y = L.moe(p, x, cfg)
+            (y.float() * ct.to(dev)).sum().backward()
+            with torch.no_grad():
+                d = L.moe_dispatch(p, x.reshape(n_tok, -1), cfg, L.moe_capacity(cfg, n_tok))
+        return ([y.detach(), x.grad] + [t.grad for t in tree_leaves(p)],
+                [d.eids, d.slot, d.where])
+
+    (a, route), (b, _), (host, host_route) = run(cuda), run(cuda), run("cpu")
+    assert all(t is not None for t in a)
+    assert bits_equal([t.cpu() for t in a], [t.cpu() for t in b])
+    for got, want in zip(route, host_route, strict=True):
+        assert torch.equal(got.cpu(), want)
+    paths = ["y", "x"] + [k for k, _ in transformer.tree_paths(tree["ffn"])]
+    for path, got, want in zip(paths, a, host, strict=True):
+        frac = 1 / 32 if path == "we1" else 1 / 64
+        assert (got.float().cpu() - want.float()).abs().max() <= want.float().abs().max() * frac, \
+            path
+
+
+def test_mla_decode_on_the_card_equals_the_cpu(cuda):
+    """A prefill of 16 positions, then 4 decode steps, on the card and on
+    the CPU: the latents written and the outputs within one bf16 ulp of
+    their largest magnitude (``test_torch_moe_mla``'s tolerance against
+    the reference)."""
+    from repro_torch.models import layers as L
+
+    cfg, tree = _deepseek_layer("cpu")
+    spec, B, S, L_MAX = cfg.pattern[0], 2, 16, 32
+    sides = {}
+    for dev in ("cpu", cuda):
+        p = {k: v.to(dev) for k, v in tree["mixer"].items()}
+        cache = {"c_kv": torch.zeros((B, L_MAX, cfg.mla.kv_lora), dtype=torch.bfloat16,
+                                     device=dev),
+                 "k_rope": torch.zeros((B, L_MAX, cfg.mla.rope_dim), dtype=torch.bfloat16,
+                                       device=dev)}
+        g = torch.Generator().manual_seed(2)
+        outs = []
+        with torch.no_grad():
+            x = torch.randn((B, S, cfg.d_model), generator=g).to(torch.bfloat16).to(dev)
+            cs = L.rope_table(torch.arange(S, device=dev), cfg.mla.rope_dim, cfg.rope_theta)
+            L.mla_attention(p, x, cfg, spec, *cs, cache)
+            for step in range(4):
+                pos = S + step
+                x = torch.randn((B, 1, cfg.d_model), generator=g).to(torch.bfloat16).to(dev)
+                cs = L.rope_table(torch.full((1,), pos, device=dev), cfg.mla.rope_dim,
+                                  cfg.rope_theta)
+                outs.append(L.mla_attention(p, x, cfg, spec, *cs, cache, pos).float().cpu())
+        sides[str(dev)] = (outs, {k: v.cpu() for k, v in cache.items()})
+    (cpu_out, cpu_cache), (gpu_out, gpu_cache) = sides["cpu"], sides[str(cuda)]
+    for a, b in [*zip(gpu_out, cpu_out), *((gpu_cache[k].float(), cpu_cache[k].float())
+                                           for k in cpu_cache)]:
+        assert (a - b).abs().max() <= b.abs().max() * 2.0 ** -8

@@ -89,6 +89,9 @@ def test_configs_and_data_match_reference():
                 for spec, rspec in zip(port.pattern, ref.pattern, strict=True):
                     assert dataclasses.asdict(spec).items() <= \
                         dataclasses.asdict(rspec).items()
+            elif dataclasses.is_dataclass(getattr(port, f.name)):  # MoECfg, MLACfg
+                assert dataclasses.asdict(getattr(port, f.name)) == \
+                    dataclasses.asdict(getattr(ref, f.name)), (get, f.name)
             else:
                 assert getattr(port, f.name) == getattr(ref, f.name), (get, f.name)
         assert port.param_count() == ref.param_count()
