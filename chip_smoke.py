@@ -284,6 +284,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1243,6 +1244,22 @@ TINY_BATCH, TINY_SEQ, TINY_STEPS = 8, 512, 2
 DEEPSEEK = "deepseek_v2_lite_16b"
 DEEPSEEK_SERVE = dict(n_req=4, prompt=512, new=32, slots=4, max_len=1024)
 DEEPSEEK_REPEATS, DEEPSEEK_BATCH, DEEPSEEK_SEQ, DEEPSEEK_STEPS = 1, 8, 512, 2
+# the remaining mixers: jamba served at full width with its depth cut to
+# JAMBA_REPEATS of its 4 eight-layer patterns (14 Mamba and 2 attention
+# layers, 8 of them MoE), and trained at full width with its pattern cut to
+# (Mamba + SwiGLU, attention + SwiGLU) once; xlstm-350m served and trained
+# at full width and depth; whisper-small (encoder-decoder) at full width
+# and depth: a prefill with frames, its cache shipped, greedy decode steps,
+# and ZeRO-1 twins on registry.make_batch batches.  xlstm's twins run at
+# seq 128: its eager step loop took 48-54 s a step at 8 x 512 (both twins
+# 202 s on the H100), and the sequence is cut, never a width
+JAMBA, XLSTM, WHISPER = "jamba_v0_1_52b", "xlstm_350m", "whisper_small"
+JAMBA_REPEATS = 2
+MIXER_SERVE = dict(n_req=4, prompt=512, new=32, slots=4, max_len=1024)
+WHISPER_BATCH, WHISPER_SEQ, WHISPER_DECODE, WHISPER_MAX_LEN = 2, 512, 8, 1024
+JAMBA_TRAIN_SEQ, JAMBA_TRAIN_STEPS = 512, 2
+XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ, XLSTM_TRAIN_STEPS = 8, 128, 2
+WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ, WHISPER_TRAIN_STEPS = 8, 512, 2
 
 
 def _gib(n: float) -> str:
@@ -1304,8 +1321,10 @@ def zoo_serve(tag, cfg, model, sp, dev, torch, np):
             pd, t_pd = serve(True, prompts, sp["new"], pc)
             pd_launches = kernels.launch_counts()
         recorded = (inputs, shape_tallies())
-    # a cache leaf (k or v) a prefix layer and a pattern position
-    n_leaves = 2 * (len(cfg.prefix) + len(cfg.pattern))
+    # every cache leaf but pos: K/V, latents or recurrent state, a stacked
+    # pattern position's leaf once
+    n_leaves = sum(1 for t in tree_flatten(transformer.init_cache(cfg, 1, 1, "cpu"))[0]
+                   if t.dim())
     expect = dict.fromkeys(kernels.KERNELS, 0)
     expect.update(pack=2 * n_leaves * sp["n_req"], unpack=2 * n_leaves * sp["n_req"])
     if pd != colocated:
@@ -1329,6 +1348,13 @@ def zoo_serve(tag, cfg, model, sp, dev, torch, np):
         raise AssertionError(f"{tag}: a shipped cache is not bit-identical")
     msgs = [m for m in wire["messages"] if hasattr(m, "wire_bytes")]
     shapes = sorted({tuple(t.shape) for t in tree_flatten(cache)[0] if t.dim()})
+    by_dtype = {}  # dtype: [raw bytes, wire bytes, leaves]
+    for m, (kind, _, dt) in zip(wire["messages"], wire["meta"]):
+        if kind == "z":
+            acc = by_dtype.setdefault(dt, [0, 0, 0])
+            acc[0] += m.raw_bytes
+            acc[1] += m.wire_bytes()
+            acc[2] += 1
     # where a run's time goes: an admission's prefill, a batched decode step
     batched = transformer.init_cache(cfg, sp["slots"], sp["max_len"], dev)
     batched["pos"] = torch.tensor(sp["prompt"], dtype=torch.int32, device=dev)
@@ -1347,7 +1373,10 @@ def zoo_serve(tag, cfg, model, sp, dev, torch, np):
            "pack_ms": _wall_ms(lambda: kv_transfer.pack_cache(cache, eng, plan=plan), torch,
                                runs=3),
            "unpack_ms": _wall_ms(lambda: kv_transfer.unpack_cache(wire, eng), torch, runs=3),
-           "leaves": len(msgs), "shapes": shapes, "width": plan.width_for_dtype("bfloat16"),
+           "leaves": len(msgs), "shapes": shapes,
+           "width": {dt: plan.width_for_dtype(dt) for dt in by_dtype},
+           "by_dtype": {dt: {"leaves": n, "raw_bytes": r, "wire_bytes": w, "ratio": w / r}
+                        for dt, (r, w, n) in by_dtype.items()},
            "raw_bytes": sum(m.raw_bytes for m in msgs),
            "wire_bytes": sum(m.wire_bytes() for m in msgs)}
     print(f"  {tag}: {sp['n_req']} requests x {sp['prompt']} prompt + {sp['new']} new "
@@ -1355,10 +1384,10 @@ def zoo_serve(tag, cfg, model, sp, dev, torch, np):
           f"colocated; plan cache 1 miss {sp['n_req'] - 1} hits; launches {pd_launches}; "
           f"tokens/s colocated {out['tok_s']['colocated']:.1f} ({t_col * 1e3:.1f} ms), PD "
           f"{out['tok_s']['pd']:.1f} ({t_pd * 1e3:.1f} ms)")
-    print(f"  {tag} shipment: {len(msgs)} leaves of shapes {shapes} bf16, bit-identical; "
+    print(f"  {tag} shipment: {len(msgs)} leaves of shapes {shapes}, bit-identical; "
           f"{out['raw_bytes']} bytes a request, {out['wire_bytes']} on the wire, ratio "
-          f"{out['ratio']:.4f} (width {out['width']}); pack {out['pack_ms']:.2f} ms, unpack "
-          f"{out['unpack_ms']:.2f} ms (median of 3)")
+          f"{out['ratio']:.4f} (widths {out['width']}); by dtype {out['by_dtype']}; pack "
+          f"{out['pack_ms']:.2f} ms, unpack {out['unpack_ms']:.2f} ms (median of 3)")
     print(f"  {tag} breakdown, ms (host clock to a device sync, median of 3): prefill 1 x "
           f"{sp['prompt']} {out['prefill_ms']:.2f}, decode step {sp['slots']} slots "
           f"{out['decode_step_ms']:.2f}")
@@ -1417,48 +1446,44 @@ def merge_shapes(into: dict, more: dict) -> dict:
     return into
 
 
-def phase_zoo(dev, torch, np, bw):
-    """The model zoo at full width, each model drawn from SEED on the card,
-    run, held, its kernels' new shapes timed, and freed before the next:
-    glm4-9b and gemma3-27b at full depth served colocated and PD (a model
-    whose weights and init draw do not fit fails the phase); qwen2-vl-72b
-    cut in depth: a prefill with vision embeddings, its cache over the host
-    wire and greedy decode from both; tinyllama-1.1b trained through the
-    launcher's ZeRO-1 path, compressed and raw; deepseek-v2-lite-16b (MLA
-    and MoE) served at full depth over its latent KV cache, then trained at
-    full width and a cut depth like tinyllama.  Returns the launches of
-    each run and the timed shapes."""
-    import gc
+class Zoo:
+    """What the zoo phase's runs share: the card, the launches of each run,
+    the kernels' timed shapes and each model's peak memory, and the runs
+    every zoo model goes through (serve_full, ship_and_decode,
+    train_twins).  A script may build one and drive a single part, e.g.
+    ``zoo_mixers(Zoo(dev, torch, np, bw))`` after phase_build."""
 
-    from repro_torch import configs, kernels
-    from repro_torch.core.policy import CompressionPolicy
-    from repro_torch.launch import train as launch_train
-    from repro_torch.models import registry, transformer
-    from repro_torch.models.layers import moe_capacity
-    from repro_torch.p2p.engine import Compressor
-    from repro_torch.sched.cache import PlanCache
-    from repro_torch.serve import kv_transfer
-    from repro_torch.tree_util import bits_equal, tree_flatten, tree_unflatten
+    def __init__(self, dev, torch, np, bw):
+        self.dev, self.torch, self.np, self.bw = dev, torch, np, bw
+        self.launches, self.shapes, self.peaks = {}, {}, {}
 
-    t_phase = time.perf_counter()
-    launches, shapes, peaks = {}, {}, {}
+    def fresh(self):
+        import gc
 
-    def fresh():
         gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
+        self.torch.cuda.empty_cache()
+        self.torch.cuda.reset_peak_memory_stats(self.dev)
 
-    def timed(run, recorded):
-        merge_shapes(shapes, time_path_shapes({run: recorded}, {run: launches[run]}, bw, dev,
-                                              torch))
+    def timed(self, run, recorded):
+        merge_shapes(self.shapes, time_path_shapes({run: recorded}, {run: self.launches[run]},
+                                                   self.bw, self.dev, self.torch))
 
-    fresh()
-    print(f"zoo: card {run_card()}; {_gib(torch.cuda.mem_get_info(dev)[0])} free, "
-          f"{_gib(torch.cuda.memory_allocated(dev))} still allocated")
-    def serve_full(arch, sp):
-        """``arch`` at full width and depth served colocated, then PD."""
-        fresh()
-        cfg = configs.get(arch)
+    def peak(self, key):
+        self.peaks[key] = self.torch.cuda.max_memory_allocated(self.dev)
+        print(f"  {key} peak memory {_gib(self.peaks[key])}")
+
+    def serve_full(self, arch, sp, cfg=None):
+        """``arch`` at full width and depth (or at ``cfg``, a cut depth)
+        served colocated, then PD.  Returns zoo_serve's numbers."""
+        import gc
+
+        from repro_torch import configs
+        from repro_torch.models import transformer
+
+        torch, dev = self.torch, self.dev
+        self.fresh()
+        full = configs.get(arch)
+        cfg = cfg or full
         # the bf16 weights and the f32 draw of the largest leaf (transformer.init)
         largest = max(t.numel() for _, t in transformer.tree_paths(
             transformer.abstract_params(cfg)))
@@ -1469,48 +1494,149 @@ def phase_zoo(dev, torch, np, bw):
                                  f"{_gib(free)} free")
         model = zoo_model(cfg, dev, torch)
         print(f"zoo {arch}: d_model {cfg.d_model}, head_dim {cfg.hd}, {cfg.kv_heads} KV heads, "
-              f"{cfg.n_layers} layers, full depth; {cfg.param_count() / 1e9:.2f} B parameters "
+              f"{cfg.n_layers} of {full.n_layers} layers; {cfg.param_count() / 1e9:.2f} B "
+              f"of {full.param_count() / 1e9:.2f} B parameters "
               f"({cfg.active_param_count() / 1e9:.2f} B active), "
               f"{cfg.param_count() * 2 / 1e9:.1f} GB bf16; layers "
               f"{[(s.mixer, s.ffn, s.window) for s in (*cfg.prefix, *cfg.pattern)]}; "
               f"weights and init draw {_gib(need)}")
-        out = zoo_serve(arch, cfg, model, sp, dev, torch, np)
+        out = zoo_serve(arch, cfg, model, sp, dev, torch, self.np)
         run = f"zoo_{arch}_pd"
-        launches[run] = out.pop("launches")
+        self.launches[run] = out.pop("launches")
         recorded = out.pop("recorded")
         del model
-        peaks[arch] = torch.cuda.max_memory_allocated(dev)
-        print(f"  {arch} peak memory {_gib(peaks[arch])}")
+        self.peak(arch)
         gc.collect()
-        timed(run, recorded)
+        self.timed(run, recorded)
+        return out
 
-    def train_twins(arch, steps, batch, seq, cfg=None):
+    def ship_and_decode(self, run, arch, cfg, batch_size, seq, n_decode, max_len):
+        """``cfg`` (``arch``, maybe cut in depth) drawn on the card: a
+        prefill of a registry.make_batch batch (with its vision embeddings
+        or an encoder-decoder model's frames), its cache over the host wire
+        bit-identical, then ``n_decode`` greedy tokens from the shipped and
+        from the original cache, identical (with the encoder's output where
+        the model has one).  Its pack and unpack launches are ``run``'s."""
+        import gc
+
+        from repro_torch import configs, kernels
+        from repro_torch.core.policy import CompressionPolicy
+        from repro_torch.launch import train as launch_train
+        from repro_torch.models import registry, transformer
+        from repro_torch.p2p.engine import Compressor
+        from repro_torch.sched.cache import PlanCache
+        from repro_torch.serve import kv_transfer
+        from repro_torch.tree_util import bits_equal, tree_flatten, tree_unflatten
+
+        torch, dev = self.torch, self.dev
+        self.fresh()
+        full = configs.get(arch)
+        model = zoo_model(cfg, dev, torch)
+        batch = registry.make_batch(cfg, batch_size, seq, rng=self.np.random.default_rng(SEED),
+                                    device=dev)
+        extra = {k: batch[k] for k in ("vision_embeds", "frames") if k in batch}
+        with launch_train.deterministic():
+            logits, cache = transformer.prefill(
+                model, batch["tokens"], transformer.init_cache(cfg, batch_size, max_len, dev),
+                **extra)
+            enc_out = model.encode(batch.get("frames"))
+            eng = Compressor(codec_name="packed", device=dev)
+            with recorded_inputs(torch) as inputs:
+                kernels.clear_launch_counts()
+                wire, plan = kv_transfer.ship_cache(cache, eng, policy=CompressionPolicy(min_bytes=0),
+                                                    plan_cache=PlanCache())
+                back = kv_transfer.unpack_cache(wire, eng)
+                self.launches[run] = kernels.launch_counts()
+            recorded = (inputs, shape_tallies())
+            if not bits_equal(back, cache):
+                raise AssertionError(f"{arch}: the shipped cache is not bit-identical")
+            leaves, treedef = tree_flatten(cache)
+
+            def greedy(c):
+                c = tree_unflatten(treedef, [t.clone() for t in tree_flatten(c)[0]])
+                tok = torch.argmax(logits[:, -1], -1)
+                out = [tok.tolist()]
+                for _ in range(n_decode - 1):
+                    lg, c = transformer.decode_step(model, tok[:, None], c, enc_out=enc_out)
+                    tok = torch.argmax(lg[:, -1], -1)
+                    out.append(tok.tolist())
+                return out
+
+            from_ship, from_cache = greedy(back), greedy(cache)
+        n_leaves = sum(1 for t in leaves if t.dim())
+        expect = dict.fromkeys(kernels.KERNELS, 0)
+        expect.update(pack=2 * n_leaves, unpack=2 * n_leaves)
+        if self.launches[run] != expect:
+            raise AssertionError(f"{arch} shipment launches {self.launches[run]}, "
+                                 f"expected {expect}")
+        if from_ship != from_cache or not bool(torch.isfinite(logits.float()).all()):
+            raise AssertionError(f"{arch}: decode from the shipped cache {from_ship} vs "
+                                 f"{from_cache}")
+        msgs = [m for m in wire["messages"] if hasattr(m, "wire_bytes")]
+        ratio = sum(m.wire_bytes() for m in msgs) / sum(m.raw_bytes for m in msgs)
+        enc = f" and {cfg.n_enc_layers} encoder layers" if cfg.enc_dec else ""
+        print(f"zoo {arch}: d_model {cfg.d_model}, {cfg.n_heads} heads, {cfg.kv_heads} KV "
+              f"heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}; {cfg.n_layers} of "
+              f"{full.n_layers} layers{enc} (repeats {cfg.repeats} of {full.repeats}): "
+              f"{cfg.param_count() / 1e9:.3f} B of {full.param_count() / 1e9:.3f} B parameters")
+        print(f"  prefill of {batch_size} x {seq} tokens with "
+              f"{ {k: tuple(v.shape) for k, v in extra.items()} } (registry.make_batch); cache "
+              f"({n_leaves} leaves of {tuple(leaves[0].shape)} {leaves[0].dtype}, "
+              f"{sum(m.raw_bytes for m in msgs)} bytes) over the host wire bit-identical, ratio "
+              f"{ratio:.4f}; {n_decode} greedy decode steps"
+              f"{' with enc_out' if enc_out is not None else ''} from it identical to the "
+              f"original's {from_cache}; launches {self.launches[run]}")
+        del model, cache, back, wire, logits, batch, extra, leaves, enc_out
+        self.peak(arch)
+        gc.collect()
+        self.timed(run, recorded)
+
+    def train_twins(self, arch, steps, batch, seq, cfg=None, run_one=None):
         """The launcher's ZeRO-1 path for ``arch`` (at ``cfg`` where given, a
-        cut depth), compressed then raw, one after the other (the
+        cut depth), or ``run_one(compress, group)`` (a run with the
+        launcher's ``losses``, ``step_ms``, ``state``, ``tcfg`` and
+        ``plan_cache``), compressed then raw, one after the other (the
         compressed run's final weights wait in host memory, and its
         kernels' inputs too: its all-gather decode's plain merge takes tens
-        of GB at a bucket of a billion values): identical loss bits,
-        final weights and launches; the raw run launches nothing.  Returns
-        (the compressed run's numbers, the raw run's, its recorded inputs,
-        the compressed run's parameter names, its bucket layout and n_dp)."""
-        fresh()
+        of GB at a bucket of a billion values): identical loss bits, final
+        weights and launches; the raw run launches nothing.  Returns (the
+        compressed run's numbers with each bucket's ratios, the raw run's,
+        its recorded inputs, the compressed run's parameter names, its
+        bucket layout and n_dp)."""
+        import gc
+
+        from repro_torch import kernels
+        from repro_torch.launch import train as launch_train
+        from repro_torch.train import step as step_lib
+        from repro_torch.tree_util import bits_equal, tree_flatten
+
+        torch, dev = self.torch, self.dev
+        self.fresh()
         runs, recorded, finals = {}, None, {}
         with launch_train.single_process_group(dev) as group:
             n_dp = torch.distributed.get_world_size(group)
             for compress in (True, False):
                 with recorded_inputs(torch, host=True) as inputs:
                     kernels.clear_launch_counts()
-                    run = launch_train.train(cfg or arch, steps=steps, batch=batch,
-                                             seq=seq, compress=compress, device=dev,
-                                             seed=SEED, group=group)
+                    if run_one is None:
+                        run = launch_train.train(cfg or arch, steps=steps, batch=batch,
+                                                 seq=seq, compress=compress, device=dev,
+                                                 seed=SEED, group=group)
+                    else:
+                        run = run_one(compress, group)
                     run.launches = kernels.launch_counts()
-                if compress:
-                    recorded = (inputs, shape_tallies())
-                    names, meta = list(run.state.model.params), run.state.meta
-                finals[compress] = [t.cpu() for t in tree_flatten(run.state.model.tree())[0]]
                 runs[compress] = {"losses": run.losses, "step_ms": run.step_ms,
                                   "launches": run.launches, "n": run.state.meta.padded[0],
                                   "buckets": len(run.state.meta.dtype_names)}
+                if compress:
+                    recorded = (inputs, shape_tallies())
+                    names, meta = list(run.state.model.params), run.state.meta
+                    # the run's plan, a hit in its own cache
+                    plan = step_lib.zero1_plan(run.state, run.tcfg, group, cache=run.plan_cache)
+                    runs[compress]["ratios"] = {
+                        pp.rs.dtype_name: {"n": pp.rs.length, "rs": pp.rs.ratio,
+                                           "ag": pp.ag.ratio} for pp in plan.buckets}
+                finals[compress] = [t.cpu() for t in tree_flatten(run.state.model.tree())[0]]
                 del run
                 gc.collect()
                 torch.cuda.empty_cache()
@@ -1528,74 +1654,40 @@ def phase_zoo(dev, torch, np, bw):
         del finals
         return comp, raw, recorded, names, meta, n_dp
 
+
+def phase_zoo(dev, torch, np, bw):
+    """The model zoo at full width, each model drawn from SEED on the card,
+    run, held, its kernels' new shapes timed, and freed before the next:
+    glm4-9b and gemma3-27b at full depth served colocated and PD (a model
+    whose weights and init draw do not fit fails the phase); qwen2-vl-72b
+    cut in depth: a prefill with vision embeddings, its cache over the host
+    wire and greedy decode from both; tinyllama-1.1b trained through the
+    launcher's ZeRO-1 path, compressed and raw; deepseek-v2-lite-16b (MLA
+    and MoE) served at full depth over its latent KV cache, then trained at
+    full width and a cut depth like tinyllama; then the remaining mixers
+    (:func:`zoo_mixers`).  Returns the launches of each run and the timed
+    shapes."""
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.models.layers import moe_capacity
+
+    t_phase = time.perf_counter()
+    zoo = Zoo(dev, torch, np, bw)
+    launches, peaks = zoo.launches, zoo.peaks
+    zoo.fresh()
+    print(f"zoo: card {run_card()}; {_gib(torch.cuda.mem_get_info(dev)[0])} free, "
+          f"{_gib(torch.cuda.memory_allocated(dev))} still allocated")
     # -- glm4-9b and gemma3-27b: served colocated, then PD ------------------
     for arch, sp in ZOO_SERVE.items():
-        serve_full(arch, sp)
+        zoo.serve_full(arch, sp)
     # -- qwen2-vl-72b at a cut depth: prefill with vision embeddings --------
-    fresh()
-    full = configs.get("qwen2_vl_72b")
-    cfg = dataclasses.replace(full, repeats=QWEN_REPEATS)
-    model = zoo_model(cfg, dev, torch)
-    batch = registry.make_batch(cfg, QWEN_BATCH, QWEN_SEQ, rng=np.random.default_rng(SEED),
-                                device=dev)
-    with launch_train.deterministic():
-        logits, cache = transformer.prefill(
-            model, batch["tokens"], transformer.init_cache(cfg, QWEN_BATCH, QWEN_MAX_LEN, dev),
-            vision_embeds=batch["vision_embeds"])
-        eng = Compressor(codec_name="packed", device=dev)
-        pc = PlanCache()
-        with recorded_inputs(torch) as inputs:
-            kernels.clear_launch_counts()
-            wire, plan = kv_transfer.ship_cache(cache, eng, policy=CompressionPolicy(min_bytes=0),
-                                                plan_cache=pc)
-            back = kv_transfer.unpack_cache(wire, eng)
-            launches["zoo_qwen2_vl_ship"] = kernels.launch_counts()
-        recorded = (inputs, shape_tallies())
-        if not bits_equal(back, cache):
-            raise AssertionError("qwen2-vl: the shipped cache is not bit-identical")
-        leaves, treedef = tree_flatten(cache)
-
-        def greedy(c):
-            c = tree_unflatten(treedef, [t.clone() for t in tree_flatten(c)[0]])
-            tok = torch.argmax(logits[:, -1], -1)
-            out = [tok.tolist()]
-            for _ in range(QWEN_DECODE - 1):
-                lg, c = transformer.decode_step(model, tok[:, None], c)
-                tok = torch.argmax(lg[:, -1], -1)
-                out.append(tok.tolist())
-            return out
-
-        from_ship, from_cache = greedy(back), greedy(cache)
-    n_leaves = sum(1 for t in leaves if t.dim())
-    expect = dict.fromkeys(kernels.KERNELS, 0)
-    expect.update(pack=2 * n_leaves, unpack=2 * n_leaves)
-    if launches["zoo_qwen2_vl_ship"] != expect:
-        raise AssertionError(f"qwen2-vl shipment launches {launches['zoo_qwen2_vl_ship']}, "
-                             f"expected {expect}")
-    if from_ship != from_cache or not bool(torch.isfinite(logits.float()).all()):
-        raise AssertionError(f"qwen2-vl: decode from the shipped cache {from_ship} vs "
-                             f"{from_cache}")
-    msgs = [m for m in wire["messages"] if hasattr(m, "wire_bytes")]
-    ratio = sum(m.wire_bytes() for m in msgs) / sum(m.raw_bytes for m in msgs)
-    print(f"zoo qwen2_vl_72b: d_model {cfg.d_model}, {cfg.n_heads} heads, {cfg.kv_heads} KV "
-          f"heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}; depth cut to {cfg.n_layers} of "
-          f"{full.n_layers} layers (repeats {cfg.repeats} of {full.repeats}): "
-          f"{cfg.param_count() / 1e9:.2f} B of {full.param_count() / 1e9:.1f} B parameters")
-    print(f"  prefill of {QWEN_BATCH} x {QWEN_SEQ} tokens, the first "
-          f"{batch['vision_embeds'].shape[1]} positions vision_embeds "
-          f"(registry.make_batch); cache ({n_leaves} leaves of "
-          f"{tuple(leaves[0].shape)} bf16) over the host wire bit-identical, ratio "
-          f"{ratio:.4f}; {QWEN_DECODE} greedy decode steps from it identical to the "
-          f"original's {from_cache}; launches {launches['zoo_qwen2_vl_ship']}")
-    del model, cache, back, wire, logits, batch, leaves
-    peaks["qwen2_vl_72b"] = torch.cuda.max_memory_allocated(dev)
-    print(f"  qwen2_vl_72b peak memory {_gib(peaks['qwen2_vl_72b'])}")
-    gc.collect()
-    timed("zoo_qwen2_vl_ship", recorded)
-    del recorded
+    zoo.ship_and_decode("zoo_qwen2_vl_ship", "qwen2_vl_72b",
+                        dataclasses.replace(configs.get("qwen2_vl_72b"), repeats=QWEN_REPEATS),
+                        QWEN_BATCH, QWEN_SEQ, QWEN_DECODE, QWEN_MAX_LEN)
     # -- tinyllama-1.1b: the launcher's ZeRO-1 path, compressed then raw ----
-    comp, raw, recorded, _, _, n_dp = train_twins("tinyllama_1_1b", TINY_STEPS, TINY_BATCH,
-                                                  TINY_SEQ)
+    comp, raw, recorded, _, _, n_dp = zoo.train_twins("tinyllama_1_1b", TINY_STEPS, TINY_BATCH,
+                                                      TINY_SEQ)
     launches["zoo_tinyllama_train"] = comp["launches"]
     cfg = configs.get("tinyllama_1_1b")
     print(f"zoo tinyllama_1_1b: full width and depth ({cfg.n_layers} layers, "
@@ -1605,18 +1697,17 @@ def phase_zoo(dev, torch, np, bw):
           f"{[round(t, 1) for t in comp['step_ms']]}; raw losses {raw['losses']} step_ms "
           f"{[round(t, 1) for t in raw['step_ms']]}: loss bits and final parameters "
           f"identical; launches {comp['launches']}")
-    peaks["tinyllama_1_1b"] = torch.cuda.max_memory_allocated(dev)
-    print(f"  tinyllama_1_1b peak memory {_gib(peaks['tinyllama_1_1b'])}")
+    zoo.peak("tinyllama_1_1b")
     gc.collect()
     torch.cuda.empty_cache()
-    timed("zoo_tinyllama_train", recorded)
+    zoo.timed("zoo_tinyllama_train", recorded)
     del recorded
     # -- deepseek-v2-lite-16b: MLA + MoE served at full depth ---------------
-    serve_full(DEEPSEEK, DEEPSEEK_SERVE)
+    zoo.serve_full(DEEPSEEK, DEEPSEEK_SERVE)
     # -- and trained at full width, the depth cut: ZeRO-1 twins -------------
     full = configs.get(DEEPSEEK)
     cfg = dataclasses.replace(full, repeats=DEEPSEEK_REPEATS)
-    comp, raw, recorded, names, meta, n_dp = train_twins(
+    comp, raw, recorded, names, meta, n_dp = zoo.train_twins(
         DEEPSEEK, DEEPSEEK_STEPS, DEEPSEEK_BATCH, DEEPSEEK_SEQ, cfg)
     launches["zoo_deepseek_train"] = comp["launches"]
     experts = moe_gradient_stats(recorded[0]["encode_fused"], names, meta, torch)
@@ -1635,17 +1726,173 @@ def phase_zoo(dev, torch, np, bw):
           f"{experts['zero_in_embed']} in the embedding (rows of tokens the step did not "
           f"see); experts with no token (all-zero expert gradients) by MoE layer "
           f"{experts['idle_experts']} of {cfg.moe.n_experts}")
-    peaks["deepseek_train"] = torch.cuda.max_memory_allocated(dev)
-    print(f"  {DEEPSEEK} train peak memory {_gib(peaks['deepseek_train'])}")
+    zoo.peak("deepseek_train")
     gc.collect()
     torch.cuda.empty_cache()
-    timed("zoo_deepseek_train", recorded)
+    zoo.timed("zoo_deepseek_train", recorded)
     del recorded
-    fresh()
+    # -- the remaining mixers --------------------------------------------------
+    zoo_mixers(zoo)
+    zoo.fresh()
     seconds = time.perf_counter() - t_phase
     print(f"zoo: {seconds:.1f} s; peak memory by model "
           f"{ {k: _gib(v) for k, v in peaks.items()} }")
-    return {"launches": launches, "shapes": shapes, "seconds": seconds, "peaks": peaks}
+    return {"launches": launches, "shapes": zoo.shapes, "seconds": seconds, "peaks": peaks}
+
+
+def zero_blocks_in(encoded: dict, names: list, meta, inside) -> dict:
+    """All-zero 512-value blocks of the first gradient bucket that
+    encode_fused recorded in a one-rank ZeRO-1 run (``recorded_inputs``: the
+    reduce-scatter encodes it before the all-gather encodes the weights),
+    and how many of them lie wholly inside the leaves whose name
+    ``inside(name)`` picks."""
+    bucket = next(iter(encoded.values()))[0].reshape(-1)
+    blocks = bucket.numel() // 512
+    zero = (bucket[:blocks * 512].view(blocks, 512) == 0).all(1)
+    n_in, off = 0, 0
+    for i, _, size in meta.members[0]:
+        if inside(names[i]):
+            n_in += int(zero[-(-off // 512):(off + size) // 512].sum())
+        off += size
+    return {"blocks": blocks, "zero_blocks": int(zero.sum()),
+            "zero_share": int(zero.sum()) / blocks, "inside": n_in}
+
+
+def zoo_mixers(zoo):
+    """The remaining mixers on the card, through ``zoo`` (a :class:`Zoo`):
+    jamba at full width and JAMBA_REPEATS of its patterns, and xlstm-350m
+    at full width and depth, served colocated and PD over the host wire
+    (their recurrent states, f32 beside bf16, bit-identical); whisper-small's
+    prefill with frames, its cache over the host wire and greedy decode
+    from both caches with the encoder's output; ZeRO-1 twins of jamba (its
+    pattern cut to Mamba + SwiGLU, attention + SwiGLU: a bf16 and an f32
+    bucket) and xlstm through the launcher, of whisper through
+    train.step.train_step on registry.make_batch batches."""
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.core.policy import CompressionPolicy
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import registry
+    from repro_torch.sched.cache import PlanCache
+    from repro_torch.train import step as step_lib
+
+    dev, torch, np, launches, peaks = zoo.dev, zoo.torch, zoo.np, zoo.launches, zoo.peaks
+
+    def twins_line(tag, cfg, full, comp, raw, n_dp, batch, seq, note=""):
+        print(f"zoo {tag} train: {cfg.n_layers} of {full.n_layers} layers "
+              f"{[(s.mixer, s.ffn) for s in cfg.pattern]} x {cfg.repeats}, "
+              f"{cfg.param_count() / 1e9:.3f} B parameters, ZeRO-1 n_dp={n_dp}, batch {batch} "
+              f"x seq {seq}{note}, remat: {comp['buckets']} bucket(s) "
+              f"{comp['ratios']}; compressed losses {comp['losses']} step_ms "
+              f"{[round(t, 1) for t in comp['step_ms']]}; raw losses {raw['losses']} step_ms "
+              f"{[round(t, 1) for t in raw['step_ms']]}: loss bits and final parameters "
+              f"identical; launches {comp['launches']}")
+
+    # -- jamba at full width, JAMBA_REPEATS patterns: served ----------------
+    full = configs.get(JAMBA)
+    cfg = dataclasses.replace(full, repeats=JAMBA_REPEATS)
+    out = zoo.serve_full(JAMBA, MIXER_SERVE, cfg)
+    print(f"  {JAMBA}: {sum(s.mixer == 'mamba' for s in cfg.pattern) * cfg.repeats} Mamba and "
+          f"{sum(s.mixer == 'attn' for s in cfg.pattern) * cfg.repeats} attention layers, "
+          f"{sum(s.ffn == 'moe' for s in cfg.pattern) * cfg.repeats} MoE; prefill 1 x "
+          f"{MIXER_SERVE['prompt']} {out['prefill_ms']:.2f} ms, decode step "
+          f"{out['decode_step_ms']:.2f} ms; state wire by dtype {out['by_dtype']}")
+    # -- xlstm-350m at full width and depth: served -------------------------
+    out = zoo.serve_full(XLSTM, MIXER_SERVE)
+    print(f"  {XLSTM}: prefill 1 x {MIXER_SERVE['prompt']} {out['prefill_ms']:.2f} ms "
+          f"({MIXER_SERVE['prompt']} steps x {configs.get(XLSTM).n_layers} layers of eager "
+          f"ops), decode step {out['decode_step_ms']:.2f} ms; state wire by dtype "
+          f"{out['by_dtype']}")
+    # -- whisper-small: prefill with frames, the cache shipped, decode ------
+    zoo.ship_and_decode("zoo_whisper_ship", WHISPER, configs.get(WHISPER), WHISPER_BATCH,
+                        WHISPER_SEQ, WHISPER_DECODE, WHISPER_MAX_LEN)
+    # -- jamba trained at full width, its pattern cut -------------------------
+    pattern = tuple(next(s for s in full.pattern if (s.mixer, s.ffn) == kind)
+                    for kind in (("mamba", "swiglu"), ("attn", "swiglu")))
+    cfg = dataclasses.replace(full, pattern=pattern, repeats=1)
+    di, ds = cfg.mamba.expand * cfg.d_model, cfg.mamba.d_state
+    scan = {b: b * JAMBA_TRAIN_SEQ * di * ds * 4 for b in (4, 8)}  # one (B, S, di, ds) f32
+    # live in one Mamba layer's backward: the doubling scan keeps a and b of
+    # each of log2(256) steps, each chunk's h, da and db: ~20 such tensors
+    free, tiny_peak = torch.cuda.mem_get_info(dev)[0], peaks.get("tinyllama_1_1b", 0)
+    spare8 = free - max(tiny_peak, 17 * cfg.param_count() + 20 * scan[8])
+    batch = 8 if spare8 >= 5 * 2**30 else 4
+    print(f"zoo {JAMBA} train reckoning: a (B, {JAMBA_TRAIN_SEQ}, {di}, {ds}) f32 scan "
+          f"tensor is {_gib(scan[4])} at B 4, {_gib(scan[8])} at B 8; at 8 x "
+          f"{JAMBA_TRAIN_SEQ} about {_gib(17 * cfg.param_count() + 20 * scan[8])} for the "
+          f"ZeRO-1 state and one layer's backward beside tinyllama's "
+          f"{_gib(tiny_peak)} peak, {_gib(spare8)} spare of {_gib(free)} free: batch "
+          f"{batch} x {JAMBA_TRAIN_SEQ}")
+    comp, raw, recorded, _, meta, n_dp = zoo.train_twins(JAMBA, JAMBA_TRAIN_STEPS, batch,
+                                                         JAMBA_TRAIN_SEQ, cfg)
+    if meta.dtype_names != ("bfloat16", "float32"):
+        raise AssertionError(f"jamba: buckets {meta.dtype_names}, expected bf16 and f32")
+    launches["zoo_jamba_train"] = comp["launches"]
+    twins_line(JAMBA, cfg, full, comp, raw, n_dp, batch, JAMBA_TRAIN_SEQ,
+               f" (buckets {dict(zip(meta.dtype_names, meta.lengths))})")
+    zoo.peak("jamba_train")
+    gc.collect()
+    torch.cuda.empty_cache()
+    zoo.timed("zoo_jamba_train", recorded)
+    del recorded
+    # -- xlstm-350m trained at full width and depth ---------------------------
+    full = configs.get(XLSTM)
+    t0 = time.perf_counter()
+    comp, raw, recorded, names, meta, n_dp = zoo.train_twins(
+        XLSTM, XLSTM_TRAIN_STEPS, XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ)
+    seconds = time.perf_counter() - t0
+    launches["zoo_xlstm_train"] = comp["launches"]
+    slstm = {f"blocks/{pi}/mixer/wk" for pi, s in enumerate(full.pattern) if s.mixer == "slstm"}
+    zero = zero_blocks_in(recorded[0]["encode_fused"], names, meta, lambda n: n in slstm)
+    twins_line(XLSTM, full, full, comp, raw, n_dp, XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ,
+               f" ({seconds:.1f} s for both twins)")
+    print(f"  {XLSTM} first step's gradient bucket: {zero['zero_blocks']} of {zero['blocks']} "
+          f"512-value blocks all zero ({zero['zero_share']:.6f}), {zero['inside']} of them in "
+          f"sLSTM's wk (never read: {len(slstm)} x {full.d_model} x "
+          f"{full.kv_heads * full.hd} values)")
+    zoo.peak("xlstm_train")
+    gc.collect()
+    torch.cuda.empty_cache()
+    zoo.timed("zoo_xlstm_train", recorded)
+    del recorded
+    # -- whisper-small: ZeRO-1 twins through train_step ------------------------
+    cfg = configs.get(WHISPER)
+    batches = [registry.make_batch(cfg, WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ,
+                                   rng=np.random.default_rng(SEED + i), device=dev)
+               for i in range(WHISPER_TRAIN_STEPS)]
+
+    def whisper_run(compress, group):
+        """The launcher's run, by hand: its pipeline makes no frames."""
+        policy = CompressionPolicy(min_bytes=0) if compress else CompressionPolicy.disabled()
+        tcfg = step_lib.TrainConfig(policy=policy, loss_chunk=min(1024, WHISPER_TRAIN_SEQ))
+        run = types.SimpleNamespace(
+            losses=[], step_ms=[], plan_cache=PlanCache(), tcfg=tcfg,
+            state=step_lib.build_train_state(cfg, tcfg,
+                                             generator=torch.Generator().manual_seed(SEED),
+                                             group=group, device=dev))
+        with launch_train.deterministic():
+            for b in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                plan = step_lib.zero1_plan(run.state, tcfg, group, cache=run.plan_cache)
+                run.losses.append(float(step_lib.train_step(run.state, b, tcfg, group=group,
+                                                            plan=plan)["loss"]))
+                torch.cuda.synchronize()
+                run.step_ms.append((time.perf_counter() - t0) * 1e3)
+        return run
+
+    comp, raw, recorded, _, _, n_dp = zoo.train_twins(WHISPER, WHISPER_TRAIN_STEPS, None, None,
+                                                      run_one=whisper_run)
+    launches["zoo_whisper_train"] = comp["launches"]
+    twins_line(WHISPER, cfg, cfg, comp, raw, n_dp, WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ,
+               f", frames {(WHISPER_TRAIN_BATCH, cfg.enc_seq, cfg.d_model)} "
+               f"(train.step.train_step)")
+    zoo.peak("whisper_train")
+    del batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    zoo.timed("zoo_whisper_train", recorded)
 
 
 # per zoo run: the unit its launches are counted per, and how many
@@ -1654,7 +1901,13 @@ ZOO_UNITS = {"zoo_glm4_9b_pd": ("glm4_pd_admission", ZOO_SERVE["glm4_9b"]["n_req
              "zoo_qwen2_vl_ship": ("qwen2_vl_shipment", 1),
              "zoo_tinyllama_train": ("tinyllama_train_step", TINY_STEPS),
              f"zoo_{DEEPSEEK}_pd": ("deepseek_pd_admission", DEEPSEEK_SERVE["n_req"]),
-             "zoo_deepseek_train": ("deepseek_train_step", DEEPSEEK_STEPS)}
+             "zoo_deepseek_train": ("deepseek_train_step", DEEPSEEK_STEPS),
+             f"zoo_{JAMBA}_pd": ("jamba_pd_admission", MIXER_SERVE["n_req"]),
+             f"zoo_{XLSTM}_pd": ("xlstm_pd_admission", MIXER_SERVE["n_req"]),
+             "zoo_whisper_ship": ("whisper_shipment", 1),
+             "zoo_jamba_train": ("jamba_train_step", JAMBA_TRAIN_STEPS),
+             "zoo_xlstm_train": ("xlstm_train_step", XLSTM_TRAIN_STEPS),
+             "zoo_whisper_train": ("whisper_train_step", WHISPER_TRAIN_STEPS)}
 
 
 def merge_zoo(rows: list, zoo: dict) -> None:

@@ -1,7 +1,6 @@
-"""Architecture registry (torch port of ``repro.configs``; only the
-architectures whose layers are ported, in the reference's order).
-``get(name)`` returns the full ArchConfig, ``get_smoke(name)`` a reduced
-same-family config."""
+"""Architecture registry (torch port of ``repro.configs``: the reference's
+eleven architectures, in its order).  ``get(name)`` returns the full
+ArchConfig, ``get_smoke(name)`` a reduced same-family config."""
 from __future__ import annotations
 
 import importlib
@@ -11,9 +10,12 @@ ARCHS = [
     "mistral_nemo_12b",
     "gemma3_27b",
     "smollm_135m",
+    "xlstm_350m",
     "qwen2_vl_72b",
     "deepseek_v2_lite_16b",
     "deepseek_v3_671b",
+    "jamba_v0_1_52b",
+    "whisper_small",
     "glm4_9b",
 ]
 
@@ -23,7 +25,7 @@ ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 def _module(name: str):
     name = ALIASES.get(name, name)
     if name not in ARCHS:
-        raise ValueError(f"architecture {name!r} is not ported; have {ARCHS}")
+        raise ValueError(f"unknown architecture {name!r}; have {ARCHS}")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

@@ -4,8 +4,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_135m \\
         --smoke --requests 16 --max-new 24 [--pd] [--device cpu]
 
-Every ported architecture (``repro_torch.configs.ARCHS``) serves, at full
-size without ``--smoke``.  Random weights from ``--seed``, drawn on the
+Every decoder-only architecture of ``repro_torch.configs.ARCHS`` serves,
+at full size without ``--smoke``; an encoder-decoder one (whisper) is
+refused, as the reference's serve launcher refuses it (the engine feeds no frames
+and no encoder output).  Random weights from ``--seed``, drawn on the
 device; random prompts of ``--prompt-len`` tokens from the same seed;
 greedy decoding.  ``--pd`` ships every admitted cache over the compressed
 host wire (PD disaggregation).
@@ -39,6 +41,10 @@ def main(argv=None):
 
     dev = kernels.resolve_device(args.device)
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
+    if cfg.enc_dec:
+        raise SystemExit("enc-dec serving demo not wired in this launcher; "
+                         "transformer.prefill(frames=) and decode_step(enc_out=) "
+                         "serve whisper")
     model = transformer.init(cfg, generator=torch.Generator(dev).manual_seed(args.seed),
                              device=dev)
     eng = ServeEngine(cfg, model, ServeConfig(

@@ -141,12 +141,17 @@ def build(arch: str | ArchConfig, *, batch: int, seq: int, rcfg: RunnerConfig,
     microbatches) and whose fallback is the compression-disabled one (none
     when the run is uncompressed); both replay their plans from
     ``plan_cache``.  ``group`` is the data-parallel process group (default:
-    the world)."""
+    the world).  An encoder-decoder config raises ValueError: the pipeline
+    makes no frames (the reference's launcher feeds none either)."""
     dev = kernels.resolve_device(device)
     if isinstance(arch, ArchConfig):
         cfg = arch
     else:
         cfg = configs.get_smoke(arch) if smoke else configs.get(arch)
+    if cfg.enc_dec:  # the data pipeline makes tokens and labels, no frames
+        raise ValueError(f"{cfg.name} is an encoder-decoder model: the launcher feeds "
+                         f"no frames; train it through train.step.train_step on "
+                         f"models.registry.make_batch batches")
     policy = (CompressionPolicy(min_bytes=compress_min_bytes) if compress
               else CompressionPolicy.disabled())
     tcfg = step_lib.TrainConfig(

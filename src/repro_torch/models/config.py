@@ -1,20 +1,18 @@
-"""Architecture configuration schema (torch port of ``repro.models.config``;
-the dense, MoE and MLA fields: Mamba, xLSTM and encoder fields wait).
+"""Architecture configuration schema (torch port of ``repro.models.config``).
 
 A model is a prefix of unstacked layers, then a super-block ``pattern``
 repeated ``repeats`` times (each pattern position's parameters stacked over
 the repeats): gemma's 5:1 local:global layout is a 6-layer pattern with
-its 2 remainder local layers in the prefix.
+its 2 remainder local layers in the prefix, jamba's 1:7 attention:Mamba
+interleave an 8-layer pattern, xlstm's 7:1 mLSTM:sLSTM mix another.  An
+encoder-decoder model (whisper) adds ``n_enc_layers`` attention + SwiGLU
+encoder layers over stubbed frame embeddings and a cross-attention in
+every decoder layer.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Sequence
-
-# layer kinds of the reference that the port does not build yet
-UNPORTED_MIXERS = ("mamba", "mlstm", "slstm")
-UNPORTED_FFNS = ("none",)
-
 
 @dataclasses.dataclass(frozen=True)
 class MoECfg:
@@ -32,11 +30,18 @@ class MLACfg:
 
 
 @dataclasses.dataclass(frozen=True)
+class MambaCfg:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+
+
+@dataclasses.dataclass(frozen=True)
 class LayerSpec:
     """One position inside the repeating super-block (or the prefix)."""
 
-    mixer: str = "attn"  # attn | mla
-    ffn: str = "swiglu"  # swiglu | moe
+    mixer: str = "attn"  # attn | mla | mamba | mlstm | slstm
+    ffn: str = "swiglu"  # swiglu | moe | none
     window: Optional[int] = None  # sliding-window size; None = global attn
 
 
@@ -55,7 +60,13 @@ class ArchConfig:
     head_dim: Optional[int] = None  # default d_model // n_heads
     moe: MoECfg = MoECfg()
     mla: MLACfg = MLACfg()
-    frontend: str = "none"  # none | vision_stub (patch embeddings enter the batch)
+    mamba: MambaCfg = MambaCfg()
+    # encoder-decoder (whisper): n_enc_layers attention + SwiGLU encoder
+    # layers over stubbed frame embeddings (B, enc_seq, D) from the batch
+    enc_dec: bool = False
+    n_enc_layers: int = 0
+    enc_seq: int = 1500  # stub frontend sequence length
+    frontend: str = "none"  # none | audio_stub | vision_stub (embeddings enter the batch)
     rope_theta: float = 10000.0
     mrope: bool = False  # qwen2-vl M-RoPE: text-only positions make it plain RoPE
     norm_eps: float = 1e-6
@@ -75,11 +86,22 @@ class ArchConfig:
     def param_count(self) -> int:
         """Exact parameter count (the element count of ``transformer.init``):
         embeddings (one table when tied), the final norm, and per layer its
-        mixer, FFN and two norms."""
+        mixer, FFN, ``norm1``, ``norm2`` where it has an FFN and ``normx``
+        in an encoder-decoder model; then the encoder's layers, its norm and
+        positions, and a cross-attention in every decoder layer."""
         d = self.d_model
         total = self.vocab * d * (1 if self.tie_embeddings else 2) + d
         for s in list(self.prefix) + list(self.pattern) * self.repeats:
-            total += self._mixer_params(s.mixer) + self._ffn_params(s.ffn) + 2 * d
+            total += self._mixer_params(s.mixer) + self._ffn_params(s.ffn) + d
+            if s.ffn != "none":
+                total += d  # norm2
+            if self.enc_dec:
+                total += d  # normx
+        if self.enc_dec:
+            total += self.n_enc_layers * (self._mixer_params("attn")
+                                          + self._ffn_params("swiglu") + 2 * d)
+            total += d + self.enc_seq * d  # enc_norm, enc_pos
+            total += self.n_layers * self._mixer_params("attn")  # cross-attention
         return total
 
     def _mixer_params(self, mixer: str) -> int:
@@ -93,8 +115,14 @@ class ArchConfig:
             q = d * qd if not m.q_lora else d * m.q_lora + m.q_lora * qd
             return (q + d * (m.kv_lora + m.rope_dim) + m.kv_lora * self.n_heads * 2 * hd
                     + self.n_heads * hd * d)
-        if mixer in UNPORTED_MIXERS:
-            raise NotImplementedError(f"mixer {mixer!r} is not ported yet")
+        if mixer == "mamba":  # in_proj, conv, B/C/dt, A, out_proj, d_skip + dt_bias
+            mc = self.mamba
+            di = mc.expand * d
+            return (d * 2 * di + di * mc.d_conv + di * (2 * mc.d_state + 1)
+                    + di * mc.d_state + di * d + 2 * di)
+        if mixer in ("mlstm", "slstm"):  # q, k, v, the i/f gates, o
+            return (2 * d * self.n_heads * hd + 2 * d * self.kv_heads * hd
+                    + 2 * d * self.n_heads)
         raise ValueError(mixer)
 
     def _ffn_params(self, ffn: str) -> int:
@@ -104,8 +132,8 @@ class ArchConfig:
             m = self.moe
             return (m.n_experts + m.n_shared) * 3 * self.d_model * m.d_expert + \
                 self.d_model * m.n_experts
-        if ffn in UNPORTED_FFNS:
-            raise NotImplementedError(f"ffn {ffn!r} is not ported yet")
+        if ffn == "none":
+            return 0
         raise ValueError(ffn)
 
     def active_param_count(self) -> int:

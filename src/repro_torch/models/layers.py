@@ -1,8 +1,10 @@
 """Building blocks (torch port of ``repro.models.layers``): RMSNorm, RoPE,
-GQA causal attention (global or sliding-window) and DeepSeek's latent
-attention (MLA) with their KV-cache forms (prefill, decode), SwiGLU and the
-capacity-based top-k MoE, as plain PyTorch math (the reference computes
-them in plain ``jnp``, outside Pallas).
+GQA causal attention (global or sliding-window), cross-attention and the
+encoder's bidirectional attention, DeepSeek's latent attention (MLA) with
+their KV-cache forms (prefill, decode), SwiGLU, the capacity-based top-k
+MoE, the Mamba selective SSM and the xLSTM cells (mLSTM, sLSTM) with their
+recurrent-state forms, as plain PyTorch math (the reference computes them
+in plain ``jnp``, outside Pallas).
 
 The reference's rounding points are kept: RMSNorm normalises in f32 and
 casts back before the weight; q is pre-scaled in f32 and cast back to the
@@ -142,9 +144,15 @@ def _decode_attend(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
 
 
 def attention(p: dict, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec,
-              cos: torch.Tensor, sin: torch.Tensor, cache: dict | None = None,
-              cache_pos: int | None = None) -> torch.Tensor:
+              cos: torch.Tensor | None, sin: torch.Tensor | None, cache: dict | None = None,
+              cache_pos: int | None = None, kv_override: tuple | None = None) -> torch.Tensor:
     """Causal GQA self-attention.  p: {wq, wk, wv, wo} of one layer.
+
+    ``kv_override`` (k, v), each (B, T, Hkv, hd): attention of the queries
+    ``x @ wq`` over those keys and values instead, with no RoPE on either
+    and no causal mask (the window still applies), in the reference's
+    chunked form whatever ``cache``: a decoder layer's cross-attention over
+    the encoder output, and the encoder's own bidirectional attention.
 
     ``cache`` ({"k", "v"}, each (B, max_len, Hkv, hd), this layer's slice of
     the stacked cache) is written IN PLACE: with ``cache_pos`` None (prefill)
@@ -155,6 +163,10 @@ def attention(p: dict, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec,
     ``<= cache_pos``."""
     B, S, _ = x.shape
     hd, H, Hkv = cfg.hd, cfg.n_heads, cfg.kv_heads
+    if kv_override is not None:
+        q = (x @ p["wq"]).reshape(B, S, H, hd)
+        out = _attend_chunked(q, *kv_override, causal=False, window=spec.window)
+        return out.reshape(B, S, H * hd) @ p["wo"]
     q = apply_rope((x @ p["wq"]).reshape(B, S, H, hd), cos, sin)
     k = apply_rope((x @ p["wk"]).reshape(B, S, Hkv, hd), cos, sin)
     v = (x @ p["wv"]).reshape(B, S, Hkv, hd)
@@ -345,3 +357,179 @@ def moe(p: dict, x: torch.Tensor, cfg: ArchConfig, *, capacity_factor: float = 1
     if cfg.moe.n_shared:
         y = y + swiglu(p["shared"], xt)
     return y.reshape(B, S, D)
+
+
+# ---------------------------------------------------------------------------
+# Mamba selective SSM (jamba)
+# ---------------------------------------------------------------------------
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|))."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def _scan_chunk(da: torch.Tensor, db: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
+    """The states of one chunk, time-major: da/db (ch, B, di, ds) f32, h0
+    (B, di, ds) -> h (ch, B, di, ds) with h_t = da_t h_{t-1} + db_t.  The
+    pairs (a, b) are combined as the reference's associative scan combines
+    them, ``(a1 a2, b1 a2 + b2)``, by a doubling scan (log2(ch) steps over
+    the whole chunk), then ``h = h0 a + b``: the same recurrence with the
+    f32 products in another order than XLA's combine tree."""
+    a, b = da, db
+    off = 1
+    while off < a.shape[0]:
+        a, b = (torch.cat([a[:off], a[off:] * a[:-off]]),
+                torch.cat([b[:off], b[:-off] * a[off:] + b[off:]]))
+        off *= 2
+    return h0[None] * a + b
+
+
+def mamba(p: dict, x: torch.Tensor, cfg: ArchConfig, *, state: dict | None = None,
+          chunk: int = 256, return_state: bool = False) -> tuple:
+    """Selective SSM (the reference's ``mamba``): x (B, S, D) -> (out, state).
+    p: {in_proj, conv_w, w_bc_dt, a_log, d_skip, out_proj, dt_bias}, the
+    last three and ``a_log`` f32.
+
+    Without ``state`` (training, prefill): a causal depthwise conv by
+    shifted adds, SiLU; ``w_bc_dt`` gives B, C and ONE dt column, which is
+    broadcast over the inner width before ``dt_bias`` and softplus; then
+    the scan over ``n_ch = max(1, S // chunk)`` chunks, each chunk's states
+    by :func:`_scan_chunk` on (ch, B, di, ds) slices (never the whole
+    sequence's), h carried across chunks.  S must split into ``n_ch``
+    equal chunks, else ValueError (the reference asserts it).
+    ``return_state`` also returns ``{"h": (B, di, ds) f32, "conv": (B, k-1,
+    di)}``, ``conv`` the last k-1 PRE-activation inputs, else None.
+
+    With ``state`` (decode, S == 1): the conv over the state's history and
+    the new input, one recurrence step; returns the next state."""
+    B, S, D = x.shape
+    mc = cfg.mamba
+    di, ds, k = mc.expand * D, mc.d_state, mc.d_conv
+    xz = x @ p["in_proj"]
+    xs, z = xz[..., :di], xz[..., di:]
+    conv_w = p["conv_w"]
+    hist = xs if state is None else torch.cat([state["conv"], xs], 1)
+    lead = hist.shape[1] - S  # 0, or the k-1 positions of the state
+    acc = torch.zeros_like(xs)
+    for i in range(k):
+        if state is None:  # x shifted right by i positions, zeros in front
+            shifted = torch.cat([xs.new_zeros(B, min(i, S), di), xs[:, :max(S - i, 0)]], 1)
+        else:
+            shifted = hist[:, lead - i:lead - i + S]
+        acc = acc + shifted * conv_w[k - 1 - i]
+    xc = F.silu(acc)
+    bcd = xc @ p["w_bc_dt"]
+    Bm, Cm = bcd[..., :ds], bcd[..., ds:2 * ds]
+    dt = _softplus(bcd[..., -1:].to(torch.float32) + p["dt_bias"])  # (B, S, di)
+    A = -torch.exp(p["a_log"])  # (di, ds)
+    xcf = xc.to(torch.float32)
+
+    def gates(sl):  # da, db of positions ``sl``, time-major (s, B, di, ds)
+        dt_s = dt[:, sl].transpose(0, 1)[..., None]
+        da = torch.exp(dt_s * A)
+        db = (dt_s * Bm[:, sl].transpose(0, 1)[:, :, None, :]).to(torch.float32) * \
+            xcf[:, sl].transpose(0, 1)[..., None]
+        return da, db
+
+    if state is not None:
+        da, db = gates(slice(0, 1))
+        h = state["h"] * da[0] + db[0]
+        y = torch.einsum("bds,bs->bd", h, Cm[:, 0].to(torch.float32))[:, None]
+        y = (y + xcf * p["d_skip"]) * F.silu(z.to(torch.float32))
+        return y.to(x.dtype) @ p["out_proj"], {"h": h, "conv": hist[:, -(k - 1):]}
+    n_ch = max(1, S // chunk)
+    if S % n_ch:
+        raise ValueError(f"mamba: {S} positions do not split into {n_ch} equal chunks")
+    ch = S // n_ch
+    h = torch.zeros((B, di, ds), dtype=torch.float32, device=x.device)
+    ys = []
+    Cf = Cm.to(torch.float32)
+    for c0 in range(0, S, ch):
+        hs = _scan_chunk(*gates(slice(c0, c0 + ch)), h)
+        ys.append(torch.einsum("sbdn,sbn->sbd", hs, Cf[:, c0:c0 + ch].transpose(0, 1)))
+        h = hs[-1]
+    y = torch.cat(ys).transpose(0, 1)
+    y = (y + xcf * p["d_skip"]) * F.silu(z.to(torch.float32))
+    out = y.to(x.dtype) @ p["out_proj"]
+    if return_state:
+        return out, {"h": h, "conv": xs[:, S - (k - 1):]}
+    return out, None
+
+
+# ---------------------------------------------------------------------------
+# xLSTM cells (mLSTM: matrix memory, sLSTM: scalar memory), stepped in time
+# ---------------------------------------------------------------------------
+
+def _gate_logs(p: dict, x: torch.Tensor) -> tuple:
+    """(log input gate, log forget gate), each (B, S, H) f32."""
+    return ((x @ p["wi"]).to(torch.float32),
+            F.logsigmoid((x @ p["wf"]).to(torch.float32)))
+
+
+def mlstm(p: dict, x: torch.Tensor, cfg: ArchConfig, *, state: dict | None = None) -> tuple:
+    """mLSTM (the reference's ``mlstm``): per head a matrix memory C (hd x
+    hd) with an exponential input gate and a sigmoid forget gate,
+    stabilised by the running max m.  p: {wq, wk, wv, wi, wf, wo}; k and v
+    are repeated over the GQA groups, then k scaled by 1/sqrt(hd); the
+    output divides by max(|q . n|, 1).  Steps over time in f32 from
+    ``state`` ({"C", "n", "m"}; None: zeros and m = -1e30); returns (out,
+    the state after the last step)."""
+    B, S, _ = x.shape
+    H, hd, G = cfg.n_heads, cfg.hd, cfg.n_heads // cfg.kv_heads
+    q = (x @ p["wq"]).reshape(B, S, H, hd).to(torch.float32)
+    k = (x @ p["wk"]).reshape(B, S, cfg.kv_heads, hd).to(torch.float32)
+    v = (x @ p["wv"]).reshape(B, S, cfg.kv_heads, hd).to(torch.float32)
+    k = torch.repeat_interleave(k, G, dim=2) / math.sqrt(hd)
+    v = torch.repeat_interleave(v, G, dim=2)
+    logi, logf = _gate_logs(p, x)
+    if state is None:
+        C = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device)
+        n = torch.zeros((B, H, hd), dtype=torch.float32, device=x.device)
+        m = torch.full((B, H), -1e30, dtype=torch.float32, device=x.device)
+    else:
+        C, n, m = state["C"], state["n"], state["m"]
+    ys = []
+    for t in range(S):
+        m_new = torch.maximum(logf[:, t] + m, logi[:, t])
+        i_g = torch.exp(logi[:, t] - m_new)[..., None]
+        f_g = torch.exp(logf[:, t] + m - m_new)[..., None]
+        C = f_g[..., None] * C + i_g[..., None] * torch.einsum("bhd,bhe->bhde", k[:, t], v[:, t])
+        n = f_g * n + i_g * k[:, t]
+        num = torch.einsum("bhd,bhde->bhe", q[:, t], C)
+        den = torch.abs(torch.einsum("bhd,bhd->bh", q[:, t], n))[..., None]
+        ys.append(num / torch.clamp_min(den, 1.0))
+        m = m_new
+    y = torch.stack(ys, 1).reshape(B, S, H * hd).to(x.dtype)
+    return y @ p["wo"], {"C": C, "n": n, "m": m}
+
+
+def slstm(p: dict, x: torch.Tensor, cfg: ArchConfig, *, state: dict | None = None) -> tuple:
+    """sLSTM (the reference's ``slstm``): per head a scalar-memory cell with
+    exponential gating and a normaliser state.  p: {wq, wk, wv, wi, wf,
+    wo}: ``wq`` gives the sigmoid output gate and ``wk`` is never read (as
+    in the reference: its gradient is zero).  Steps over time in f32 from
+    ``state`` ({"c", "n", "m"}; None: zeros and m = -1e30); returns (out,
+    the state after the last step)."""
+    B, S, _ = x.shape
+    H, hd = cfg.n_heads, cfg.hd
+    v = (x @ p["wv"]).reshape(B, S, cfg.kv_heads, hd).to(torch.float32)
+    v = torch.repeat_interleave(v, H // cfg.kv_heads, dim=2)
+    o = torch.sigmoid((x @ p["wq"]).reshape(B, S, H, hd).to(torch.float32))
+    logi, logf = _gate_logs(p, x)
+    if state is None:
+        c = torch.zeros((B, H, hd), dtype=torch.float32, device=x.device)
+        n = torch.zeros((B, H), dtype=torch.float32, device=x.device)
+        m = torch.full((B, H), -1e30, dtype=torch.float32, device=x.device)
+    else:
+        c, n, m = state["c"], state["n"], state["m"]
+    ys = []
+    for t in range(S):
+        m_new = torch.maximum(logf[:, t] + m, logi[:, t])
+        i_g = torch.exp(logi[:, t] - m_new)
+        f_g = torch.exp(logf[:, t] + m - m_new)
+        c = f_g[..., None] * c + i_g[..., None] * v[:, t]
+        n = f_g * n + i_g
+        ys.append(o[:, t] * c / torch.clamp_min(n, 1.0)[..., None])
+        m = m_new
+    y = torch.stack(ys, 1).reshape(B, S, H * hd).to(x.dtype)
+    return y @ p["wo"], {"c": c, "n": n, "m": m}

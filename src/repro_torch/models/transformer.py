@@ -1,18 +1,31 @@
-"""Decoder stack (torch port of ``repro.models.transformer``): each layer
-is GQA attention or MLA, then SwiGLU or MoE, as its ``LayerSpec`` says.
+"""Model stack (torch port of ``repro.models.transformer``): each decoder
+layer's mixer is GQA attention, MLA, Mamba, mLSTM or sLSTM and its FFN
+SwiGLU, MoE or none, as its ``LayerSpec`` says; an encoder-decoder model
+(whisper) runs an encoder of attention + SwiGLU layers over the batch's
+stubbed ``frames`` and a cross-attention over its output in every decoder
+layer.
 
 Parameters keep the reference's layout: the prefix layers ``prefix_<i>``
 are unstacked and run first; per pattern position, every layer leaf is
-STACKED over repeats (``(repeats, ...)``).  The parameters are registered
-in the order of the reference's ``jax.tree_util.tree_leaves`` (dict keys
-sorted as strings: ``blocks/...``, ``embed``, ``final_norm``, ``lm_head``,
-then ``prefix_0``, ``prefix_1``, ``prefix_10``, ``prefix_2``, ...), named by
-their path in the reference's tree (``blocks/0/ffn/w1``, ...,
-``prefix_0/mixer/wq``).  So the ZeRO-1 bucket of the port holds the same
-bytes as ``zero1.flatten_buckets`` of the reference for the same weights,
-and :func:`load_reference_params` carries weights across.  A batch's
-``vision_embeds`` (the VLM frontend stub) replace the leading positions'
-token embeddings.
+STACKED over repeats (``(repeats, ...)``), and the encoder's leaves
+(``enc_blocks/...``) over its layers.  The parameters are registered in
+the order of the reference's ``jax.tree_util.tree_leaves`` (dict keys
+sorted as strings: ``blocks/...``, ``embed``, ``enc_blocks/...``,
+``enc_norm``, ``enc_pos``, ``final_norm``, ``lm_head``, then ``prefix_0``,
+``prefix_1``, ``prefix_10``, ``prefix_2``, ...; in a layer ``cross``,
+``ffn``, ``mixer``, ``norm1``, ``norm2``, ``normx``), named by their path in
+the reference's tree (``blocks/0/ffn/w1``, ..., ``prefix_0/mixer/wq``), each
+in the reference's dtype (the model's, f32 for Mamba's ``a_log``,
+``d_skip`` and ``dt_bias``).  So the ZeRO-1 buckets of the port hold the
+same bytes as ``zero1.flatten_buckets`` of the reference for the same
+weights, and :func:`load_reference_params` carries weights across.  A
+batch's ``vision_embeds`` (the VLM frontend stub) replace the leading
+positions' token embeddings.
+
+Serving state: attention and MLA layers keep a KV cache written at
+positions; Mamba, mLSTM and sLSTM layers keep a recurrent state that each
+call replaces, copied in place into the cache's tensors (their ``[r]``
+slice for a stacked layer), so every cache leaf is written in place.
 """
 from __future__ import annotations
 
@@ -26,6 +39,14 @@ from repro_torch.core import codec
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig, LayerSpec
 
+# the encoder's layers (whisper): bidirectional attention, then SwiGLU
+ENC_SPEC = LayerSpec(mixer="attn", ffn="swiglu")
+# a leaf's init in a (shape, init) pair: a float scales a normal draw, None
+# is ones, both in the model dtype; these f32 leaves (Mamba's) are drawn as
+# the reference's: uniform * 2 + 0.5 (a_log), ones (d_skip), zeros (dt_bias)
+F32_INITS = ("uniform", "ones", "zeros")
+_RECURRENT = {"mamba": "ssm", "mlstm": "rnn", "slstm": "rnn"}
+
 
 def _dense(*shape) -> tuple:
     """A dense leaf's (shape, init scale): 1/sqrt(shape[0]), the reference's
@@ -38,20 +59,43 @@ def _swiglu_shapes(d: int, f: int) -> dict:
     return {"w1": _dense(d, f), "w3": _dense(d, f), "w2": _dense(f, d)}
 
 
-def _layer_shapes(cfg: ArchConfig, spec: LayerSpec) -> dict:
-    """(shape, init scale) per leaf of one layer of ``spec``; scale None =
-    ones (norms), 0.02 for the router, :func:`_dense` else."""
+def _attention_shapes(cfg: ArchConfig) -> dict:
+    d, hd = cfg.d_model, cfg.hd
+    return {"wq": _dense(d, cfg.n_heads * hd), "wk": _dense(d, cfg.kv_heads * hd),
+            "wv": _dense(d, cfg.kv_heads * hd), "wo": _dense(cfg.n_heads * hd, d)}
+
+
+def _layer_shapes(cfg: ArchConfig, spec: LayerSpec, cross: bool | None = None) -> dict:
+    """(shape, init) per leaf of one layer of ``spec`` (init as
+    ``F32_INITS`` says: None = ones for the norms, 0.02 for the router and
+    the xLSTM gates, 0.5 for Mamba's conv, :func:`_dense` else); ``cross``
+    (default: the model is an encoder-decoder) adds ``normx`` and the
+    cross-attention's ``cross``; a layer without an FFN has no ``norm2``."""
     d, hd, H = cfg.d_model, cfg.hd, cfg.n_heads
     if spec.mixer == "attn":
-        mixer = {"wq": _dense(d, H * hd), "wk": _dense(d, cfg.kv_heads * hd),
-                 "wv": _dense(d, cfg.kv_heads * hd), "wo": _dense(H * hd, d)}
+        mixer = _attention_shapes(cfg)
     elif spec.mixer == "mla":
         m = cfg.mla
         mixer = {"w_dkv": _dense(d, m.kv_lora), "w_krope": _dense(d, m.rope_dim),
                  "w_uk": _dense(m.kv_lora, H * hd), "w_uv": _dense(m.kv_lora, H * hd),
                  "wq": _dense(d, H * (hd + m.rope_dim)), "wo": _dense(H * hd, d)}
+    elif spec.mixer == "mamba":
+        mc = cfg.mamba
+        di = mc.expand * d
+        mixer = {"in_proj": _dense(d, 2 * di), "conv_w": ((mc.d_conv, di), 0.5),
+                 "w_bc_dt": _dense(di, 2 * mc.d_state + 1),
+                 "a_log": ((di, mc.d_state), "uniform"), "d_skip": ((di,), "ones"),
+                 "out_proj": _dense(di, d), "dt_bias": ((di,), "zeros")}
+    elif spec.mixer in ("mlstm", "slstm"):
+        mixer = dict(_attention_shapes(cfg), wi=((d, H), 0.02), wf=((d, H), 0.02))
     else:
-        raise NotImplementedError(f"layer {spec} is not ported yet")
+        raise ValueError(spec.mixer)
+    out = {"norm1": ((d,), None), "mixer": mixer}
+    if cfg.enc_dec if cross is None else cross:
+        out["normx"] = ((d,), None)
+        out["cross"] = _attention_shapes(cfg)
+    if spec.ffn == "none":
+        return out
     if spec.ffn == "swiglu":
         ffn = _swiglu_shapes(d, cfg.d_ff)
     elif spec.ffn == "moe":
@@ -62,8 +106,8 @@ def _layer_shapes(cfg: ArchConfig, spec: LayerSpec) -> dict:
         if m.n_shared:
             ffn["shared"] = _swiglu_shapes(d, m.n_shared * m.d_expert)
     else:
-        raise NotImplementedError(f"layer {spec} is not ported yet")
-    return {"norm1": ((d,), None), "mixer": mixer, "norm2": ((d,), None), "ffn": ffn}
+        raise ValueError(spec.ffn)
+    return dict(out, norm2=((d,), None), ffn=ffn)
 
 
 def _tree_shapes(cfg: ArchConfig) -> dict:
@@ -76,35 +120,71 @@ def _tree_shapes(cfg: ArchConfig) -> dict:
         tree["lm_head"] = ((cfg.vocab, cfg.d_model), 0.02)
     for i, spec in enumerate(cfg.prefix):
         tree[f"prefix_{i}"] = _layer_shapes(cfg, spec)
+    if cfg.enc_dec:
+        tree["enc_blocks"] = _layer_shapes(cfg, ENC_SPEC, cross=False)
+        tree["enc_norm"] = ((cfg.d_model,), None)
+        tree["enc_pos"] = ((cfg.enc_seq, cfg.d_model), 0.02)
     return tree
+
+
+def _stacked(cfg: ArchConfig, path: str) -> tuple:
+    """The leading dims a leaf at ``path`` carries: repeats for the pattern
+    positions, the encoder's layers for its leaves, none else."""
+    if path.startswith("blocks/"):
+        return (cfg.repeats,)
+    if path.startswith("enc_blocks/"):
+        return (cfg.n_enc_layers,)
+    return ()
+
+
+def _leaf_dtype(cfg: ArchConfig, init) -> torch.dtype:
+    return torch.float32 if init in F32_INITS else codec.LAYOUTS[cfg.dtype].dtype
+
+
+def leaf_dtypes(cfg: ArchConfig) -> dict:
+    """The dtype of every parameter leaf, by path."""
+    return {path: _leaf_dtype(cfg, init) for path, (_, init) in tree_paths(_tree_shapes(cfg))}
 
 
 # per leaf of one layer, the dims that the reference's tensor-parallel
 # layout (``repro.models.transformer.specs``) puts on its 'model' mesh axis:
 # the column dim of the input projections (q/k/v, MLA's up-projections and
-# queries, the FFNs'), the row dim of the output projections, the expert
-# dim of the routed experts; none for MLA's down-projections and the router
+# queries, the FFNs', Mamba's in_proj and conv, the xLSTM gates), the row
+# dim of the output projections and of Mamba's inner-width leaves, the
+# expert dim of the routed experts; none for MLA's down-projections and
+# the router
 _SWIGLU_MODEL_AXIS_DIMS = {"w1": (1,), "w3": (1,), "w2": (0,)}
+_ATTN_MODEL_AXIS_DIMS = {"wq": (1,), "wk": (1,), "wv": (1,), "wo": (0,)}
 _MIXER_MODEL_AXIS_DIMS = {
-    "attn": {"wq": (1,), "wk": (1,), "wv": (1,), "wo": (0,)},
-    "mla": {"w_dkv": (), "w_krope": (), "w_uk": (1,), "w_uv": (1,), "wq": (1,), "wo": (0,)}}
+    "attn": _ATTN_MODEL_AXIS_DIMS,
+    "mla": {"w_dkv": (), "w_krope": (), "w_uk": (1,), "w_uv": (1,), "wq": (1,), "wo": (0,)},
+    "mamba": {"in_proj": (1,), "conv_w": (1,), "w_bc_dt": (0,), "a_log": (0,),
+              "d_skip": (0,), "out_proj": (0,), "dt_bias": (0,)},
+    "mlstm": dict(_ATTN_MODEL_AXIS_DIMS, wi=(1,), wf=(1,)),
+    "slstm": dict(_ATTN_MODEL_AXIS_DIMS, wi=(1,), wf=(1,))}
 
 
-def _layer_model_axis_dims(cfg: ArchConfig, spec: LayerSpec) -> dict:
+def _layer_model_axis_dims(cfg: ArchConfig, spec: LayerSpec, cross: bool | None = None) -> dict:
+    out = {"norm1": (), "mixer": _MIXER_MODEL_AXIS_DIMS[spec.mixer]}
+    if cfg.enc_dec if cross is None else cross:
+        out.update(normx=(), cross=_ATTN_MODEL_AXIS_DIMS)
+    if spec.ffn == "none":
+        return out
     if spec.ffn == "moe":
         ffn = {"router": (), "we1": (0,), "we3": (0,), "we2": (0,)}
         if cfg.moe.n_shared:
             ffn["shared"] = _SWIGLU_MODEL_AXIS_DIMS
     else:
         ffn = _SWIGLU_MODEL_AXIS_DIMS
-    return {"norm1": (), "norm2": (), "mixer": _MIXER_MODEL_AXIS_DIMS[spec.mixer], "ffn": ffn}
+    return dict(out, norm2=(), ffn=ffn)
 
 
 def model_axis_dims(cfg: ArchConfig) -> dict:
     """The parameter tree of :func:`abstract_params` with, at each leaf, the
     tuple of dims the reference gives to its 'model' axis (the embedding's
     vocabulary rows; the blocks' dims shifted past the stacked one, the
-    prefix layers' as they are).  The port runs no tensor parallelism, but
+    prefix layers' as they are; the encoder's shifted past its stacked dim,
+    none for its norm and positions).  The port runs no tensor parallelism, but
     FSDP leaves these dims alone as the reference does, so both shard the
     same dim of every leaf."""
     def stacked(dims):
@@ -118,6 +198,9 @@ def model_axis_dims(cfg: ArchConfig) -> dict:
         tree["lm_head"] = (0,)
     for i, spec in enumerate(cfg.prefix):
         tree[f"prefix_{i}"] = _layer_model_axis_dims(cfg, spec)
+    if cfg.enc_dec:
+        tree.update(enc_blocks=stacked(_layer_model_axis_dims(cfg, ENC_SPEC, cross=False)),
+                    enc_norm=(), enc_pos=())
     return tree
 
 
@@ -146,7 +229,7 @@ def _map_paths(tree, fn, prefix: str = ""):
 
 
 class Transformer(nn.Module):
-    """Decoder over stacked layer parameters; ``forward`` returns the
+    """The model over stacked layer parameters; ``forward`` returns the
     hidden states before the head, as the reference's ``forward``."""
 
     def __init__(self, cfg: ArchConfig, tensors: dict):
@@ -170,15 +253,17 @@ class Transformer(nn.Module):
     def head(self) -> torch.Tensor:
         return self.params["embed" if self.cfg.tie_embeddings else "lm_head"]
 
-    def _layer(self, pre: str, r: int | None, spec: LayerSpec, top: dict) -> dict:
+    def _layer(self, pre: str, r: int | None, spec: LayerSpec, top: dict,
+               cross: bool | None = None) -> dict:
         """One layer's parameters: the leaves under ``pre`` (``blocks/<pi>/``
-        sliced at repeat ``r``, or ``prefix_<i>/`` whole, taken from ``top``
-        where it holds them), as the tree of ``spec``'s leaves."""
-        if r is None:
-            get = lambda k: top.get(pre + k, self.params[pre + k])  # noqa: E731
-        else:
-            get = lambda k: self.params[pre + k][r]  # noqa: E731
-        return _map_paths(_layer_shapes(self.cfg, spec), get)
+        or ``enc_blocks/`` sliced at repeat ``r``, or ``prefix_<i>/`` whole),
+        taken from ``top`` where it holds them, as the tree of ``spec``'s
+        leaves (``cross`` as in :func:`_layer_shapes`)."""
+        def get(k):
+            t = top[pre + k] if pre + k in top else self.params[pre + k]
+            return t if r is None else t[r]
+
+        return _map_paths(_layer_shapes(self.cfg, spec, cross), get)
 
     def ropes(self, positions: torch.Tensor) -> dict:
         """The RoPE tables (cos, sin) at ``positions`` (S,) that the layers
@@ -190,22 +275,54 @@ class Transformer(nn.Module):
             dims.add(cfg.mla.rope_dim)
         return {d: L.rope_table(positions, d, cfg.rope_theta) for d in dims}
 
+    def run_encoder(self, frames: torch.Tensor, *, top: dict | None = None,
+                    remat: bool = False) -> torch.Tensor:
+        """The encoder (the reference's ``_run_encoder``) over stubbed frame
+        embeddings (B, T, D): plus ``enc_pos``, then per layer the
+        bidirectional attention of each position over all of them
+        (``kv_override`` with the layer's own K/V) and SwiGLU, then
+        ``enc_norm``.  ``top`` and ``remat`` as in :meth:`run_layers`."""
+        cfg = self.cfg
+        top = {} if top is None else top
+        get = lambda k: top[k] if k in top else self.params[k]  # noqa: E731
+        h = frames.to(get("enc_pos").dtype) + get("enc_pos")[None, :frames.shape[1]]
+        B, T, _ = h.shape
+        for r in range(cfg.n_enc_layers):
+            def layer(h, r=r):
+                p = self._layer("enc_blocks/", r, ENC_SPEC, top, cross=False)
+                x = L.rms_norm(h, p["norm1"], cfg.norm_eps)
+                kv = [(x @ p["mixer"][w]).reshape(B, T, cfg.kv_heads, cfg.hd)
+                      for w in ("wk", "wv")]
+                h = h + L.attention(p["mixer"], x, cfg, ENC_SPEC, None, None,
+                                    kv_override=tuple(kv))
+                return h + L.swiglu(p["ffn"], L.rms_norm(h, p["norm2"], cfg.norm_eps))
+
+            h = (checkpoint(layer, h, use_reentrant=False, preserve_rng_state=False)
+                 if remat else layer(h))
+        return L.rms_norm(h, get("enc_norm"), cfg.norm_eps)
+
     def run_layers(self, h: torch.Tensor, positions: torch.Tensor, cache: dict | None = None,
-                   cache_pos: int | None = None, *, top: dict | None = None,
-                   block_param_fn=None, remat: bool = False):
-        """Every layer over hidden states ``h`` (B, S, D) at ``positions``
-        (S,), the prefix layers first, then the final norm.  ``top``:
-        unstacked leaves by path (``final_norm``, ``prefix_<i>/...``) to use
-        in place of the model's.  ``cache``/``cache_pos``: the KV cache
-        written in place (see ``layers.attention`` and
-        ``layers.mla_attention``).  ``block_param_fn(layer_params, index)``
-        maps each layer's parameters before the layer runs, as the
-        reference's hook: ``index`` is the pattern position of a stacked
-        layer (its slice of the stacked leaves) and ``-i - 1`` for prefix
-        layer ``i``; the FSDP step gathers stacked layers there.  ``remat``:
-        each layer, hook included, runs under ``torch.utils.checkpoint``, so
-        its backward recomputes it, gathers and all, as the reference's
-        ``jax.checkpoint`` of its layer does."""
+                   cache_pos: int | None = None, *, enc_out: torch.Tensor | None = None,
+                   top: dict | None = None, block_param_fn=None, remat: bool = False):
+        """Every decoder layer over hidden states ``h`` (B, S, D) at
+        ``positions`` (S,), the prefix layers first, then the final norm.
+        ``top``: unstacked leaves by path (``final_norm``, ``prefix_<i>/...``,
+        the encoder's) to use in place of the model's.  ``cache``/
+        ``cache_pos``: the serving state, written in place: an attention or
+        MLA layer's KV (see ``layers.attention`` and
+        ``layers.mla_attention``); a recurrent layer's state, which prefill
+        (``cache_pos`` None) computes from zeros and decode reads, both
+        copying the new state into the cache's tensors.  ``enc_out`` (B, T,
+        D), the encoder's output: each layer with a ``cross`` attends over
+        it after its mixer, its K/V projected inside the layer.
+        ``block_param_fn(layer_params, index)`` maps each layer's parameters
+        before the layer runs, as the reference's hook: ``index`` is the
+        pattern position of a stacked layer (its slice of the stacked
+        leaves) and ``-i - 1`` for prefix layer ``i``; the FSDP step gathers
+        stacked layers there.  ``remat``: each layer, hook included, runs
+        under ``torch.utils.checkpoint``, so its backward recomputes it,
+        gathers and all, as the reference's ``jax.checkpoint`` of its layer
+        does."""
         cfg = self.cfg
         top = {} if top is None else top
         ropes = self.ropes(positions)
@@ -214,22 +331,41 @@ class Transformer(nn.Module):
         layers += [(f"blocks/{pi}/", r, pi, spec, pi)
                    for r in range(cfg.repeats) for pi, spec in enumerate(cfg.pattern)]
         for pre, r, idx, spec, where in layers:
-            kv = None
+            st = None
             if cache is not None:
-                c = (cache[where] if r is None else cache["blocks"][where])["kv"]
-                kv = c if r is None else {k: t[r] for k, t in c.items()}
+                c = cache[where] if r is None else cache["blocks"][where]
+                c = c[_RECURRENT.get(spec.mixer, "kv")]
+                st = c if r is None else {k: t[r] for k, t in c.items()}
 
-            def layer(h, pre=pre, r=r, idx=idx, spec=spec, kv=kv):
+            def layer(h, pre=pre, r=r, idx=idx, spec=spec, st=st):
                 p = self._layer(pre, r, spec, top)
                 if block_param_fn is not None:
                     p = block_param_fn(p, idx)
                 x = L.rms_norm(h, p["norm1"], cfg.norm_eps)
                 if spec.mixer == "mla":
-                    h = h + L.mla_attention(p["mixer"], x, cfg, spec,
-                                            *ropes[cfg.mla.rope_dim], kv, cache_pos)
+                    out = L.mla_attention(p["mixer"], x, cfg, spec, *ropes[cfg.mla.rope_dim],
+                                          st, cache_pos)
+                elif spec.mixer == "attn":
+                    out = L.attention(p["mixer"], x, cfg, spec, *ropes[cfg.hd], st, cache_pos)
                 else:
-                    h = h + L.attention(p["mixer"], x, cfg, spec, *ropes[cfg.hd], kv,
-                                        cache_pos)
+                    prev = st if cache_pos is not None else None
+                    if spec.mixer == "mamba":
+                        out, new = L.mamba(p["mixer"], x, cfg, state=prev,
+                                           return_state=st is not None)
+                    else:
+                        out, new = getattr(L, spec.mixer)(p["mixer"], x, cfg, state=prev)
+                    if st is not None:  # the state replaced, in place
+                        for k, t in st.items():
+                            t.copy_(new[k])
+                h = h + out
+                if enc_out is not None and "cross" in p:
+                    B, T, _ = enc_out.shape
+                    kv = [(enc_out @ p["cross"][w]).reshape(B, T, cfg.kv_heads, cfg.hd)
+                          for w in ("wk", "wv")]
+                    h = h + L.attention(p["cross"], L.rms_norm(h, p["normx"], cfg.norm_eps),
+                                        cfg, spec, None, None, kv_override=tuple(kv))
+                if spec.ffn == "none":
+                    return h
                 x = L.rms_norm(h, p["norm2"], cfg.norm_eps)
                 if spec.ffn == "moe":
                     return h + L.moe(p["ffn"], x, cfg)
@@ -253,62 +389,83 @@ class Transformer(nn.Module):
             h = torch.cat([ve, h[:, ve.shape[1]:]], 1)
         return h
 
+    def encode(self, frames: torch.Tensor | None, **kw) -> torch.Tensor | None:
+        """:meth:`run_encoder` of an encoder-decoder model (which needs
+        ``frames``), None for any other."""
+        if not self.cfg.enc_dec:
+            return None
+        if frames is None:
+            raise ValueError(f"{self.cfg.name} is an encoder-decoder model: its batch "
+                             f"needs 'frames' (B, {self.cfg.enc_seq}, {self.cfg.d_model})")
+        return self.run_encoder(frames, **kw)
+
     def forward(self, tokens: torch.Tensor, *, vision_embeds: torch.Tensor | None = None,
-                top: dict | None = None, block_param_fn=None,
-                remat: bool = False) -> torch.Tensor:
-        """Hidden states before the head.  ``top``: the unstacked leaves by
-        path (``embed``, ``final_norm``, ``prefix_<i>/...``) to use in place
-        of the model's, as the FSDP step passes them gathered;
-        ``block_param_fn`` and ``remat`` as in :meth:`run_layers`."""
-        cfg = self.cfg
+                frames: torch.Tensor | None = None, top: dict | None = None,
+                block_param_fn=None, remat: bool = False) -> torch.Tensor:
+        """Hidden states before the head.  ``frames``: an encoder-decoder
+        model's stubbed frame embeddings (B, T, D).  ``top``: the unstacked
+        leaves by path (``embed``, ``final_norm``, ``prefix_<i>/...``, the
+        encoder's) to use in place of the model's, as the FSDP step passes
+        them gathered; ``block_param_fn`` and ``remat`` as in
+        :meth:`run_layers`."""
         top = {} if top is None else top
+        enc_out = self.encode(frames, top=top, remat=remat)
         h = self.embed(tokens, vision_embeds, top.get("embed"))
         return self.run_layers(h, torch.arange(tokens.shape[1], device=tokens.device),
-                               top=top, block_param_fn=block_param_fn, remat=remat)
+                               enc_out=enc_out, top=top, block_param_fn=block_param_fn,
+                               remat=remat)
+
+
+def _draw(shape, init, dt, generator, dev) -> torch.Tensor:
+    if init is None or init == "ones":
+        return torch.ones(shape, dtype=dt, device=dev)
+    if init == "zeros":
+        return torch.zeros(shape, dtype=dt, device=dev)
+    if init == "uniform":
+        t = torch.rand(shape, generator=generator, device=generator.device).mul_(2).add_(0.5)
+    else:
+        t = torch.randn(shape, generator=generator, device=generator.device).mul_(init)
+    return t.to(device=dev, dtype=dt)
 
 
 def init(cfg: ArchConfig, *, generator: torch.Generator, device="cuda") -> Transformer:
     """Random initialisation with the reference's scales (normal * 0.02 for
-    embeddings and the router, normal / sqrt(shape[0]) for dense layers and
-    experts, ones for norms).
+    embeddings, the encoder's positions, the router and the xLSTM gates,
+    normal * 0.5 for Mamba's conv, normal / sqrt(shape[0]) for dense layers
+    and experts, ones for norms; Mamba's f32 ``a_log`` uniform * 2 + 0.5,
+    ``d_skip`` ones, ``dt_bias`` zeros).
     Draws come from ``generator`` in parameter order, on the generator's
     device: a CPU generator gives the same weights on every device, a CUDA
     one draws a model of billions of parameters in seconds (with one f32
     temporary of its largest leaf on the card)."""
     dev = kernels.resolve_device(device)
-    dt = codec.LAYOUTS[cfg.dtype].dtype
     tensors = {}
-    for path, (shape, scale) in tree_paths(_tree_shapes(cfg)):
-        if path.startswith("blocks/"):
-            shape = (cfg.repeats,) + tuple(shape)
-        if scale is None:
-            t = torch.ones(shape, dtype=dt, device=dev)
-        else:
-            t = torch.randn(shape, generator=generator, device=generator.device)
-            t = t.mul_(scale).to(device=dev, dtype=dt)
-        tensors[path] = t
+    for path, (shape, init) in tree_paths(_tree_shapes(cfg)):
+        tensors[path] = _draw(_stacked(cfg, path) + tuple(shape), init,
+                              _leaf_dtype(cfg, init), generator, dev)
     return Transformer(cfg, tensors)
 
 
 def abstract_params(cfg: ArchConfig) -> dict:
     """The parameter tree as ``meta`` tensors (shapes and dtypes, no
-    storage), block leaves stacked over repeats."""
-    dt = codec.LAYOUTS[cfg.dtype].dtype
+    storage), stacked leaves with their leading dim."""
     shapes = dict(tree_paths(_tree_shapes(cfg)))
 
     def leaf(path):
-        shape = tuple(shapes[path][0])
-        if path.startswith("blocks/"):
-            shape = (cfg.repeats,) + shape
-        return torch.empty(shape, dtype=dt, device="meta")
+        shape, init = shapes[path]
+        return torch.empty(_stacked(cfg, path) + tuple(shape), dtype=_leaf_dtype(cfg, init),
+                           device="meta")
 
     return _map_paths(_tree_shapes(cfg), leaf)
 
 
 def numpy_to_torch(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
     """Bit-exact numpy -> torch for codec floats (numpy's bfloat16/fp8 come
-    from ml_dtypes, which torch cannot read directly)."""
+    from ml_dtypes, which torch cannot read directly).  The array's items
+    must be ``dtype``'s width: its bits are reinterpreted, not converted."""
     a = np.ascontiguousarray(a)
+    if a.dtype.itemsize != dtype.itemsize:
+        raise ValueError(f"a {a.dtype} array cannot hold the bits of {dtype}")
     ints = {1: np.uint8, 2: np.int16, 4: np.int32}[a.dtype.itemsize]
     return torch.from_numpy(a.view(ints).copy()).view(dtype)
 
@@ -316,40 +473,56 @@ def numpy_to_torch(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
 def load_reference_params(tree, cfg: ArchConfig, device="cuda") -> Transformer:
     """The port's model holding the reference's weights:
     ``tree = jax.tree_util.tree_map(np.asarray, repro...transformer.init(key,
-    cfg))``."""
+    cfg))``; each leaf in its own dtype (:func:`leaf_dtypes`)."""
     dev = kernels.resolve_device(device)
-    dt = codec.LAYOUTS[cfg.dtype].dtype
-    tensors = {path: numpy_to_torch(a, dt).to(dev) for path, a in tree_paths(tree)}
+    dts = leaf_dtypes(cfg)
+    tensors = {path: numpy_to_torch(a, dts[path]).to(dev) for path, a in tree_paths(tree)}
     return Transformer(cfg, tensors)
 
 
 # ---------------------------------------------------------------------------
-# serving: KV cache, prefill, decode
+# serving: KV cache and recurrent state, prefill, decode
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda") -> dict:
     """The reference's cache pytree: ``{"pos": int32 scalar, "prefix_<i>":
-    {"kv": ...} per prefix layer, "blocks": ({"kv": ...},) per pattern
-    position}``, zeros in the model dtype.  An attention layer's ``kv`` is
-    ``{"k", "v"}`` of ``(batch, max_len, kv_heads, hd)``, an MLA layer's the
-    latents ``{"c_kv": (batch, max_len, kv_lora), "k_rope": (batch,
-    max_len, rope_dim)}``; a pattern position's leaves lead with
-    ``repeats``."""
+    {...} per prefix layer, "blocks": ({...},) per pattern position}``; a
+    pattern position's leaves lead with ``repeats``.  By mixer: attention's
+    ``{"kv": {"k", "v"}}`` of ``(batch, max_len, kv_heads, hd)``, MLA's
+    latents ``{"kv": {"c_kv": (batch, max_len, kv_lora), "k_rope": (batch,
+    max_len, rope_dim)}}``, zeros in the model dtype; Mamba's ``{"ssm":
+    {"h": (batch, di, d_state) f32, "conv": (batch, d_conv - 1, di)}}``,
+    mLSTM's ``{"rnn": {"C": (batch, H, hd, hd), "n": (batch, H, hd), "m":
+    (batch, H)}}`` and sLSTM's ``{"rnn": {"c": (batch, H, hd), "n", "m":
+    (batch, H)}}``, f32 but ``conv`` (the model dtype), zeros but ``m``
+    (-1e30)."""
     dev = kernels.resolve_device(device)
     dt = codec.LAYOUTS[cfg.dtype].dtype
+    f32 = torch.float32
+    H, hd = cfg.n_heads, cfg.hd
 
-    def kv(spec, *lead):
+    def layer(spec, *lead):
+        def z(*shape, dtype=f32, fill=0.0):
+            return torch.full((*lead, batch, *shape), fill, dtype=dtype, device=dev)
+
+        if spec.mixer == "mamba":
+            di = cfg.mamba.expand * cfg.d_model
+            return {"ssm": {"h": z(di, cfg.mamba.d_state),
+                            "conv": z(cfg.mamba.d_conv - 1, di, dtype=dt)}}
+        if spec.mixer == "mlstm":
+            return {"rnn": {"C": z(H, hd, hd), "n": z(H, hd), "m": z(H, fill=-1e30)}}
+        if spec.mixer == "slstm":
+            return {"rnn": {"c": z(H, hd), "n": z(H), "m": z(H, fill=-1e30)}}
         if spec.mixer == "mla":
             widths = {"c_kv": (cfg.mla.kv_lora,), "k_rope": (cfg.mla.rope_dim,)}
         else:
             widths = dict.fromkeys(("k", "v"), (cfg.kv_heads, cfg.hd))
-        return {"kv": {k: torch.zeros((*lead, batch, max_len, *w), dtype=dt, device=dev)
-                       for k, w in widths.items()}}
+        return {"kv": {k: z(max_len, *w, dtype=dt) for k, w in widths.items()}}
 
     cache = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
     for i, spec in enumerate(cfg.prefix):
-        cache[f"prefix_{i}"] = kv(spec)
-    cache["blocks"] = tuple(kv(spec, cfg.repeats) for spec in cfg.pattern)
+        cache[f"prefix_{i}"] = layer(spec)
+    cache["blocks"] = tuple(layer(spec, cfg.repeats) for spec in cfg.pattern)
     return cache
 
 
@@ -359,25 +532,36 @@ def logits_from_hidden(model: Transformer, h: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def prefill(model: Transformer, tokens: torch.Tensor, cache: dict, *,
-            vision_embeds: torch.Tensor | None = None) -> tuple:
+            vision_embeds: torch.Tensor | None = None,
+            frames: torch.Tensor | None = None) -> tuple:
     """Prefill forward over ``tokens`` (B, S), ``vision_embeds`` (B, Sv, D)
-    replacing the leading positions if given: the causal forward that also
-    fills the cache at positions [0, S).  The cache's K/V tensors are written
-    in place; returns (last-position logits (B, 1, V), the cache with
-    ``pos = S``).  The cache is what PD disaggregation ships."""
+    replacing the leading positions if given, an encoder-decoder model's
+    ``frames`` (B, T, D) through the encoder: the causal forward that also
+    fills the cache (K/V at positions [0, S), each recurrent layer's state
+    after the last position), in place; returns (last-position logits (B,
+    1, V), the cache with ``pos = S``).  The cache is what PD
+    disaggregation ships; an encoder-decoder model's decode steps take the
+    encoder's output again (:meth:`Transformer.encode`)."""
     S = tokens.shape[1]
+    enc_out = model.encode(frames)
     h = model.embed(tokens, vision_embeds)
-    h = model.run_layers(h, torch.arange(S, device=tokens.device), cache)
+    h = model.run_layers(h, torch.arange(S, device=tokens.device), cache, enc_out=enc_out)
     pos = torch.tensor(S, dtype=torch.int32, device=tokens.device)
     return logits_from_hidden(model, h[:, -1:]), dict(cache, pos=pos)
 
 
 @torch.no_grad()
-def decode_step(model: Transformer, tokens: torch.Tensor, cache: dict) -> tuple:
+def decode_step(model: Transformer, tokens: torch.Tensor, cache: dict, *,
+                enc_out: torch.Tensor | None = None) -> tuple:
     """One decode step of tokens (B, 1) at the cache's ``pos`` (one position
-    for the whole batch, as the reference).  K/V are written in place;
-    returns (logits (B, 1, V), the cache with ``pos + 1``)."""
+    for the whole batch, as the reference).  K/V and recurrent states are
+    written in place; ``enc_out`` (B, T, D), the encoder's output, feeds
+    the cross-attention, whose K/V are projected anew every step (as the
+    reference's); without it a decoder layer skips its cross-attention,
+    as the reference's does.  Returns (logits (B, 1, V), the cache with
+    ``pos + 1``)."""
     pos = int(cache["pos"])
     h = model.embed(tokens)
-    h = model.run_layers(h, torch.full((1,), pos, device=tokens.device), cache, pos)
+    h = model.run_layers(h, torch.full((1,), pos, device=tokens.device), cache, pos,
+                         enc_out=enc_out)
     return logits_from_hidden(model, h), dict(cache, pos=cache["pos"] + 1)

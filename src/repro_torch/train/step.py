@@ -112,7 +112,7 @@ def chunked_ce_loss(head: torch.Tensor, hidden: torch.Tensor,
 
 def loss_fn(model: transformer.Transformer, batch: dict, tcfg: TrainConfig):
     hidden = model(batch["tokens"], vision_embeds=batch.get("vision_embeds"),
-                   remat=tcfg.remat)
+                   frames=batch.get("frames"), remat=tcfg.remat)
     return chunked_ce_loss(model.head(), hidden, batch["labels"], tcfg.loss_chunk)
 
 
@@ -138,6 +138,13 @@ def _microbatch_grads(loss_of, batch: dict, n_micro: int) -> torch.Tensor:
         (loss / n_micro).backward()
         total = loss.detach() if total is None else total + loss.detach()
     return total / n_micro
+
+
+def _grads_of(leaves) -> list:
+    """Each parameter's gradient; zeros for a parameter the loss never
+    reads (sLSTM's ``wk``), whose ``.grad`` autograd leaves None, as
+    ``jax.grad`` gives zeros."""
+    return [torch.zeros_like(p) if p.grad is None else p.grad for p in leaves]
 
 
 def train_state_for(model: transformer.Transformer, tcfg: TrainConfig,
@@ -188,7 +195,7 @@ def train_step(state: TrainState, batch: dict, tcfg: TrainConfig, *,
         p.grad = None
     loss = _microbatch_grads(lambda mb: loss_fn(state.model, mb, tcfg), batch,
                              tcfg.microbatches)
-    grads = [p.grad for p in leaves]
+    grads = _grads_of(leaves)
     with torch.no_grad():
         new_params, new_opt, flag, gnorm = zero1_lib.zero1_step(
             tcfg.optim, state.meta, leaves, grads, state.opt, group=group,
@@ -278,8 +285,9 @@ def load_reference_fsdp_state(tree: dict, cfg: ArchConfig, tcfg: TrainConfig, *,
     scalars."""
     dev = kernels.resolve_device(device)
     dims = plan_fsdp_tree(cfg, tcfg, n_dp)
-    dt = codec.LAYOUTS[cfg.dtype].dtype
-    full = tree_map(lambda a: transformer.numpy_to_torch(np.asarray(a), dt), tree["params"])
+    dts, arrays = transformer.leaf_dtypes(cfg), dict(transformer.tree_paths(tree["params"]))
+    full = transformer._map_paths(
+        tree["params"], lambda p: transformer.numpy_to_torch(np.asarray(arrays[p]), dts[p]))
     local = tree_map(lambda t: t.contiguous().to(dev),
                      fsdp_lib.shard_tree_by_plan(dims, full, dp_index, n_dp))
     ost = tree_map(lambda a: torch.from_numpy(np.array(a if a.ndim == 0 else a[dp_index]))
@@ -307,8 +315,8 @@ def _gather_leaves(tree, dims, tcfg: TrainConfig, group, cache):
 def fsdp_loss_fn(state: TrainState, batch: dict, tcfg: TrainConfig, *, group=None,
                  cache=None) -> torch.Tensor:
     """Mean token cross-entropy of the sharded model: the top-level leaves
-    (the embeddings, the final norm and the prefix layers, by path) gathered
-    once, each stacked layer's leaves gathered inside the layer (with the
+    (the embeddings, the final norm, the prefix layers and the encoder's
+    leaves, by path) gathered once, each stacked layer's leaves gathered inside the layer (with the
     layer under ``remat``, so its backward gathers them again)."""
     model = state.model
     dims = dict(transformer.tree_paths(state.fsdp_dims))
@@ -327,8 +335,9 @@ def fsdp_loss_fn(state: TrainState, batch: dict, tcfg: TrainConfig, *, group=Non
         with report_into(sinks):
             return _gather_leaves(p, layer_dims[idx], tcfg, group, cache)
 
-    hidden = model(batch["tokens"], vision_embeds=batch.get("vision_embeds"), top=top_full,
-                   remat=tcfg.remat, block_param_fn=gather_layer)
+    hidden = model(batch["tokens"], vision_embeds=batch.get("vision_embeds"),
+                   frames=batch.get("frames"), top=top_full, remat=tcfg.remat,
+                   block_param_fn=gather_layer)
     head = top_full["embed" if model.cfg.tie_embeddings else "lm_head"]
     return chunked_ce_loss(head, hidden, batch["labels"], tcfg.loss_chunk)
 
@@ -351,8 +360,8 @@ def fsdp_train_step(state: TrainState, batch: dict, tcfg: TrainConfig, *, group=
         batch, tcfg.microbatches)
     dims = tree_leaves(state.fsdp_dims)
     with torch.no_grad():
-        grads = [p.grad if d >= 0 else psum_safe(p.grad, group)
-                 for p, d in zip(leaves, dims, strict=True)]
+        grads = [g if d >= 0 else psum_safe(g, group)
+                 for g, d in zip(_grads_of(leaves), dims, strict=True)]
         sq_all = sq_shard = torch.zeros((), dtype=torch.float32, device=loss.device)
         for g, d in zip(grads, dims):
             sq = torch.sum(torch.square(g.to(torch.float32)))

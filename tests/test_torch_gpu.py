@@ -7,6 +7,7 @@ torch and the port only, so it runs on a machine without JAX:
 
 Every test here needs a CUDA GPU and skips elsewhere.
 """
+import dataclasses
 import sys
 from pathlib import Path
 
@@ -840,17 +841,20 @@ def test_regret_sample_of_a_cuda_bucket_is_strided_on_the_card(cuda):
 # ---------------------------------------------------------------------------
 
 def _zoo_archs():
+    """The archs the serve engine serves: all but the encoder-decoder one,
+    whose engine feeds no frames (as the reference's)."""
     from repro_torch import configs
 
-    return configs.ARCHS
+    return [a for a in configs.ARCHS if not configs.get(a).enc_dec]
 
 
 @pytest.mark.parametrize("arch", _zoo_archs())
 def test_zoo_smoke_models_serve_pd_as_colocated_on_the_card(cuda, arch):
-    """Each ported arch's SMOKE model, drawn on the card by a CUDA
+    """Each served arch's SMOKE model, drawn on the card by a CUDA
     generator: PD serving over the compressed host KV wire gives the
     colocated tokens, and each admission packs and unpacks every cache leaf
-    twice on the card (a prefix layer's leaves included)."""
+    twice on the card (a prefix layer's leaves and recurrent states
+    included)."""
     from repro_torch import configs
     from repro_torch.core.policy import CompressionPolicy
     from repro_torch.models import transformer
@@ -876,7 +880,8 @@ def test_zoo_smoke_models_serve_pd_as_colocated_on_the_card(cuda, arch):
     kernels.clear_launch_counts()
     pd = serve(True)
     counts = kernels.launch_counts()
-    leaves = 2 * (len(cfg.prefix) + len(cfg.pattern))
+    leaves = sum(1 for _, t in transformer.tree_paths(transformer.init_cache(cfg, 1, 8, "cpu"))
+                 if t.dim())
     assert pd == colocated
     assert counts["pack"] == counts["unpack"] == 2 * leaves * len(prompts)
 
@@ -1023,3 +1028,72 @@ def test_mla_decode_on_the_card_equals_the_cpu(cuda):
     for a, b in [*zip(gpu_out, cpu_out), *((gpu_cache[k].float(), cpu_cache[k].float())
                                            for k in cpu_cache)]:
         assert (a - b).abs().max() <= b.abs().max() * 2.0 ** -8
+
+
+# ---------------------------------------------------------------------------
+# the remaining mixers on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mixer", ["mamba", "mlstm", "slstm"])
+def test_recurrent_mixers_on_the_card_equal_the_cpu(cuda, mixer):
+    """A prefill of 64 positions returning its state, then 3 decode steps
+    from it, on the card and on the CPU (jamba and xlstm SMOKE widths,
+    weights drawn on the CPU): every output and state leaf within 1/64 of
+    its largest magnitude (``test_torch_mixers``' Mamba tolerance against
+    the reference; the bf16 projections sum in other orders on the card)."""
+    from repro_torch import configs
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer
+    from repro_torch.tree_util import tree_leaves, tree_map
+
+    cfg = configs.get_smoke("jamba_v0_1_52b" if mixer == "mamba" else "xlstm_350m")
+    spec = next(s for s in cfg.pattern if s.mixer == mixer)
+    host = transformer.init(dataclasses.replace(cfg, pattern=(spec,)),
+                            generator=torch.Generator().manual_seed(0), device="cpu")
+    x0 = torch.randn((2, 67, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    x0 = x0.to(torch.bfloat16)
+    sides = {}
+    for dev in ("cpu", cuda):
+        p = {k.removeprefix("blocks/0/mixer/"): t.detach()[0].to(dev)
+             for k, t in host.params.items() if "/mixer/" in k}
+        x = x0.to(dev)
+        fn = getattr(L, mixer)
+        with torch.no_grad():
+            kw = {"return_state": True} if mixer == "mamba" else {}
+            out, st = fn(p, x[:, :64], cfg, **kw)
+            outs, states = [out], [st]
+            for t in range(64, 67):
+                out, st = fn(p, x[:, t:t + 1], cfg, state=st)
+                outs.append(out)
+                states.append(st)
+        sides[str(dev)] = tree_map(lambda t: t.float().cpu(), (outs, states))
+    for a, b in zip(tree_leaves(sides[str(cuda)]), tree_leaves(sides["cpu"]),
+                    strict=True):
+        assert (a - b).abs().max() <= b.abs().max() / 64
+
+
+def test_jamba_pd_admission_ships_its_f32_state_bit_identical(cuda):
+    """jamba SMOKE on the card: one admission's prefilled cache (bf16 K/V
+    and conv, f32 h) over the host wire under its kv plan, every leaf
+    bit-identical, pack and unpack launched twice a leaf on the card."""
+    from repro_torch import configs
+    from repro_torch.core.policy import CompressionPolicy
+    from repro_torch.models import transformer
+    from repro_torch.serve import kv_transfer
+    from repro_torch.tree_util import bits_equal
+
+    cfg = configs.get_smoke("jamba_v0_1_52b")
+    model = transformer.init(cfg, generator=torch.Generator(cuda).manual_seed(0), device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab, (1, 24))).to(cuda)
+    _, cache = transformer.prefill(model, toks, transformer.init_cache(cfg, 1, 64, cuda))
+    leaves = [t for _, t in transformer.tree_paths(cache) if t.dim()]
+    assert {t.dtype for t in leaves} == {torch.bfloat16, torch.float32}
+    eng = Compressor(codec_name="packed", device=cuda)
+    kernels.clear_launch_counts()
+    wire, plan = kv_transfer.ship_cache(cache, eng, policy=CompressionPolicy(min_bytes=0))
+    back = kv_transfer.unpack_cache(wire, eng)
+    counts = kernels.launch_counts()
+    assert bits_equal(back, cache)
+    assert all(t.is_cuda for _, t in transformer.tree_paths(back))
+    assert counts["pack"] == counts["unpack"] == 2 * len(leaves)
+    assert plan.width_for_dtype("float32") is not None

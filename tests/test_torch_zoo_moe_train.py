@@ -44,7 +44,6 @@ import torch
 from jax.sharding import AbstractMesh
 
 from repro import configs as jconfigs
-from repro.models import layers as jL
 from repro.models import registry as jregistry
 from repro.models import transformer as jtransformer
 from repro.optim import zero1 as jzero1
@@ -57,6 +56,7 @@ from repro_torch.optim import zero1
 from repro_torch.sched.cache import PlanCache
 from repro_torch.train import step as step_lib
 from repro_torch.tree_util import tree_flatten, tree_map
+from test_torch_models import _Picks
 from test_torch_zoo_train import _holds_step, _reference_step, _tcfgs
 from torch_port_util import assert_bits_equal, np_of
 
@@ -111,40 +111,18 @@ def test_fsdp_plan_matches_reference(n_dp):
     assert got == [s.shape for s in jax.tree_util.tree_leaves(want)]
 
 
-def _parted_picks(jcfg, cfg, params, jb, b, monkeypatch) -> tuple:
+def _parted_picks(jcfg, cfg, params, jb, b) -> tuple:
     """(picks parted, picks the reference kept) over the MoE layers of the
     forward at ``params`` (the reference's numpy tree) on the batch: the
-    reference's jitted forward, whose ``_expert_sharding_hint`` sees each
-    layer's slot table first, against the port's ``moe_dispatch``."""
-    seen, hints, mine = [], [], []
-
-    def hint(x, n_experts):  # the slot table's tokens, then xg and h
-        if len(hints) % 3 == 0:
-            jax.debug.callback(lambda v: seen.append(np.asarray(v)), x, ordered=True)
-        hints.append(None)
-        return x
-
-    def dispatch(*args):
-        d = moe_dispatch(*args)
-        mine.append(d.tok.numpy())
-        return d
-
-    moe_dispatch = L.moe_dispatch
-    monkeypatch.setattr(jL, "_expert_sharding_hint", hint)
-    monkeypatch.setattr(L, "moe_dispatch", dispatch)
-    jax.jit(lambda p, t: jtransformer.forward(p, {"tokens": t}, jcfg, remat=False))(
-        jax.tree_util.tree_map(jnp.asarray, params), jnp.asarray(jb["tokens"]))
-    jax.effects_barrier()
-    with torch.no_grad():
-        transformer.load_reference_params(params, cfg, "cpu")(b["tokens"], remat=False)
-    monkeypatch.undo()
-    assert len(seen) == len(mine) == cfg.repeats
-
-    def picks(tok):
-        return {(int(t), e) for e, row in enumerate(tok) for t in row if t < BATCH * SEQ}
-
-    parted = sum(len(picks(a) ^ picks(w)) for a, w in zip(mine, seen))
-    return parted, sum(len(picks(w)) for w in seen)
+    reference's jitted forward against the port's (``_Picks``)."""
+    with _Picks() as rec:
+        jax.jit(lambda p, t: jtransformer.forward(p, {"tokens": t}, jcfg, remat=False))(
+            jax.tree_util.tree_map(jnp.asarray, params), jnp.asarray(jb["tokens"]))
+        with torch.no_grad():
+            transformer.load_reference_params(params, cfg, "cpu")(b["tokens"], remat=False)
+    assert len(rec.seen) == len(rec.mine) == cfg.repeats
+    rec.parted(BATCH, SEQ)
+    return rec.n_parted, rec.kept
 
 
 def _holds_moe_step(state, m, jnew, jm, tcfg, parted, kept):
@@ -152,12 +130,12 @@ def _holds_moe_step(state, m, jnew, jm, tcfg, parted, kept):
     _holds_step(state, m, jnew, jm, tcfg, max_diff=0.05 if parted else 0.01)
 
 
-def test_zero1_step_matches_reference(monkeypatch):
+def test_zero1_step_matches_reference():
     jcfg, cfg = _cfgs()
     tcfg, jtcfg = _tcfgs("zero1")
     jb, b = _batches(jcfg, cfg)
     tree, jnew, jm = _reference_step(jcfg, jtcfg, jb)
-    parted = _parted_picks(jcfg, cfg, tree["params"], jb, b, monkeypatch)
+    parted = _parted_picks(jcfg, cfg, tree["params"], jb, b)
     model = transformer.load_reference_params(tree["params"], cfg, "cpu")
     state = step_lib.TrainState(
         model=model, opt=zero1.load_reference_zero1_state(tree["opt"], "cpu"),
@@ -167,12 +145,12 @@ def test_zero1_step_matches_reference(monkeypatch):
     _holds_moe_step(state, m, jnew, jm, tcfg, *parted)
 
 
-def test_fsdp_step_matches_reference(monkeypatch):
+def test_fsdp_step_matches_reference():
     jcfg, cfg = _cfgs()
     tcfg, jtcfg = _tcfgs("fsdp")
     jb, b = _batches(jcfg, cfg)
     tree, jnew, jm = _reference_step(jcfg, jtcfg, jb)
-    parted = _parted_picks(jcfg, cfg, tree["params"], jb, b, monkeypatch)
+    parted = _parted_picks(jcfg, cfg, tree["params"], jb, b)
     state = step_lib.load_reference_fsdp_state(tree, cfg, tcfg, device="cpu")
     with launch_train.single_process_group("cpu") as g, launch_train.deterministic():
         m = step_lib.fsdp_train_step(state, b, tcfg, group=g, cache=PlanCache())

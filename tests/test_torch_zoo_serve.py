@@ -3,7 +3,8 @@ engine's cache with ``prefix_<i>`` entries, the splice of an admitted cache
 into its slot (batch dim 0 for a prefix layer, 1 for a stacked pattern
 position), the ``kv`` plan over leaves of two shapes, greedy serving
 colocated and PD-disaggregated on gemma3 SMOKE (prompts longer than its
-window of 8), and the serve launcher for every ported arch.
+window of 8), recurrent state (jamba's Mamba h and conv, xlstm's mLSTM and
+sLSTM) spliced and shipped, and the serve launcher for every arch.
 
 Tolerances: exact everywhere (splices, plans, caches after a shipment, and
 PD tokens against colocated ones, both the port's own; ``test_torch_models``
@@ -52,7 +53,8 @@ def _jtree(tree):
 
 
 def _filled_cache(cfg, batch, seed):
-    """A cache whose every K/V position holds seeded random values."""
+    """A cache whose every K/V position and state value holds seeded random
+    values."""
     cache = transformer.init_cache(cfg, batch, MAX_LEN, "cpu")
     g = torch.Generator().manual_seed(seed)
     for t in tree_leaves(cache):
@@ -146,8 +148,58 @@ def test_pd_serving_past_the_window_equals_colocated(gemma):
 
 @pytest.mark.parametrize("arch", configs.ARCHS)
 def test_serve_cli_serves_every_arch_on_the_cpu(arch, capsys):
-    launch_serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--pd",
-                       "--requests", "2", "--max-new", "3", "--slots", "2",
-                       "--max-len", "64", "--prompt-len", "16"])
+    """Every decoder-only arch serves; whisper (encoder-decoder) is refused
+    with the reference's SystemExit: its engine feeds no frames."""
+    argv = ["--arch", arch, "--smoke", "--device", "cpu", "--pd", "--requests", "2",
+            "--max-new", "3", "--slots", "2", "--max-len", "64", "--prompt-len", "16"]
+    if configs.get(arch).enc_dec:
+        with pytest.raises(SystemExit, match="enc-dec"):
+            launch_serve.main(argv)
+        return
+    launch_serve.main(argv)
     out = capsys.readouterr().out
     assert "served 2 requests, 6 tokens" in out and "pd=True" in out
+
+
+@pytest.mark.parametrize("arch,slots,slot", [("jamba_v0_1_52b", 4, 2), ("xlstm_350m", 3, 0),
+                                             ("xlstm_350m", 1, 0)])
+def test_splice_of_recurrent_states_matches_reference(arch, slots, slot):
+    """Stacked (R, B, ...) state leaves, f32 and bf16, with R = 1 and 2:
+    the reference's splice bit for bit, the admitted state in its slot."""
+    cfg = dataclasses.replace(configs.get_smoke(arch), repeats=2 if slots == 4 else 1)
+    batched, one = _filled_cache(cfg, slots, 4), _filled_cache(cfg, 1, 5)
+    want = JServeEngine._splice_impl(_jtree(batched), _jtree(one), slot)
+    got = ServeEngine._splice_impl(batched, one, slot)
+    for g, w in zip(tree_leaves(got), jax.tree_util.tree_leaves(want), strict=True):
+        assert_bits_equal(g, w)
+    for path, t in transformer.tree_paths(got["blocks"]):
+        assert torch.equal(t[:, slot], dict(transformer.tree_paths(one["blocks"]))[path][:, 0])
+
+
+@pytest.mark.parametrize("arch", ["jamba_v0_1_52b", "xlstm_350m"])
+def test_pd_serving_ships_recurrent_state_bit_identical(arch):
+    """A state cache (jamba: bf16 K/V, f32 h, bf16 conv; xlstm: f32 C, n,
+    m, c, the smallest leaves 2 values a repeat) over the host wire under
+    its kv plan, one bucket a dtype, every leaf bit-identical; PD tokens
+    equal colocated ones."""
+    cfg = configs.get_smoke(arch)
+    model = transformer.init(cfg, generator=torch.Generator().manual_seed(1), device="cpu")
+    cache = _filled_cache(cfg, 1, 6)
+    plan = sched_compile.compile_kv_plan(cache, "data", policy=CompressionPolicy(min_bytes=0),
+                                         n_dev=1, device="cpu")
+    jplan = jsched.compile_kv_plan(_jtree(cache), "data", policy=JPolicy(min_bytes=0), n_dev=1)
+    for b, jb in zip(plan.buckets, jplan.buckets, strict=True):
+        assert (b.members, b.length, b.width, b.path) == (jb.members, jb.length, jb.width,
+                                                          jb.path)
+    dtypes = {t.dtype for t in tree_leaves(cache) if t.dim()}
+    assert torch.float32 in dtypes and len(plan.buckets) == len(dtypes)
+    eng = Compressor(codec_name="packed", device="cpu")
+    back = kv_transfer.unpack_cache(kv_transfer.pack_cache(cache, eng, plan=plan), eng)
+    assert bits_equal(back, cache)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab, PROMPT).astype(np.int32) for _ in range(N_PROMPTS)]
+    colocated = _serve(cfg, model, prompts)
+    pc = PlanCache()
+    assert _serve(cfg, model, prompts, pd=True, kv_policy=CompressionPolicy(min_bytes=0),
+                  kv_plan_cache=pc) == colocated
+    assert (pc.stats.misses, pc.stats.hits) == (1, N_PROMPTS - 1)

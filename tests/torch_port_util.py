@@ -100,6 +100,14 @@ def np_of(t) -> np.ndarray:
     return a
 
 
+def ref_array(t: torch.Tensor) -> np.ndarray:
+    """A bf16 or f32 torch tensor as a numpy array of its own dtype (bf16
+    from ml_dtypes), bit for bit: a leaf of the reference's numpy trees."""
+    import ml_dtypes
+
+    return np_of(t).view(ml_dtypes.bfloat16 if t.dtype == torch.bfloat16 else np.float32)
+
+
 def assert_bits_equal(got, want, ctx=""):
     g, w = np_of(got), np_of(want)
     assert g.shape == w.shape, (ctx, g.shape, w.shape)
