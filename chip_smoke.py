@@ -66,6 +66,15 @@ result line each:
             each run, pack and unpack ms per shipment, each codec's wire
             ratio, and the ms of one admission's prefill and of one batched
             decode step.
+3b. serve_sampled - the same requests sampled at temperature 0.8
+            (ServeConfig.temperature; each engine's generator on the card,
+            seeded 0): colocated, PD-disaggregated, colocated again, then
+            colocated reseeded 1.  PD and both seed-0 runs give identical
+            tokens, seed 1 others; the first admission round's tokens equal
+            a plain Gumbel-max draw over their prefill logits, and 16 384
+            draws from one request's logits give softmax's mean logit
+            within 5 standard errors; the PD run launches pack and unpack
+            4 a request.
 4. main   - smollm_135m at full width, ZeRO-1 on a single-rank NCCL group,
             batch 8 x seq 512: 3 compressed steps, then 3 steps of the raw
             twin from the same weights, each run replaying its zero1 plan
@@ -89,6 +98,21 @@ result line each:
             wire phase beside its raw twin (host clock, synchronised).
             Forward+backward is timed with each layer rematerialised (the
             launcher's TrainConfig.remat default) and without.
+   train_file - on the same group, a token file of 2**20 seed-0 tokens
+            (uint16; written under a temporary directory) feeds a compressed
+            and a raw twin of 2 steps at 8 x 512 through the launcher's
+            ZeRO-1 path (the pipeline's file backend): every batch equals
+            numpy's reading of the file; losses and final parameters
+            identical; two_shot_launches a compressed step.
+   roofline - one ZeRO-1 step of the main run (a copy of its state, its
+            plan): its FLOPs counted by FlopCounterMode (remat replays
+            included), its collective bytes from a torch.profiler trace
+            (roofline.analysis.collective_bytes: the traced all-to-all and
+            all-gather bytes equal the plan:zero1 wire), its WireReports
+            from the module ledger (clear_wire_reports, one step,
+            wire_reports) and its time (median of 5); a cell JSON and its
+            trace read back by roofline.report.collect.  Prints the markdown
+            row and the step's share of the card's bf16 peak.
    psum   - on the same group, the gradient pytree of one forward+backward
             of the trained model at batch 8 x 512 through psum_with_plan
             with the default policy (its one bf16 bucket on the two-shot,
@@ -156,6 +180,11 @@ result line each:
             of a full update (encode on the card, device-to-host copy,
             update_checksum, verify_update, apply = host-to-device copy and
             decode, in-place copy into the serve engine's model).
+5b. sync_strategies - the sync run's last two versions through a
+            WeightSyncEngine under split_send and under encode_send: a full
+            update, an ack, a delta, each applied bit-identical on the card;
+            each plan records its strategy; the updates' bytes and checksums
+            identical; encode_fused 1, pack 2, unpack 4 an engine.
 6. fleet  - the weight-sync fleet (sync/fleet.SyncFleet) at full width:
             the sync phase's retained versions (v1-v4; one bf16 bucket of
             134 515 200 values) published to 6 replicas r0-r5 whose weights
@@ -307,6 +336,12 @@ REPLACES = {
     "plane_split": "src/repro/kernels/plane_split.py:34",
 }
 N_SYNC_REQ = 2  # requests rollout-0 serves after its last delta
+TEMPERATURE = 0.8  # the sampled serve run's temperature
+# draws of the sampler's distribution check, in chunks of SAMPLE_CHUNK rows
+SAMPLE_DRAWS, SAMPLE_CHUNK = 16384, 4096
+FILE_STEPS, FILE_TOKENS = 2, 1 << 20  # the file-fed twins' steps and token file
+ROOFLINE_STEPS = 5  # timed steps of the roofline phase (median), after one untimed
+SYNC_STRATEGIES = ("split_send", "encode_send")
 
 
 def card_bandwidth(name: str) -> float:
@@ -1062,6 +1097,122 @@ def phase_serve(dev, torch, np):
                       "pd_rans": n_tok2 / t_rans}, "ship": ship}
 
 
+def phase_serve_sampled(dev, torch, np):
+    """smollm_135m at full width and depth sampling at TEMPERATURE: the serve
+    phase's requests colocated, then PD-disaggregated, then colocated again,
+    each engine's generator as the engine seeds it (0), then colocated with
+    it reseeded to 1.  PD and both seed-0 runs give identical tokens; seed 1
+    others.  The first admission round's tokens (one prefill draw each, no
+    decode step between them) are held against a plain Gumbel-max draw over
+    the same prefill logits with a fresh generator seeded 0.  The
+    distribution: SAMPLE_DRAWS draws of ``sample`` on the card from the first
+    request's prefill logits z (scaled by 1/TEMPERATURE); the mean z of the
+    drawn tokens is within 5 standard errors of its expectation under
+    ``softmax(z)``, and that expectation is more than 5 from the plain mean
+    of z, which a sampler ignoring the logits would give.  The PD run
+    launches pack and unpack 4 a request, as the greedy one."""
+    from repro_torch import configs, kernels
+    from repro_torch.core.policy import CompressionPolicy
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer
+    from repro_torch.sched.cache import PlanCache
+    from repro_torch.serve.engine import Request, ServeConfig, ServeEngine, sample
+
+    cfg = configs.get(ARCH)
+    model = transformer.init(cfg, generator=torch.Generator().manual_seed(SEED),
+                             device=dev)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab, PROMPT).astype(np.int32)
+               for _ in range(N_REQ)]
+
+    def serve(pd, reseed=None):
+        scfg = ServeConfig(batch_slots=SLOTS, max_len=MAX_LEN, prefill_chunk=PROMPT,
+                           temperature=TEMPERATURE, pd_disaggregated=pd)
+        eng = ServeEngine(cfg, model, scfg, kv_plan_cache=PlanCache() if pd else None,
+                          kv_policy=CompressionPolicy(min_bytes=0) if pd else None)
+        if reseed is not None:
+            eng.generator.manual_seed(reseed)
+        if eng.generator.device.type != dev.type:
+            raise AssertionError(f"the sampler's generator is on {eng.generator.device}")
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new=MAX_NEW))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        return sorted((r.rid, tuple(r.out)) for r in done), time.perf_counter() - t0
+
+    with launch_train.deterministic():
+        kernels.clear_launch_counts()
+        col, t_col = serve(False)
+        col_launches = kernels.launch_counts()
+        with recorded_inputs(torch) as inputs:
+            kernels.clear_launch_counts()
+            pd, t_pd = serve(True)
+            pd_launches = kernels.launch_counts()
+        recorded = (inputs, shape_tallies())
+        again, _ = serve(False)
+        other, _ = serve(False, reseed=1)
+        # the plain draw: the first SLOTS requests are admitted in order, one
+        # (1, vocab) draw each from the fresh generator, before any decode step
+        gen = torch.Generator(dev).manual_seed(0)
+        tiny = torch.finfo(torch.float32).tiny
+        plain, last = [], []
+        for p in prompts[:SLOTS]:
+            logits, _ = transformer.prefill(
+                model, torch.from_numpy(p[None].astype(np.int64)).to(dev),
+                transformer.init_cache(cfg, 1, MAX_LEN, dev))
+            last.append(logits[:, -1])
+            scaled = logits[:, -1].float() / TEMPERATURE
+            u = torch.rand(scaled.shape, generator=gen, device=dev, dtype=torch.float32)
+            gumbel = -torch.log(-torch.log(u.clamp_min(tiny)))
+            plain.append(int(torch.argmax(scaled + gumbel, dim=-1)[0]))
+    firsts = [o[0] for _, o in col[:SLOTS]]
+    if firsts != plain:
+        raise AssertionError(f"first sampled tokens {firsts} differ from the plain "
+                             f"Gumbel-max draw over the prefill logits {plain}")
+    z = last[0][0].float() / TEMPERATURE
+    p = torch.softmax(z, -1)
+    want_z = float((p * z).sum())
+    se = float(((p * z * z).sum() - want_z ** 2).sqrt()) / SAMPLE_DRAWS ** 0.5
+    gen = torch.Generator(dev).manual_seed(SEED)
+    drawn = torch.cat([sample(last[0].expand(SAMPLE_CHUNK, -1), TEMPERATURE, gen)
+                       for _ in range(SAMPLE_DRAWS // SAMPLE_CHUNK)])
+    if drawn.device.type != dev.type or drawn.dtype != torch.int32 \
+            or drawn.shape != (SAMPLE_DRAWS,):
+        raise AssertionError(f"draws {drawn.device} {drawn.dtype} {tuple(drawn.shape)}")
+    mean, flat = float(z[drawn.long()].mean()), float(z.mean())
+    if abs(mean - want_z) > 5 * se or want_z - flat <= 5 * se:
+        raise AssertionError(f"mean drawn z {mean} against softmax's {want_z} (plain mean "
+                             f"{flat}, standard error {se})")
+    if pd != col or again != col:
+        raise AssertionError(f"sampled tokens differ at one seed: colocated {col}, PD {pd}, "
+                             f"again {again}")
+    if other == col:
+        raise AssertionError("seeds 0 and 1 sampled the same tokens")
+    if len(col) != N_REQ or any(len(o) != MAX_NEW or not all(0 <= t < cfg.vocab for t in o)
+                                for _, o in col):
+        raise AssertionError(f"unexpected sampled output {col}")
+    expect = dict.fromkeys(kernels.KERNELS, 0)
+    expect.update(pack=4 * N_REQ, unpack=4 * N_REQ)
+    if pd_launches != expect or any(col_launches.values()):
+        raise AssertionError(f"sampled serve launch counts {pd_launches} (colocated "
+                             f"{col_launches}), expected {expect}")
+    n_tok = N_REQ * MAX_NEW
+    differ = sum(a != b for (_, x), (_, y) in zip(col, other) for a, b in zip(x, y))
+    print(f"serve_sampled: {ARCH} full width, {N_REQ} requests x {PROMPT} + {MAX_NEW} "
+          f"tokens at temperature {TEMPERATURE}, {SLOTS} slots; PD tokens identical to "
+          f"colocated, a second seed-0 run identical, seed 1 differs in {differ} of "
+          f"{n_tok} tokens; the first {SLOTS} requests' first tokens equal the plain "
+          f"draw over their prefill logits; {SAMPLE_DRAWS} draws from the first request's "
+          f"logits: mean z {mean:.5f} against softmax's {want_z:.5f} "
+          f"({(mean - want_z) / se:+.2f} standard errors; the plain mean {flat:.5f} is "
+          f"{(want_z - flat) / se:.1f} away); launches {pd_launches}; tokens/s colocated "
+          f"{n_tok / t_col:.1f}, PD {n_tok / t_pd:.1f}")
+    return {"launches": pd_launches, "recorded": recorded,
+            "tok_s": {"colocated": n_tok / t_col, "pd": n_tok / t_pd}}
+
+
 @contextlib.contextmanager
 def checkpoint_writes():
     """While active, the ms of every checkpoint write (``CheckpointManager``'s
@@ -1152,7 +1303,188 @@ def phase_main(dev, torch):
         phase_checkpoint(comp, group, hb, dev, torch)
         phase_breakdown(comp, group, dev, torch)
         psum = phase_psum(comp, group, dev, torch)
-    return comp, psum
+        file_twins = phase_file_twins(group, dev, torch)
+        roofline = phase_roofline(comp, group, dev, torch)
+    return comp, psum, file_twins, roofline
+
+
+def phase_file_twins(group, dev, torch):
+    """A token file of FILE_TOKENS seed-0 tokens (uint16: smollm's vocabulary
+    is 49 152) written under a temporary directory feeds a compressed and a
+    raw twin of FILE_STEPS steps at BATCH x SEQ through the launcher's ZeRO-1
+    path (``data_path``, the pipeline's ``file`` backend).  Each step's batch
+    equals numpy's reading of the file at the starts the step's seed draws;
+    the twins' losses and final parameters are identical; the compressed
+    twin launches two_shot_launches a step, the raw one nothing."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import configs, kernels
+    from repro_torch.launch import train as launch_train
+
+    vocab = configs.get(ARCH).vocab
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="tokens_") as tmp:
+        path = os.path.join(tmp, "tokens.bin")
+        np.random.default_rng(SEED).integers(0, vocab, FILE_TOKENS).astype(
+            np.uint16).tofile(path)
+        for compress in (True, False):
+            with recorded_inputs(torch) as inputs:
+                kernels.clear_launch_counts()
+                runs[compress] = launch_train.train(
+                    ARCH, steps=FILE_STEPS, batch=BATCH, seq=SEQ, compress=compress,
+                    device=dev, seed=SEED, group=group, data_path=path)
+                runs[compress].launches = kernels.launch_counts()
+            runs[compress].recorded = (inputs, shape_tallies())
+        toks = np.fromfile(path, np.uint16)
+    comp, raw = runs[True], runs[False]
+    for step in range(FILE_STEPS):
+        rng = np.random.default_rng(np.random.SeedSequence(entropy=SEED,
+                                                           spawn_key=(step, 0)))
+        starts = rng.integers(0, toks.shape[0] - SEQ - 1, size=BATCH)
+        want = np.stack([toks[s:s + SEQ + 1] for s in starts]).astype(np.int32)
+        got = comp.runner.pipeline.batch_at(step)
+        if not (np.array_equal(got["tokens"], want[:, :SEQ])
+                and np.array_equal(got["labels"], want[:, 1:])):
+            raise AssertionError(f"step {step}'s batch is not the file's windows")
+    if comp.runner.pipeline.cfg.kind != "file" or comp.losses != raw.losses:
+        raise AssertionError(f"file-fed loss curves {comp.losses} vs {raw.losses}")
+    for a, b in zip(comp.state.model.leaves(), raw.state.model.leaves()):
+        if not torch.equal(a.detach().view(torch.int16), b.detach().view(torch.int16)):
+            raise AssertionError("file-fed twins' final parameters differ")
+    expect = dict.fromkeys(kernels.KERNELS, 0)
+    expect.update({k: FILE_STEPS * v for k, v in two_shot_launches(True, True, 1).items()})
+    if comp.launches != expect or any(raw.launches.values()):
+        raise AssertionError(f"file-fed launch counts {comp.launches} (raw twin "
+                             f"{raw.launches}), expected {expect}")
+    print(f"train_file: {ARCH} full width, ZeRO-1, batch {BATCH} x seq {SEQ} from a token "
+          f"file of {FILE_TOKENS} uint16 tokens (seed {SEED}); batches equal numpy's reading "
+          f"of the file; compressed losses {comp.losses} = raw twin's, final parameters "
+          f"identical; step_ms {[round(t, 1) for t in comp.step_ms]} vs raw "
+          f"{[round(t, 1) for t in raw.step_ms]}; launches {comp.launches}")
+    return {"launches": comp.launches, "recorded": comp.recorded}
+
+
+def device_kernels(events) -> int:
+    """Kernels on the card in a Chrome trace's events."""
+    return sum(e.get("ph") == "X" and e.get("cat") == "kernel" for e in events)
+
+
+def phase_roofline(comp, group, dev, torch):
+    """One ZeRO-1 step of the main phase's compressed run (on a copy of its
+    state, the next batch, its zero1 plan) against the card's roofline: the
+    step's FLOPs counted by FlopCounterMode (forward and backward, remat
+    replays included), its collective bytes from a torch.profiler trace of
+    one step (``roofline.analysis.collective_bytes``), its WireReports from
+    the module ledger (cleared, one step, read), and its time (host clock to
+    a device sync, median of ROOFLINE_STEPS after an untimed one, counts from
+    0: two_shot_launches a step).  The traced all-to-all and all-gather bytes equal the step's
+    plan:zero1 wire bytes.  Writes a cell JSON and its trace to a temporary
+    directory, and ``roofline.report.collect`` reads them back: prints the
+    markdown row and the step's share of the card's bf16 peak,
+    ``model_flops / (step_s x PEAK_FLOPS_BF16)``.  The cell's HBM bytes are
+    ``roofline.model.analytic_cost``'s for one card (the profiler does not
+    count them)."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import kernels
+    from repro_torch.core import policy
+    from repro_torch.data.pipeline import DataConfig, DataPipeline
+    from repro_torch.launch import cells
+    from repro_torch.launch import train as launch_train
+    from repro_torch.roofline import analysis, report
+    from repro_torch.roofline import model as roof_model
+    from repro_torch.train import step as step_lib
+    from repro_torch.tree_util import tree_flatten, tree_unflatten
+
+    leaves, treedef = tree_flatten(comp.state.tree())
+    state = comp.state.from_tree(tree_unflatten(treedef, [t.clone() for t in leaves]))
+    batch = DataPipeline(DataConfig(vocab=state.model.cfg.vocab, global_batch=BATCH,
+                                    seq_len=SEQ, seed=SEED)).tensors_at(STEPS + 1, dev)
+    plan = step_lib.zero1_plan(state, comp.tcfg, group, cache=comp.plan_cache)
+
+    def step():
+        step_lib.train_step(state, batch, comp.tcfg, group=group, plan=plan)
+        torch.cuda.synchronize()
+
+    shape = cells.Shape(f"train_{BATCH}x{SEQ}", SEQ, BATCH, "train")
+    with launch_train.deterministic(), tempfile.TemporaryDirectory(prefix="roofline_") as tmp:
+        with FlopCounterMode(display=False) as counter:
+            step()
+        flops = counter.get_total_flops()
+        trace = os.path.join(tmp, f"{ARCH}__{shape.name}.trace.json")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            step()
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        coll = analysis.collective_bytes(events)
+        n_device = device_kernels(events)
+        step()  # the first step after a trace ran 4x slower on an H100: not timed
+        times = []
+        with recorded_inputs(torch) as inputs:
+            kernels.clear_launch_counts()
+            for _ in range(ROOFLINE_STEPS):
+                policy.clear_wire_reports()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step()
+                times.append(time.perf_counter() - t0)
+            launches = kernels.launch_counts()
+        recorded = (inputs, shape_tallies())
+        reports = policy.wire_reports()
+        policy.clear_wire_reports()
+        step_s = sorted(times)[len(times) // 2]
+        model_flops = analysis.model_flops_for(ARCH, shape)
+        rec = {"arch": ARCH, "shape": shape.name, "mesh": "h100x1", "n_chips": 1,
+               "compressed": True, "ok": True, "model_flops": model_flops,
+               "cost": {"flops": flops, "bytes accessed": roof_model.analytic_cost(
+                   ARCH, shape, n_chips=1, n_model=1).hbm_bytes_per_device},
+               "cost_source": {"flops": "torch.utils.flop_counter.FlopCounterMode",
+                               "bytes accessed": "roofline.model.analytic_cost"},
+               "wire": analysis.summarize_wire_reports(reports),
+               "step_ms": step_s * 1e3, "card": run_card()}
+        with open(os.path.join(tmp, f"{ARCH}__{shape.name}.json"), "w") as f:
+            json.dump(rec, f, indent=1)
+        rows = report.collect(tmp, mesh="h100x1")
+    if flops <= 0 or n_device == 0:
+        raise AssertionError(f"the flop counter gave {flops} FLOPs, the trace {n_device} "
+                             f"kernels on the card")
+    if [r.name for r in reports] != ["plan:zero1"] or reports[0].wire_bytes != plan.wire_bytes:
+        raise AssertionError(f"the ledger holds {reports} after one step of plan "
+                             f"{plan.summary()}")
+    traced = coll["bytes"]["all-to-all"] + coll["bytes"]["all-gather"]
+    if traced != plan.wire_bytes or not coll["counts"]["all-to-all"] \
+            or not coll["counts"]["all-gather"]:
+        raise AssertionError(f"traced collective bytes {coll}, plan wire {plan.wire_bytes}")
+    expect = dict.fromkeys(kernels.KERNELS, 0)
+    expect.update({k: ROOFLINE_STEPS * v
+                   for k, v in two_shot_launches(True, True, 1).items()})
+    if launches != expect:
+        raise AssertionError(f"roofline step launches {launches}, expected {expect}")
+    (row,) = rows
+    share = model_flops / (step_s * analysis.PEAK_FLOPS_BF16)
+    print(f"roofline: {ARCH} one ZeRO-1 step at {BATCH} x {SEQ} on one card ({rec['card']}): "
+          f"counted {flops:.4e} FLOPs (FlopCounterMode, remat replays included), model "
+          f"6ND {model_flops:.4e} (useful {row.useful_flops_fraction:.3f}); traced "
+          f"collectives {coll['bytes']} ({coll['counts']} calls) = the plan:zero1 wire "
+          f"{plan.wire_bytes} B + {coll['bytes']['all-reduce']} B of all-reduce; wire "
+          f"{analysis.wire_report_seconds(reports) * 1e3:.4f} ms at NVLink's 450 GB/s; "
+          f"{n_device} kernels in the trace; step {step_s * 1e3:.2f} ms (median of "
+          f"{ROOFLINE_STEPS}: {[round(t * 1e3, 2) for t in times]}); launches {launches}")
+    print("  " + analysis.MD_HEADER_WIRE.replace("\n", "\n  "))
+    print("  " + analysis.markdown_row_wire(row))
+    print(f"  share of the card's bf16 peak: model_flops / (step_s x "
+          f"{analysis.PEAK_FLOPS_BF16:.4g}) = {share:.4f}; counted FLOPs / step_s = "
+          f"{flops / step_s / 1e12:.2f} TFLOP/s; bound {row.t_bound * 1e3:.3f} ms "
+          f"({row.bottleneck}), roofline fraction at the bound {row.roofline_fraction:.3f}")
+    return {"launches": launches, "recorded": recorded, "share": share,
+            "step_ms": step_s * 1e3, "flops": flops, "model_flops": model_flops, "coll": coll}
 
 
 def phase_checkpoint(comp, group, hb, dev, torch):
@@ -2354,6 +2686,75 @@ def phase_sync(dev, torch):
             "retained": [store.get(v) for v in store.retained()]}
 
 
+def phase_sync_strategies(sync, dev, torch):
+    """The sync phase's last two versions through a WeightSyncEngine under
+    each of SYNC_STRATEGIES (the sync run's policy, a fresh PlanCache): a
+    full update of the older, an ack, then a delta of the newer, each
+    applied on the card bit-identical.  The plan records the engine's
+    strategy (``CommPlan.strategy``, its key); the updates' bytes and
+    checksums are identical under both.  Launches an engine: encode_fused 1
+    (the full encode), pack 2 (the delta), unpack 4 (the two applies)."""
+    from repro_torch import kernels
+    from repro_torch.core.integrity import tree_chunks
+    from repro_torch.sched.cache import PlanCache
+    from repro_torch.sync import WeightSyncEngine, apply_update
+    from repro_torch.tree_util import bits_equal
+
+    old, new = sync["versions"]
+    seen, launches, recorded = {}, {}, {}
+    for strategy in SYNC_STRATEGIES:
+        eng = WeightSyncEngine(policy=sync["policy"], strategy=strategy,
+                               plan_cache=PlanCache())
+        with recorded_inputs(torch) as inputs:
+            kernels.clear_launch_counts()
+            v = eng.publish(old)
+            full = eng.update_for("r")
+            held = apply_update(full, device=dev)
+            eng.ack("r", v, full.epoch)
+            eng.publish(new)
+            delta = eng.update_for("r")
+            got = apply_update(delta, base_params=held, device=dev)
+            torch.cuda.synchronize()
+            launches[strategy] = kernels.launch_counts()
+        recorded[strategy] = (inputs, shape_tallies())
+        plan = eng.plan_for(new)
+        if (full.mode, delta.mode) != ("full", "delta") or not bits_equal(held, old) \
+                or not bits_equal(got, new):
+            raise AssertionError(f"{strategy}: modes {full.mode}, {delta.mode}, "
+                                 f"exact {bits_equal(held, old)}, {bits_equal(got, new)}")
+        if plan.strategy != strategy or plan.key[2] != strategy:
+            raise AssertionError(f"{strategy}: plan strategy {plan.strategy}, key {plan.key[:3]}")
+        seen[strategy] = [(u.checksum, u.wire_bytes, [
+            (b[:3], list(tree_chunks(b[3]))) for b in u.buckets]) for u in (full, delta)]
+    first = seen[SYNC_STRATEGIES[0]]
+    if any(seen[s] != first for s in SYNC_STRATEGIES):
+        raise AssertionError("the host wire differs between strategies")
+    expect = dict.fromkeys(kernels.KERNELS, 0)
+    expect.update(encode_fused=1, pack=2, unpack=4)
+    if any(c != expect for c in launches.values()):
+        raise AssertionError(f"sync strategy launches {launches}, expected {expect} each")
+    print(f"sync_strategies: engines under {', '.join(SYNC_STRATEGIES)}: full v{v} "
+          f"({first[0][1]} B) and delta ({first[1][1]} B) updates with identical bytes and "
+          f"checksums, applied bit-identical on the card; each plan records its strategy; "
+          f"launches {launches[SYNC_STRATEGIES[0]]} an engine")
+    return {"launches": {k: sum(c[k] for c in launches.values()) for k in expect},
+            "recorded": _merged_recorded(recorded.values())}
+
+
+def _merged_recorded(parts) -> tuple:
+    """One ``(inputs, tallies)`` of several recorded windows: the first input
+    of each shape, the tallies summed."""
+    inputs = {name: {} for name in SHAPED}
+    tallies = {name: {} for name in SHAPED}
+    for ins, tal in parts:
+        for name in SHAPED:
+            for shape, args in ins[name].items():
+                inputs[name].setdefault(shape, args)
+            for shape, n in tal[name].items():
+                tallies[name][shape] = tallies[name].get(shape, 0) + n
+    return inputs, tallies
+
+
 # fleet phase: replicas (benchmarks/fig_tree.py runs 64 for the topologies
 # and 8 under chaos; 6 hold the weights of all three topologies and the chaos
 # run inside the time limit), the topologies as (kind, fanout), and the
@@ -3074,15 +3475,22 @@ def time_path_shapes(recorded, runs, bw, dev, torch) -> dict:
 PEAK_OPS = 67e12
 
 
-def phase_times(comp, fsdp, serve, sync, psum, p2p, fleet, obs_run, dev, torch, np, worst,
-                bw):
+def path_run(launches, recorded, unit, n) -> dict:
+    """One main-path run as ``phase_times`` reads it: the launches counted in
+    it (the counts set to 0 just before it), its recorded kernel inputs, and
+    the unit its launches are counted per, ``n`` of them in the run."""
+    return {"launches": launches, "recorded": recorded, "unit": (unit, n)}
+
+
+def phase_times(runs, comp, serve, dev, torch, np, worst, bw):
     """Each kernel and its plain version at the shapes its path gives it:
     encode_fused, decode_reduce and plane_split at the main path's AG
     bucket; pack and unpack at one KV leaf's exponent residuals at the plan's
     width; encode_fused, decode_reduce, pack and unpack also at every shape
     the runs launched them at, on the runs' recorded inputs; rANS encode
     and the compacted-stream decode at one KV leaf's exponent plane.  Each
-    kernel is checked against its plain version on these inputs first."""
+    kernel is checked against its plain version on these inputs first.
+    ``runs``: every main-path run, ``{run: path_run(...)}``."""
     from repro_torch import kernels
     from repro_torch.core import ans, codec, packing
     from repro_torch.core.calibrate import CompressionProfile
@@ -3092,17 +3500,9 @@ def phase_times(comp, fsdp, serve, sync, psum, p2p, fleet, obs_run, dev, torch, 
     from repro_torch.kernels import plane_split as ps
     from repro_torch.optim import zero1
 
-    # launches of each main-path run (counts set to 0 just before each)
-    runs = {"serve_pd": serve["pd_launches"], "serve_pd_rans": serve["rans_launches"],
-            "train": comp.launches, "fsdp": fsdp["launches"], "psum": psum["launches"],
-            "weight_sync": sync["launches"],
-            "p2p": p2p["launches"], "fleet": fleet["launches"], "obs": obs_run["launches"]}
-    per_unit = {"serve_pd": ("pd_admission", N_REQ),
-                "serve_pd_rans": ("pd_rans_admission", N_RANS),
-                "train": ("train_step", STEPS), "fsdp": ("fsdp_step", STEPS),
-                "psum": ("psum_phase", 1),
-                "weight_sync": ("publish", sync["n_publishes"]), "p2p": ("p2p_phase", 1),
-                "fleet": ("fleet_phase", 1), "obs": ("obs_phase", 1)}
+    per_unit = {r: m["unit"] for r, m in runs.items()}
+    recorded = {r: m["recorded"] for r, m in runs.items()}
+    runs = {r: m["launches"] for r, m in runs.items()}
     rows = []
 
     def row(name, *, ms, plain_ms, nbytes, ops, err, **extra):
@@ -3129,10 +3529,6 @@ def phase_times(comp, fsdp, serve, sync, psum, p2p, fleet, obs_run, dev, torch, 
     # -- encode_fused, decode_reduce, pack and unpack at each shape a run
     # launched them at (the zoo phase times its own shapes, which merge_zoo
     # adds to these rows)
-    recorded = {**serve["recorded"], "train": comp.recorded, "fsdp": fsdp["recorded"],
-                "psum": psum["recorded"],
-                "weight_sync": sync["recorded"], "p2p": p2p["recorded"],
-                "fleet": fleet["recorded"], "obs": obs_run["recorded"]}
     path_shapes = time_path_shapes(recorded, runs, bw, dev, torch)
 
     # -- the main path's AG input: the trained bf16 parameter bucket ---------
@@ -3266,6 +3662,26 @@ def sm_clock_under(fn, torch, runs=200):
     return float(out.split()[0])
 
 
+def roofline_alone() -> None:
+    """The roofline phase alone on the card, on a run of its own: the kernels
+    built, STEPS compressed ZeRO-1 steps of smollm-135m through the launcher
+    (as the main phase's), then ``phase_roofline``.
+
+        python3 -c "import chip_smoke; chip_smoke.roofline_alone()"
+    """
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.launch import train as launch_train
+
+    dev = kernels.resolve_device("cuda")
+    phase_build(kernels, torch)
+    with launch_train.single_process_group(dev) as group:
+        run = launch_train.train(ARCH, steps=STEPS, batch=BATCH, seq=SEQ, device=dev,
+                                 seed=SEED, group=group)
+        phase_roofline(run, group, dev, torch)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3286,17 +3702,40 @@ def main() -> int:
     worst = phase_check(dev, torch, np)
     phase_check_wire(dev, torch, np)
     serve = phase_serve(dev, torch, np)
-    comp, psum = phase_main(dev, torch)
+    sampled = phase_serve_sampled(dev, torch, np)
+    comp, psum, file_twins, roofline = phase_main(dev, torch)
     fsdp = phase_fsdp(comp, dev, torch)
     sync = phase_sync(dev, torch)
+    strategies = phase_sync_strategies(sync, dev, torch)
     fleet = phase_fleet(sync, dev, torch)
     p2p = phase_p2p(serve, psum, sync, dev, torch)
     obs_run = phase_obs(comp, psum, sync, dev, torch, np)
     bw = card_bandwidth(name)
-    rows = phase_times(comp, fsdp, serve, sync, psum, p2p, fleet, obs_run, dev, torch, np,
-                       worst, bw)
+    runs = {
+        "serve_pd": path_run(serve["pd_launches"], serve["recorded"]["serve_pd"],
+                             "pd_admission", N_REQ),
+        "serve_pd_rans": path_run(serve["rans_launches"], serve["recorded"]["serve_pd_rans"],
+                                  "pd_rans_admission", N_RANS),
+        "serve_pd_sampled": path_run(sampled["launches"], sampled["recorded"],
+                                     "pd_sampled_admission", N_REQ),
+        "train": path_run(comp.launches, comp.recorded, "train_step", STEPS),
+        "train_file": path_run(file_twins["launches"], file_twins["recorded"],
+                               "train_file_step", FILE_STEPS),
+        "roofline": path_run(roofline["launches"], roofline["recorded"],
+                             "roofline_step", ROOFLINE_STEPS),
+        "fsdp": path_run(fsdp["launches"], fsdp["recorded"], "fsdp_step", STEPS),
+        "psum": path_run(psum["launches"], psum["recorded"], "psum_phase", 1),
+        "weight_sync": path_run(sync["launches"], sync["recorded"], "publish",
+                                sync["n_publishes"]),
+        "sync_strategies": path_run(strategies["launches"], strategies["recorded"],
+                                    "strategy_engine", len(SYNC_STRATEGIES)),
+        "p2p": path_run(p2p["launches"], p2p["recorded"], "p2p_phase", 1),
+        "fleet": path_run(fleet["launches"], fleet["recorded"], "fleet_phase", 1),
+        "obs": path_run(obs_run["launches"], obs_run["recorded"], "obs_phase", 1)}
+    rows = phase_times(runs, comp, serve, dev, torch, np, worst, bw)
     # the zoo's models take the card alone: only the rows stay
-    del comp, fsdp, serve, sync, psum, p2p, fleet, obs_run
+    del comp, fsdp, serve, sync, psum, p2p, fleet, obs_run, sampled, file_twins, roofline, \
+        strategies, runs
     merge_zoo(rows, phase_zoo(dev, torch, np, bw))
     print(f"card: {smi}")
     print(json.dumps({"kernels": rows}))

@@ -4,7 +4,8 @@ torch port of ``repro.core.calibrate``.
 The packed width ``W`` and the exception capacity are chosen from observed
 exponent statistics (:func:`choose_width`, the host ``Compressor``'s probe
 when no plan gives the width; :func:`choose_delta_widths` for the XOR-delta
-wire) or taken from a :class:`CompressionProfile`.
+wire; :func:`calibrate_tree` for a tree of live tensors) or taken from a
+:class:`CompressionProfile`.
 The in-wire ``overflow`` flag catches a width that turned out too small.
 """
 from __future__ import annotations
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import codec, packing
+from repro_torch.tree_util import tree_leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,3 +129,17 @@ class CompressionProfile:
 
     def width_for(self, tensor_class: str) -> int:
         return self.widths.get(tensor_class, max(self.widths.values()))
+
+
+def calibrate_tree(tree, *, tensor_class: str = "gradient", block: int = 512,
+                   **kw) -> CompressionProfile:
+    """One width for ``tensor_class`` from a tree of live tensors (e.g. the
+    first step's gradients): the largest :func:`choose_width` over the
+    leaves of a codec format (``kw`` passes on to it), 8 when there is
+    none."""
+    floats = {lay.dtype for lay in codec.LAYOUTS.values()}
+    widths = [choose_width(leaf, block=block, **kw).width
+              for leaf in tree_leaves(tree)
+              if hasattr(leaf, "dtype") and leaf.dtype in floats]
+    w = max(widths) if widths else 8
+    return CompressionProfile(widths={tensor_class: w}, block=block)

@@ -6,6 +6,11 @@ arithmetic runs on the raw bit pattern held in a signed integer dtype
 (torch's unsigned 16/32-bit dtypes lack shifts and min/max on the CPU),
 masked after every right shift, so no float operation ever touches a value:
 NaN payloads, infinities and subnormals round-trip exactly.
+
+For fp8 formats the paper packs two exponent fields per byte (or per 16-bit
+unit) for byte-granular split-stage writes; :func:`pack_fp8_exp_pairs`
+mirrors that on the raw-wire path.  :func:`plane_fractions` gives each
+plane's share of the raw size.
 """
 from __future__ import annotations
 
@@ -195,3 +200,48 @@ def pad_flat_bits(x: torch.Tensor, multiple: int) -> torch.Tensor:
     lay = layout_of(x.dtype)
     bits = x.view(lay.bits_dtype)
     return torch.cat([bits, bits.new_zeros((r,))]).view(lay.dtype)
+
+
+# ---------------------------------------------------------------------------
+# fp8 exponent pair packing (paper §4.1: "pack two FP8 values into a single
+# 16-bit unit and jointly extract their exponent fields")
+# ---------------------------------------------------------------------------
+
+def pack_fp8_exp_pairs(exp: torch.Tensor, exp_bits: int) -> torch.Tensor:
+    """Pack two fp8 exponent fields a lane: uint8 ``(ceil(n/2),)`` for
+    ``exp_bits <= 4`` (e4m3), else each pair a 16-bit unit stored
+    little-endian as uint8 ``(2 ceil(n/2),)`` (e5m2).  An odd ``n`` gets a
+    zero partner.  Computed in int32, as the reference's unsigned shifts
+    truncated to the unit's width."""
+    e = exp.reshape(-1).to(torch.int32)
+    if e.shape[0] % 2:
+        e = torch.cat([e, e.new_zeros(1)])
+    e2 = e.reshape(-1, 2)
+    pk = e2[:, 0] | (e2[:, 1] << exp_bits)
+    if exp_bits <= 4:
+        return (pk & 0xFF).to(torch.uint8)
+    pk = pk & 0xFFFF
+    return torch.stack([pk & 0xFF, pk >> 8], dim=-1).reshape(-1).to(torch.uint8)
+
+
+def unpack_fp8_exp_pairs(packed: torch.Tensor, exp_bits: int, n: int) -> torch.Tensor:
+    """Inverse of :func:`pack_fp8_exp_pairs`: uint8 ``(n,)``."""
+    mask = (1 << exp_bits) - 1
+    p = packed.reshape(-1).to(torch.int32)
+    if exp_bits > 4:
+        p = p.reshape(-1, 2)
+        p = p[:, 0] | (p[:, 1] << 8)
+    lo_e, hi_e = p & mask, (p >> exp_bits) & mask
+    return torch.stack([lo_e, hi_e], dim=-1).reshape(-1)[:n].to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# plane-size accounting (the policy, the roofline, the benchmarks)
+# ---------------------------------------------------------------------------
+
+def plane_fractions(dtype) -> tuple[float, float]:
+    """``(uncompressed_fraction, compressible_fraction)`` of the raw size:
+    the lo plane's bits and the exponent's over the format's width (paper
+    Property 2: bf16 -> (0.5, 0.5); f32 -> (0.75, 0.25))."""
+    lay = layout_of(dtype)
+    return lay.lo_bits / lay.total_bits, lay.exp_bits / lay.total_bits

@@ -37,40 +37,43 @@ def crc32_bytes(data: bytes, seed: int = 0) -> int:
     return zlib.crc32(data, seed & 0xFFFFFFFF)
 
 
+def tree_chunks(obj):
+    """The byte chunks of every array/scalar reachable from ``obj``, in a
+    fixed order: what :func:`crc32_tree` hashes.
+
+    Walks tuples/lists/dicts/dataclasses natively (the host wire's message
+    type ``p2p.engine.Message`` is a dataclass), giving each ndarray's
+    dtype, shape and bytes and each scalar/str's repr.  Two payloads give
+    equal chunks iff their bits agree."""
+    if obj is None or isinstance(obj, (bool, int, float, str)):
+        yield repr(obj).encode()
+    elif isinstance(obj, bytes):
+        yield obj
+    elif isinstance(obj, (list, tuple)):
+        for x in obj:
+            yield from tree_chunks(x)
+    elif isinstance(obj, dict):
+        for k in sorted(obj, key=repr):
+            yield from tree_chunks(k)
+            yield from tree_chunks(obj[k])
+    elif hasattr(obj, "shape") and hasattr(obj, "dtype"):
+        arr = np.ascontiguousarray(np.asarray(obj))  # device -> host view
+        yield str(arr.dtype).encode()
+        yield repr(arr.shape).encode()
+        yield arr.tobytes()
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        for f in dataclasses.fields(obj):
+            yield from tree_chunks(getattr(obj, f.name))
+    else:
+        yield repr(obj).encode()
+
+
 def crc32_tree(obj, seed: int = 0) -> int:
-    """CRC-32 over every array/scalar reachable from ``obj``.
-
-    Walks tuples/lists/dicts/dataclasses natively (the host wire's
-    message type ``p2p.engine.Message`` is a dataclass), hashing each ndarray's dtype+shape+bytes and each scalar/str's
-    repr.  Deterministic for a given payload, so sender and receiver
-    agree iff the bits agree."""
+    """CRC-32 over :func:`tree_chunks` of ``obj``.  Deterministic for a
+    given payload, so sender and receiver agree iff the bits agree."""
     c = seed & 0xFFFFFFFF
-
-    def visit(o):
-        nonlocal c
-        if o is None or isinstance(o, (bool, int, float, str)):
-            c = zlib.crc32(repr(o).encode(), c)
-        elif isinstance(o, bytes):
-            c = zlib.crc32(o, c)
-        elif isinstance(o, (list, tuple)):
-            for x in o:
-                visit(x)
-        elif isinstance(o, dict):
-            for k in sorted(o, key=repr):
-                visit(k)
-                visit(o[k])
-        elif hasattr(o, "shape") and hasattr(o, "dtype"):
-            arr = np.ascontiguousarray(np.asarray(o))  # device -> host view
-            c = zlib.crc32(str(arr.dtype).encode(), c)
-            c = zlib.crc32(repr(arr.shape).encode(), c)
-            c = zlib.crc32(arr.tobytes(), c)
-        elif dataclasses.is_dataclass(o) and not isinstance(o, type):
-            for f in dataclasses.fields(o):
-                visit(getattr(o, f.name))
-        else:
-            c = zlib.crc32(repr(o).encode(), c)
-
-    visit(obj)
+    for chunk in tree_chunks(obj):
+        c = zlib.crc32(chunk, c)
     return c
 
 

@@ -4,10 +4,13 @@
 Compression applies only to codec-supported floats above ``min_bytes``
 (paper: 1 MB) on data-parallel wires.  Every compressed collective records a
 :class:`WireReport` with its raw and wire bytes into the innermost open
-:func:`capture_wire_reports` of its thread.
+:func:`capture_wire_reports` of its thread, or, outside any capture, into
+the module ledger that :func:`wire_reports` reads and
+:func:`clear_wire_reports` empties.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import threading
@@ -105,10 +108,14 @@ class WireReport:
         return self.wire_bytes / max(self.raw_bytes, 1)
 
 
-# A stack of capture sinks per thread, so a capture opened in one thread
-# never swallows another thread's reports.  A report made outside any
-# capture is dropped: every eager call records one, so a process-wide list
-# would grow with every step.
+# The module ledger, shared by every thread: a report made outside any
+# capture lands here, as in the reference.  The reference records once per
+# jit trace, the port once per call, so the ledger keeps only the newest
+# WIRE_LEDGER_CAP reports (a long run would otherwise grow it every step).
+# Captures stack per thread, so a capture opened in one thread never
+# swallows another thread's reports.
+WIRE_LEDGER_CAP = 1 << 14
+_WIRE_REPORTS: collections.deque = collections.deque(maxlen=WIRE_LEDGER_CAP)
 _SINK_STACKS = threading.local()
 
 
@@ -120,14 +127,26 @@ def _sinks() -> list:
 
 
 def record_wire_report(report: WireReport) -> None:
+    """Append a report to the calling thread's innermost capture, else to
+    the module ledger (called by the collectives)."""
     stack = _sinks()
-    if stack:
-        stack[-1].append(report)
+    (stack[-1] if stack else _WIRE_REPORTS).append(report)
+
+
+def clear_wire_reports() -> None:
+    _WIRE_REPORTS.clear()
+
+
+def wire_reports() -> tuple:
+    """The ledger's reports (recorded outside any capture since the last
+    clear, the newest ``WIRE_LEDGER_CAP`` of them), in emission order."""
+    return tuple(_WIRE_REPORTS)
 
 
 @contextlib.contextmanager
 def capture_wire_reports():
-    """Collect the calling thread's wire reports into a list."""
+    """Collect the calling thread's wire reports into a list; they do not
+    reach the module ledger.  Nestable."""
     sink: list = []
     stack = _sinks()
     stack.append(sink)

@@ -132,7 +132,7 @@ def build(arch: str | ArchConfig, *, batch: int, seq: int, rcfg: RunnerConfig,
           compress: bool = True, smoke: bool = False, device="cuda", seed: int = 0,
           lr: float = 3e-4, warmup: int = 20, optimizer: str = "adamw",
           compress_min_bytes: int = 0, partition: str = "zero1", microbatches: int = 1,
-          group=None) -> tuple:
+          group=None, data_path: str | None = None) -> tuple:
     """``(state, tcfg, runner, plan_cache)``: the random init of ``arch``
     (a name: its config, or with ``smoke`` its SMOKE config; or an
     ``ArchConfig`` as it is) made from ``seed``, its train config, and a
@@ -141,7 +141,8 @@ def build(arch: str | ArchConfig, *, batch: int, seq: int, rcfg: RunnerConfig,
     microbatches) and whose fallback is the compression-disabled one (none
     when the run is uncompressed); both replay their plans from
     ``plan_cache``.  ``group`` is the data-parallel process group (default:
-    the world).  An encoder-decoder config raises ValueError: the pipeline
+    the world).  ``data_path`` reads the batches from a token file (the
+    pipeline's ``file`` backend) in place of synthetic tokens.  An encoder-decoder config raises ValueError: the pipeline
     makes no frames (the reference's launcher feeds none either)."""
     dev = kernels.resolve_device(device)
     if isinstance(arch, ArchConfig):
@@ -167,7 +168,8 @@ def build(arch: str | ArchConfig, *, batch: int, seq: int, rcfg: RunnerConfig,
         cfg, tcfg, generator=torch.Generator().manual_seed(seed), group=group,
         device=dev)
     pipe = DataPipeline(
-        DataConfig(vocab=cfg.vocab, global_batch=batch, seq_len=seq, seed=seed),
+        DataConfig(vocab=cfg.vocab, global_batch=batch, seq_len=seq, seed=seed,
+                   kind="synthetic" if data_path is None else "file", path=data_path),
         process_index=dist.get_rank(group),
         process_count=dist.get_world_size(group))
     runner = StepRunner(_plan_step(tcfg, group, dev, plan_cache), fallback, rcfg,
@@ -179,7 +181,8 @@ def train(arch: str | ArchConfig, *, steps: int, batch: int, seq: int,
           compress: bool = True, smoke: bool = False, device="cuda", seed: int = 0,
           lr: float = 3e-4, warmup: int = 20, optimizer: str = "adamw",
           compress_min_bytes: int = 0, partition: str = "zero1", microbatches: int = 1,
-          group=None, rcfg: RunnerConfig = None, resume: bool = False, log=None) -> TrainRun:
+          group=None, rcfg: RunnerConfig = None, resume: bool = False, log=None,
+          data_path: str | None = None) -> TrainRun:
     """Train ``steps`` steps of ``partition`` through the StepRunner of :func:`build`
     (``rcfg``: its checkpoint, heartbeat and straggler settings; by default
     checkpoints go to a temporary directory that the run removes).
@@ -193,7 +196,7 @@ def train(arch: str | ArchConfig, *, steps: int, batch: int, seq: int,
             arch, batch=batch, seq=seq, rcfg=rcfg, compress=compress, smoke=smoke,
             device=device, seed=seed, lr=lr, warmup=warmup, optimizer=optimizer,
             compress_min_bytes=compress_min_bytes, partition=partition,
-            microbatches=microbatches, group=group)
+            microbatches=microbatches, group=group, data_path=data_path)
         start = 0
         if resume:
             resumed, start = runner.try_resume(state, device=device)
@@ -231,6 +234,8 @@ def main(argv=None):
     ap.add_argument("--heartbeat", default=None)
     ap.add_argument("--sigterm", action="store_true")
     ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--data-path", default=None,
+                    help="token file (raw uint16, uint32 above a 65535 vocabulary)")
     args = ap.parse_args(argv)
 
     rcfg = RunnerConfig(ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
@@ -242,7 +247,7 @@ def main(argv=None):
                     lr=args.lr, warmup=args.warmup, optimizer=args.optimizer,
                     compress_min_bytes=args.compress_min_bytes,
                     partition=args.partition, microbatches=args.microbatches, rcfg=rcfg,
-                    resume=args.resume, log=print)
+                    resume=args.resume, log=print, data_path=args.data_path)
     print(f"final loss {run.losses[-1]:.4f} | stragglers {run.runner.stragglers} | "
           f"retries {run.retries} | compressed={not args.no_compress} | "
           f"partition={args.partition}")

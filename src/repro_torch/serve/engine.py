@@ -17,7 +17,12 @@ between decode steps; ``ingest_weights`` hot-swaps the model's weights from
 the weight-sync wire (``sync/engine.py``).  The reference's semantics are
 kept where they look odd: one engine-wide ``pos = max(slot pos)`` per decode step, prompts
 left-padded with zeros to a multiple of ``prefill_chunk``, and the splice
-of an admitted cache on the stacked dimension 1.  Sampling is greedy.
+of an admitted cache on the stacked dimension 1.  Sampling is greedy at
+temperature 0; above it, a categorical draw from a generator on the
+engine's device, seeded with 0 (as the reference seeds
+``PRNGKey(0)``), one draw a :func:`sample` call in the reference's order
+(each admission's prefill, then each decode step).  JAX's random stream
+cannot be matched, so the draws are the port's own.
 
 Observability (``obs``): the ``serve:admit``, ``serve:prefill``,
 ``serve:kv_ship`` and ``serve:decode_step`` spans, the queue, slot and
@@ -45,7 +50,7 @@ from repro_torch.tree_util import tree_flatten, tree_leaves
 class ServeConfig:
     batch_slots: int = 8
     max_len: int = 256
-    temperature: float = 0.0  # 0 = greedy, the only mode ported so far
+    temperature: float = 0.0  # 0 = greedy
     eos_token: int = -1  # -1 = never stops early
     prefill_chunk: int = 64  # pad prompts to a multiple of this
     # PD-disaggregation boundary: admitted caches cross prefill -> decode
@@ -53,12 +58,24 @@ class ServeConfig:
     pd_disaggregated: bool = False
 
 
-def sample(logits: torch.Tensor, temperature: float) -> torch.Tensor:
-    """Greedy: the first index of the largest logit, int32."""
-    if temperature > 0.0:
-        raise NotImplementedError("sampling at temperature > 0 is not ported; "
-                                  "greedy (temperature 0) is")
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+def sample(logits: torch.Tensor, temperature: float,
+           generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Token ids (int32) over the last axis of ``logits``.  At temperature 0
+    greedy: the first index of the largest logit.  Above it, one draw from
+    ``softmax(logits / temperature)`` in f32 by the Gumbel-max rule (the
+    rule ``jax.random.categorical`` uses), with uniforms from ``generator``
+    on the logits' device, which the draw needs; the logits never leave
+    their device."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    if generator is None:
+        raise ValueError("sampling at temperature > 0 needs a torch.Generator")
+    scaled = logits.to(torch.float32) / temperature
+    u = torch.rand(scaled.shape, generator=generator, device=scaled.device,
+                   dtype=torch.float32)
+    tiny = torch.finfo(torch.float32).tiny
+    gumbel = -torch.log(-torch.log(u.clamp_min(tiny)))
+    return torch.argmax(scaled + gumbel, dim=-1).to(torch.int32)
 
 
 @dataclasses.dataclass
@@ -77,13 +94,15 @@ class ServeEngine:
     masked and refilled between steps.  Per-slot KV caches live inside one
     batched cache; admission writes a freshly prefilled single-request cache
     into its slot (in place).  ``model`` is a ``transformer.Transformer``;
-    the engine runs on its device."""
+    the engine runs on its device.  ``generator`` is the sampler's
+    generator (used at temperature > 0), seeded with 0."""
 
     def __init__(self, cfg: ArchConfig, model: transformer.Transformer,
                  scfg: ServeConfig, *, kv_policy=None, kv_plan_cache=None,
                  kv_codec: str = "packed"):
         self.cfg, self.model, self.scfg = cfg, model, scfg
         self.device = model.params["embed"].device
+        self.generator = torch.Generator(self.device).manual_seed(0)
         self.kv_policy = kv_policy
         self.kv_plan_cache = kv_plan_cache
         self.kv_compressor = None
@@ -208,7 +227,7 @@ class ServeEngine:
                         one_cache)
                 if self.scfg.pd_disaggregated:
                     one_cache = self._ship_kv(one_cache)
-                nxt = sample(logits[:, -1], self.scfg.temperature)
+                nxt = sample(logits[:, -1], self.scfg.temperature, self.generator)
                 self._splice_impl(self.cache, one_cache, s)
                 self.tokens[s, 0] = nxt[0]
                 req.out.append(int(nxt[0]))
@@ -292,7 +311,7 @@ class ServeEngine:
                                              device=self.device)
             logits, self.cache = transformer.decode_step(self.model, self.tokens,
                                                          self.cache)
-            nxt = sample(logits[:, -1], self.scfg.temperature)
+            nxt = sample(logits[:, -1], self.scfg.temperature, self.generator)
             self.tokens = nxt[:, None]
             host = nxt.cpu().numpy()
             produced = 0

@@ -43,7 +43,7 @@ from repro_torch.core.policy import CompressionPolicy
 from repro_torch.obs import drift as drift_lib
 from repro_torch.obs import regret as regret_lib
 from repro_torch.p2p.engine import host_array
-from repro_torch.sched.compile import cached_wsync_plan
+from repro_torch.sched.compile import P2P_STRATEGIES, cached_wsync_plan
 from repro_torch.sched.plan import PATH_COMPRESSED
 from repro_torch.sync.store import VersionedStore
 from repro_torch.tree_util import tree_flatten, tree_unflatten
@@ -212,12 +212,24 @@ def verify_update(update: SyncUpdate) -> bool:
 
 
 class WeightSyncEngine:
-    """Trainer-side weight-sync engine with versioned XOR-delta encoding."""
+    """Trainer-side weight-sync engine with versioned XOR-delta encoding.
+
+    ``strategy`` (a P2P strategy of ``core/split_send``: "split_send", the
+    reference's default, "encode_send" or "chunked") is the one the
+    engine's ``wsync`` plans are compiled under; it enters their key and
+    ``CommPlan.strategy``, which the in-mesh wire reads.  The host wire's
+    bytes are the same under every strategy.  An unknown one raises
+    ValueError."""
 
     def __init__(self, *, policy: CompressionPolicy = None, axis_name: str = "data",
-                 history: int = 4, plan_cache=None) -> None:
+                 strategy: str = "split_send", history: int = 4,
+                 plan_cache=None) -> None:
+        if strategy not in P2P_STRATEGIES:
+            raise ValueError(f"unknown P2P strategy {strategy!r}; expected one of "
+                             f"{P2P_STRATEGIES}")
         self.policy = CompressionPolicy() if policy is None else policy
         self.axis_name = axis_name
+        self.strategy = strategy
         self.store = VersionedStore(history=history)
         self.plan_cache = plan_cache
         # encoded updates of the LATEST version, keyed by (base version,
@@ -256,7 +268,8 @@ class WeightSyncEngine:
         (what ``_encode_update`` asks for) the bucket schedule is the same
         under every topology: forwarding never changes the bits."""
         return cached_wsync_plan(params, self.axis_name, policy=self.policy,
-                                 n_dev=1, broadcast=broadcast, fanout=fanout,
+                                 n_dev=1, strategy=self.strategy,
+                                 broadcast=broadcast, fanout=fanout,
                                  n_receivers=n_receivers, cache=self.plan_cache)
 
     def update_for(self, replica, *, force: Optional[str] = None) -> SyncUpdate:

@@ -274,7 +274,7 @@ class SyncFleet:
             restored, _ = ckpt.restore(state_like, device=self.device)
             old = self.engine
             self.engine = WeightSyncEngine(policy=old.policy, axis_name=old.axis_name,
-                                           history=self.cfg.history,
+                                           strategy=old.strategy, history=self.cfg.history,
                                            plan_cache=old.plan_cache)
             self.engine.store = VersionedStore.from_state_dict(restored,
                                                                history=self.cfg.history)

@@ -187,7 +187,8 @@ def test_wire_reports_go_to_the_innermost_capture_of_their_thread():
     import threading
 
     rep = policy.WireReport(name="x", axis="gloo:1", raw_bytes=8, wire_bytes=4)
-    policy.record_wire_report(rep)  # no capture open: dropped
+    policy.clear_wire_reports()
+    policy.record_wire_report(rep)  # no capture open: the module ledger
     with policy.capture_wire_reports() as outer:
         policy.record_wire_report(rep)
         with policy.capture_wire_reports() as inner:
@@ -197,3 +198,6 @@ def test_wire_reports_go_to_the_innermost_capture_of_their_thread():
             t.join(10)
             assert not t.is_alive()
     assert outer == [rep] and inner == [rep] and rep.ratio == 0.5
+    # the ledger holds the uncaptured report and the other thread's
+    assert policy.wire_reports() == (rep, rep)
+    policy.clear_wire_reports()

@@ -1097,3 +1097,69 @@ def test_jamba_pd_admission_ships_its_f32_state_bit_identical(cuda):
     assert all(t.is_cuda for _, t in transformer.tree_paths(back))
     assert counts["pack"] == counts["unpack"] == 2 * len(leaves)
     assert plan.width_for_dtype("float32") is not None
+
+
+def test_sampling_on_the_card_is_seeded_and_follows_softmax(cuda):
+    """Sampling at temperature > 0 with a CUDA generator: the draws stay on
+    the card, are int32, repeat under one seed and part under another, and
+    20 000 of them over a vocabulary of 8 pass the chi-square test against
+    ``softmax(logits / T)`` at p = 0.001 (7 degrees of freedom)."""
+    from repro_torch.serve.engine import sample
+
+    logits = torch.tensor([2.0, 1.0, 0.5, 0.0, -0.5, -1.0, 1.5, 0.25], device=cuda)
+    n, temperature = 20_000, 0.8
+    lg = logits.expand(n, 8).to(torch.bfloat16)
+    draw = lambda seed: sample(lg, temperature,  # noqa: E731
+                               torch.Generator(cuda).manual_seed(seed))
+    a, b, c = draw(0), draw(0), draw(1)
+    assert a.is_cuda and a.dtype == torch.int32 and a.shape == (n,)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    p = torch.softmax(lg[0].float() / temperature, -1).cpu().numpy().astype(np.float64)
+    counts = np.bincount(a.cpu().numpy(), minlength=8)
+    chi2 = float(((counts - n * p) ** 2 / (n * p)).sum())
+    assert chi2 < 24.322, (chi2, counts, n * p)
+    assert torch.equal(sample(lg, 0.0), torch.argmax(lg, -1).to(torch.int32))
+
+
+def test_collective_bytes_read_a_trace_of_nccl_collectives(cuda):
+    """A torch.profiler trace (CPU and CUDA activity, record_shapes) of NCCL
+    collectives at one rank: ``collective_bytes`` gives each kind's operand
+    bytes, the all-reduce's tensor list typed by NCCL's record_param_comms."""
+    import json
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.train import single_process_group
+    from repro_torch.roofline import analysis
+
+    with single_process_group(cuda), tempfile.TemporaryDirectory() as tmp:
+        def run():
+            dist.all_reduce(torch.ones(1000, dtype=torch.bfloat16, device=cuda))
+            dist.all_reduce(torch.ones(3, dtype=torch.float32, device=cuda))
+            dist.all_gather_into_tensor(torch.empty(1000, device=cuda),
+                                        torch.ones(1000, device=cuda))
+            dist.reduce_scatter_tensor(torch.empty(600, dtype=torch.int32, device=cuda),
+                                       torch.ones(600, dtype=torch.int32, device=cuda))
+            dist.all_to_all_single(torch.empty(256, dtype=torch.uint8, device=cuda),
+                                   torch.zeros(256, dtype=torch.uint8, device=cuda))
+            cc.raw_ppermute(torch.ones(300, dtype=torch.bfloat16, device=cuda), None,
+                            [(0, 0)])
+            torch.cuda.synchronize()
+
+        run()  # NCCL's communicator is made on the first call
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            run()
+        path = f"{tmp}/t.json"
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            text = f.read()
+    got = analysis.collective_bytes(text)
+    assert got["bytes"] == {"all-reduce": 2000 + 12, "all-gather": 4000,
+                            "reduce-scatter": 2400, "all-to-all": 256,
+                            "collective-permute": 600}, got
+    assert got["counts"] == {"all-reduce": 2, "all-gather": 1, "reduce-scatter": 1,
+                             "all-to-all": 1, "collective-permute": 1}
+    assert any(e.get("name") == "record_param_comms" for e in json.loads(text)["traceEvents"])

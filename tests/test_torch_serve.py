@@ -33,7 +33,7 @@ from repro_torch.models import transformer
 from repro_torch.p2p.engine import Compressor
 from repro_torch.sched.cache import PlanCache
 from repro_torch.serve import kv_transfer
-from repro_torch.serve.engine import Request, ServeConfig, ServeEngine
+from repro_torch.serve.engine import Request, ServeConfig, ServeEngine, sample
 from repro_torch.tree_util import tree_leaves
 from torch_port_util import assert_bits_equal, np_of
 
@@ -219,10 +219,11 @@ def test_serve_cli_on_the_cpu_launches_no_kernel(capsys):
 
 def test_serving_refuses_a_missing_gpu_and_sampling_at_temperature(models, monkeypatch):
     cfg, model, _, _ = models
-    with pytest.raises(NotImplementedError, match="temperature"):
-        _serve(ServeEngine, Request, cfg, model,
-               ServeConfig(batch_slots=1, max_len=MAX_LEN, prefill_chunk=CHUNK,
-                           temperature=0.7), _prompts(cfg.vocab)[:1])
+    # sampling at temperature > 0 needs the engine's generator: a bare call
+    # without one is refused
+    logits = torch.zeros((1, cfg.vocab))
+    with pytest.raises(ValueError, match="temperature > 0 needs a torch.Generator"):
+        sample(logits, 0.7)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         transformer.init_cache(cfg, 1, 8)
