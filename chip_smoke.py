@@ -75,7 +75,8 @@ result line each:
             draws from one request's logits give softmax's mean logit
             within 5 standard errors; the PD run launches pack and unpack
             4 a request.
-4. main   - smollm_135m at full width, ZeRO-1 on a single-rank NCCL group,
+4. main   - smollm_135m at full width, ZeRO-1 on a single-rank NCCL group
+            through the launcher's (pod, data, model) = (1, 1, 1) mesh,
             batch 8 x seq 512: 3 compressed steps, then 3 steps of the raw
             twin from the same weights, each run replaying its zero1 plan
             (1 miss, then 2 hits in the run's plan cache; one consolidated
@@ -93,7 +94,14 @@ result line each:
             (save and restore ms).  The run's plans are saved beside the
             checkpoint (CheckpointManager.save_plans) and restored into a
             fresh PlanCache; the resumed step replays its zero1 plan from
-            it: 0 misses, 1 hit.  Then
+            it: 0 misses, 1 hit.  The mesh part (phase_mesh, no launches):
+            the spec-derived per-device bytes of smollm's parameters and
+            ZeRO-1 state on the mesh equal the card's; the checkpoint
+            (the reference's global layout) restored onto a new (1, 1, 1)
+            mesh through ElasticController.rescale bit-identical; one
+            `mesh_layouts:` line of the 11 archs' per-device parameter
+            (training and serving specs), ZeRO-1 state and KV cache (8 x
+            4096) bytes at (16, 16) and (2, 16, 16).  Then
             where a compressed step's time goes: forward+backward and each
             wire phase beside its raw twin (host clock, synchronised).
             Forward+backward is timed with each layer rematerialised (the
@@ -138,7 +146,8 @@ result line each:
             clock to a device sync, median of 5), the wire ratio, and the
             card's name and power limit.
 4b. fsdp  - smollm_135m at full width, compressed FSDP (partition="fsdp", 2
-            microbatches, remat) on a new single-rank NCCL group, batch 8 x
+            microbatches, remat) on a new single-rank NCCL group through a
+            (1, 1, 1) mesh, batch 8 x
             seq 512: 3 compressed steps, then 3 of the raw twin from the same
             weights, through the launcher's StepRunner.  The 7 stacked
             projections and the embedding are sharded (fsdp_min_bytes 1
@@ -1243,19 +1252,23 @@ def phase_main(dev, torch):
     from repro_torch.runtime.fault_tolerance import RunnerConfig
     from repro_torch.train import step as step_lib
 
+    from repro_torch.launch import mesh as mesh_lib
+
     runs = {}
     tmp = tempfile.TemporaryDirectory(prefix="main_ckpt_")
     hb = os.path.join(tmp.name, "heartbeat.json")
     # the compressed run checkpoints the state after its last step, once
     rcfg = RunnerConfig(ckpt_dir=tmp.name, ckpt_every=STEPS - 1, heartbeat_path=hb)
     with launch_train.single_process_group(dev) as group, tmp:
+        # the launcher's mesh: (pod, data, model) = (1, 1, 1) over the world
+        mesh = mesh_lib.make_mesh((1, 1, 1), ("pod", "data", "model"), device=dev)
         n_dp = torch.distributed.get_world_size(group)
         for compress in (True, False):
             with recorded_inputs(torch) as inputs, checkpoint_writes() as writes:
                 kernels.clear_launch_counts()
                 runs[compress] = launch_train.train(
                     ARCH, steps=STEPS, batch=BATCH, seq=SEQ, compress=compress,
-                    device=dev, seed=SEED, group=group, rcfg=rcfg if compress else None)
+                    device=dev, seed=SEED, mesh=mesh, rcfg=rcfg if compress else None)
                 runs[compress].launches = kernels.launch_counts()
             runs[compress].recorded = (inputs, shape_tallies())
             runs[compress].ckpt_write_ms = writes
@@ -1290,8 +1303,9 @@ def phase_main(dev, torch):
                 r.wire_bytes != plan.wire_bytes for r in comp.wire_reports):
             raise AssertionError(f"wire reports {comp.wire_reports} of plan {plan.summary()}")
         (pair,) = plan.buckets
-        print(f"main: {ARCH} full width, ZeRO-1 n_dp={n_dp}, batch {BATCH} x seq {SEQ}, "
-              f"bucket n={comp.state.meta.padded[0]}")
+        print(f"main: {ARCH} full width, ZeRO-1 n_dp={n_dp} over the mesh "
+              f"{mesh_lib.axis_sizes(mesh)} (sync axes {comp.state.axes}), batch {BATCH} x "
+              f"seq {SEQ}, bucket n={comp.state.meta.padded[0]}")
         print(f"  compressed losses {comp.losses} step_ms "
               f"{[round(t, 1) for t in comp.step_ms]} retries {comp.retries}")
         print(f"  raw twin   losses {raw.losses} step_ms {[round(t, 1) for t in raw.step_ms]}")
@@ -1301,6 +1315,7 @@ def phase_main(dev, torch):
               f"{comp.wire_reports[0].ratio:.4f}); launches {comp.launches}; "
               f"losses and final parameter bytes identical")
         phase_checkpoint(comp, group, hb, dev, torch)
+        phase_mesh(comp, mesh, dev, torch)
         phase_breakdown(comp, group, dev, torch)
         psum = phase_psum(comp, group, dev, torch)
         file_twins = phase_file_twins(group, dev, torch)
@@ -1562,6 +1577,68 @@ def phase_checkpoint(comp, group, hb, dev, torch):
           f"({restore_plans_ms:.2f} ms); the resumed step compiled 0 plans (0 misses, 1 hit) "
           f"and gave the live step's loss and bits")
     del live, restored
+
+
+def phase_mesh(comp, mesh, dev, torch):
+    """The mesh layer on the card, arithmetic and a restore (no kernel
+    launches): smollm's spec-derived per-device parameter and ZeRO-1 state
+    bytes on the run's (1, 1, 1) mesh equal the bytes of the main run's
+    model and optimizer state on the card; the main run's checkpoint (the
+    reference's global layout) restored onto the mesh with
+    ``restore(shardings=)`` through ``ElasticController.rescale(...,
+    n_devices=1)`` gives its train state bit for bit; then each of the 11
+    archs' per-device parameter, ZeRO-1 state and KV cache (batch 8 x 4096)
+    bytes at (16, 16) and (2, 16, 16), laid out on abstract meshes (no
+    allocation; what the dry run checks against)."""
+    from repro_torch import configs
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.runtime.fault_tolerance import ElasticController
+    from repro_torch.serve import sharding
+    from repro_torch.train import step as step_lib
+    from repro_torch.tree_util import bits_equal, tree_leaves
+
+    t0 = time.perf_counter()
+    cfg, tcfg, state = configs.get(ARCH), comp.tcfg, comp.state
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
+    struct, specs = step_lib.abstract_train_state(cfg, tcfg, mesh)
+    want = {"params": nbytes(state.model.leaves()), "zero1 state": nbytes(tree_leaves(state.opt))}
+    got = {"params": mesh_lib.shard_bytes((struct["params"], specs["params"]), mesh),
+           "zero1 state": mesh_lib.shard_bytes((struct["opt"], specs["opt"]), mesh)}
+    if got != want:
+        raise AssertionError(f"per-device bytes from the specs {got}, on the card {want}")
+    ctl = ElasticController(
+        lambda n: mesh_lib.make_mesh((1, n, 1), ("pod", "data", "model"), device=dev),
+        lambda m: step_lib.make_train_state_specs(cfg, tcfg, m))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    new_mesh, restored, step = ctl.rescale(comp.runner.ckpt, lambda m: state, 1, device=dev)
+    torch.cuda.synchronize()
+    rescale_ms = (time.perf_counter() - t1) * 1e3
+    if step != STEPS - 1 or restored.step != state.step or not bits_equal(
+            restored.tree(), state.tree()) or mesh_lib.axis_sizes(new_mesh) != \
+            mesh_lib.axis_sizes(mesh):
+        raise AssertionError(f"rescale onto {mesh_lib.axis_sizes(new_mesh)} gave step {step}, "
+                             f"bit-identical {bits_equal(restored.tree(), state.tree())}")
+    del restored
+    rows = {}
+    for shape, axes in ((16, 16), ("data", "model")), ((2, 16, 16), ("pod", "data", "model")):
+        am = mesh_lib.AbstractMesh(shape, axes)
+        for arch in configs.ARCHS:
+            acfg = configs.get(arch)
+            st, sp = step_lib.abstract_train_state(acfg, step_lib.TrainConfig(), am)
+            rows.setdefault(arch, {})["x".join(map(str, shape))] = {
+                "params": mesh_lib.shard_bytes((st["params"], sp["params"]), am),
+                "serve_params": mesh_lib.shard_bytes(sharding.abstract_params_sharded(
+                    acfg, am, sharding.serve_param_specs(acfg, am)), am),
+                "zero1_state": mesh_lib.shard_bytes((st["opt"], sp["opt"]), am),
+                "cache_8x4096": mesh_lib.shard_bytes(
+                    sharding.abstract_cache(acfg, am, 8, 4096), am)}
+    print(f"mesh: {ARCH} on {mesh_lib.axis_sizes(mesh)}: per-device bytes from the specs "
+          f"{got} = the card's; the main checkpoint rescaled onto the mesh through "
+          f"ElasticController in {rescale_ms:.1f} ms (sha256 verify, load, blocks, "
+          f"host-to-device), bit-identical; {time.perf_counter() - t0:.1f} s; "
+          f"card {run_card()}")
+    print("mesh_layouts: " + json.dumps(rows))
 
 
 # zoo phase: serve runs (requests, prompt tokens, new tokens, slots, cache
@@ -2378,18 +2455,20 @@ def phase_fsdp(main, dev, torch):
     each signature (unpack x 2 and the plain zero-escape merge)."""
     from repro_torch import kernels
     from repro_torch.core import compressed_collectives as cc
+    from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import train as launch_train
     from repro_torch.tree_util import bits_equal
 
     runs, t0 = {}, time.perf_counter()
     with launch_train.single_process_group(dev) as group:
+        mesh = mesh_lib.make_mesh((1, 1, 1), ("pod", "data", "model"), device=dev)
         n_dp = torch.distributed.get_world_size(group)
         for compress in (True, False):
             with recorded_inputs(torch) as inputs:
                 kernels.clear_launch_counts()
                 runs[compress] = launch_train.train(
                     ARCH, steps=STEPS, batch=BATCH, seq=SEQ, compress=compress,
-                    device=dev, seed=SEED, group=group, partition="fsdp",
+                    device=dev, seed=SEED, mesh=mesh, partition="fsdp",
                     microbatches=FSDP_MICRO)
                 runs[compress].launches = kernels.launch_counts()
             runs[compress].recorded = (inputs, shape_tallies())

@@ -21,10 +21,23 @@ from ``ml_dtypes``), so the port saves those tensors as their unsigned bits
 under the manifest's dtype name and views them back on restore; the
 reference's files hold such arrays as raw void bytes, which restore the
 same way.  A state that is not a tree but can be rebuilt from one (a
-``train.step.TrainState``: ``tree()`` and ``from_tree``) saves as its tree,
-and restores through ``state_like.from_tree``.
+``train.step.TrainState``: ``checkpoint_tree()``, ``global_like()`` and
+``from_tree``) saves as its checkpoint tree, and restores through
+``state_like.from_tree``: a train state at n ranks is gathered into the
+reference's global layout (a ZeRO-1 bucket leaf ``(n_dp, shard_len)``;
+FSDP's parameters whole and its optimizer leaves ``(n_dp, ...)``) on the
+host of rank 0, one row at a time, and written by rank 0 alone, so its
+files are the reference's at the same DP size.  A restore reads each leaf
+on the host, and only this rank's part of it reaches the device.
 
-Not ported yet: ``restore(shardings=)`` (with ``launch/mesh.py``).
+``restore(shardings=)`` places each stored global leaf on a mesh: a tree
+of ``(mesh, spec)`` pairs gives each rank its block of every leaf
+(``launch/mesh.block_of``).  A stored leaf whose shape differs from
+``state_like``'s raises ``ValueError``; the reference places such a leaf
+unchecked (a ZeRO-1 state rescaled to another DP size would come back
+with rows that no rank owns).  The one exception is a one-rank checkpoint
+of the per-rank layout the port wrote before it wrote the global one: a
+leaf stored without the leading 1 of its global shape restores as it.
 """
 from __future__ import annotations
 
@@ -62,9 +75,17 @@ def _tree_paths(tree, prefix: str = ""):
 
 
 def _tree_of(state):
-    """The tree a checkpoint holds for ``state``: its ``tree()`` when it can
-    be rebuilt from one (``from_tree``), else ``state`` itself."""
-    return state.tree() if hasattr(state, "from_tree") else state
+    """The tree a checkpoint writes for ``state``: its ``checkpoint_tree()``
+    when it can be rebuilt from one (``from_tree``; None on a rank that does
+    not write), else ``state`` itself."""
+    return state.checkpoint_tree() if hasattr(state, "from_tree") else state
+
+
+def like_tree(state_like):
+    """The tree a checkpoint holds for ``state_like``, its leaves' global
+    shapes: ``global_like()`` of a state rebuilt by ``from_tree``, else
+    ``state_like`` itself."""
+    return state_like.global_like() if hasattr(state_like, "from_tree") else state_like
 
 
 def _host(leaf) -> tuple:
@@ -107,17 +128,23 @@ class CheckpointManager:
 
     # -- save ---------------------------------------------------------------
 
-    def save(self, step: int, state) -> str:
+    def save(self, step: int, state) -> Optional[str]:
         """Write ``state`` (a tree of tensors and numpy arrays) as ``step``;
-        returns the checkpoint's directory."""
-        return self._write(step, [(n, *_host(leaf))
-                                  for n, leaf in _tree_paths(_tree_of(state))])
+        returns the checkpoint's directory (None on a rank that does not
+        write)."""
+        tree = _tree_of(state)
+        if tree is None:
+            return None
+        return self._write(step, [(n, *_host(leaf)) for n, leaf in _tree_paths(tree)])
 
     def save_async(self, step: int, state) -> None:
         """Copy ``state`` to the host now and write it in a background
         thread; :meth:`wait` joins it and raises its error, if any."""
         self.wait()  # one save in flight at a time
-        host = [(n, *_host(leaf)) for n, leaf in _tree_paths(_tree_of(state))]
+        tree = _tree_of(state)
+        if tree is None:
+            return
+        host = [(n, *_host(leaf)) for n, leaf in _tree_paths(tree)]
 
         def work():
             try:
@@ -207,14 +234,23 @@ class CheckpointManager:
                  if d.startswith("step_") and not d.endswith(".tmp")]
         return tuple(sorted(steps, reverse=True))
 
-    def restore(self, state_like, *, step: Optional[int] = None, device="cuda",
-                verify: bool = True):
+    def restore(self, state_like, *, step: Optional[int] = None, shardings=None,
+                device="cuda", verify: bool = True):
         """Load a checkpoint (the latest unless ``step``) into the structure
         of ``state_like``, every leaf a tensor on ``device`` (a state with
-        ``from_tree`` is rebuilt from the restored tree).  Returns (state,
-        step); a file whose sha256 differs from the manifest's raises
-        ``IOError``."""
-        from repro_torch.tree_util import tree_flatten, tree_unflatten
+        ``from_tree`` is rebuilt from the restored tree).  ``shardings``: a
+        tree of ``(mesh, spec)`` pairs, one a leaf of :func:`like_tree`, that
+        gives this rank its block of each stored global leaf.  A leaf is
+        read on the host and only this rank's part of it goes to ``device``.
+        Returns (state, step); a file whose sha256 differs from the
+        manifest's raises ``IOError``, a stored shape that differs from
+        ``state_like``'s ``ValueError``.  A leaf stored without the leading
+        1 of a one-rank global leaf (the per-rank layout of a one-rank
+        checkpoint written before the port wrote the global one) restores as
+        that ``(1, ...)`` leaf."""
+        from repro_torch.launch.mesh import block_of
+        from repro_torch.tree_util import (tree_flatten, tree_flatten_up_to, tree_map,
+                                           tree_unflatten)
 
         dev = kernels.resolve_device(device)
         if step is None:
@@ -224,13 +260,25 @@ class CheckpointManager:
         d = os.path.join(self.dir, f"step_{step:08d}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
-        like = _tree_of(state_like)
+        like = like_tree(state_like)
+        leaves, treedef = tree_flatten(like)
+        places = ([None] * len(leaves) if shardings is None
+                  else tree_flatten_up_to(treedef, shardings))
         out = []
-        for name, _ in _tree_paths(like):
+        for (name, leaf), place in zip(_tree_paths(like), places, strict=True):
             ent = manifest["files"][name]
+            stored, want = tuple(ent["shape"]), tuple(np.shape(leaf))
+            if stored != want and want != (1, *stored):
+                raise ValueError(f"{name} is stored as {stored}, the state holds {want}")
             path = os.path.join(d, ent["file"])
             if verify and _sha256(path) != ent["sha256"]:
                 raise IOError(f"checksum mismatch for {name} in {d}")
-            out.append(_restore(np.load(path), ent["dtype"], dev))
-        tree = tree_unflatten(tree_flatten(like)[1], out)
-        return (tree if like is state_like else state_like.from_tree(tree)), step
+            t = _restore(np.load(path), ent["dtype"], torch.device("cpu")).reshape(want)
+            if place is not None:
+                b = block_of(t, place[1], place[0])
+                t = b if b.numel() == t.numel() else b.clone(memory_format=torch.contiguous_format)
+            out.append(t)
+        tree = tree_unflatten(treedef, out)
+        if like is state_like:
+            return tree_map(lambda t: t.to(dev), tree), step
+        return state_like.from_tree(tree, device=dev), step

@@ -2,7 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm_135m \\
         --steps 3 --batch 8 --seq 512 [--partition {zero1,fsdp}] [--microbatches K] \\
-        [--no-compress] [--smoke] [--device cpu] \\
+        [--no-compress] [--smoke] [--device cpu] [--pods P] \\
         [--ckpt-dir DIR] [--ckpt-every N] [--heartbeat FILE] [--sigterm] [--resume]
 
 Wires together: config registry -> data pipeline -> the train step of the
@@ -19,7 +19,12 @@ state every ``--ckpt-every`` steps, a heartbeat file, counts stragglers,
 flushes a checkpoint on SIGTERM (``--sigterm``) and resumes from the newest
 good checkpoint (``--resume``).  Under ``torchrun`` the process group comes
 from the environment; otherwise a single-process group is made (NCCL on the
-GPU, gloo on the CPU).
+GPU, gloo on the CPU).  The CLI runs over a ``(pods, world // pods, 1)``
+mesh of ``("pod", "data", "model")`` (``--pods``, default 1): the steps
+sync over (pod, data) in pod-major rank order, and each rank reads the
+batch rows of its place in that order.  The reference's launcher builds
+its smoke mesh, which puts devices on 'model' too; the port runs no
+tensor parallelism, so its mesh keeps 'model' at 1.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ import torch.distributed as dist
 from repro_torch import configs, kernels
 from repro_torch.core.policy import CompressionPolicy, capture_wire_reports
 from repro_torch.data.pipeline import DataConfig, DataPipeline
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.config import ArchConfig
 from repro_torch.optim.optimizers import OptimConfig
 from repro_torch.runtime.fault_tolerance import RunnerConfig, StepRunner
@@ -114,11 +120,22 @@ class TrainRun:
     start_step: int = 0  # > 0 when the run resumed from a checkpoint
 
 
-def _plan_step(tcfg: step_lib.TrainConfig, group, dev, plan_cache: PlanCache):
-    """The StepRunner's step: the batch to ``dev``, then one step of
-    ``tcfg.partition`` replaying its plans from ``plan_cache``.  The train
-    state is updated in place (the overflow guard leaves it as it was)."""
+def dp_rows(batch: dict, index: int, count: int) -> dict:
+    """Rows ``index * b / count`` on of a global batch: the rows that
+    ``P(("pod", "data"), None)`` places on DP index ``index`` of ``count``."""
+    m = len(batch["tokens"]) // count
+    return {k: v[index * m:(index + 1) * m] for k, v in batch.items()}
+
+
+def _plan_step(tcfg: step_lib.TrainConfig, group, dev, plan_cache: PlanCache, rows=None):
+    """The StepRunner's step: the batch (its ``rows = (index, count)``
+    part, when given) to ``dev``, then one step of ``tcfg.partition``
+    replaying its plans from ``plan_cache`` over ``group`` (None: the
+    state's own).  The train state is updated in place (the overflow guard
+    leaves it as it was)."""
     def step(state, batch):
+        if rows is not None:
+            batch = dp_rows(batch, *rows)
         batch = {k: v.to(device=dev, dtype=torch.int64) for k, v in batch.items()}
         if tcfg.partition == "fsdp":
             return state, step_lib.fsdp_train_step(state, batch, tcfg, group=group,
@@ -132,7 +149,7 @@ def build(arch: str | ArchConfig, *, batch: int, seq: int, rcfg: RunnerConfig,
           compress: bool = True, smoke: bool = False, device="cuda", seed: int = 0,
           lr: float = 3e-4, warmup: int = 20, optimizer: str = "adamw",
           compress_min_bytes: int = 0, partition: str = "zero1", microbatches: int = 1,
-          group=None, data_path: str | None = None) -> tuple:
+          group=None, mesh=None, data_path: str | None = None) -> tuple:
     """``(state, tcfg, runner, plan_cache)``: the random init of ``arch``
     (a name: its config, or with ``smoke`` its SMOKE config; or an
     ``ArchConfig`` as it is) made from ``seed``, its train config, and a
@@ -141,7 +158,12 @@ def build(arch: str | ArchConfig, *, batch: int, seq: int, rcfg: RunnerConfig,
     microbatches) and whose fallback is the compression-disabled one (none
     when the run is uncompressed); both replay their plans from
     ``plan_cache``.  ``group`` is the data-parallel process group (default:
-    the world).  ``data_path`` reads the batches from a token file (the
+    the world), each rank drawing its own rows (``process_index``); a
+    ``mesh`` (``launch/mesh``) replaces it by the mesh's sync group
+    (``train.step.sync_group``), and each rank takes the rows of its DP
+    index in the global batch (:func:`dp_rows`), as the reference's
+    launcher places them; a batch that does not split evenly over those
+    indices raises ValueError.  ``data_path`` reads the batches from a token file (the
     pipeline's ``file`` backend) in place of synthetic tokens.  An encoder-decoder config raises ValueError: the pipeline
     makes no frames (the reference's launcher feeds none either)."""
     dev = kernels.resolve_device(device)
@@ -159,20 +181,26 @@ def build(arch: str | ArchConfig, *, batch: int, seq: int, rcfg: RunnerConfig,
         microbatches=microbatches, partition=partition, loss_chunk=min(1024, seq),
         policy=policy,
         optim=OptimConfig(name=optimizer, lr=lr, warmup_steps=warmup))
+    if mesh is not None:
+        n_dp = dist.get_world_size(step_lib.sync_group(mesh, tcfg)[0])
+        if batch % n_dp:
+            raise ValueError(f"a batch of {batch} rows does not split over the mesh's "
+                             f"{n_dp} data-parallel ranks")
+    state = step_lib.build_train_state(
+        cfg, tcfg, generator=torch.Generator().manual_seed(seed), group=group, mesh=mesh,
+        device=dev)
+    place = (dist.get_rank(state.group), dist.get_world_size(state.group))
+    rows = place if mesh is not None else None
     plan_cache = PlanCache()
     fallback = None
     if policy.enabled:
         raw_tcfg = dataclasses.replace(tcfg, policy=CompressionPolicy.disabled())
-        fallback = _plan_step(raw_tcfg, group, dev, plan_cache)
-    state = step_lib.build_train_state(
-        cfg, tcfg, generator=torch.Generator().manual_seed(seed), group=group,
-        device=dev)
+        fallback = _plan_step(raw_tcfg, group, dev, plan_cache, rows)
     pipe = DataPipeline(
         DataConfig(vocab=cfg.vocab, global_batch=batch, seq_len=seq, seed=seed,
                    kind="synthetic" if data_path is None else "file", path=data_path),
-        process_index=dist.get_rank(group),
-        process_count=dist.get_world_size(group))
-    runner = StepRunner(_plan_step(tcfg, group, dev, plan_cache), fallback, rcfg,
+        **({} if mesh is not None else dict(process_index=place[0], process_count=place[1])))
+    runner = StepRunner(_plan_step(tcfg, group, dev, plan_cache, rows), fallback, rcfg,
                         pipeline=pipe)
     return state, tcfg, runner, plan_cache
 
@@ -181,7 +209,7 @@ def train(arch: str | ArchConfig, *, steps: int, batch: int, seq: int,
           compress: bool = True, smoke: bool = False, device="cuda", seed: int = 0,
           lr: float = 3e-4, warmup: int = 20, optimizer: str = "adamw",
           compress_min_bytes: int = 0, partition: str = "zero1", microbatches: int = 1,
-          group=None, rcfg: RunnerConfig = None, resume: bool = False, log=None,
+          group=None, mesh=None, rcfg: RunnerConfig = None, resume: bool = False, log=None,
           data_path: str | None = None) -> TrainRun:
     """Train ``steps`` steps of ``partition`` through the StepRunner of :func:`build`
     (``rcfg``: its checkpoint, heartbeat and straggler settings; by default
@@ -196,7 +224,7 @@ def train(arch: str | ArchConfig, *, steps: int, batch: int, seq: int,
             arch, batch=batch, seq=seq, rcfg=rcfg, compress=compress, smoke=smoke,
             device=device, seed=seed, lr=lr, warmup=warmup, optimizer=optimizer,
             compress_min_bytes=compress_min_bytes, partition=partition,
-            microbatches=microbatches, group=group, data_path=data_path)
+            microbatches=microbatches, group=group, mesh=mesh, data_path=data_path)
         start = 0
         if resume:
             resumed, start = runner.try_resume(state, device=device)
@@ -226,6 +254,7 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--pods", type=int, default=1)
     ap.add_argument("--no-compress", action="store_true")
     ap.add_argument("--compress-min-bytes", type=int, default=0)
     ap.add_argument("--device", default="cuda")
@@ -241,16 +270,22 @@ def main(argv=None):
     rcfg = RunnerConfig(ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
                         heartbeat_path=args.heartbeat, install_sigterm=args.sigterm)
     with launcher_group(args.device) as dev:
+        world = dist.get_world_size()
+        if world % args.pods:
+            raise SystemExit(f"{world} ranks do not split into {args.pods} pods")
+        mesh = mesh_lib.make_mesh((args.pods, world // args.pods, 1),
+                                  ("pod", "data", "model"), device=dev)
         run = train(args.arch, steps=args.steps, batch=args.batch,
                     seq=args.seq, compress=not args.no_compress,
                     smoke=args.smoke, device=dev, seed=args.seed,
                     lr=args.lr, warmup=args.warmup, optimizer=args.optimizer,
                     compress_min_bytes=args.compress_min_bytes,
-                    partition=args.partition, microbatches=args.microbatches, rcfg=rcfg,
+                    partition=args.partition, microbatches=args.microbatches, mesh=mesh,
+                    rcfg=rcfg,
                     resume=args.resume, log=print, data_path=args.data_path)
     print(f"final loss {run.losses[-1]:.4f} | stragglers {run.runner.stragglers} | "
           f"retries {run.retries} | compressed={not args.no_compress} | "
-          f"partition={args.partition}")
+          f"partition={args.partition} | mesh={mesh_lib.axis_sizes(mesh)}")
 
 
 if __name__ == "__main__":

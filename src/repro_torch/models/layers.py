@@ -533,3 +533,42 @@ def slstm(p: dict, x: torch.Tensor, cfg: ArchConfig, *, state: dict | None = Non
         m = m_new
     y = torch.stack(ys, 1).reshape(B, S, H * hd).to(x.dtype)
     return y @ p["wo"], {"c": c, "n": n, "m": m}
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel layouts: per leaf, one spec entry a dim (``launch/mesh``):
+# 'model' on the column dim of the input projections, the row dim of the
+# output projections and of Mamba's inner-width leaves, the expert dim of
+# the routed experts; MLA's down-projections and the router replicated
+# ---------------------------------------------------------------------------
+
+def spec_attention(cfg: ArchConfig) -> dict:
+    return {"wq": (None, "model"), "wk": (None, "model"), "wv": (None, "model"),
+            "wo": ("model", None)}
+
+
+def spec_mla(cfg: ArchConfig) -> dict:
+    return {"w_dkv": (None, None), "w_krope": (None, None), "w_uk": (None, "model"),
+            "w_uv": (None, "model"), "wq": (None, "model"), "wo": ("model", None)}
+
+
+def spec_swiglu() -> dict:
+    return {"w1": (None, "model"), "w3": (None, "model"), "w2": ("model", None)}
+
+
+def spec_moe(cfg: ArchConfig) -> dict:
+    s = {"router": (None, None), "we1": ("model", None, None),
+         "we3": ("model", None, None), "we2": ("model", None, None)}
+    if cfg.moe.n_shared:
+        s["shared"] = spec_swiglu()
+    return s
+
+
+def spec_mamba(cfg: ArchConfig) -> dict:
+    return {"in_proj": (None, "model"), "conv_w": (None, "model"),
+            "w_bc_dt": ("model", None), "a_log": ("model", None), "d_skip": ("model",),
+            "out_proj": ("model", None), "dt_bias": ("model",)}
+
+
+def spec_xlstm_full(cfg: ArchConfig) -> dict:
+    return dict(spec_attention(cfg), wi=(None, "model"), wf=(None, "model"))

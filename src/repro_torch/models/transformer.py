@@ -38,6 +38,7 @@ from repro_torch import kernels
 from repro_torch.core import codec
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig, LayerSpec
+from repro_torch.tree_util import tree_map_up_to
 
 # the encoder's layers (whisper): bidirectional attention, then SwiGLU
 ENC_SPEC = LayerSpec(mixer="attn", ffn="swiglu")
@@ -146,62 +147,48 @@ def leaf_dtypes(cfg: ArchConfig) -> dict:
     return {path: _leaf_dtype(cfg, init) for path, (_, init) in tree_paths(_tree_shapes(cfg))}
 
 
-# per leaf of one layer, the dims that the reference's tensor-parallel
-# layout (``repro.models.transformer.specs``) puts on its 'model' mesh axis:
-# the column dim of the input projections (q/k/v, MLA's up-projections and
-# queries, the FFNs', Mamba's in_proj and conv, the xLSTM gates), the row
-# dim of the output projections and of Mamba's inner-width leaves, the
-# expert dim of the routed experts; none for MLA's down-projections and
-# the router
-_SWIGLU_MODEL_AXIS_DIMS = {"w1": (1,), "w3": (1,), "w2": (0,)}
-_ATTN_MODEL_AXIS_DIMS = {"wq": (1,), "wk": (1,), "wv": (1,), "wo": (0,)}
-_MIXER_MODEL_AXIS_DIMS = {
-    "attn": _ATTN_MODEL_AXIS_DIMS,
-    "mla": {"w_dkv": (), "w_krope": (), "w_uk": (1,), "w_uv": (1,), "wq": (1,), "wo": (0,)},
-    "mamba": {"in_proj": (1,), "conv_w": (1,), "w_bc_dt": (0,), "a_log": (0,),
-              "d_skip": (0,), "out_proj": (0,), "dt_bias": (0,)},
-    "mlstm": dict(_ATTN_MODEL_AXIS_DIMS, wi=(1,), wf=(1,)),
-    "slstm": dict(_ATTN_MODEL_AXIS_DIMS, wi=(1,), wf=(1,))}
+def _spec_layer(cfg: ArchConfig, spec: LayerSpec, cross: bool) -> dict:
+    """The tensor-parallel spec of every leaf of one layer (``layers.spec_*``)."""
+    mixers = {"attn": L.spec_attention, "mla": L.spec_mla, "mamba": L.spec_mamba,
+              "mlstm": L.spec_xlstm_full, "slstm": L.spec_xlstm_full}
+    s = {"norm1": (None,), "mixer": mixers[spec.mixer](cfg)}
+    if cross:
+        s.update(normx=(None,), cross=L.spec_attention(cfg))
+    if spec.ffn != "none":
+        s.update(norm2=(None,), ffn=L.spec_moe(cfg) if spec.ffn == "moe" else L.spec_swiglu())
+    return s
 
 
-def _layer_model_axis_dims(cfg: ArchConfig, spec: LayerSpec, cross: bool | None = None) -> dict:
-    out = {"norm1": (), "mixer": _MIXER_MODEL_AXIS_DIMS[spec.mixer]}
-    if cfg.enc_dec if cross is None else cross:
-        out.update(normx=(), cross=_ATTN_MODEL_AXIS_DIMS)
-    if spec.ffn == "none":
-        return out
-    if spec.ffn == "moe":
-        ffn = {"router": (), "we1": (0,), "we3": (0,), "we2": (0,)}
-        if cfg.moe.n_shared:
-            ffn["shared"] = _SWIGLU_MODEL_AXIS_DIMS
-    else:
-        ffn = _SWIGLU_MODEL_AXIS_DIMS
-    return dict(out, norm2=(), ffn=ffn)
+def _stack_specs(tree) -> dict:
+    """A layer's specs with the stacked dim (replicated) in front."""
+    return {k: _stack_specs(v) if isinstance(v, dict) else (None, *v) for k, v in tree.items()}
+
+
+def specs(cfg: ArchConfig) -> dict:
+    """The reference's tensor-parallel layout: the parameter tree of
+    :func:`abstract_params` with a spec at each leaf (``launch/mesh``: one
+    entry a dim), the embeddings' vocabulary rows on 'model', the stacked
+    layers' leading dim replicated."""
+    s = {"embed": ("model", None), "final_norm": (None,)}
+    if not cfg.tie_embeddings:
+        s["lm_head"] = ("model", None)
+    for i, spec in enumerate(cfg.prefix):
+        s[f"prefix_{i}"] = _spec_layer(cfg, spec, cfg.enc_dec)
+    s["blocks"] = tuple(_stack_specs(_spec_layer(cfg, spec, cfg.enc_dec))
+                        for spec in cfg.pattern)
+    if cfg.enc_dec:
+        s.update(enc_blocks=_stack_specs(_spec_layer(cfg, ENC_SPEC, False)),
+                 enc_norm=(None,), enc_pos=(None, None))
+    return s
 
 
 def model_axis_dims(cfg: ArchConfig) -> dict:
     """The parameter tree of :func:`abstract_params` with, at each leaf, the
-    tuple of dims the reference gives to its 'model' axis (the embedding's
-    vocabulary rows; the blocks' dims shifted past the stacked one, the
-    prefix layers' as they are; the encoder's shifted past its stacked dim,
-    none for its norm and positions).  The port runs no tensor parallelism, but
-    FSDP leaves these dims alone as the reference does, so both shard the
-    same dim of every leaf."""
-    def stacked(dims):
-        if isinstance(dims, dict):
-            return {k: stacked(v) for k, v in dims.items()}
-        return tuple(d + 1 for d in dims)
-
-    tree = {"embed": (0,), "final_norm": (),
-            "blocks": tuple(stacked(_layer_model_axis_dims(cfg, spec)) for spec in cfg.pattern)}
-    if not cfg.tie_embeddings:
-        tree["lm_head"] = (0,)
-    for i, spec in enumerate(cfg.prefix):
-        tree[f"prefix_{i}"] = _layer_model_axis_dims(cfg, spec)
-    if cfg.enc_dec:
-        tree.update(enc_blocks=stacked(_layer_model_axis_dims(cfg, ENC_SPEC, cross=False)),
-                    enc_norm=(), enc_pos=())
-    return tree
+    tuple of dims that :func:`specs` puts on the 'model' axis.  FSDP leaves
+    these dims alone as the reference does, so both shard the same dim of
+    every leaf."""
+    return tree_map_up_to(lambda _, s: tuple(d for d, e in enumerate(s) if e == "model"),
+                          abstract_params(cfg), specs(cfg))
 
 
 def tree_paths(tree, prefix: str = ""):
@@ -496,7 +483,15 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda") -> dict
     (batch, H)}}`` and sLSTM's ``{"rnn": {"c": (batch, H, hd), "n", "m":
     (batch, H)}}``, f32 but ``conv`` (the model dtype), zeros but ``m``
     (-1e30)."""
-    dev = kernels.resolve_device(device)
+    return _cache_tree(cfg, batch, max_len, kernels.resolve_device(device))
+
+
+def cache_struct(cfg: ArchConfig, batch: int, max_len: int) -> dict:
+    """:func:`init_cache`'s tree as ``meta`` tensors (no storage)."""
+    return _cache_tree(cfg, batch, max_len, torch.device("meta"))
+
+
+def _cache_tree(cfg: ArchConfig, batch: int, max_len: int, dev: torch.device) -> dict:
     dt = codec.LAYOUTS[cfg.dtype].dtype
     f32 = torch.float32
     H, hd = cfg.n_heads, cfg.hd

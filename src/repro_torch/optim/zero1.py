@@ -31,6 +31,7 @@ from repro_torch.core import compressed_collectives as cc
 from repro_torch.core.policy import CompressionPolicy
 from repro_torch.optim import optimizers as opt
 from repro_torch.sched import compile as sched_compile
+from repro_torch.tree_util import tree_flatten, tree_map, tree_unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,3 +202,63 @@ def zero1_step(ocfg: opt.OptimConfig, meta: BucketMeta, params, grads,
 
     new_params = unflatten_buckets(meta, new_buckets, params)
     return new_params, {"count": c, "buckets": tuple(new_state_buckets)}, flag, gnorm
+
+
+# ---------------------------------------------------------------------------
+# the global layout of the state (checkpoints, layouts on a mesh)
+# ---------------------------------------------------------------------------
+
+def state_struct(ocfg: opt.OptimConfig, meta: BucketMeta, n_model: int) -> dict:
+    """The global state as ``meta`` tensors: each bucket leaf ``(n_dp,
+    n_model * shard_len)`` f32, laid out ``((pod, data), model)``: row ``d``
+    is data rank ``d``'s shard."""
+    def leaf(sl):
+        return torch.empty((meta.n_dp, n_model * sl), dtype=torch.float32, device="meta")
+
+    keys = ("master", "m", "v") if ocfg.name == "adamw" else ("master", "v")
+    return {"count": torch.empty((), dtype=torch.int32, device="meta"),
+            "buckets": tuple({k: leaf(sl) for k in keys} for sl in meta.shard_lens)}
+
+
+def gather_rows(v: torch.Tensor, group=None) -> torch.Tensor | None:
+    """The group's ranks' ``v`` stacked, row ``d`` rank ``d``'s (collective
+    over ``group``), on the host of the group's rank 0; None on the other
+    ranks.  Rank 0 receives one row at a time into a buffer of ``v``'s
+    size, so its device never holds more than one row beyond its own.  At
+    one rank (or outside a process group) ``v[None]``, where ``v`` is."""
+    if not dist.is_initialized() or dist.get_world_size(group) == 1:
+        return v[None]
+    g = dist.group.WORLD if group is None else group
+    v = v.detach().contiguous()
+    if dist.get_rank(g) != 0:
+        dist.send(v, dst=dist.get_global_rank(g, 0), group=g)
+        return None
+    rows = torch.empty((dist.get_world_size(g), *v.shape), dtype=v.dtype)
+    rows[0] = v.cpu()
+    buf = torch.empty_like(v)
+    for r in range(1, len(rows)):
+        dist.recv(buf, src=dist.get_global_rank(g, r), group=g)
+        rows[r] = buf.cpu()
+    return rows
+
+
+def local_to_global(state: dict, group=None) -> dict | None:
+    """A rank's state in the global layout: each ``(sl,)`` leaf a row of
+    ``(n_dp, sl)``, row ``d`` data rank ``d``'s, the scalar ``count`` as it
+    is.  Over a ``group`` of n ranks the rows are gathered to its rank 0
+    (:func:`gather_rows`), None on the others; at one rank each leaf is its
+    ``(1, sl)`` block.  FSDP's optimizer state, one tree a rank, takes the
+    same layout."""
+    leaves, treedef = tree_flatten(state)
+    rows = [v if v.ndim == 0 else gather_rows(v, group) for v in leaves]
+    if any(r is None for r in rows):
+        return None
+    return tree_unflatten(treedef, rows)
+
+
+def global_to_local(state: dict, index: int = 0) -> dict:
+    """Row ``index`` of each global leaf: a ``(1, sl)`` block its row 0,
+    the whole ``(n_dp, sl)`` data rank ``index``'s row, copied to storage of
+    its own (a view would keep every rank's rows alive)."""
+    return tree_map(lambda v: v if v.ndim == 0 else v[0] if len(v) == 1 else v[index].clone(),
+                    state)

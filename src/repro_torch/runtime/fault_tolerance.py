@@ -21,8 +21,13 @@ The state is anything ``checkpoint.manager.CheckpointManager`` saves: a tree
 of tensors, or a ``train.step.TrainState`` (saved through its ``tree()``).
 The overflow flag is read on the host once a step, as the reference's
 ``int(np.asarray(metrics["overflow"]))`` does, so the ``train:step`` span
-covers the step's device work.  The reference's ``ElasticController``
-(re-placement onto another mesh) comes with ``launch/mesh.py``.
+covers the step's device work.
+
+  * **elastic rescale** — :class:`ElasticController` rebuilds the mesh for
+    a new device count and places a checkpointed state on it
+    (``CheckpointManager.restore(shardings=)``), as the reference's does:
+    it re-places the stored global leaves and re-flattens nothing, so a
+    ZeRO-1 state stored at another DP size raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -198,3 +203,32 @@ class StepRunner:
                 self.pipeline.skip_to(step + 1)
             return state, step + 1
         return None, 0
+
+
+@dataclasses.dataclass
+class ElasticController:
+    """Elastic-rescale hook: given a new device count, rebuild the mesh and
+    place a checkpointed state on it, each rank its block of every stored
+    global leaf.
+
+    ``make_mesh_fn(n_devices) -> mesh`` (``launch/mesh``) and
+    ``make_state_specs_fn(mesh) -> spec tree`` (``train.step.
+    make_train_state_specs``); ``state_like_fn(mesh)`` gives the state to
+    restore into (a ``TrainState`` built on the mesh)."""
+
+    make_mesh_fn: Callable
+    make_state_specs_fn: Callable
+
+    def rescale(self, ckpt: CheckpointManager, state_like_fn, n_devices: int, *,
+                device="cuda") -> tuple:
+        """``(mesh, state, step)`` of the latest checkpoint of ``ckpt`` on the
+        mesh of ``n_devices``."""
+        from repro_torch.checkpoint.manager import like_tree
+        from repro_torch.tree_util import tree_map_up_to
+
+        mesh = self.make_mesh_fn(n_devices)
+        specs = self.make_state_specs_fn(mesh)
+        state_like = state_like_fn(mesh)
+        shardings = tree_map_up_to(lambda _, s: (mesh, s), like_tree(state_like), specs)
+        state, step = ckpt.restore(state_like, shardings=shardings, device=device)
+        return mesh, state, step

@@ -41,6 +41,7 @@ from repro_torch import kernels
 from repro_torch.core import codec
 from repro_torch.core.compressed_collectives import psum_safe
 from repro_torch.core.policy import CompressionPolicy, current_sinks, report_into
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import transformer
 from repro_torch.models.config import ArchConfig
 from repro_torch.optim import fsdp as fsdp_lib
@@ -49,7 +50,7 @@ from repro_torch.optim import zero1 as zero1_lib
 from repro_torch.sched import compile as sched_compile
 from repro_torch.sched.plan import dtype_name
 from repro_torch.tree_util import (tree_flatten, tree_flatten_up_to, tree_leaves, tree_map,
-                                   tree_unflatten)
+                                   tree_map_up_to, tree_unflatten)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +63,10 @@ class TrainConfig:
     policy: CompressionPolicy = dataclasses.field(default_factory=CompressionPolicy)
     guard_overflow: bool = True
     fsdp_min_bytes: int = 1 << 20
+    # pure data parallelism: the parameters replicated over 'model', which
+    # carries batch rows as the data axes do, and the ZeRO-1 sync runs over
+    # (pod, data, model) as one exchange
+    dp_only: bool = False
 
 
 @dataclasses.dataclass
@@ -70,28 +75,112 @@ class TrainState:
     shard state (``zero1_init_local``) and ``meta`` its bucket layout.
     ``fsdp``: the model holds this rank's shards, ``opt`` the optimizer
     state of those shards (``optimizers.init``) and ``fsdp_dims`` the
-    sharded dim of every leaf (:func:`plan_fsdp_tree`)."""
+    sharded dim of every leaf (:func:`plan_fsdp_tree`).  ``group`` is the
+    process group the steps sync over (None: the world) and ``axes`` the
+    mesh axes it spans, the label the wires are gated and planned under."""
 
     model: transformer.Transformer
     opt: dict
     meta: zero1_lib.BucketMeta | None
     step: int = 0
     fsdp_dims: dict | None = None
+    group: object = None
+    axes: object = "data"
 
     def tree(self) -> dict:
         """The state as the reference's train-state tree ``{"params",
-        "opt", "step"}`` (what a checkpoint saves); the parameters share
-        the model's storage."""
+        "opt", "step"}``, this rank's part of it (a ZeRO-1 state's shard
+        leaves ``(shard_len,)``); the parameters share the model's
+        storage."""
         return {"params": self.model.tree(), "opt": self.opt,
                 "step": torch.tensor(self.step, dtype=torch.int32)}
 
-    def from_tree(self, tree: dict) -> "TrainState":
-        """A new state holding ``tree`` (a restored :meth:`tree`), with this
-        state's config and bucket layout."""
-        model = transformer.Transformer(self.model.cfg,
-                                        dict(transformer.tree_paths(tree["params"])))
-        return TrainState(model=model, opt=tree["opt"], meta=self.meta,
-                          step=int(tree["step"]), fsdp_dims=self.fsdp_dims)
+    def _place(self) -> tuple:
+        """(this rank's index, the sync group's size); (0, 1) outside a
+        process group."""
+        if not dist.is_initialized():
+            return 0, 1
+        return dist.get_rank(self.group), dist.get_world_size(self.group)
+
+    def _global_shapes(self) -> tuple:
+        """(parameter shapes, optimizer leaf shapes) of the reference's
+        global layout: a ZeRO-1 bucket leaf ``(n_dp, shard_len)``; an FSDP
+        shard's sharded dim times n_dp, an FSDP optimizer leaf ``(n_dp,) +
+        its shard's shape``; every other leaf as this rank holds it."""
+        _, n = self._place()
+        params = [tuple(p.shape) for p in self.model.leaves()]
+        ost = [tuple(t.shape) for t in tree_leaves(self.opt)]
+        if self.meta is not None:
+            ost = [(self.meta.n_dp, *sh) if len(sh) else sh for sh in ost]
+        elif self.fsdp_dims is not None:
+            params = [sh if d < 0 else sh[:d] + (sh[d] * n,) + sh[d + 1:]
+                      for sh, d in zip(params, tree_leaves(self.fsdp_dims), strict=True)]
+            ost = [(n, *sh) if len(sh) else sh for sh in ost]
+        return params, ost
+
+    def global_like(self) -> dict:
+        """The tree a checkpoint holds (:meth:`checkpoint_tree`), as
+        ``meta`` tensors of the reference's global shapes."""
+        params, ost = self._global_shapes()
+        meta = lambda shapes, like: tree_unflatten(tree_flatten(like)[1], [  # noqa: E731
+            torch.empty(sh, dtype=t.dtype, device="meta")
+            for sh, t in zip(shapes, tree_leaves(like), strict=True)])
+        return {"params": meta(params, self.model.tree()), "opt": meta(ost, self.opt),
+                "step": torch.empty((), dtype=torch.int32, device="meta")}
+
+    def checkpoint_tree(self) -> dict | None:
+        """The tree a checkpoint writes, in the reference's global layout
+        (collective over ``group``): the optimizer leaves as
+        ``zero1.local_to_global`` lays them out, row ``d`` data rank
+        ``d``'s; FSDP's parameter shards joined on their sharded dim.  The
+        group's rank 0 gets it (on its host at n ranks) and writes it; None
+        on the other ranks."""
+        tree = self.tree()
+        tree["opt"] = zero1_lib.local_to_global(self.opt, self.group)
+        if self.fsdp_dims is not None:
+            params, pdef = tree_flatten(tree["params"])
+            joined = []
+            for p, d in zip(params, tree_leaves(self.fsdp_dims), strict=True):
+                rows = None if d < 0 else zero1_lib.gather_rows(p.detach(), self.group)
+                joined.append(p if rows is None or len(rows) == 1 else
+                              torch.cat(list(rows), dim=d))
+            tree["params"] = tree_unflatten(pdef, joined)
+        return None if tree["opt"] is None else tree
+
+    def from_tree(self, tree: dict, device=None) -> "TrainState":
+        """A new state holding ``tree``, with this state's config, layout
+        and group, its leaves on ``device`` (default: this state's).  A
+        tree in the global layout gives this rank its part, a copy with
+        storage of its own: its row of the optimizer leaves
+        (``zero1.global_to_local``; a ``(1, ...)`` leaf is this rank's
+        block from ``restore(shardings=)``, an ``(n_dp, ...)`` one the
+        whole) and its shard of an FSDP parameter of the global shape.  A
+        tree of this rank's own shapes (:meth:`tree`) is taken as it is."""
+        me, n = self._place()
+        dev = self.model.leaves()[0].device if device is None else device
+        params, pdef = tree_flatten(tree["params"])
+        if self.fsdp_dims is not None:
+            params = [p if d < 0 or p.shape == q.shape else
+                      p.narrow(d, me * q.shape[d], q.shape[d]).clone(
+                          memory_format=torch.contiguous_format)
+                      for p, q, d in zip(params, self.model.leaves(),
+                                         tree_leaves(self.fsdp_dims), strict=True)]
+        model = transformer.Transformer(self.model.cfg, dict(transformer.tree_paths(
+            tree_unflatten(pdef, [p.to(dev) for p in params]))))
+
+        def shapes(t):
+            return [tuple(v.shape) for v in tree_leaves(t)]
+
+        ost = tree["opt"]
+        if shapes(ost) != shapes(self.opt):
+            lead = {v.shape[0] for v in tree_leaves(ost) if v.ndim}
+            if lead in ({1}, {n}):
+                ost = zero1_lib.global_to_local(ost, 0 if lead == {1} else me)
+            if shapes(ost) != shapes(self.opt):
+                raise ValueError(f"optimizer leaves of {shapes(tree['opt'])} hold no part "
+                                 f"of {shapes(self.opt)} for a rank of {n}")
+        return dataclasses.replace(self, model=model, opt=tree_map(lambda v: v.to(dev), ost),
+                                   step=int(tree["step"]))
 
 
 def chunked_ce_loss(head: torch.Tensor, hidden: torch.Tensor,
@@ -147,47 +236,228 @@ def _grads_of(leaves) -> list:
     return [torch.zeros_like(p) if p.grad is None else p.grad for p in leaves]
 
 
-def train_state_for(model: transformer.Transformer, tcfg: TrainConfig,
-                    group=None) -> TrainState:
-    """The train state of ``tcfg.partition`` around existing weights (this
-    rank's ZeRO-1 shard state, or this rank's FSDP shards)."""
+# ---------------------------------------------------------------------------
+# layouts on a mesh: specs (``launch/mesh``) and per-device shapes, read from
+# the mesh's axis names and sizes only
+# ---------------------------------------------------------------------------
+
+def dp_axes_of(mesh) -> tuple:
+    names = mesh.mesh_dim_names
+    return tuple(a for a in ("pod", "data") if a in names)
+
+
+def train_axes_of(mesh, tcfg: TrainConfig) -> tuple:
+    """The gradient-sync axes: pod and data, and 'model' too under
+    ``dp_only`` (where it carries batch rows, not tensor parallelism)."""
+    axes = ("pod", "data", "model") if tcfg.dp_only else ("pod", "data")
+    return tuple(a for a in axes if a in mesh.mesh_dim_names)
+
+
+def _sizes(mesh, axes) -> int:
+    sizes = mesh_lib.axis_sizes(mesh)
+    return int(np.prod([sizes[a] for a in axes]))
+
+
+def _dp_entry(axes: tuple):
+    """The spec entry of a dim split over ``axes``: the name alone, or the
+    tuple of names (``PartitionSpec`` holds a one-name tuple as the name)."""
+    return axes if len(axes) > 1 else axes[0]
+
+
+def sanitize_specs(pspecs, params_shape, mesh):
+    """Specs padded to each leaf's rank, an entry dropped where its dim does
+    not divide the entry's axes (xlstm's gates, 4 heads, on model = 16)."""
+    def f(p, spec):
+        return tuple(None if e is None or p.shape[d] % mesh_lib.entry_size(e, mesh) else e
+                     for d, e in enumerate(mesh_lib.padded(spec, p.ndim)[:p.ndim]))
+
+    return tree_map_up_to(f, params_shape, pspecs)
+
+
+def model_specs(cfg: ArchConfig, mesh):
+    """The parameters' tensor-parallel specs, sanitized for ``mesh``."""
+    return sanitize_specs(transformer.specs(cfg), transformer.abstract_params(cfg), mesh)
+
+
+def train_param_specs(cfg: ArchConfig, tcfg: TrainConfig, mesh):
+    """:func:`model_specs`, or every leaf replicated under ``dp_only``."""
+    if tcfg.dp_only:
+        return tree_map_up_to(lambda _, s: (None,) * len(s), transformer.abstract_params(cfg),
+                              transformer.specs(cfg))
+    return model_specs(cfg, mesh)
+
+
+def local_param_struct(cfg: ArchConfig, mesh, pspecs=None):
+    """The parameters of one model shard, as ``meta`` tensors."""
+    pspecs = pspecs if pspecs is not None else model_specs(cfg, mesh)
+    return tree_map_up_to(
+        lambda p, s: torch.empty(mesh_lib.shard_shape(p.shape, s, mesh), dtype=p.dtype,
+                                 device="meta"),
+        transformer.abstract_params(cfg), pspecs)
+
+
+def zero1_meta(cfg: ArchConfig, n_dp: int, tcfg: TrainConfig, mesh) -> zero1_lib.BucketMeta:
+    """The bucket layout of one model shard's parameters over ``n_dp`` sync
+    ranks."""
+    local = local_param_struct(cfg, mesh, train_param_specs(cfg, tcfg, mesh))
+    return zero1_lib.plan_buckets(tree_leaves(local), n_dp, block=tcfg.policy.profile.block)
+
+
+def _zero1_state_layout(cfg: ArchConfig, tcfg: TrainConfig, mesh) -> tuple:
+    """(global ZeRO-1 state as ``meta`` tensors, its specs)."""
+    axes = train_axes_of(mesh, tcfg)
+    meta = zero1_meta(cfg, _sizes(mesh, axes), tcfg, mesh)
+    n_inner = 1 if tcfg.dp_only else mesh_lib.axis_sizes(mesh)["model"]
+    ostruct = zero1_lib.state_struct(tcfg.optim, meta, n_inner)
+    ospecs = tree_map(lambda t: (_dp_entry(axes), None) if t.ndim == 2 else (), ostruct)
+    return ostruct, ospecs
+
+
+def make_train_state_specs(cfg: ArchConfig, tcfg: TrainConfig, mesh) -> dict:
+    """The specs of the train state ``{"params", "opt", "step"}``: FSDP's
+    sharded parameters and their optimizer state with a leading DP dim, or
+    ZeRO-1's parameters replicated over the sync axes and its bucket state
+    ``(n_dp, model * shard_len)`` over them."""
     if tcfg.partition == "fsdp":
-        return fsdp_state_for(model, tcfg, group)
-    if tcfg.partition != "zero1":
+        dp = dp_axes_of(mesh)
+        pspecs = model_specs(cfg, mesh)
+        plan = plan_fsdp_tree(cfg, tcfg, mesh)
+        ospecs = fsdp_opt_specs(transformer.abstract_params(cfg), pspecs, plan, tcfg, dp,
+                                _sizes(mesh, dp))
+        return {"params": fsdp_param_specs(pspecs, plan, dp), "opt": ospecs, "step": ()}
+    return {"params": train_param_specs(cfg, tcfg, mesh),
+            "opt": _zero1_state_layout(cfg, tcfg, mesh)[1], "step": ()}
+
+
+def fsdp_param_specs(pspecs, plan, dp: tuple):
+    """Each sharded leaf's spec with the DP axes on its plan dim."""
+    def upd(dim, spec):
+        if dim < 0:
+            return spec
+        entries = mesh_lib.padded(spec, dim + 1)
+        entries[dim] = _dp_entry(dp)
+        return tuple(entries)
+
+    return tree_map_up_to(upd, plan, pspecs)
+
+
+def fsdp_opt_specs(params_shape, pspecs, plan, tcfg: TrainConfig, dp: tuple, n_dp: int):
+    """The FSDP optimizer state's specs: each leaf global ``(n_dp,) +
+    local shard shape``, its leading dim over the DP axes, its shard's own
+    dims keeping their model-axis entries (the plan dim's entry None: it is
+    local)."""
+    lead = _dp_entry(dp)
+    leaves, treedef = tree_flatten(params_shape)
+    specs = tree_flatten_up_to(treedef, pspecs)
+
+    def local_entries(p, spec, dim):
+        entries = mesh_lib.padded(spec, p.ndim)
+        if dim >= 0:
+            entries[dim] = None
+        return entries
+
+    def full(p, spec, dim):
+        return (lead, *local_entries(p, spec, dim))
+
+    rows = list(zip(leaves, specs, tree_leaves(plan), strict=True))
+    if tcfg.optim.name == "adamw":
+        tree = tree_unflatten(treedef, [full(*r) for r in rows])
+        return {"m": tree, "v": tree, "count": ()}
+
+    def af(p, spec, dim):
+        ent = local_entries(p, spec, dim)
+        shape = list(p.shape)
+        if dim >= 0:
+            shape[dim] //= n_dp
+        if opt._factored(tuple(shape), tcfg.optim.factored_min_dim):
+            return {"vr": (lead, *ent[:-1]), "vc": (lead, *ent[:-2], *ent[-1:])}
+        return {"v": (lead, *ent)}
+
+    return {"f": tree_unflatten(treedef, [af(*r) for r in rows]), "count": ()}
+
+
+def abstract_train_state(cfg: ArchConfig, tcfg: TrainConfig, mesh) -> tuple:
+    """``(state, specs)``: the global train state as ``meta`` tensors,
+    allocating nothing, and :func:`make_train_state_specs`."""
+    specs = make_train_state_specs(cfg, tcfg, mesh)
+    params = transformer.abstract_params(cfg)
+    step = torch.empty((), dtype=torch.int32, device="meta")
+    if tcfg.partition == "fsdp":
+        n_dp = _sizes(mesh, dp_axes_of(mesh))
+        local = fsdp_local_shapes(params, plan_fsdp_tree(cfg, tcfg, mesh), n_dp)
+        ostruct = tree_map(lambda t: t if t.ndim == 0 else torch.empty(
+            (n_dp, *t.shape), dtype=t.dtype, device="meta"), opt.init(tcfg.optim, local))
+    else:
+        ostruct = _zero1_state_layout(cfg, tcfg, mesh)[0]
+    return {"params": params, "opt": ostruct, "step": step}, specs
+
+
+def sync_group(mesh, tcfg: TrainConfig):
+    """The process group a step of ``tcfg`` syncs over on ``mesh``: the
+    flattened :func:`train_axes_of` (ZeRO-1) or :func:`dp_axes_of` (FSDP),
+    its ranks in the reference's pod-major DP order.  A 'model' axis above
+    1 that carries tensor parallelism (no ``dp_only``, or FSDP) raises
+    ``NotImplementedError``: tensor and expert parallelism over 'model' are
+    not ported (ROADMAP Queue A, slice 17), and such a mesh never runs as
+    data parallelism."""
+    n_model = mesh_lib.axis_sizes(mesh).get("model", 1)
+    if n_model > 1 and (not tcfg.dp_only or tcfg.partition == "fsdp"):
+        raise NotImplementedError(
+            f"a 'model' axis of {n_model} carries tensor parallelism, which the port "
+            f"does not run yet (ROADMAP Queue A, slice 17); use model = 1 or, for "
+            f"ZeRO-1, TrainConfig(dp_only=True)")
+    axes = dp_axes_of(mesh) if tcfg.partition == "fsdp" else train_axes_of(mesh, tcfg)
+    return mesh_lib.axis_group(mesh, axes), axes
+
+
+def train_state_for(model: transformer.Transformer, tcfg: TrainConfig,
+                    group=None, *, mesh=None) -> TrainState:
+    """The train state of ``tcfg.partition`` around existing weights (this
+    rank's ZeRO-1 shard state, or this rank's FSDP shards), syncing over
+    ``group`` or over ``mesh``'s :func:`sync_group`."""
+    if tcfg.partition not in ("zero1", "fsdp"):
         raise ValueError(f"unknown partition {tcfg.partition!r}")
+    group, axes = (group, "data") if mesh is None else sync_group(mesh, tcfg)
+    if tcfg.partition == "fsdp":
+        return dataclasses.replace(fsdp_state_for(model, tcfg, group), group=group, axes=axes)
     n_dp = dist.get_world_size(group)
     meta = zero1_lib.plan_buckets(model.leaves(), n_dp,
                                   block=tcfg.policy.profile.block)
     ost = zero1_lib.zero1_init_local(tcfg.optim, meta, model.leaves(),
                                      dp_index=dist.get_rank(group))
-    return TrainState(model=model, opt=ost, meta=meta)
+    return TrainState(model=model, opt=ost, meta=meta, group=group, axes=axes)
 
 
 def build_train_state(cfg: ArchConfig, tcfg: TrainConfig, *,
-                      generator: torch.Generator, group=None,
+                      generator: torch.Generator, group=None, mesh=None,
                       device="cuda") -> TrainState:
     """Randomly initialised model + its ``tcfg.partition`` state on
     ``device``."""
+    if mesh is not None:
+        sync_group(mesh, tcfg)  # a mesh the port cannot run raises before the draw
     model = transformer.init(cfg, generator=generator, device=device)
-    return train_state_for(model, tcfg, group)
+    return train_state_for(model, tcfg, group, mesh=mesh)
 
 
-def zero1_plan(state: TrainState, tcfg: TrainConfig, group=None, *,
-               axis_name="data", cache=None):
+def zero1_plan(state: TrainState, tcfg: TrainConfig, group=None, *, cache=None):
     """The ``zero1`` plan of this train state's step signature (bucket
-    layout, policy, group size, device): compiled on first sight, then a
-    hit in ``cache`` (default: the process cache)."""
+    layout, policy, the size of ``group`` or else the state's own group,
+    the state's axes label, device): compiled on first sight, then a hit in
+    ``cache`` (default: the process cache)."""
     return sched_compile.cached_zero1_plan(
-        state.meta, policy=tcfg.policy, axis_name=axis_name,
-        n_dev=dist.get_world_size(group), device=state.model.leaves()[0].device,
-        cache=cache)
+        state.meta, policy=tcfg.policy, axis_name=state.axes,
+        n_dev=dist.get_world_size(state.group if group is None else group),
+        device=state.model.leaves()[0].device, cache=cache)
 
 
 def train_step(state: TrainState, batch: dict, tcfg: TrainConfig, *,
                group=None, plan=None) -> dict:
-    """One ZeRO-1 step over ``plan`` (default: :func:`zero1_plan`); updates
-    ``state`` in place unless the overflow guard fires.  Returns ``{"loss"
-    (mean over ranks), "gnorm": f32 tensors, "overflow": int}``."""
+    """One ZeRO-1 step over ``plan`` (default: :func:`zero1_plan`), syncing
+    over ``group`` (default: the state's own); updates ``state`` in place
+    unless the overflow guard fires.  ``batch`` holds this rank's rows.
+    Returns ``{"loss" (mean over ranks), "gnorm": f32 tensors, "overflow":
+    int}``."""
+    group = state.group if group is None else group
     if plan is None:
         plan = zero1_plan(state, tcfg, group)
     leaves = state.model.leaves()
@@ -217,14 +487,19 @@ def train_step(state: TrainState, batch: dict, tcfg: TrainConfig, *,
 # FSDP
 # ---------------------------------------------------------------------------
 
-def plan_fsdp_tree(cfg: ArchConfig, tcfg: TrainConfig, n_dp: int) -> dict:
+def plan_fsdp_tree(cfg: ArchConfig, tcfg: TrainConfig, mesh) -> dict:
     """The sharded dim of every parameter leaf (-1 = replicated), as a tree
     like the parameters': a leaf under ``fsdp_min_bytes`` or outside the
-    codec stays replicated; else its last dim that divides ``n_dp`` and that
-    the reference's tensor-parallel layout leaves alone
-    (``transformer.model_axis_dims``), going down, never dim 0 (the blocks'
-    stacked dim)."""
+    codec stays replicated; else its last dim that divides the DP size and
+    that the tensor-parallel layout leaves alone, going down, never dim 0
+    (the blocks' stacked dim).  The DP size and the tensor-parallel dims
+    (:func:`model_specs`) are ``mesh``'s, as the reference's; a caller that
+    knows only its DP size passes ``AbstractMesh((n_dp, 1), ("data",
+    "model"))``."""
     shapes = transformer.abstract_params(cfg)
+    n_dp = mesh_lib.dp_size(mesh)
+    taken = tree_map_up_to(lambda _, s: tuple(d for d, e in enumerate(s) if e is not None),
+                           shapes, model_specs(cfg, mesh))
 
     def choose(leaf, taken):
         if leaf.numel() * leaf.element_size() < tcfg.fsdp_min_bytes:
@@ -236,9 +511,12 @@ def plan_fsdp_tree(cfg: ArchConfig, tcfg: TrainConfig, n_dp: int) -> dict:
                 return d
         return -1
 
-    leaves, treedef = tree_flatten(shapes)
-    taken = tree_flatten_up_to(treedef, transformer.model_axis_dims(cfg))
-    return tree_unflatten(treedef, [choose(t, k) for t, k in zip(leaves, taken)])
+    return tree_map_up_to(choose, shapes, taken)
+
+
+def _dp_mesh(n_dp: int) -> mesh_lib.AbstractMesh:
+    """The layout of ``n_dp`` data ranks at model = 1."""
+    return mesh_lib.AbstractMesh((n_dp, 1), ("data", "model"))
 
 
 def fsdp_local_shapes(params_shape, plan: dict, n_dp: int):
@@ -268,7 +546,7 @@ def fsdp_state_for(model: transformer.Transformer, tcfg: TrainConfig,
     """FSDP train state around existing weights: this rank's shards
     (``fsdp.shard_tree_by_plan``) and the optimizer state of the shards."""
     n_dp = dist.get_world_size(group)
-    dims = plan_fsdp_tree(model.cfg, tcfg, n_dp)
+    dims = plan_fsdp_tree(model.cfg, tcfg, _dp_mesh(n_dp))
     local = fsdp_lib.shard_tree_by_plan(dims, model.tree(), dist.get_rank(group), n_dp)
     return _fsdp_state(local, model.cfg, tcfg, dims)
 
@@ -284,7 +562,7 @@ def load_reference_fsdp_state(tree: dict, cfg: ArchConfig, tcfg: TrainConfig, *,
     as the reference's ``_opt_local`` does; ``count`` and ``step`` are
     scalars."""
     dev = kernels.resolve_device(device)
-    dims = plan_fsdp_tree(cfg, tcfg, n_dp)
+    dims = plan_fsdp_tree(cfg, tcfg, _dp_mesh(n_dp))
     dts, arrays = transformer.leaf_dtypes(cfg), dict(transformer.tree_paths(tree["params"]))
     full = transformer._map_paths(
         tree["params"], lambda p: transformer.numpy_to_torch(np.asarray(arrays[p]), dts[p]))
@@ -295,7 +573,7 @@ def load_reference_fsdp_state(tree: dict, cfg: ArchConfig, tcfg: TrainConfig, *,
     return _fsdp_state(local, cfg, tcfg, dims, ost, int(tree["step"]))
 
 
-def _gather_leaves(tree, dims, tcfg: TrainConfig, group, cache):
+def _gather_leaves(tree, dims, tcfg: TrainConfig, group, cache, axes="data"):
     """Gather the sharded leaves of ``tree`` (``dims``: a tree like it of
     sharded dims, -1 = replicated): each sharded dim moved last, gathered
     (``fsdp.gather_leaf``) and moved back.  The gathers' overflow flags are
@@ -307,7 +585,7 @@ def _gather_leaves(tree, dims, tcfg: TrainConfig, group, cache):
             out.append(t)
             continue
         full, _flag = fsdp_lib.gather_leaf(t.movedim(d, -1), group, policy=tcfg.policy,
-                                           cache=cache)
+                                           axis_name=axes, cache=cache)
         out.append(full.movedim(-1, d))
     return tree_unflatten(treedef, out)
 
@@ -321,7 +599,8 @@ def fsdp_loss_fn(state: TrainState, batch: dict, tcfg: TrainConfig, *, group=Non
     model = state.model
     dims = dict(transformer.tree_paths(state.fsdp_dims))
     top = {k: p for k, p in model.params.items() if not k.startswith("blocks/")}
-    top_full = _gather_leaves(top, {k: dims[k] for k in top}, tcfg, group, cache)
+    group = state.group if group is None else group
+    top_full = _gather_leaves(top, {k: dims[k] for k in top}, tcfg, group, cache, state.axes)
     # a layer's slice of a stacked leaf: its sharded dim less the stacked one
     layer_dims = [tree_map(lambda d: d - 1 if d > 0 else -1, b)
                   for b in state.fsdp_dims["blocks"]]
@@ -333,7 +612,7 @@ def fsdp_loss_fn(state: TrainState, batch: dict, tcfg: TrainConfig, *, group=Non
         # a rematerialised layer gathers again on the autograd engine's
         # thread (on CUDA): its wires report into this caller's capture
         with report_into(sinks):
-            return _gather_leaves(p, layer_dims[idx], tcfg, group, cache)
+            return _gather_leaves(p, layer_dims[idx], tcfg, group, cache, state.axes)
 
     hidden = model(batch["tokens"], vision_embeds=batch.get("vision_embeds"),
                    frames=batch.get("frames"), top=top_full, remat=tcfg.remat,
@@ -344,13 +623,15 @@ def fsdp_loss_fn(state: TrainState, batch: dict, tcfg: TrainConfig, *, group=Non
 
 def fsdp_train_step(state: TrainState, batch: dict, tcfg: TrainConfig, *, group=None,
                     cache=None) -> dict:
-    """One FSDP step; updates ``state`` in place.  The loss is scaled by
+    """One FSDP step over ``group`` (default: the state's own); updates
+    ``state`` in place.  The loss is scaled by
     1/n_dp (a gather's backward SUMS over ranks); the replicated leaves'
     gradients are summed with ``psum_safe``; the global norm adds the
     shards' squares over the group to the replicated leaves' own; the
     optimizer updates the local shards.  Returns ``{"loss" (mean over
     ranks), "gnorm", "overflow": 0}``: the reference's step reports no
     overflow."""
+    group = state.group if group is None else group
     n_dp = dist.get_world_size(group)
     leaves = state.model.leaves()
     for p in leaves:

@@ -91,3 +91,12 @@ def bits_equal(a, b) -> bool:
     return len(la) == len(lb) and all(
         x.dtype == y.dtype and x.shape == y.shape and torch.equal(bytes_of(x), bytes_of(y))
         for x, y in zip(la, lb))
+
+
+def tree_map_up_to(fn, tree, *others):
+    """``tree`` with every leaf replaced by ``fn(leaf, *subs)``, ``subs`` the
+    subtrees of ``others`` at that leaf (``tree``'s structure a prefix of
+    theirs): a map over spec trees, whose leaves are tuples."""
+    leaves, treedef = tree_flatten(tree)
+    cols = [tree_flatten_up_to(treedef, o) for o in others]
+    return tree_unflatten(treedef, [fn(*a) for a in zip(leaves, *cols)])

@@ -48,6 +48,7 @@ from repro.train import step as jstep
 from repro_torch import configs, kernels
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core.policy import CompressionPolicy
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import train as launch_train
 from repro_torch.models import transformer
 from repro_torch.optim import fsdp
@@ -99,7 +100,8 @@ def test_plan_fsdp_matches_reference(n_dp, min_bytes):
 @pytest.mark.parametrize("n_dp", [1, 2, 4])
 def test_plan_fsdp_tree_matches_reference(get, min_bytes, n_dp):
     cfg, jcfg = getattr(configs, get)(ARCH), getattr(jconfigs, get)(ARCH)
-    dims = step_lib.plan_fsdp_tree(cfg, step_lib.TrainConfig(fsdp_min_bytes=min_bytes), n_dp)
+    dims = step_lib.plan_fsdp_tree(cfg, step_lib.TrainConfig(fsdp_min_bytes=min_bytes),
+                                   mesh_lib.AbstractMesh((n_dp, 1), ("data", "model")))
     jdims = jstep.plan_fsdp_tree(jcfg, jstep.TrainConfig(fsdp_min_bytes=min_bytes),
                                  _jmesh(n_dp))
     assert dims == jdims

@@ -1163,3 +1163,50 @@ def test_collective_bytes_read_a_trace_of_nccl_collectives(cuda):
     assert got["counts"] == {"all-reduce": 2, "all-gather": 1, "reduce-scatter": 1,
                              "all-to-all": 1, "collective-permute": 1}
     assert any(e.get("name") == "record_param_comms" for e in json.loads(text)["traceEvents"])
+
+
+def test_mesh_steps_and_rescale_on_the_card(cuda, tmp_path):
+    """ZeRO-1 and FSDP twins (smollm SMOKE, 2 steps at 2 microbatches,
+    ``min_bytes=0``) through the launcher on a (1, 1, 1) mesh on the card:
+    compressed and raw bit-identical; the ZeRO-1 run's checkpoint (the
+    reference's global layout, ``(1, shard_len)`` rows) restored on the
+    mesh through ``ElasticController.rescale`` bit for bit."""
+    from repro_torch import configs
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train as launch_train
+    from repro_torch.runtime.fault_tolerance import ElasticController, RunnerConfig
+    from repro_torch.train import step as step_lib
+    from repro_torch.tree_util import bits_equal, tree_leaves
+
+    with launch_train.single_process_group(cuda):
+        mesh = mesh_lib.make_mesh((1, 1, 1), ("pod", "data", "model"))
+        runs = {}
+        for partition in ("zero1", "fsdp"):
+            for compress in (True, False):
+                runs[partition, compress] = launch_train.train(
+                    "smollm_135m", steps=2, batch=4, seq=64, smoke=True, compress=compress,
+                    mesh=mesh, partition=partition, microbatches=2,
+                    rcfg=RunnerConfig(ckpt_dir=str(tmp_path / f"{partition}{compress}"),
+                                      ckpt_every=1))
+            a, b = runs[partition, True], runs[partition, False]
+            assert a.losses == b.losses and bits_equal(a.state.tree(), b.state.tree())
+            assert a.state.axes == ("pod", "data")
+        run = runs["zero1", True]
+        ctl = ElasticController(lambda n: mesh, lambda m: step_lib.make_train_state_specs(
+            configs.get_smoke("smollm_135m"), run.tcfg, m))
+        got_mesh, state, step = ctl.rescale(CheckpointManager(str(tmp_path / "zero1True")),
+                                            lambda m: run.state, 1)
+    assert got_mesh is mesh and step == 1 and state.step == run.state.step
+    assert bits_equal(state.tree(), run.state.tree())
+    assert all(t.device.type == "cuda" for t in state.model.leaves())
+    assert all(t.device.type == "cuda" for t in tree_leaves(state.opt))
+
+
+def test_launcher_cli_on_a_pod_mesh_on_the_card(cuda, tmp_path, capsys):
+    from repro_torch.launch import train as launch_train
+
+    launch_train.main(["--arch", "smollm_135m", "--smoke", "--steps", "2", "--batch", "4",
+                       "--seq", "64", "--pods", "1", "--ckpt-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "mesh={'pod': 1, 'data': 1, 'model': 1}" in out and "retries 0" in out

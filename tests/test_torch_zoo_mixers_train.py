@@ -53,6 +53,7 @@ from repro.models import transformer as jtransformer
 from repro.optim import zero1 as jzero1
 from repro.train import step as jstep
 from repro_torch import configs
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import train as launch_train
 from repro_torch.models import registry, transformer
 from repro_torch.optim import optimizers, zero1
@@ -115,7 +116,8 @@ def test_fsdp_plan_matches_reference(arch, n_dp):
     jcfg, cfg = _cfgs(arch)
     tcfg, jtcfg = _tcfgs("fsdp")
     mesh = AbstractMesh((n_dp, 1), ("data", "model"))
-    dims = step_lib.plan_fsdp_tree(cfg, tcfg, n_dp)
+    dims = step_lib.plan_fsdp_tree(cfg, tcfg,
+                                   mesh_lib.AbstractMesh((n_dp, 1), ("data", "model")))
     assert dims == jstep.plan_fsdp_tree(jcfg, jtcfg, mesh)
     if cfg.enc_dec:
         assert any(d > 0 for k, d in transformer.tree_paths(dims) if k.startswith("enc_"))

@@ -49,6 +49,7 @@ from repro.models import transformer as jtransformer
 from repro.optim import zero1 as jzero1
 from repro.train import step as jstep
 from repro_torch import configs
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import train as launch_train
 from repro_torch.models import layers as L
 from repro_torch.models import registry, transformer
@@ -101,7 +102,8 @@ def test_fsdp_plan_matches_reference(n_dp):
     jcfg, cfg = _cfgs()
     tcfg, jtcfg = _tcfgs("fsdp")
     mesh = AbstractMesh((n_dp, 1), ("data", "model"))
-    dims = step_lib.plan_fsdp_tree(cfg, tcfg, n_dp)
+    dims = step_lib.plan_fsdp_tree(cfg, tcfg,
+                                   mesh_lib.AbstractMesh((n_dp, 1), ("data", "model")))
     assert dims == jstep.plan_fsdp_tree(jcfg, jtcfg, mesh)
     ffn = dims["blocks"][0]["ffn"]
     assert ffn["we1"] == ffn["we3"] == 3 and ffn["we2"] in (2, 3) and ffn["router"] == 2

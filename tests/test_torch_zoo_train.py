@@ -41,6 +41,7 @@ from repro.optim import zero1 as jzero1
 from repro.train import step as jstep
 from repro_torch import configs
 from repro_torch.core.policy import CompressionPolicy
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import train as launch_train
 from repro_torch.models import registry, transformer
 from repro_torch.models.config import LayerSpec
@@ -107,7 +108,8 @@ def test_fsdp_plan_covers_prefix_leaves(case, n_dp):
     jcfg, cfg = _cfgs(case)
     tcfg, jtcfg = _tcfgs("fsdp")
     mesh = AbstractMesh((n_dp, 1), ("data", "model"))
-    dims = step_lib.plan_fsdp_tree(cfg, tcfg, n_dp)
+    dims = step_lib.plan_fsdp_tree(cfg, tcfg,
+                                   mesh_lib.AbstractMesh((n_dp, 1), ("data", "model")))
     assert dims == jstep.plan_fsdp_tree(jcfg, jtcfg, mesh)
     assert any(d >= 0 for k, d in transformer.tree_paths(dims) if k.startswith("prefix_"))
     local = step_lib.fsdp_local_shapes(transformer.abstract_params(cfg), dims, n_dp)

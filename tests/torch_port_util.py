@@ -700,3 +700,336 @@ def fsdp_rank(rank: int, world: int, out: str, steps: int, batch: int, seq: int)
             [np_of(p).view(np.uint8).reshape(-1) for p in state.model.leaves()])
         res[f"{tag}_misses"], res[f"{tag}_hits"] = cache.stats.misses, cache.stats.hits
     np.savez(out, **res)
+
+
+# ---------------------------------------------------------------------------
+# the steps over a mesh: the reference on 4 forced host devices (a
+# subprocess), the port on 4 gloo ranks
+# ---------------------------------------------------------------------------
+
+MESH_RUNS = {  # kind -> (mesh shape, axes, TrainConfig fields)
+    "zero1": ((2, 2, 1), ("pod", "data", "model"), {}),
+    "fsdp": ((2, 2, 1), ("pod", "data", "model"), {"partition": "fsdp", "fsdp_min_bytes": 0}),
+    "dp_only": ((2, 2), ("data", "model"), {"dp_only": True}),
+}
+MESH_ARCH, MESH_BATCH, MESH_SEQ, MESH_LR, MESH_WARMUP = "smollm_135m", 8, 32, 1e-3, 2
+MESH_RS_N = 4 * 512 * 3 + 700  # a ragged ZeRO-1 bucket of 4 ranks' gradients
+MESH_RS_POLICIES = {"fused": {}, "unfused": {"fused_decode_reduce": False},
+                    "raw": {"enabled": False}}
+MESH_GATHER = ((64, 40), "bfloat16")  # an FSDP shard: 4 ranks gather (64, 160)
+
+
+def _mesh_sync_axes(kind: str, axes: tuple) -> tuple:
+    """The axes a mesh run syncs over: (pod, data), or every axis under
+    ``dp_only``."""
+    return axes if kind == "dp_only" else tuple(a for a in axes if a != "model")
+
+
+def mesh_rs_input(idx: int) -> np.ndarray:
+    """The seeded bf16 gradient bucket of DP index ``idx``."""
+    return psum_bits(idx, MESH_RS_N)
+
+
+def mesh_reference(kind: str, out_dir: str) -> None:
+    """The reference's side of a mesh run (``MESH_RUNS[kind]``), in a
+    process with 4 forced host devices: the reduce-scatter of each device's
+    ``mesh_rs_input`` over the sync axes under each of MESH_RS_POLICIES
+    (ZeRO-1's plan executor; FSDP's gather and its backward), then 2 train
+    steps of smollm SMOKE at 2 microbatches, compressed and raw, from
+    ``PRNGKey(0)``, the global batch placed over the sync axes as the
+    reference's launcher places it.  The compressed twin's state is
+    checkpointed before its first step (step 0) and after it (step 1) under
+    ``out_dir/ckpt``; scalars and bits go to ``out_dir/ref.npz``."""
+    import os
+
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from repro import configs as jconfigs
+    from repro import sched as jsched
+    from repro.checkpoint.manager import CheckpointManager as JCheckpointManager
+    from repro.core.policy import CompressionPolicy as JPolicy
+    from repro.data.pipeline import DataConfig as JDataConfig
+    from repro.data.pipeline import DataPipeline as JDataPipeline
+    from repro.launch.mesh import make_mesh
+    from repro.optim import fsdp as jfsdp
+    from repro.optim import optimizers as jopt
+    from repro.optim import zero1 as jzero1
+    from repro.sched import compile as jcompile
+    from repro.train import step as jstep
+
+    shape, axes, fields = MESH_RUNS[kind]
+    mesh = make_mesh(shape, axes)
+    sync = _mesh_sync_axes(kind, axes)
+    dpax = sync if len(sync) > 1 else sync[0]
+    res = {}
+    shard_map = lambda f, i, o: jax.jit(jax.shard_map(  # noqa: E731
+        f, mesh=mesh, in_specs=i, out_specs=o, axis_names=set(axes), check_vma=False))
+    for tag, kw in MESH_RS_POLICIES.items():
+        pol = JPolicy(min_bytes=0, **kw)
+        if kind == "fsdp":
+            (lshape, dt) = MESH_GATHER
+            gather = jfsdp._make_gather(sync, 6, 5, 512, 0.02, pol.enabled, lshape, dt,
+                                        pol.fused_decode_reduce, True)
+
+            def body(local, cot):
+                (full, _), vjp = jax.vjp(gather, local)
+                (grad,) = vjp((cot, np.zeros((), jax.dtypes.float0)))
+                return full, grad
+
+            locs = np.concatenate([fsdp_bits(lshape, dt, 400 + d) for d in range(4)])
+            cots = np.concatenate([fsdp_bits(fsdp_full_shape(lshape, 4), dt, 500 + d)
+                                   for d in range(4)])
+            full, grad = shard_map(body, (P(dpax), P(dpax)), (P(dpax), P(dpax)))(
+                to_jax(locs, dt), to_jax(cots, dt))
+            res[f"rs_{tag}"] = np_of(grad).reshape(4, -1)
+            res[f"ag_{tag}"] = np_of(full).reshape(4, -1)
+            continue
+        meta = jzero1.plan_buckets({"g": jax.ShapeDtypeStruct((MESH_RS_N,), jnp.bfloat16)}, 4)
+        plan = jcompile.cached_zero1_plan(meta, policy=pol, axis_name=sync, n_dev=4)
+        pad = meta.padded[0] - MESH_RS_N
+
+        def body(x, plan=plan):
+            with jsched.Zero1Execution(plan, sync) as ex:
+                gs, f = ex.reduce_scatter(0, x)
+            return gs, f[None]
+
+        xs = np.concatenate([np.pad(mesh_rs_input(d), (0, pad)) for d in range(4)])
+        gs, flag = shard_map(body, (P(dpax),), (P(dpax), P(dpax)))(to_jax(xs, "bfloat16"))
+        res[f"rs_{tag}"] = np_of(gs).reshape(4, -1)
+        res[f"rs_{tag}_flag"] = np.asarray(flag)
+
+    cfg = jconfigs.get_smoke(MESH_ARCH)
+    pipe = JDataPipeline(JDataConfig(vocab=cfg.vocab, global_batch=MESH_BATCH,
+                                     seq_len=MESH_SEQ, seed=0))
+    bshard = NamedSharding(mesh, P(dpax, None))
+    ckpt = JCheckpointManager(os.path.join(out_dir, "ckpt"))
+    for tag, pol in (("comp", JPolicy(min_bytes=0)), ("raw", JPolicy.disabled())):
+        tcfg = jstep.TrainConfig(loss_chunk=16, microbatches=2, policy=pol,
+                                 optim=jopt.OptimConfig(lr=MESH_LR, warmup_steps=MESH_WARMUP),
+                                 **fields)
+        state, _ = jstep.build_train_state(cfg, tcfg, mesh, jax.random.PRNGKey(0))
+        fn = jax.jit(jstep.build_train_step(cfg, tcfg, mesh)[0])
+        if tag == "comp":
+            ckpt.save(0, state)
+        for i in range(2):
+            batch = {k: jax.device_put(jnp.asarray(v), bshard)
+                     for k, v in pipe.batch_at(i).items()}
+            state, m = fn(state, batch)
+            for k in ("loss", "gnorm", "overflow"):
+                res[f"{tag}_{k}{i}"] = np.asarray(m[k])
+            if tag == "comp" and i == 0:
+                ckpt.save(1, state)
+                res["opt1"] = np.concatenate([np_of(a).reshape(4, -1) for a in
+                                              jax.tree_util.tree_leaves(state["opt"])
+                                              if np.ndim(a) > 0], axis=1)
+        res[f"{tag}_params"] = np.concatenate(
+            [np_of(p).view(np.uint8).reshape(-1)
+             for p in jax.tree_util.tree_leaves(state["params"])])
+    np.savez(os.path.join(out_dir, "ref.npz"), **res)
+
+
+def run_mesh_reference(kind: str, out_dir) -> dict:
+    """:func:`mesh_reference` in a subprocess with 4 forced host devices;
+    returns its ``ref.npz``."""
+    import os
+    import subprocess
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    src = os.path.join(os.path.dirname(here), "src")
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join([src, here, os.environ.get("PYTHONPATH", "")]))
+    code = f"import torch_port_util as u; u.mesh_reference({kind!r}, {str(out_dir)!r})"
+    res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    return dict(np.load(os.path.join(str(out_dir), "ref.npz")))
+
+
+def _mesh_tcfg(kind: str, policy=None):
+    from repro_torch.core.policy import CompressionPolicy
+    from repro_torch.optim.optimizers import OptimConfig
+    from repro_torch.train import step as step_lib
+
+    return step_lib.TrainConfig(
+        loss_chunk=16, microbatches=2,
+        policy=CompressionPolicy(min_bytes=0) if policy is None else policy,
+        optim=OptimConfig(lr=MESH_LR, warmup_steps=MESH_WARMUP), **MESH_RUNS[kind][2])
+
+
+def _mesh_state_from(ckpt_dir: str, step: int, mesh, tcfg):
+    """This rank's train state of the checkpoint ``step`` under
+    ``ckpt_dir``, restored onto ``mesh`` with ``restore(shardings=)`` into
+    a state built on the mesh: through ``ElasticController.rescale`` for
+    the latest step, else through the manager."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.runtime.fault_tolerance import ElasticController
+    from repro_torch.train import step as step_lib
+    from repro_torch.tree_util import tree_map_up_to
+
+    cfg = configs.get_smoke(MESH_ARCH)
+    mgr = CheckpointManager(ckpt_dir)
+    specs_fn = lambda m: step_lib.make_train_state_specs(cfg, tcfg, m)  # noqa: E731
+    like = step_lib.build_train_state(cfg, tcfg, generator=torch.Generator().manual_seed(9),
+                                      mesh=mesh, device="cpu")
+    if step == mgr.latest_step():
+        got_mesh, state, got = ElasticController(lambda n: mesh, specs_fn).rescale(
+            mgr, lambda m: like, 4, device="cpu")
+        assert got_mesh is mesh
+    else:
+        shardings = tree_map_up_to(lambda _, s: (mesh, s), like.global_like(), specs_fn(mesh))
+        state, got = mgr.restore(like, step=step, shardings=shardings, device="cpu")
+    assert got == step
+    return state
+
+
+def _flat_f32(tensors) -> np.ndarray:
+    return np.concatenate([t.detach().float().reshape(-1).numpy() for t in tensors])
+
+
+def mesh_rank(rank: int, world: int, out: str, kind: str, ref_dir: str) -> None:
+    """The port's side of a mesh run on this gloo rank: its DP index and
+    pod-major place; the reduce-scatter of its ``mesh_rs_input`` (FSDP: the
+    gather of its shard and the backward of its cotangent) under each of
+    MESH_RS_POLICIES; one step from the reference's step-0 checkpoint
+    restored onto the mesh, beside the reference's step-1 state restored
+    the same way; the step-1 optimizer rows as restored; then 2
+    steps compressed and raw from the port's own init (ZeRO-1 through the
+    launcher on the mesh).  The restored step-1 state is written as a
+    checkpoint under ``ref_dir/port_ckpt`` (gathered, rank 0 writes) and
+    restored from it without shardings; whether each restored leaf's
+    storage holds only this rank's part."""
+    import dataclasses
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs, sched
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core.policy import CompressionPolicy
+    from repro_torch.data.pipeline import DataConfig, DataPipeline
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train as launch_train
+    from repro_torch.optim import fsdp, zero1
+    from repro_torch.sched import compile as sched_compile
+    from repro_torch.sched.cache import PlanCache
+    from repro_torch.train import step as step_lib
+    from repro_torch.tree_util import bits_equal, tree_leaves
+
+    shape, axes, _ = MESH_RUNS[kind]
+    mesh = mesh_lib.make_mesh(shape, axes, device="cpu")
+    tcfg = _mesh_tcfg(kind)
+    group, sync = step_lib.sync_group(mesh, tcfg)
+    idx = dist.get_rank(group)
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    sizes = mesh_lib.axis_sizes(mesh)
+    place = 0
+    for a in sync:
+        place = place * sizes[a] + coord[a]
+    res = {"idx": idx, "place": place, "sync": np.array(sync)}
+
+    for tag, kw in MESH_RS_POLICIES.items():
+        pol = CompressionPolicy(min_bytes=0, **kw)
+        if kind == "fsdp":
+            lshape, dt = MESH_GATHER
+            wire = fsdp.GatherWire(sync, 6, 5, 512, 0.02, pol.enabled, lshape, dt,
+                                   pol.fused_decode_reduce, True)
+            local = to_torch(fsdp_bits(lshape, dt, 400 + idx), dt).requires_grad_()
+            full, _ = wire(local, group)
+            (grad,) = torch.autograd.grad(full, local, to_torch(
+                fsdp_bits(fsdp_full_shape(lshape, 4), dt, 500 + idx), dt))
+            res[f"rs_{tag}"], res[f"ag_{tag}"] = np_of(grad).reshape(-1), np_of(full).reshape(-1)
+            continue
+        x = to_torch(mesh_rs_input(idx), "bfloat16")
+        meta = zero1.plan_buckets([x], 4)
+        plan = sched_compile.cached_zero1_plan(meta, policy=pol, axis_name=sync, n_dev=4,
+                                               device="cpu", cache=PlanCache())
+        (gb,) = zero1.flatten_buckets(meta, [x])
+        with sched.Zero1Execution(plan, group) as ex:
+            gs, flag = ex.reduce_scatter(0, gb)
+        res[f"rs_{tag}"], res[f"rs_{tag}_flag"] = np_of(gs), int(flag)
+
+    cfg = configs.get_smoke(MESH_ARCH)
+    ckpt_dir = os.path.join(ref_dir, "ckpt")
+    pipe = DataPipeline(DataConfig(vocab=cfg.vocab, global_batch=MESH_BATCH, seq_len=MESH_SEQ,
+                                   seed=0))
+    rows = launch_train.dp_rows(pipe.tensors_at(0, "cpu"), idx, 4)
+    state = _mesh_state_from(ckpt_dir, 0, mesh, tcfg)
+    with launch_train.deterministic():
+        if kind == "fsdp":
+            m = step_lib.fsdp_train_step(state, rows, tcfg, cache=PlanCache())
+        else:
+            m = step_lib.train_step(state, rows, tcfg)
+    res.update(loss=float(m["loss"]), gnorm=float(m["gnorm"]), overflow=int(m["overflow"]),
+               step=state.step, params=_flat_f32(state.model.leaves()))
+    want = _mesh_state_from(ckpt_dir, 1, mesh, tcfg)
+    res["ref_params"] = _flat_f32(want.model.leaves())
+    res["opt1"] = np.concatenate([np_of(t).reshape(-1) for t in tree_leaves(want.opt)
+                                  if t.ndim > 0])
+    res["opt1_count"] = int(want.opt["count"])
+    if kind != "fsdp":  # replicated parameters: the reference's bits on every rank
+        res["step1_bits"] = np.concatenate([np_of(p).view(np.uint8).reshape(-1)
+                                            for p in want.model.leaves()])
+    port_dir = os.path.join(ref_dir, "port_ckpt")
+    CheckpointManager(port_dir).save(1, want)  # gathered to rank 0, which writes
+    dist.barrier()
+    back, _ = CheckpointManager(port_dir).restore(want, device="cpu")  # no shardings
+    res["resume_exact"] = int(bits_equal(back.tree(), want.tree()))
+    # restored either way, a leaf's storage is its own part, not the global leaf
+    res["own_storage"] = np.array([t.untyped_storage().nbytes() == t.numel() * t.element_size()
+                                   for st in (want, back) for t in tree_leaves(st.tree())])
+
+    for tag, compress in (("comp", True), ("raw", False)):
+        if kind == "zero1":  # through the launcher on the mesh
+            run = launch_train.train(MESH_ARCH, steps=2, batch=MESH_BATCH, seq=MESH_SEQ,
+                                     compress=compress, smoke=True, device="cpu",
+                                     lr=MESH_LR, warmup=MESH_WARMUP, microbatches=2,
+                                     mesh=mesh)
+            st, losses = run.state, run.losses
+        else:  # the launcher builds neither dp_only nor fsdp_min_bytes=0
+            pol = CompressionPolicy(min_bytes=0) if compress else CompressionPolicy.disabled()
+            tc = dataclasses.replace(tcfg, policy=pol)
+            st = step_lib.build_train_state(cfg, tc, generator=torch.Generator().manual_seed(0),
+                                            mesh=mesh, device="cpu")
+            step_fn, kw = ((step_lib.fsdp_train_step, {"cache": PlanCache()}) if kind == "fsdp"
+                           else (step_lib.train_step, {}))
+            with launch_train.deterministic():
+                losses = [float(step_fn(
+                    st, launch_train.dp_rows(pipe.tensors_at(i, "cpu"), idx, 4), tc, **kw)["loss"])
+                    for i in range(2)]
+        res[f"{tag}_losses"] = np.array(losses)
+        res[f"{tag}_params"] = np.concatenate(
+            [np_of(p).view(np.uint8).reshape(-1) for p in st.model.leaves()])
+    np.savez(out, **res)
+
+
+def mesh_restore_refused(rank: int, world: int, out: str, ckpt_dir: str) -> None:
+    """A ZeRO-1 checkpoint of 4 data ranks restored onto a (2, 1, 1) mesh:
+    the stored rows do not fit 2 ranks, and ``rescale`` raises."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.runtime.fault_tolerance import ElasticController
+    from repro_torch.train import step as step_lib
+
+    cfg, tcfg = configs.get_smoke(MESH_ARCH), _mesh_tcfg("zero1")
+    ctl = ElasticController(
+        lambda n: mesh_lib.make_mesh((2, n // 2, 1), ("pod", "data", "model"), device="cpu"),
+        lambda m: step_lib.make_train_state_specs(cfg, tcfg, m))
+    like = lambda m: step_lib.build_train_state(  # noqa: E731
+        cfg, tcfg, generator=torch.Generator().manual_seed(0), mesh=m, device="cpu")
+    try:
+        ctl.rescale(CheckpointManager(ckpt_dir), like, world, device="cpu")
+        msg = ""
+    except ValueError as e:
+        msg = str(e)
+    np.savez(out, msg=np.array(msg))
