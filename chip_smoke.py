@@ -309,6 +309,29 @@ result line each:
             timed at each new shape (time_path_shapes), inside the phase;
             merge_zoo adds both to the kernels rows.
 
+tp - ZeRO-1 with tensor and expert parallelism over 'model' (TP_JOBS):
+            the card has one H100 and NCCL refuses two ranks on one device,
+            so each job's ranks are processes of their own on cuda:0 over a
+            gloo group (a FileStore in a temporary directory), each capped
+            by torch.cuda.set_per_process_memory_fraction; the kernels are
+            built by this process first and the ranks only load them.
+            tinyllama-1.1b at full width, 18 of its 22 layers (four ranks
+            fit no more), on (data, model) = (2, 2), 8 x 512 global, and
+            deepseek-v2-lite at full width cut to
+            its dense prefix and one MoE layer on (1, 2), 32 of its 64
+            experts a rank: each rank runs the launcher's ZeRO-1 path,
+            compressed then raw; every rank's twins bit-identical (losses,
+            grad norms, a sha256 of every local leaf), launches
+            two_shot_launches a step and bucket; each job's first loss
+            within its loss_rel (tinyllama 2e-4, deepseek 1e-3) and its
+            first grad norm within its gnorm_rel (1e-2, 2e-2) of its model
+            at model = 1 in this process (the same seed and batch; the norm counting each leaf
+            'model' replicates once a model rank).  Rank 0's kernel inputs come back, are held
+            against the plain versions and timed at every shape any rank
+            tallied; the jobs' launches join the kernels line (merge_zoo).
+            Step times cross the host through gloo and say nothing about
+            NVLink.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 ``kernels`` JSON.  Any failed phase exits non-zero and prints no result.
 """
@@ -2319,14 +2342,276 @@ ZOO_UNITS = {"zoo_glm4_9b_pd": ("glm4_pd_admission", ZOO_SERVE["glm4_9b"]["n_req
              "zoo_whisper_train": ("whisper_train_step", WHISPER_TRAIN_STEPS)}
 
 
+# tp phase: ZeRO-1 with tensor and expert parallelism over 'model' in
+# processes of their own on the one card, joined by a gloo group (NCCL
+# refuses two ranks on one device), each capped at a share of its memory.
+# tinyllama's depth is cut from 22 layers: at 22 a rank's bucket of 0.55 G
+# values outgrew 17.4 GiB in the all-gather's plain decode (2.05 GiB more
+# asked at 16.71 allocated), and four such ranks do not fit the card; a
+# rank peaked at 14.17 GiB at 14 layers and 17.49 at 18 (~0.83 a layer),
+# so 19 would pass 18.3 under a cap that leaves the card no room
+# loss_rel, gnorm_rel: the first step's loss and grad norm against the same
+# model at model = 1 (the norm counting the leaves 'model' replicates once
+# a model rank, the reference's count).  In f32 both agree within 1e-7
+# (SMOKE, on the CPU); in bf16 the sums part in the last bits, and the MoE
+# router's near ties may part between layouts (SMOKE on the CPU: tinyllama
+# 6.2e-6 and 3.3e-4, deepseek 2.1e-4 and 6.7e-3); a missing sum over the
+# model group moves either by far more
+TP_JOBS = {
+    "tp_tinyllama": dict(arch="tinyllama_1_1b", shape=(2, 2), batch=8, seq=512, steps=3,
+                         repeats=18, mem=0.235, loss_rel=2e-4, gnorm_rel=1e-2),
+    "tp_deepseek": dict(arch=DEEPSEEK, shape=(1, 2), batch=8, seq=512, steps=2,
+                        repeats=DEEPSEEK_REPEATS, mem=0.45, loss_rel=1e-3, gnorm_rel=2e-2),
+}
+TP_TIMEOUT = 600  # seconds a job's processes may take
+
+
+def tp_config(job):
+    from repro_torch import configs
+
+    cfg = configs.get(job["arch"])
+    return cfg if job["repeats"] is None else dataclasses.replace(cfg, repeats=job["repeats"])
+
+
+def tp_child(rank, world, store, out, job):
+    """One rank of a tp job (spawned; the kernels are built): the
+    launcher's ZeRO-1 path on a (data, model) mesh over a gloo group on
+    cuda:0, compressed then raw; its numbers (and rank 0's kernel inputs)
+    saved to ``out``."""
+    import torch
+    import torch.distributed as dist
+
+    if job.get("device", "cuda") == "cuda":  # a CPU rehearsal sets "cpu"
+        torch.cuda.set_device(0)
+        torch.cuda.set_per_process_memory_fraction(job["mem"], 0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    try:
+        torch.save(_tp_child_runs(rank, job, torch), out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_child_runs(rank, job, torch):
+    import gc
+    import hashlib
+
+    from repro_torch import kernels
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import step as step_lib
+
+    dev = torch.device("cuda", 0) if job.get("device", "cuda") == "cuda" else torch.device("cpu")
+    mesh = mesh_lib.make_mesh(job["shape"], ("data", "model"), device=dev)
+    gnorms, train_step = [], step_lib.train_step
+
+    def recording(*args, **kw):  # the launcher's step, its grad norm kept
+        m = train_step(*args, **kw)
+        gnorms.append(float(m["gnorm"]))
+        return m
+
+    step_lib.train_step = recording
+    out = {"runs": {}}
+    try:
+        for compress in (True, False):
+            gnorms.clear()
+            torch.cuda.reset_peak_memory_stats(dev)
+            record = compress and rank == 0
+            with (recorded_inputs(torch, host=True) if record else
+                  contextlib.nullcontext(None)) as inputs:
+                kernels.clear_launch_counts()
+                run = launch_train.train(
+                    tp_config(job), steps=job["steps"], batch=job["batch"], seq=job["seq"],
+                    compress=compress, device=dev, seed=SEED, mesh=mesh,
+                    generator=torch.Generator(dev).manual_seed(SEED))
+                launches = kernels.launch_counts()
+            st = run.state
+            out["runs"][compress] = {
+                "losses": run.losses, "gnorms": list(gnorms), "step_ms": run.step_ms,
+                "retries": run.retries, "launches": launches, "tallies": shape_tallies(),
+                "peak": torch.cuda.max_memory_allocated(dev),
+                "digests": [hashlib.sha256(p.detach().contiguous().view(torch.uint8).cpu()
+                                           .numpy()).hexdigest() for p in st.model.leaves()],
+                "buckets": len(st.meta.dtype_names), "n": list(st.meta.padded),
+                "n_dp": st.meta.n_dp, "mrank": st.model.mg.rank}
+            if record:
+                out["inputs"] = inputs
+            del run, st
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        step_lib.train_step = train_step
+    return out
+
+
+def tp_model1_ref(job, dev, torch) -> tuple:
+    """The first step's loss and grad norm of a tp job's model at model = 1
+    in this process: the ranks' init (a generator on the card seeded SEED),
+    the launcher's first global batch, one forward and backward.  The
+    norm counts each leaf that the job's mesh replicates over 'model'
+    (``step.model_specs``) once a model rank, as the step's sum over the
+    model group does."""
+    import gc
+
+    from repro_torch.data.pipeline import DataConfig, DataPipeline
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import transformer
+    from repro_torch.train import step as step_lib
+
+    cfg = tp_config(job)
+    model = transformer.init(cfg, generator=torch.Generator(dev).manual_seed(SEED), device=dev)
+    batch = DataPipeline(DataConfig(vocab=cfg.vocab, global_batch=job["batch"],
+                                    seq_len=job["seq"], seed=SEED)).tensors_at(0, dev)
+    loss = step_lib.loss_fn(model, batch, step_lib.TrainConfig(loss_chunk=min(1024, job["seq"])))
+    loss.backward()
+    n_model = job["shape"][1]
+    specs = dict(transformer.tree_paths(step_lib.model_specs(
+        cfg, mesh_lib.AbstractMesh(job["shape"], ("data", "model")))))
+    norm_sq = sum(float(torch.sum(torch.square(p.grad.float())))
+                  * (1 if "model" in specs[path] else n_model)
+                  for path, p in model.params.items())
+    loss = float(loss)
+    del model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return loss, norm_sq ** 0.5
+
+
+def run_tp_job(job, torch) -> list:
+    """A tp job's ranks in spawned processes (a FileStore in a temporary
+    directory); every process is joined or killed.  Returns each rank's
+    saved numbers; a rank that fails or outlives TP_TIMEOUT fails it."""
+    import multiprocessing
+    import tempfile
+
+    world = int(job["shape"][0] * job["shape"][1])
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="tp_") as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(world)]
+        procs = [ctx.Process(target=tp_child,
+                             args=(r, world, os.path.join(tmp, "store"), outs[r], job))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        t_end = time.monotonic() + TP_TIMEOUT
+        try:
+            for p in procs:
+                p.join(max(1.0, t_end - time.monotonic()))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * world:
+            raise AssertionError(f"tp {job['arch']}: ranks exited {codes}")
+        return [torch.load(o, weights_only=False) for o in outs]
+
+
+def phase_tp(dev, torch, np, bw):
+    """ZeRO-1 with tensor and expert parallelism over 'model' (TP_JOBS), each
+    job's ranks in processes of their own on the card: tinyllama-1.1b at
+    full width, 18 of 22 layers, on (data, model) = (2, 2),
+    deepseek-v2-lite at full width, its depth cut, on (1, 2) (32 of its
+    64 experts a rank).
+    Every rank's compressed and raw twins bit-identical (losses, grad
+    norms, a digest of every local leaf), no retry, the launches
+    two_shot_launches a step and bucket; each job's first loss within its
+    loss_rel, and its first grad norm within its gnorm_rel, of its model at
+    model = 1 here.  Rank 0's kernel inputs held against the plain
+    versions and timed at each shape every rank tallied.  Step times
+    cross the host through gloo: they are no measure of NVLink.  Returns the launches of each job (all its ranks),
+    their units and the timed shapes, as merge_zoo reads them."""
+    from repro_torch import configs, kernels
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    launches, shapes, units = {}, {}, {}
+    for tag, job in TP_JOBS.items():
+        t0 = time.perf_counter()
+        cfg = tp_config(job)
+        ref_loss, ref_gnorm = tp_model1_ref(job, dev, torch)
+        free = torch.cuda.mem_get_info(dev)[0]
+        ranks = run_tp_job(job, torch)
+        comp0 = ranks[0]["runs"][True]
+        n_dp = comp0["n_dp"]
+        expect = dict.fromkeys(kernels.KERNELS, 0)
+        expect.update({k: job["steps"] * comp0["buckets"] * v
+                       for k, v in two_shot_launches(True, True, n_dp).items()})
+        total, tallies = dict.fromkeys(kernels.KERNELS, 0), {k: {} for k in SHAPED}
+        for r, res in enumerate(ranks):
+            comp, raw = res["runs"][True], res["runs"][False]
+            for key in ("losses", "gnorms", "digests"):
+                if comp[key] != raw[key]:
+                    raise AssertionError(f"{tag} rank {r}: compressed and raw {key} differ")
+            if comp["retries"] or raw["retries"] or any(raw["launches"].values()):
+                raise AssertionError(f"{tag} rank {r}: retries {comp['retries']}, raw "
+                                     f"launches {raw['launches']}")
+            if comp["launches"] != expect:
+                raise AssertionError(f"{tag} rank {r}: launches {comp['launches']}, "
+                                     f"expected {expect}")
+            if not all(np.isfinite(comp["losses"])) or comp["losses"] != comp0["losses"]:
+                raise AssertionError(f"{tag} rank {r}: losses {comp['losses']} vs rank 0's "
+                                     f"{comp0['losses']}")
+            for k, v in comp["launches"].items():
+                total[k] += v
+            for k, by in comp["tallies"].items():
+                if not set(by) <= set(ranks[0]["inputs"][k]):
+                    raise AssertionError(f"{tag} rank {r}: {k} at {list(by)}, rank 0 "
+                                         f"recorded {list(ranks[0]['inputs'][k])}")
+                for shape, n in by.items():
+                    tallies[k][shape] = tallies[k].get(shape, 0) + n
+        gap = abs(comp0["losses"][0] - ref_loss) / abs(ref_loss)
+        ggap = abs(comp0["gnorms"][0] - ref_gnorm) / abs(ref_gnorm)
+        if not (gap <= job["loss_rel"] and ggap <= job["gnorm_rel"]):
+            raise AssertionError(f"{tag}: first loss {comp0['losses'][0]} vs {ref_loss}, grad "
+                                 f"norm {comp0['gnorms'][0]} vs {ref_gnorm} at model = 1, "
+                                 f"relative {gap}, {ggap}")
+        world = len(ranks)
+        launches[tag] = total
+        units[tag] = (f"{tag}_rank_step", world * job["steps"])
+        full = configs.get(job["arch"])
+        print(f"{tag}: {job['arch']} d_model {cfg.d_model}, {cfg.n_heads} heads, "
+              f"{cfg.kv_heads} KV heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+              f"{cfg.n_layers} of {full.n_layers} layers"
+              f"{f', {cfg.moe.n_experts} experts' if cfg.moe.n_experts else ''}; "
+              f"(data, model) = {job['shape']}, {world} processes on cuda:0 over gloo, each "
+              f"capped at {job['mem']} of the card ({_gib(free)} free before them); batch "
+              f"{job['batch']} x {job['seq']}; "
+              f"bucket n={comp0['n']} a model rank, n_dp={n_dp}")
+        for r, res in enumerate(ranks):
+            comp, raw = res["runs"][True], res["runs"][False]
+            print(f"  rank {r} (model rank {comp['mrank']}): losses {comp['losses']} gnorms "
+                  f"{comp['gnorms']} twins identical (losses, grad norms, "
+                  f"{len(comp['digests'])} leaf digests); step_ms compressed "
+                  f"{[round(t, 1) for t in comp['step_ms']]} raw "
+                  f"{[round(t, 1) for t in raw['step_ms']]} (host-staged gloo, not NVLink); "
+                  f"peak {_gib(max(comp['peak'], raw['peak']))}; launches {comp['launches']}")
+        print(f"  first loss {comp0['losses'][0]!r} vs {ref_loss!r} at model = 1 (one "
+              f"process, the same seed and batch): relative gap {gap:.3e} (bound "
+              f"{job['loss_rel']}); first grad norm {comp0['gnorms'][0]!r} vs "
+              f"{ref_gnorm!r}: relative gap {ggap:.3e} (bound {job['gnorm_rel']})")
+        recorded = (ranks[0].pop("inputs"), tallies)
+        del ranks
+        merge_shapes(shapes, time_path_shapes({tag: recorded}, {tag: total}, bw, dev, torch))
+        del recorded
+        torch.cuda.empty_cache()
+        print(f"  {tag}: {time.perf_counter() - t0:.1f} s")
+    seconds = time.perf_counter() - t_phase
+    print(f"tp: {seconds:.1f} s, card {run_card()}")
+    return {"launches": launches, "units": units, "shapes": shapes, "seconds": seconds}
+
+
 def merge_zoo(rows: list, zoo: dict) -> None:
-    """Add the zoo phase's launches (by run and per unit) and its timed
-    shapes to the ``kernels`` rows of phase_times."""
+    """Add the zoo phase's launches (by run and per unit: ZOO_UNITS, or the
+    phase's own ``units``) and its timed shapes to the ``kernels`` rows of
+    phase_times."""
+    units = {**ZOO_UNITS, **zoo.get("units", {})}
     for row in rows:
         by_run = {r: c[row["name"]] for r, c in zoo["launches"].items() if c[row["name"]]}
         row["launches"] += sum(by_run.values())
         row["launches_by_run"].update(by_run)
-        row["launches_per"].update({ZOO_UNITS[r][0]: n / ZOO_UNITS[r][1]
+        row["launches_per"].update({units[r][0]: n / units[r][1]
                                     for r, n in by_run.items()})
         if "shapes" in row:
             merge_shapes({row["name"]: row["shapes"]},
@@ -3816,6 +4101,7 @@ def main() -> int:
     del comp, fsdp, serve, sync, psum, p2p, fleet, obs_run, sampled, file_twins, roofline, \
         strategies, runs
     merge_zoo(rows, phase_zoo(dev, torch, np, bw))
+    merge_zoo(rows, phase_tp(dev, torch, np, bw))
     print(f"card: {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

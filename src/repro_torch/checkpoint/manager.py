@@ -24,10 +24,11 @@ same way.  A state that is not a tree but can be rebuilt from one (a
 ``train.step.TrainState``: ``checkpoint_tree()``, ``global_like()`` and
 ``from_tree``) saves as its checkpoint tree, and restores through
 ``state_like.from_tree``: a train state at n ranks is gathered into the
-reference's global layout (a ZeRO-1 bucket leaf ``(n_dp, shard_len)``;
-FSDP's parameters whole and its optimizer leaves ``(n_dp, ...)``) on the
-host of rank 0, one row at a time, and written by rank 0 alone, so its
-files are the reference's at the same DP size.  A restore reads each leaf
+reference's global layout (a ZeRO-1 bucket leaf ``(n_dp, n_model *
+shard_len)``, tensor-parallel parameter blocks joined whole; FSDP's
+parameters whole and its optimizer leaves ``(n_dp, ...)``) on the host of
+rank 0, one row at a time, and written by rank 0 alone, so its files are
+the reference's at the same mesh.  A restore reads each leaf
 on the host, and only this rank's part of it reaches the device.
 
 ``restore(shardings=)`` places each stored global leaf on a mesh: a tree

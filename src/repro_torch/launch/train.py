@@ -19,12 +19,15 @@ state every ``--ckpt-every`` steps, a heartbeat file, counts stragglers,
 flushes a checkpoint on SIGTERM (``--sigterm``) and resumes from the newest
 good checkpoint (``--resume``).  Under ``torchrun`` the process group comes
 from the environment; otherwise a single-process group is made (NCCL on the
-GPU, gloo on the CPU).  The CLI runs over a ``(pods, world // pods, 1)``
-mesh of ``("pod", "data", "model")`` (``--pods``, default 1): the steps
-sync over (pod, data) in pod-major rank order, and each rank reads the
-batch rows of its place in that order.  The reference's launcher builds
-its smoke mesh, which puts devices on 'model' too; the port runs no
-tensor parallelism, so its mesh keeps 'model' at 1.
+GPU, gloo on the CPU).  ZeRO-1 runs over the reference's smoke mesh
+(``launch.mesh.make_smoke_mesh(pods=)``: at 4 ranks (data, model) = (2,
+2), at 4 ranks and ``--pods 2`` (2, 1, 2)), tensor and expert parallel
+over 'model' (data parallel over it for the archs that
+``cells.TRAIN_KNOBS`` marks ``dp_only``: :func:`cli_mesh`); FSDP over a
+``(pods, world // pods, 1)`` mesh of ``("pod", "data", "model")`` (FSDP at
+model > 1 is not ported).  The steps sync over the DP axes in pod-major
+rank order, and each rank reads the batch rows of its DP index in that
+order (the model ranks of a DP row read the same rows).
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ import torch.distributed as dist
 from repro_torch import configs, kernels
 from repro_torch.core.policy import CompressionPolicy, capture_wire_reports
 from repro_torch.data.pipeline import DataConfig, DataPipeline
+from repro_torch.launch import cells
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.config import ArchConfig
 from repro_torch.optim.optimizers import OptimConfig
@@ -122,7 +126,9 @@ class TrainRun:
 
 def dp_rows(batch: dict, index: int, count: int) -> dict:
     """Rows ``index * b / count`` on of a global batch: the rows that
-    ``P(("pod", "data"), None)`` places on DP index ``index`` of ``count``."""
+    ``P(("pod", "data"), None)`` places on DP index ``index`` of ``count``
+    (on every model rank of that index alike: 'model' replicates the
+    batch)."""
     m = len(batch["tokens"]) // count
     return {k: v[index * m:(index + 1) * m] for k, v in batch.items()}
 
@@ -149,7 +155,8 @@ def build(arch: str | ArchConfig, *, batch: int, seq: int, rcfg: RunnerConfig,
           compress: bool = True, smoke: bool = False, device="cuda", seed: int = 0,
           lr: float = 3e-4, warmup: int = 20, optimizer: str = "adamw",
           compress_min_bytes: int = 0, partition: str = "zero1", microbatches: int = 1,
-          group=None, mesh=None, data_path: str | None = None) -> tuple:
+          group=None, mesh=None, data_path: str | None = None, generator=None,
+          dp_only: bool = False) -> tuple:
     """``(state, tcfg, runner, plan_cache)``: the random init of ``arch``
     (a name: its config, or with ``smoke`` its SMOKE config; or an
     ``ArchConfig`` as it is) made from ``seed``, its train config, and a
@@ -164,8 +171,12 @@ def build(arch: str | ArchConfig, *, batch: int, seq: int, rcfg: RunnerConfig,
     index in the global batch (:func:`dp_rows`), as the reference's
     launcher places them; a batch that does not split evenly over those
     indices raises ValueError.  ``data_path`` reads the batches from a token file (the
-    pipeline's ``file`` backend) in place of synthetic tokens.  An encoder-decoder config raises ValueError: the pipeline
-    makes no frames (the reference's launcher feeds none either)."""
+    pipeline's ``file`` backend) in place of synthetic tokens.  ``generator``:
+    the init's draws (default a CPU generator seeded ``seed``; a CUDA one
+    draws a billion weights in seconds).  An encoder-decoder config raises
+    ValueError: the pipeline makes no frames (the reference's launcher
+    feeds none either).  ``dp_only``: the mesh's 'model' axis carries batch
+    rows, not tensor parallelism (``TrainConfig.dp_only``)."""
     dev = kernels.resolve_device(device)
     if isinstance(arch, ArchConfig):
         cfg = arch
@@ -179,7 +190,7 @@ def build(arch: str | ArchConfig, *, batch: int, seq: int, rcfg: RunnerConfig,
               else CompressionPolicy.disabled())
     tcfg = step_lib.TrainConfig(
         microbatches=microbatches, partition=partition, loss_chunk=min(1024, seq),
-        policy=policy,
+        policy=policy, dp_only=dp_only,
         optim=OptimConfig(name=optimizer, lr=lr, warmup_steps=warmup))
     if mesh is not None:
         n_dp = dist.get_world_size(step_lib.sync_group(mesh, tcfg)[0])
@@ -187,8 +198,8 @@ def build(arch: str | ArchConfig, *, batch: int, seq: int, rcfg: RunnerConfig,
             raise ValueError(f"a batch of {batch} rows does not split over the mesh's "
                              f"{n_dp} data-parallel ranks")
     state = step_lib.build_train_state(
-        cfg, tcfg, generator=torch.Generator().manual_seed(seed), group=group, mesh=mesh,
-        device=dev)
+        cfg, tcfg, generator=torch.Generator().manual_seed(seed) if generator is None
+        else generator, group=group, mesh=mesh, device=dev)
     place = (dist.get_rank(state.group), dist.get_world_size(state.group))
     rows = place if mesh is not None else None
     plan_cache = PlanCache()
@@ -210,7 +221,7 @@ def train(arch: str | ArchConfig, *, steps: int, batch: int, seq: int,
           lr: float = 3e-4, warmup: int = 20, optimizer: str = "adamw",
           compress_min_bytes: int = 0, partition: str = "zero1", microbatches: int = 1,
           group=None, mesh=None, rcfg: RunnerConfig = None, resume: bool = False, log=None,
-          data_path: str | None = None) -> TrainRun:
+          data_path: str | None = None, generator=None, dp_only: bool = False) -> TrainRun:
     """Train ``steps`` steps of ``partition`` through the StepRunner of :func:`build`
     (``rcfg``: its checkpoint, heartbeat and straggler settings; by default
     checkpoints go to a temporary directory that the run removes).
@@ -224,7 +235,8 @@ def train(arch: str | ArchConfig, *, steps: int, batch: int, seq: int,
             arch, batch=batch, seq=seq, rcfg=rcfg, compress=compress, smoke=smoke,
             device=device, seed=seed, lr=lr, warmup=warmup, optimizer=optimizer,
             compress_min_bytes=compress_min_bytes, partition=partition,
-            microbatches=microbatches, group=group, mesh=mesh, data_path=data_path)
+            microbatches=microbatches, group=group, mesh=mesh, data_path=data_path,
+            generator=generator, dp_only=dp_only)
         start = 0
         if resume:
             resumed, start = runner.try_resume(state, device=device)
@@ -239,6 +251,29 @@ def train(arch: str | ArchConfig, *, steps: int, batch: int, seq: int,
                     step_ms=[t * 1e3 for t in runner.times], retries=runner.retries,
                     wire_reports=list(reports), plan_cache=plan_cache, runner=runner,
                     start_step=start)
+
+
+def cli_mesh(arch: str, partition: str, world: int, pods: int = 1, device="cpu") -> tuple:
+    """``(mesh, dp_only)`` of a CLI run of ``world`` ranks: ZeRO-1 over the
+    reference's smoke mesh (``make_smoke_mesh(pods=)``), tensor parallel
+    over its 'model' axis except where ``cells.TRAIN_KNOBS`` marks the arch
+    ``dp_only`` (smollm, xlstm: then 'model' carries batch rows, as in
+    their production cells, and the wire goes raw, since its label
+    ("data", "model") names an axis the policy does not compress, in both
+    packages; at model = 1 ``dp_only`` stays off and the wire compressed);
+    FSDP over ``(pods, world // pods, 1)``.  A
+    ZeRO-1 run of an arch whose layers do not split over 'model' yet
+    (jamba's Mamba, qwen2-vl's vision stub) at model > 1 raises
+    NotImplementedError in the state builder (ROADMAP Queue A, slice 18)."""
+    if world % pods:
+        raise SystemExit(f"{world} ranks do not split into {pods} pods")
+    if partition == "zero1":
+        knobs = cells.TRAIN_KNOBS.get(arch, ())
+        mesh = mesh_lib.make_smoke_mesh(world, pods=pods, device=device)
+        return mesh, (len(knobs) > 3 and knobs[3]
+                      and mesh_lib.axis_sizes(mesh)["model"] > 1)
+    return mesh_lib.make_mesh((pods, world // pods, 1), ("pod", "data", "model"),
+                              device=device), False
 
 
 def main(argv=None):
@@ -270,11 +305,8 @@ def main(argv=None):
     rcfg = RunnerConfig(ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
                         heartbeat_path=args.heartbeat, install_sigterm=args.sigterm)
     with launcher_group(args.device) as dev:
-        world = dist.get_world_size()
-        if world % args.pods:
-            raise SystemExit(f"{world} ranks do not split into {args.pods} pods")
-        mesh = mesh_lib.make_mesh((args.pods, world // args.pods, 1),
-                                  ("pod", "data", "model"), device=dev)
+        mesh, dp_only = cli_mesh(args.arch, args.partition, dist.get_world_size(),
+                                 args.pods, dev)
         run = train(args.arch, steps=args.steps, batch=args.batch,
                     seq=args.seq, compress=not args.no_compress,
                     smoke=args.smoke, device=dev, seed=args.seed,
@@ -282,7 +314,8 @@ def main(argv=None):
                     compress_min_bytes=args.compress_min_bytes,
                     partition=args.partition, microbatches=args.microbatches, mesh=mesh,
                     rcfg=rcfg,
-                    resume=args.resume, log=print, data_path=args.data_path)
+                    resume=args.resume, log=print, data_path=args.data_path,
+                    dp_only=dp_only)
     print(f"final loss {run.losses[-1]:.4f} | stragglers {run.runner.stragglers} | "
           f"retries {run.retries} | compressed={not args.no_compress} | "
           f"partition={args.partition} | mesh={mesh_lib.axis_sizes(mesh)}")

@@ -21,6 +21,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import tp
 from repro_torch.models.config import ArchConfig, LayerSpec
 
 
@@ -143,16 +144,74 @@ def _decode_attend(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     return out.reshape(B, 1, H, cv.shape[-1]).to(q.dtype)
 
 
+def _head_blocks(x: torch.Tensor, width: int, heads: int, mg) -> tuple:
+    """This rank's heads of a column-parallel projection ``x`` (B, S, its
+    block of ``heads * width`` columns): ``(x, h0, h1)`` with ``x`` (B, S,
+    h1 - h0, width) holding heads [h0, h1).  A block that is not whole
+    heads is gathered over the group first (GSPMD's reshard), and then
+    holds every head."""
+    cols = x.shape[-1]
+    if cols % width:
+        return _split_heads(tp.gather(x, mg, -1), width), 0, heads
+    h0 = mg.rank * cols // width
+    return _split_heads(x, width), h0, h0 + cols // width
+
+
+def _split_heads(x: torch.Tensor, width: int) -> torch.Tensor:
+    return x.reshape(*x.shape[:2], x.shape[2] // width, width)
+
+
+def _attention_tp(p: dict, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec, cos, sin,
+                  kv_src: torch.Tensor | None, mg) -> torch.Tensor:
+    """:func:`attention` (training form) on this rank's blocks: ``wq``,
+    ``wk``, ``wv`` column-parallel, ``wo`` row-parallel.  The rank computes
+    its block of query heads (all of them where its ``wq`` columns split a
+    head) against the KV heads they read in GQA's global map (query head
+    ``h`` reads KV head ``h // (H / Hkv)``): its own ``wk``/``wv`` columns
+    when they are exactly those heads, else the projections gathered over
+    the group and cut to them.  Its block of the output columns goes
+    through its rows of ``wo``, and the ranks' products are summed."""
+    B, S, _ = x.shape
+    hd, H, Hkv = cfg.hd, cfg.n_heads, cfg.kv_heads
+    G = H // Hkv
+    xin = tp.copy(x, mg)
+    src = xin if kv_src is None else tp.copy(kv_src, mg)
+    q, h0, h1 = _head_blocks(xin @ p["wq"], hd, H, mg)
+    k0, k1 = h0 // G, (h1 - 1) // G + 1  # the KV heads the query heads read
+    k, kh0, _ = _head_blocks(src @ p["wk"], hd, Hkv, mg)
+    v, _, _ = _head_blocks(src @ p["wv"], hd, Hkv, mg)
+    if (kh0, k.shape[2]) != (k0, k1 - k0):
+        if k.shape[2] != Hkv:  # whole heads, not the ones these queries read
+            k, v = (_split_heads(tp.gather(t.flatten(2), mg, -1), hd) for t in (k, v))
+        k, v = k[:, :, k0:k1], v[:, :, k0:k1]
+    if (h1 - h0) != (k1 - k0) * G:  # the block is not whole GQA groups
+        idx = torch.tensor([h // G - k0 for h in range(h0, h1)], device=x.device)
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    if kv_src is None:
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        out = _attend(q, k, v, spec.window)
+    else:
+        out = _attend_chunked(q, k, v, causal=False, window=spec.window)
+    out = out.reshape(B, S, -1)
+    cols = p["wo"].shape[0]
+    if out.shape[-1] != cols:  # every head computed: keep this rank's columns
+        out = out[..., mg.rank * cols:(mg.rank + 1) * cols]
+    return tp.reduce(out @ p["wo"], mg)
+
+
 def attention(p: dict, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec,
               cos: torch.Tensor | None, sin: torch.Tensor | None, cache: dict | None = None,
-              cache_pos: int | None = None, kv_override: tuple | None = None) -> torch.Tensor:
+              cache_pos: int | None = None, *, kv_src: torch.Tensor | None = None,
+              mg=None) -> torch.Tensor:
     """Causal GQA self-attention.  p: {wq, wk, wv, wo} of one layer.
 
-    ``kv_override`` (k, v), each (B, T, Hkv, hd): attention of the queries
-    ``x @ wq`` over those keys and values instead, with no RoPE on either
-    and no causal mask (the window still applies), in the reference's
-    chunked form whatever ``cache``: a decoder layer's cross-attention over
-    the encoder output, and the encoder's own bidirectional attention.
+    ``kv_src`` (B, T, D): attention of the queries ``x @ wq`` over the keys
+    and values ``kv_src @ wk``, ``kv_src @ wv`` instead, with no RoPE on
+    either and no causal mask (the window still applies), in the
+    reference's chunked form whatever ``cache``: a decoder layer's
+    cross-attention over the encoder output, and the encoder's own
+    bidirectional attention (the reference's ``kv_override`` of those
+    projections).
 
     ``cache`` ({"k", "v"}, each (B, max_len, Hkv, hd), this layer's slice of
     the stacked cache) is written IN PLACE: with ``cache_pos`` None (prefill)
@@ -160,12 +219,22 @@ def attention(p: dict, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec,
     prompt; with ``cache_pos`` (decode, S == 1) they are spliced in at
     ``cache_pos`` (clamped to the cache, as the reference's dynamic update
     clamps) and the query attends over every cache position
-    ``<= cache_pos``."""
+    ``<= cache_pos``.
+
+    ``mg``: the model group (``models/tp``) whose rank holds its blocks of
+    the leaves (:func:`_attention_tp`); training forms only (no cache)."""
+    if tp.active(mg):
+        if cache is not None:
+            raise NotImplementedError("attention with a cache at model > 1 is not ported "
+                                      "(ROADMAP Queue A, slice 18)")
+        return _attention_tp(p, x, cfg, spec, cos, sin, kv_src, mg)
     B, S, _ = x.shape
     hd, H, Hkv = cfg.hd, cfg.n_heads, cfg.kv_heads
-    if kv_override is not None:
+    if kv_src is not None:
+        T = kv_src.shape[1]
+        k, v = ((kv_src @ p[w]).reshape(B, T, Hkv, hd) for w in ("wk", "wv"))
         q = (x @ p["wq"]).reshape(B, S, H, hd)
-        out = _attend_chunked(q, *kv_override, causal=False, window=spec.window)
+        out = _attend_chunked(q, k, v, causal=False, window=spec.window)
         return out.reshape(B, S, H * hd) @ p["wo"]
     q = apply_rope((x @ p["wq"]).reshape(B, S, H, hd), cos, sin)
     k = apply_rope((x @ p["wk"]).reshape(B, S, Hkv, hd), cos, sin)
@@ -184,13 +253,16 @@ def attention(p: dict, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec,
     return out.reshape(B, S, H * hd) @ p["wo"]
 
 
-def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ p["w1"]) * (x @ p["w3"])) @ p["w2"]
+def swiglu(p: dict, x: torch.Tensor, mg=None) -> torch.Tensor:
+    """SwiGLU; at a model group ``mg``, ``w1``/``w3`` column-parallel and
+    ``w2`` row-parallel (``models/tp``)."""
+    x = tp.copy(x, mg)
+    return tp.reduce((F.silu(x @ p["w1"]) * (x @ p["w3"])) @ p["w2"], mg)
 
 
 def mla_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec,
                   cos: torch.Tensor, sin: torch.Tensor, cache: dict | None = None,
-                  cache_pos: int | None = None) -> torch.Tensor:
+                  cache_pos: int | None = None, *, mg=None) -> torch.Tensor:
     """DeepSeek's multi-head latent attention (the reference's
     ``mla_attention``).  p: {w_dkv, w_krope, w_uk, w_uv, wq, wo} of one
     layer; cos/sin: the table at ``cfg.mla.rope_dim``.
@@ -201,11 +273,26 @@ def mla_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec,
     keys and values are rebuilt from ``c_kv`` at every call; the rotated
     ``k_rope`` is one head, broadcast to all.  Scores are those of the
     augmented vectors ``[q_nope | q_rope] . [k_nope | k_rope]``, so the
-    scale is 1/sqrt(hd + rope_dim) while values are hd wide.  No window."""
+    scale is 1/sqrt(hd + rope_dim) while values are hd wide.  No window.
+
+    At a model group ``mg`` (training form only): ``w_dkv``/``w_krope``
+    replicated, so every rank computes the same latents; ``wq``, ``w_uk``
+    and ``w_uv`` column-parallel over whole heads, ``wo`` row-parallel.
+    The latents, the query input and the rank's head products enter its
+    block through ``tp.copy``, the output leaves through ``tp.reduce``."""
     B, S, _ = x.shape
     hd, H, r = cfg.hd, cfg.n_heads, cfg.mla.rope_dim
     c_kv = x @ p["w_dkv"]
     k_rope = apply_rope((x @ p["w_krope"])[:, :, None, :], cos, sin)[:, :, 0]
+    if tp.active(mg):
+        if cache is not None:
+            raise NotImplementedError("MLA with a cache at model > 1 is not ported "
+                                      "(ROADMAP Queue A, slice 18)")
+        H = p["wq"].shape[1] // (hd + r)
+        if p["wq"].shape[1] != H * (hd + r) or p["w_uk"].shape[1] != H * hd:
+            raise ValueError(f"MLA at model = {mg.size}: {cfg.n_heads} heads do not split "
+                             f"into whole heads a rank")
+        x, c_kv, k_rope = (tp.copy(t, mg) for t in (x, c_kv, k_rope))
     q = (x @ p["wq"]).reshape(B, S, H, hd + r)
     q_aug = torch.cat([q[..., :hd], apply_rope(q[..., hd:], cos, sin)], -1)
     if cache is not None and cache_pos is None:
@@ -226,7 +313,7 @@ def mla_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec,
         out = _attend_chunked(q_aug, k_aug, v, causal=True, window=None)
     else:
         out = _decode_attend(q_aug, k_aug, v, cache_pos, None)
-    return out.reshape(B, S, H * hd) @ p["wo"]
+    return tp.reduce(out.reshape(B, S, H * hd) @ p["wo"], mg)
 
 
 def moe_capacity(cfg: ArchConfig, n_tokens: int, capacity_factor: float = 1.25,
@@ -332,7 +419,7 @@ def moe_dispatch(p: dict, xt: torch.Tensor, cfg: ArchConfig, capacity: int) -> M
 
 
 def moe(p: dict, x: torch.Tensor, cfg: ArchConfig, *, capacity_factor: float = 1.25,
-        dropless_below: int = 512) -> torch.Tensor:
+        dropless_below: int = 512, mg=None) -> torch.Tensor:
     """Capacity-based top-k MoE with shared experts (the reference's
     ``moe``): x (B, S, D) -> (B, S, D).  Routing, dispatch and the expert
     SwiGLU as :func:`moe_dispatch`; each slot's output times its gate (f32)
@@ -342,12 +429,18 @@ def moe(p: dict, x: torch.Tensor, cfg: ArchConfig, *, capacity_factor: float = 1
     Every gather of a float is ``F.embedding`` over a table with a zero row
     appended: its CUDA backward is deterministic, and a slot's row receives
     the gradient of at most one pick.  So no float scatter-add or index-add
-    (atomic on CUDA) runs, forward or backward."""
+    (atomic on CUDA) runs, forward or backward.
+
+    At a model group ``mg`` (expert parallelism, :func:`_moe_ep`): the
+    router replicated, the routed experts split by expert over the group,
+    the shared experts a tensor-parallel SwiGLU."""
     B, S, D = x.shape
     E = cfg.moe.n_experts
     T = B * S
     C = moe_capacity(cfg, T, capacity_factor, dropless_below)
     xt = x.reshape(T, D)
+    if tp.active(mg):
+        return _moe_ep(p, xt, cfg, C, mg).reshape(B, S, D)
     d = moe_dispatch(p, xt, cfg, C)
     gate_of_slot = F.embedding(d.slot, torch.cat([d.gates.reshape(-1, 1),
                                                   d.gates.new_zeros(1, 1)]))  # (E, C, 1)
@@ -357,6 +450,37 @@ def moe(p: dict, x: torch.Tensor, cfg: ArchConfig, *, capacity_factor: float = 1
     if cfg.moe.n_shared:
         y = y + swiglu(p["shared"], xt)
     return y.reshape(B, S, D)
+
+
+def _moe_ep(p: dict, xt: torch.Tensor, cfg: ArchConfig, C: int, mg) -> torch.Tensor:
+    """:func:`moe` over tokens ``xt`` (T, D), replicated over the model
+    group, with this rank's block of ``E / n`` experts (the reference's
+    ``P("model", None, None)`` on ``we1``/``we3``/``we2``).  Every rank
+    computes the same route and slot table (:func:`moe_route` on the
+    replicated router, the C-1 quirk kept), runs only its own experts'
+    slots and combines their gated outputs in f32 as :func:`moe_combine`
+    does (the other ranks' picks read the zero row); the partial sums are
+    added over the group in f32 before the cast.  The tokens and the gates
+    enter the expert block through ``tp.copy``, so their gradients (and
+    the router's) are summed over the group."""
+    T, D = xt.shape
+    k, E = cfg.moe.top_k, cfg.moe.n_experts
+    n_loc = p["we1"].shape[0]
+    e0 = mg.rank * n_loc
+    gates, eids, slot, where = moe_route((xt @ p["router"]).to(torch.float32), cfg, C)
+    slot = slot[e0:e0 + n_loc]
+    xe, ge = tp.copy(xt, mg), tp.copy(gates, mg)
+    tok = torch.where(slot < T * k, slot // k, T)
+    xg = F.embedding(tok, torch.cat([xe, xe.new_zeros(1, D)]))
+    h = torch.bmm(F.silu(torch.bmm(xg, p["we1"])) * torch.bmm(xg, p["we3"]), p["we2"])
+    gate_of_slot = F.embedding(slot, torch.cat([ge.reshape(-1, 1), ge.new_zeros(1, 1)]))
+    local = where - e0 * C
+    local = torch.where((where < E * C) & (local >= 0) & (local < n_loc * C), local, n_loc * C)
+    out = moe_combine((h.to(torch.float32) * gate_of_slot).reshape(n_loc * C, D), local, eids)
+    y = tp.reduce(out, mg).to(xt.dtype)
+    if cfg.moe.n_shared:
+        y = y + swiglu(p["shared"], xt, mg)
+    return y
 
 
 # ---------------------------------------------------------------------------

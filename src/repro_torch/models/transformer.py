@@ -37,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import kernels
 from repro_torch.core import codec
 from repro_torch.models import layers as L
+from repro_torch.models import tp
 from repro_torch.models.config import ArchConfig, LayerSpec
 from repro_torch.tree_util import tree_map_up_to
 
@@ -191,6 +192,53 @@ def model_axis_dims(cfg: ArchConfig) -> dict:
                           abstract_params(cfg), specs(cfg))
 
 
+def block_specs(cfg: ArchConfig, n_model: int) -> dict:
+    """``{path: spec}`` of every leaf as a rank of a 'model' axis of
+    ``n_model`` holds it: :func:`specs` with an entry dropped where its dim
+    does not split into ``n_model`` blocks (the reference's
+    ``sanitize_specs``; whisper's vocabulary of 51 865 stays whole)."""
+    shapes = dict(tree_paths(abstract_params(cfg)))
+
+    def keep(path, spec):
+        return tuple(None if e is None or shapes[path].shape[d] % n_model else e
+                     for d, e in enumerate(spec))
+
+    return {path: keep(path, spec) for path, spec in tree_paths(specs(cfg))}
+
+
+def check_model_parallel(cfg: ArchConfig, n_model: int) -> None:
+    """Refuse a model the port cannot run with ``n_model`` > 1 ranks on
+    'model': Mamba, mLSTM and sLSTM layers and the vision stub raise
+    ``NotImplementedError`` (ROADMAP Queue A, slice 18), as does a layer
+    leaf that the layout splits but whose dim does not divide (a layer
+    split in part)."""
+    if n_model == 1:
+        return
+    mixers = sorted({s.mixer for s in (*cfg.prefix, *cfg.pattern)} & set(_RECURRENT))
+    if mixers or cfg.frontend == "vision_stub":
+        what = ", ".join(mixers + (["the vision stub"] if cfg.frontend == "vision_stub" else []))
+        raise NotImplementedError(f"{cfg.name} at model = {n_model}: {what} over 'model' "
+                                  f"is not ported (ROADMAP Queue A, slice 18)")
+    kept = block_specs(cfg, n_model)
+    for path, spec in tree_paths(specs(cfg)):
+        if path not in ("embed", "lm_head") and kept[path] != spec:
+            raise NotImplementedError(f"{cfg.name} at model = {n_model}: {path} of "
+                                      f"{spec} does not split into {n_model} blocks")
+
+
+def _block(t: torch.Tensor, spec: tuple, mg) -> torch.Tensor:
+    """This rank's block of a global leaf laid out by ``spec`` (its 'model'
+    entries), a copy with storage of its own; the leaf itself without a
+    model group."""
+    if mg is None:
+        return t
+    for d, e in enumerate(spec):
+        if e == "model":
+            n = t.shape[d] // mg.size
+            t = t.narrow(d, mg.rank * n, n)
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def tree_paths(tree, prefix: str = ""):
     """``(path, leaf)`` pairs in ``jax.tree_util.tree_leaves`` order (dict
     keys sorted, sequences in order); a leaf is anything that is not a dict
@@ -217,11 +265,20 @@ def _map_paths(tree, fn, prefix: str = ""):
 
 class Transformer(nn.Module):
     """The model over stacked layer parameters; ``forward`` returns the
-    hidden states before the head, as the reference's ``forward``."""
+    hidden states before the head, as the reference's ``forward``.
 
-    def __init__(self, cfg: ArchConfig, tensors: dict):
+    ``mg``: the model group (``models/tp``) of a rank of a 'model' axis
+    above 1; ``tensors`` then hold this rank's block of every leaf
+    (:func:`block_specs`), and the layers run tensor-parallel (attention,
+    MLA, SwiGLU) or expert-parallel (MoE), the embedding and the head
+    vocabulary-parallel where the vocabulary splits."""
+
+    def __init__(self, cfg: ArchConfig, tensors: dict, mg=None):
         super().__init__()
         self.cfg = cfg
+        self.mg = mg if tp.active(mg) else None
+        if self.mg is not None:
+            check_model_parallel(cfg, self.mg.size)
         self.params = nn.ParameterDict()
         for path, _ in tree_paths(_tree_shapes(cfg)):
             self.params[path] = nn.Parameter(tensors[path])
@@ -239,6 +296,12 @@ class Transformer(nn.Module):
 
     def head(self) -> torch.Tensor:
         return self.params["embed" if self.cfg.tie_embeddings else "lm_head"]
+
+    def vocab_group(self, table: torch.Tensor):
+        """The model group when ``table`` (an embedding or head of this
+        model's, or its gathered twin) holds a block of the vocabulary's
+        rows, else None."""
+        return self.mg if table.shape[0] != self.cfg.vocab else None
 
     def _layer(self, pre: str, r: int | None, spec: LayerSpec, top: dict,
                cross: bool | None = None) -> dict:
@@ -267,22 +330,19 @@ class Transformer(nn.Module):
         """The encoder (the reference's ``_run_encoder``) over stubbed frame
         embeddings (B, T, D): plus ``enc_pos``, then per layer the
         bidirectional attention of each position over all of them
-        (``kv_override`` with the layer's own K/V) and SwiGLU, then
+        (``kv_src``: the layer's own K/V) and SwiGLU, then
         ``enc_norm``.  ``top`` and ``remat`` as in :meth:`run_layers`."""
         cfg = self.cfg
         top = {} if top is None else top
         get = lambda k: top[k] if k in top else self.params[k]  # noqa: E731
         h = frames.to(get("enc_pos").dtype) + get("enc_pos")[None, :frames.shape[1]]
-        B, T, _ = h.shape
         for r in range(cfg.n_enc_layers):
             def layer(h, r=r):
                 p = self._layer("enc_blocks/", r, ENC_SPEC, top, cross=False)
                 x = L.rms_norm(h, p["norm1"], cfg.norm_eps)
-                kv = [(x @ p["mixer"][w]).reshape(B, T, cfg.kv_heads, cfg.hd)
-                      for w in ("wk", "wv")]
-                h = h + L.attention(p["mixer"], x, cfg, ENC_SPEC, None, None,
-                                    kv_override=tuple(kv))
-                return h + L.swiglu(p["ffn"], L.rms_norm(h, p["norm2"], cfg.norm_eps))
+                h = h + L.attention(p["mixer"], x, cfg, ENC_SPEC, None, None, kv_src=x,
+                                    mg=self.mg)
+                return h + L.swiglu(p["ffn"], L.rms_norm(h, p["norm2"], cfg.norm_eps), self.mg)
 
             h = (checkpoint(layer, h, use_reentrant=False, preserve_rng_state=False)
                  if remat else layer(h))
@@ -331,9 +391,10 @@ class Transformer(nn.Module):
                 x = L.rms_norm(h, p["norm1"], cfg.norm_eps)
                 if spec.mixer == "mla":
                     out = L.mla_attention(p["mixer"], x, cfg, spec, *ropes[cfg.mla.rope_dim],
-                                          st, cache_pos)
+                                          st, cache_pos, mg=self.mg)
                 elif spec.mixer == "attn":
-                    out = L.attention(p["mixer"], x, cfg, spec, *ropes[cfg.hd], st, cache_pos)
+                    out = L.attention(p["mixer"], x, cfg, spec, *ropes[cfg.hd], st, cache_pos,
+                                      mg=self.mg)
                 else:
                     prev = st if cache_pos is not None else None
                     if spec.mixer == "mamba":
@@ -346,17 +407,14 @@ class Transformer(nn.Module):
                             t.copy_(new[k])
                 h = h + out
                 if enc_out is not None and "cross" in p:
-                    B, T, _ = enc_out.shape
-                    kv = [(enc_out @ p["cross"][w]).reshape(B, T, cfg.kv_heads, cfg.hd)
-                          for w in ("wk", "wv")]
                     h = h + L.attention(p["cross"], L.rms_norm(h, p["normx"], cfg.norm_eps),
-                                        cfg, spec, None, None, kv_override=tuple(kv))
+                                        cfg, spec, None, None, kv_src=enc_out, mg=self.mg)
                 if spec.ffn == "none":
                     return h
                 x = L.rms_norm(h, p["norm2"], cfg.norm_eps)
                 if spec.ffn == "moe":
-                    return h + L.moe(p["ffn"], x, cfg)
-                return h + L.swiglu(p["ffn"], x)
+                    return h + L.moe(p["ffn"], x, cfg, mg=self.mg)
+                return h + L.swiglu(p["ffn"], x, self.mg)
 
             # the layer draws no random numbers: no RNG state to keep
             h = (checkpoint(layer, h, use_reentrant=False, preserve_rng_state=False)
@@ -368,9 +426,10 @@ class Transformer(nn.Module):
               table: torch.Tensor | None = None) -> torch.Tensor:
         """Token embeddings (from ``table``, default the model's), with the
         VLM stub's ``vision_embeds`` (B, Sv, D) replacing the leading Sv
-        positions."""
-        h = torch.nn.functional.embedding(
-            tokens, self.params["embed"] if table is None else table)
+        positions.  A table of this rank's block of the vocabulary looks up
+        vocabulary-parallel (``tp.vocab_embed``)."""
+        table = self.params["embed"] if table is None else table
+        h = tp.vocab_embed(tokens, table, self.vocab_group(table))
         if vision_embeds is not None:
             ve = vision_embeds.to(h.dtype)
             h = torch.cat([ve, h[:, ve.shape[1]:]], 1)
@@ -415,7 +474,8 @@ def _draw(shape, init, dt, generator, dev) -> torch.Tensor:
     return t.to(device=dev, dtype=dt)
 
 
-def init(cfg: ArchConfig, *, generator: torch.Generator, device="cuda") -> Transformer:
+def init(cfg: ArchConfig, *, generator: torch.Generator, device="cuda",
+         mesh=None) -> Transformer:
     """Random initialisation with the reference's scales (normal * 0.02 for
     embeddings, the encoder's positions, the router and the xLSTM gates,
     normal * 0.5 for Mamba's conv, normal / sqrt(shape[0]) for dense layers
@@ -424,13 +484,20 @@ def init(cfg: ArchConfig, *, generator: torch.Generator, device="cuda") -> Trans
     Draws come from ``generator`` in parameter order, on the generator's
     device: a CPU generator gives the same weights on every device, a CUDA
     one draws a model of billions of parameters in seconds (with one f32
-    temporary of its largest leaf on the card)."""
+    temporary of its largest leaf on the card).
+
+    ``mesh``: a mesh whose 'model' axis is above 1 keeps this rank's block
+    of each leaf (:func:`block_specs`), drawn whole as on one rank, so the
+    blocks of the ranks join to the one-rank init bit for bit."""
     dev = kernels.resolve_device(device)
+    mg = tp.model_group(mesh)
+    kept = block_specs(cfg, mg.size) if mg else {}
     tensors = {}
     for path, (shape, init) in tree_paths(_tree_shapes(cfg)):
-        tensors[path] = _draw(_stacked(cfg, path) + tuple(shape), init,
-                              _leaf_dtype(cfg, init), generator, dev)
-    return Transformer(cfg, tensors)
+        t = _draw(_stacked(cfg, path) + tuple(shape), init, _leaf_dtype(cfg, init),
+                  generator, dev)
+        tensors[path] = _block(t, kept.get(path, ()), mg)
+    return Transformer(cfg, tensors, mg)
 
 
 def abstract_params(cfg: ArchConfig) -> dict:
@@ -457,14 +524,18 @@ def numpy_to_torch(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
     return torch.from_numpy(a.view(ints).copy()).view(dtype)
 
 
-def load_reference_params(tree, cfg: ArchConfig, device="cuda") -> Transformer:
+def load_reference_params(tree, cfg: ArchConfig, device="cuda", mesh=None) -> Transformer:
     """The port's model holding the reference's weights:
     ``tree = jax.tree_util.tree_map(np.asarray, repro...transformer.init(key,
-    cfg))``; each leaf in its own dtype (:func:`leaf_dtypes`)."""
+    cfg))``; each leaf in its own dtype (:func:`leaf_dtypes`).  ``mesh``
+    as in :func:`init`: this rank's block of each global leaf."""
     dev = kernels.resolve_device(device)
     dts = leaf_dtypes(cfg)
-    tensors = {path: numpy_to_torch(a, dts[path]).to(dev) for path, a in tree_paths(tree)}
-    return Transformer(cfg, tensors)
+    mg = tp.model_group(mesh)
+    kept = block_specs(cfg, mg.size) if mg else {}
+    tensors = {path: _block(numpy_to_torch(a, dts[path]), kept.get(path, ()), mg).to(dev)
+               for path, a in tree_paths(tree)}
+    return Transformer(cfg, tensors, mg)
 
 
 # ---------------------------------------------------------------------------
@@ -522,7 +593,17 @@ def _cache_tree(cfg: ArchConfig, batch: int, max_len: int, dev: torch.device) ->
 
 
 def logits_from_hidden(model: Transformer, h: torch.Tensor) -> torch.Tensor:
-    return h @ model.head().T
+    """Logits of hidden states ``h``: over this rank's block of the
+    vocabulary where the head holds one (its input entering through
+    ``tp.copy``, so its gradient sums over the model group)."""
+    head = model.head()
+    return tp.copy(h, model.vocab_group(head)) @ head.T
+
+
+def _serving(model: Transformer) -> None:
+    if model.mg is not None:
+        raise NotImplementedError(f"prefill and decode at model = {model.mg.size} are not "
+                                  f"ported (ROADMAP Queue A, slice 18)")
 
 
 @torch.no_grad()
@@ -537,6 +618,7 @@ def prefill(model: Transformer, tokens: torch.Tensor, cache: dict, *,
     1, V), the cache with ``pos = S``).  The cache is what PD
     disaggregation ships; an encoder-decoder model's decode steps take the
     encoder's output again (:meth:`Transformer.encode`)."""
+    _serving(model)
     S = tokens.shape[1]
     enc_out = model.encode(frames)
     h = model.embed(tokens, vision_embeds)
@@ -555,6 +637,7 @@ def decode_step(model: Transformer, tokens: torch.Tensor, cache: dict, *,
     reference's); without it a decoder layer skips its cross-attention,
     as the reference's does.  Returns (logits (B, 1, V), the cache with
     ``pos + 1``)."""
+    _serving(model)
     pos = int(cache["pos"])
     h = model.embed(tokens)
     h = model.run_layers(h, torch.full((1,), pos, device=tokens.device), cache, pos,

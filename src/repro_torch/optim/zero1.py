@@ -29,6 +29,7 @@ from repro_torch import kernels, sched
 from repro_torch.core import codec
 from repro_torch.core import compressed_collectives as cc
 from repro_torch.core.policy import CompressionPolicy
+from repro_torch.models import tp
 from repro_torch.optim import optimizers as opt
 from repro_torch.sched import compile as sched_compile
 from repro_torch.tree_util import tree_flatten, tree_map, tree_unflatten
@@ -138,12 +139,17 @@ def _raw_all_gather(x: torch.Tensor, group) -> torch.Tensor:
 
 def zero1_step(ocfg: opt.OptimConfig, meta: BucketMeta, params, grads,
                state: dict, *, group=None, policy: CompressionPolicy,
-               axis_name="data", plan=None):
+               axis_name="data", plan=None, model_group=None):
     """One ZeRO-1 step.  ``grads`` are this rank's UNREDUCED gradients;
     reduction happens in the (compressed) reduce-scatter.  The wire runs
     ``plan``, a compiled ``zero1`` plan (the train step compiles one per
     step signature); with ``plan=None`` it is compiled from ``policy`` and
-    the gate label ``axis_name`` on first sight and cached.  Returns
+    the gate label ``axis_name`` on first sight and cached.
+    ``model_group``: the 'model' group (``models/tp``) of a rank whose
+    buckets hold its blocks of the parameters: the squared norm is summed
+    over ``group``, then over it, as the reference's psum over (dp,
+    model), which counts a leaf that 'model' replicates (the norms, the
+    router, MLA's down-projections) once a model rank.  Returns
     (new_params list, new_state, overflow_flag int32, gnorm f32)."""
     n_dp = dist.get_world_size(group)
     gbuckets = flatten_buckets(meta, grads)
@@ -166,9 +172,10 @@ def zero1_step(ocfg: opt.OptimConfig, meta: BucketMeta, params, grads,
             gshards.append(gs)
             norm_sq = norm_sq + torch.sum(torch.square(gs))
 
-        # global grad norm: the shards are disjoint over the group
+        # global grad norm: the shards are disjoint over the group (and the
+        # model group's blocks too, the replicated leaves counted once a rank)
         dist.all_reduce(norm_sq, group=group)
-        gnorm = torch.sqrt(norm_sq)
+        gnorm = torch.sqrt(tp.all_sum(norm_sq, model_group))
         scale = torch.clamp(ocfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
 
         # -- local shard update, then all-gather of the new params -----------

@@ -32,6 +32,7 @@ a step.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -42,7 +43,7 @@ from repro_torch.core import codec
 from repro_torch.core.compressed_collectives import psum_safe
 from repro_torch.core.policy import CompressionPolicy, current_sinks, report_into
 from repro_torch.launch import mesh as mesh_lib
-from repro_torch.models import transformer
+from repro_torch.models import tp, transformer
 from repro_torch.models.config import ArchConfig
 from repro_torch.optim import fsdp as fsdp_lib
 from repro_torch.optim import optimizers as opt
@@ -77,7 +78,11 @@ class TrainState:
     state of those shards (``optimizers.init``) and ``fsdp_dims`` the
     sharded dim of every leaf (:func:`plan_fsdp_tree`).  ``group`` is the
     process group the steps sync over (None: the world) and ``axes`` the
-    mesh axes it spans, the label the wires are gated and planned under."""
+    mesh axes it spans, the label the wires are gated and planned under.
+    With tensor parallelism (ZeRO-1 at model > 1) the model holds this
+    rank's blocks and its model group (``model.mg``), and ``meta`` lays
+    out the buckets of those blocks, one set a model rank, as the
+    reference's ``zero1_meta`` on ``local_param_struct``."""
 
     model: transformer.Transformer
     opt: dict
@@ -102,16 +107,33 @@ class TrainState:
             return 0, 1
         return dist.get_rank(self.group), dist.get_world_size(self.group)
 
+    def _model_dims(self) -> list:
+        """Per parameter leaf, its dim split over the model group (-1 where
+        it is whole); None without a model group."""
+        mg = self.model.mg
+        if mg is None:
+            return None
+        kept = transformer.block_specs(self.model.cfg, mg.size)
+        return [next((d for d, e in enumerate(kept[path]) if e == "model"), -1)
+                for path in self.model.params]
+
     def _global_shapes(self) -> tuple:
         """(parameter shapes, optimizer leaf shapes) of the reference's
-        global layout: a ZeRO-1 bucket leaf ``(n_dp, shard_len)``; an FSDP
-        shard's sharded dim times n_dp, an FSDP optimizer leaf ``(n_dp,) +
-        its shard's shape``; every other leaf as this rank holds it."""
+        global layout: a ZeRO-1 bucket leaf ``(n_dp, n_model * shard_len)``
+        (n_model 1 without tensor parallelism), a parameter block's split
+        dim times n_model; an FSDP shard's sharded dim times n_dp, an FSDP
+        optimizer leaf ``(n_dp,) + its shard's shape``; every other leaf as
+        this rank holds it."""
         _, n = self._place()
         params = [tuple(p.shape) for p in self.model.leaves()]
         ost = [tuple(t.shape) for t in tree_leaves(self.opt)]
+        dims, mg = self._model_dims(), self.model.mg
+        if dims is not None:
+            params = [sh if d < 0 else sh[:d] + (sh[d] * mg.size,) + sh[d + 1:]
+                      for sh, d in zip(params, dims, strict=True)]
         if self.meta is not None:
-            ost = [(self.meta.n_dp, *sh) if len(sh) else sh for sh in ost]
+            n_model = 1 if mg is None else mg.size
+            ost = [(self.meta.n_dp, n_model * sh[0]) if len(sh) else sh for sh in ost]
         elif self.fsdp_dims is not None:
             params = [sh if d < 0 else sh[:d] + (sh[d] * n,) + sh[d + 1:]
                       for sh, d in zip(params, tree_leaves(self.fsdp_dims), strict=True)]
@@ -134,8 +156,16 @@ class TrainState:
         ``zero1.local_to_global`` lays them out, row ``d`` data rank
         ``d``'s; FSDP's parameter shards joined on their sharded dim.  The
         group's rank 0 gets it (on its host at n ranks) and writes it; None
-        on the other ranks."""
+        on the other ranks.  With tensor parallelism the whole mesh takes
+        part and its rank 0 writes: each optimizer leaf's ``(sl,)`` pieces
+        gathered from every rank, row ``d`` the pieces of DP index ``d``'s
+        model ranks side by side (``P(dp, None)`` of ``(n_dp, n_model *
+        sl)``: rank ``d * n_model + m`` of the mesh, 'model' its last axis);
+        the parameter blocks gathered over the model group of DP index 0
+        and joined on their split dim."""
         tree = self.tree()
+        if self.model.mg is not None:
+            return self._tp_checkpoint_tree(tree)
         tree["opt"] = zero1_lib.local_to_global(self.opt, self.group)
         if self.fsdp_dims is not None:
             params, pdef = tree_flatten(tree["params"])
@@ -147,6 +177,22 @@ class TrainState:
             tree["params"] = tree_unflatten(pdef, joined)
         return None if tree["opt"] is None else tree
 
+    def _tp_checkpoint_tree(self, tree: dict) -> dict | None:
+        mg = self.model.mg
+        rows = zero1_lib.local_to_global(self.opt, dist.group.WORLD)
+        params, pdef = tree_flatten(tree["params"])
+        if dist.get_rank(self.group) == 0:  # DP index 0: the model group of rank 0
+            params = [p if d < 0 else zero1_lib.gather_rows(p.detach(), mg.group)
+                      for p, d in zip(params, self._model_dims(), strict=True)]
+            params = [p if d < 0 or p is None else torch.cat(list(p), dim=d)
+                      for p, d in zip(params, self._model_dims(), strict=True)]
+        if rows is None:
+            return None
+        n_dp = self.meta.n_dp
+        tree["opt"] = tree_map(lambda v: v if v.ndim == 0 else v.reshape(n_dp, -1), rows)
+        tree["params"] = tree_unflatten(pdef, params)
+        return tree
+
     def from_tree(self, tree: dict, device=None) -> "TrainState":
         """A new state holding ``tree``, with this state's config, layout
         and group, its leaves on ``device`` (default: this state's).  A
@@ -154,11 +200,20 @@ class TrainState:
         storage of its own: its row of the optimizer leaves
         (``zero1.global_to_local``; a ``(1, ...)`` leaf is this rank's
         block from ``restore(shardings=)``, an ``(n_dp, ...)`` one the
-        whole) and its shard of an FSDP parameter of the global shape.  A
-        tree of this rank's own shapes (:meth:`tree`) is taken as it is."""
+        whole) and its shard of an FSDP parameter of the global shape; with
+        tensor parallelism, its model rank's block of each parameter and its
+        columns of the optimizer rows.  A tree of this rank's own shapes
+        (:meth:`tree`) is taken as it is."""
         me, n = self._place()
         dev = self.model.leaves()[0].device if device is None else device
         params, pdef = tree_flatten(tree["params"])
+        mg = self.model.mg
+        if mg is not None:
+            params = [p if d < 0 or p.shape == q.shape else
+                      p.narrow(d, mg.rank * q.shape[d], q.shape[d]).clone(
+                          memory_format=torch.contiguous_format)
+                      for p, q, d in zip(params, self.model.leaves(), self._model_dims(),
+                                         strict=True)]
         if self.fsdp_dims is not None:
             params = [p if d < 0 or p.shape == q.shape else
                       p.narrow(d, me * q.shape[d], q.shape[d]).clone(
@@ -166,7 +221,7 @@ class TrainState:
                       for p, q, d in zip(params, self.model.leaves(),
                                          tree_leaves(self.fsdp_dims), strict=True)]
         model = transformer.Transformer(self.model.cfg, dict(transformer.tree_paths(
-            tree_unflatten(pdef, [p.to(dev) for p in params]))))
+            tree_unflatten(pdef, [p.to(dev) for p in params]))), mg)
 
         def shapes(t):
             return [tuple(v.shape) for v in tree_leaves(t)]
@@ -176,6 +231,9 @@ class TrainState:
             lead = {v.shape[0] for v in tree_leaves(ost) if v.ndim}
             if lead in ({1}, {n}):
                 ost = zero1_lib.global_to_local(ost, 0 if lead == {1} else me)
+            if mg is not None and self.meta is not None:  # this model rank's columns
+                ost = tree_map(lambda v: v if v.ndim != 1 or v.shape[0] % mg.size else v.narrow(
+                    0, mg.rank * (v.shape[0] // mg.size), v.shape[0] // mg.size).clone(), ost)
             if shapes(ost) != shapes(self.opt):
                 raise ValueError(f"optimizer leaves of {shapes(tree['opt'])} hold no part "
                                  f"of {shapes(self.opt)} for a rank of {n}")
@@ -184,25 +242,29 @@ class TrainState:
 
 
 def chunked_ce_loss(head: torch.Tensor, hidden: torch.Tensor,
-                    labels: torch.Tensor, chunk: int) -> torch.Tensor:
+                    labels: torch.Tensor, chunk: int, mg=None) -> torch.Tensor:
     """Mean token cross-entropy with logits materialised ``chunk`` positions
-    at a time, in f32 (the reference's ``chunked_ce_loss``)."""
+    at a time, in f32 (the reference's ``chunked_ce_loss``).  ``mg``: the
+    model group over which ``head`` holds a block of the vocabulary's rows:
+    each chunk's logits are this rank's block and the cross-entropy is
+    vocabulary-parallel (``tp.vocab_ce_sum``)."""
     B, S, _ = hidden.shape
     chunk = min(chunk, S)
     if S % chunk:
         chunk = S
     total = hidden.new_zeros((), dtype=torch.float32)
     for s0 in range(0, S, chunk):
-        logits = (hidden[:, s0:s0 + chunk] @ head.T).to(torch.float32)
-        gold = torch.gather(logits, -1, labels[:, s0:s0 + chunk, None])[..., 0]
-        total = total + torch.sum(torch.logsumexp(logits, dim=-1) - gold)
+        logits = (tp.copy(hidden[:, s0:s0 + chunk], mg) @ head.T).to(torch.float32)
+        total = total + tp.vocab_ce_sum(logits, labels[:, s0:s0 + chunk], mg)
     return total / (B * S)
 
 
 def loss_fn(model: transformer.Transformer, batch: dict, tcfg: TrainConfig):
     hidden = model(batch["tokens"], vision_embeds=batch.get("vision_embeds"),
                    frames=batch.get("frames"), remat=tcfg.remat)
-    return chunked_ce_loss(model.head(), hidden, batch["labels"], tcfg.loss_chunk)
+    head = model.head()
+    return chunked_ce_loss(head, hidden, batch["labels"], tcfg.loss_chunk,
+                           model.vocab_group(head))
 
 
 def _microbatch_grads(loss_of, batch: dict, n_micro: int) -> torch.Tensor:
@@ -392,22 +454,31 @@ def abstract_train_state(cfg: ArchConfig, tcfg: TrainConfig, mesh) -> tuple:
     return {"params": params, "opt": ostruct, "step": step}, specs
 
 
-def sync_group(mesh, tcfg: TrainConfig):
-    """The process group a step of ``tcfg`` syncs over on ``mesh``: the
-    flattened :func:`train_axes_of` (ZeRO-1) or :func:`dp_axes_of` (FSDP),
-    its ranks in the reference's pod-major DP order.  A 'model' axis above
-    1 that carries tensor parallelism (no ``dp_only``, or FSDP) raises
-    ``NotImplementedError``: tensor and expert parallelism over 'model' are
-    not ported (ROADMAP Queue A, slice 17), and such a mesh never runs as
-    data parallelism."""
+class SyncGroups(NamedTuple):
+    """What a step of a config syncs over on a mesh (:func:`sync_group`)."""
+
+    group: object  # the gradient-sync process group
+    axes: tuple  # the mesh axes it spans
+    model: tp.ModelGroup | None  # the 'model' group where it carries TP, else None
+
+
+def sync_group(mesh, tcfg: TrainConfig) -> SyncGroups:
+    """The groups a step of ``tcfg`` runs over on ``mesh``: the flattened
+    :func:`train_axes_of` (ZeRO-1) or :func:`dp_axes_of` (FSDP), its ranks
+    in the reference's pod-major DP order (at model > 1 the group of this
+    rank's model index: each model rank syncs its own buckets over (pod,
+    data), as the reference's inner region does), and the 'model' group
+    where that axis is above 1 and carries tensor parallelism (ZeRO-1
+    without ``dp_only``).  FSDP over a 'model' axis above 1 raises
+    ``NotImplementedError`` (ROADMAP Queue A, slice 18)."""
     n_model = mesh_lib.axis_sizes(mesh).get("model", 1)
-    if n_model > 1 and (not tcfg.dp_only or tcfg.partition == "fsdp"):
+    if n_model > 1 and tcfg.partition == "fsdp":
         raise NotImplementedError(
-            f"a 'model' axis of {n_model} carries tensor parallelism, which the port "
-            f"does not run yet (ROADMAP Queue A, slice 17); use model = 1 or, for "
-            f"ZeRO-1, TrainConfig(dp_only=True)")
+            f"FSDP with tensor parallelism over a 'model' axis of {n_model} is not ported "
+            f"yet (ROADMAP Queue A, slice 18); use model = 1 or ZeRO-1")
     axes = dp_axes_of(mesh) if tcfg.partition == "fsdp" else train_axes_of(mesh, tcfg)
-    return mesh_lib.axis_group(mesh, axes), axes
+    mg = None if tcfg.dp_only else tp.model_group(mesh)
+    return SyncGroups(mesh_lib.axis_group(mesh, axes), axes, mg)
 
 
 def train_state_for(model: transformer.Transformer, tcfg: TrainConfig,
@@ -417,7 +488,7 @@ def train_state_for(model: transformer.Transformer, tcfg: TrainConfig,
     ``group`` or over ``mesh``'s :func:`sync_group`."""
     if tcfg.partition not in ("zero1", "fsdp"):
         raise ValueError(f"unknown partition {tcfg.partition!r}")
-    group, axes = (group, "data") if mesh is None else sync_group(mesh, tcfg)
+    group, axes = (group, "data") if mesh is None else sync_group(mesh, tcfg)[:2]
     if tcfg.partition == "fsdp":
         return dataclasses.replace(fsdp_state_for(model, tcfg, group), group=group, axes=axes)
     n_dp = dist.get_world_size(group)
@@ -432,10 +503,14 @@ def build_train_state(cfg: ArchConfig, tcfg: TrainConfig, *,
                       generator: torch.Generator, group=None, mesh=None,
                       device="cuda") -> TrainState:
     """Randomly initialised model + its ``tcfg.partition`` state on
-    ``device``."""
-    if mesh is not None:
-        sync_group(mesh, tcfg)  # a mesh the port cannot run raises before the draw
-    model = transformer.init(cfg, generator=generator, device=device)
+    ``device``; at model > 1 this rank's blocks (``transformer.init(mesh=)``)."""
+    mg = None
+    if mesh is not None:  # a mesh the port cannot run raises before the draw
+        mg = sync_group(mesh, tcfg).model
+        if mg is not None:
+            transformer.check_model_parallel(cfg, mg.size)
+    model = transformer.init(cfg, generator=generator, device=device,
+                             mesh=None if mg is None else mesh)
     return train_state_for(model, tcfg, group, mesh=mesh)
 
 
@@ -456,7 +531,12 @@ def train_step(state: TrainState, batch: dict, tcfg: TrainConfig, *,
     over ``group`` (default: the state's own); updates ``state`` in place
     unless the overflow guard fires.  ``batch`` holds this rank's rows.
     Returns ``{"loss" (mean over ranks), "gnorm": f32 tensors, "overflow":
-    int}``."""
+    int}``.  With tensor parallelism the loss is the same on the ranks of
+    a model group and averaged over ``group``; the gradient norm sums over
+    the group, then over the model group (the reference's psum over (dp,
+    model)).  The overflow flag is the max over ``group`` and over the
+    model group, so no rank commits a step that another rank's wire lost
+    (the reference keeps each device's own flag: ROADMAP Queue C)."""
     group = state.group if group is None else group
     if plan is None:
         plan = zero1_plan(state, tcfg, group)
@@ -467,9 +547,14 @@ def train_step(state: TrainState, batch: dict, tcfg: TrainConfig, *,
                              tcfg.microbatches)
     grads = _grads_of(leaves)
     with torch.no_grad():
+        mg = state.model.mg
         new_params, new_opt, flag, gnorm = zero1_lib.zero1_step(
             tcfg.optim, state.meta, leaves, grads, state.opt, group=group,
-            policy=tcfg.policy, plan=plan)
+            policy=tcfg.policy, plan=plan, model_group=mg)
+        # one verdict for the whole mesh: a reduce-scatter's flag is the
+        # receiver's own, and a model rank's buckets are its own
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
+        flag = tp.all_max(flag, mg)
         dist.all_reduce(loss, group=group)
         loss = loss / dist.get_world_size(group)
         overflow = int(flag)  # the guard needs the flag on the host

@@ -15,8 +15,9 @@ allocates.  ``make_smoke_mesh`` and ``dp_size`` at 1, 2, 4 and 8 devices
 and 1 or 2 pods equal the reference's, recorded in a subprocess with 8
 forced host devices.  The refusals: ``make_mesh`` defaults to the card and
 refuses the CPU unless asked, a shape that is not the world raises, and a
-'model' axis above 1 that would carry tensor parallelism raises
-``NotImplementedError`` in the steps, and the launcher refuses a batch that
+'model' axis above 1 builds a tensor-parallel ZeRO-1 state, FSDP over it
+and Mamba, xLSTM and the vision stub over it raise ``NotImplementedError``
+(slice 18), and the launcher refuses a batch that
 does not split over the mesh's data ranks.  A one-rank checkpoint of the
 per-rank ZeRO-1 layout restores into the global one.  Tolerance: none (all
 exact).
@@ -274,24 +275,50 @@ def test_make_mesh_refusals():
 @pytest.mark.parametrize("partition,dp_only", [("zero1", False), ("fsdp", False),
                                                ("fsdp", True)])
 def test_tensor_parallel_mesh_raises(partition, dp_only):
-    """A 'model' axis of 2 that would carry tensor parallelism never runs
-    as data parallelism: the state builder and the steps raise."""
+    """A 'model' axis of 2 that carries tensor parallelism: ZeRO-1 runs
+    over it (its state builds on this rank's blocks, and ``sync_group``
+    gives the data group and the model group); FSDP over it raises in the
+    state builder and the steps (ROADMAP Queue A, slice 18)."""
     tcfg = step_lib.TrainConfig(partition=partition, dp_only=dp_only)
+    cfg = configs.get_smoke("smollm_135m")
     with fake_world(4):
         mesh = mesh_lib.make_mesh((2, 2), ("data", "model"), device="cpu")
-        with pytest.raises(NotImplementedError, match="slice 17"):
-            step_lib.build_train_state(configs.get_smoke("smollm_135m"), tcfg,
-                                       generator=torch.Generator(), mesh=mesh, device="cpu")
+        if partition == "zero1":
+            state = step_lib.build_train_state(cfg, tcfg, generator=torch.Generator(),
+                                               mesh=mesh, device="cpu")
+            groups = step_lib.sync_group(mesh, tcfg)
+            assert groups.axes == ("data",) and dist.get_world_size(groups.group) == 2
+            assert (groups.model.size, groups.model.rank) == (2, 0)
+            assert state.model.mg is groups.model and state.group is groups.group
+            heads = cfg.n_heads * cfg.hd
+            assert tuple(state.model.params["blocks/0/mixer/wq"].shape) == (
+                cfg.repeats, cfg.d_model, heads // 2)
+            assert state.meta == step_lib.zero1_meta(cfg, 2, tcfg, mesh)
+            return
+        with pytest.raises(NotImplementedError, match="slice 18"):
+            step_lib.build_train_state(cfg, tcfg, generator=torch.Generator(), mesh=mesh,
+                                       device="cpu")
         with pytest.raises(NotImplementedError, match="tensor parallelism"):
             step_lib.sync_group(mesh, tcfg)
+
+
+@pytest.mark.parametrize("arch", ["jamba_v0_1_52b", "xlstm_350m", "qwen2_vl_72b"])
+def test_recurrent_mixers_and_the_vision_stub_at_model_2_raise(arch):
+    """Mamba, mLSTM/sLSTM and the vision stub over a 'model' axis of 2 are
+    not ported: the ZeRO-1 state builder raises before drawing a weight."""
+    with fake_world(4):
+        mesh = mesh_lib.make_mesh((2, 2), ("data", "model"), device="cpu")
+        with pytest.raises(NotImplementedError, match="slice 18"):
+            step_lib.build_train_state(configs.get_smoke(arch), step_lib.TrainConfig(),
+                                       generator=torch.Generator(), mesh=mesh, device="cpu")
 
 
 def test_dp_only_syncs_over_every_axis():
     tcfg = step_lib.TrainConfig(dp_only=True)
     with fake_world(4):
         mesh = mesh_lib.make_mesh((2, 2), ("data", "model"), device="cpu")
-        group, axes = step_lib.sync_group(mesh, tcfg)
-        assert axes == ("data", "model") and dist.get_world_size(group) == 4
+        group, axes, mg = step_lib.sync_group(mesh, tcfg)
+        assert axes == ("data", "model") and dist.get_world_size(group) == 4 and mg is None
         assert step_lib.sync_group(
             mesh_lib.make_mesh((2, 2, 1), ("pod", "data", "model"), device="cpu"),
             step_lib.TrainConfig())[1] == ("pod", "data")
@@ -373,6 +400,35 @@ def test_launcher_refuses_a_batch_that_does_not_split_over_the_dp_ranks():
         with pytest.raises(ValueError, match="batch of 6 rows .* 4 data-parallel ranks"):
             launch_train.build("smollm_135m", smoke=True, batch=6, seq=16, rcfg=RunnerConfig(),
                                device="cpu", mesh=mesh)
+
+
+@pytest.mark.parametrize("arch,dp_only,raises", [
+    ("xlstm_350m", True, False), ("smollm_135m", True, False),
+    ("tinyllama_1_1b", False, False), ("jamba_v0_1_52b", False, True),
+    ("qwen2_vl_72b", False, True)])
+def test_launcher_cli_state_at_4_ranks(arch, dp_only, raises):
+    """The CLI's ZeRO-1 layout at 4 ranks (``cli_mesh``): the smoke mesh
+    (data, model) = (2, 2), ``dp_only`` where ``cells.TRAIN_KNOBS`` marks
+    the arch so (xlstm and smollm train data parallel over all 4 ranks, as
+    at model = 1), tensor parallel otherwise; the archs whose layers do
+    not split over 'model' yet raise naming slice 18.  At one rank
+    ``dp_only`` stays off (the wire stays compressed)."""
+    with fake_world(4):
+        mesh, got = launch_train.cli_mesh(arch, "zero1", 4)
+        assert mesh_lib.axis_sizes(mesh) == {"data": 2, "model": 2} and got == dp_only
+        build = lambda: launch_train.build(arch, smoke=True, batch=4, seq=16,  # noqa: E731
+                                           rcfg=RunnerConfig(), device="cpu", mesh=mesh,
+                                           dp_only=got)
+        if raises:
+            with pytest.raises(NotImplementedError, match="slice 18"):
+                build()
+            return
+        state = build()[0]
+        assert dist.get_world_size(state.group) == (4 if dp_only else 2)
+        assert (state.model.mg is None) == dp_only
+        assert launch_train.cli_mesh(arch, "fsdp", 4)[1] is False
+    with fake_world(1):  # model = 1: no tensor parallelism to turn off
+        assert launch_train.cli_mesh(arch, "zero1", 1)[1] is False
 
 
 def test_one_rank_checkpoint_of_the_per_rank_layout_restores(tmp_path):

@@ -13,7 +13,9 @@ host devices (one subprocess), the port on 4 gloo ranks.
   state is the reference's checkpoint; restored either way, each rank's
   leaves hold only its own rows; a restore at 2 ranks raises
   ``ValueError``;
-* the launcher's CLI under ``torchrun`` at 4 ranks with ``--pods 2``.
+* the launcher's CLI under ``torchrun`` at 4 ranks with ``--pods 2``: the
+  reference's smoke mesh (pod, data, model) = (2, 1, 2), tensor parallel
+  over 'model'.
 
 Tolerances: as ``torch_mesh_cases`` states."""
 import os
@@ -65,4 +67,5 @@ def test_launcher_cli_runs_on_a_pod_mesh_under_torchrun(tmp_path):
     # the ranks' lines interleave: each writes one final line
     finals = re.findall(r"final loss \S+ \| [^\n]*?\| mesh=\{[^}]*\}", res.stdout)
     assert len(finals) == 4 and len(set(finals)) == 1, res.stdout[-2000:]
-    assert finals[0].endswith("mesh={'pod': 2, 'data': 2, 'model': 1}")
+    # ZeRO-1 runs on the reference's smoke mesh: 4 ranks in 2 pods are (2, 1, 2)
+    assert finals[0].endswith("mesh={'pod': 2, 'data': 1, 'model': 2}")

@@ -1,5 +1,5 @@
 """The remaining mixers (``layers.mamba``, ``layers.mlstm``,
-``layers.slstm``, ``layers.attention(kv_override=)`` and the encoder)
+``layers.slstm``, ``layers.attention(kv_src=)`` and the encoder)
 held against the JAX reference's at SMOKE widths (jamba: d_model 64,
 inner width 128, d_state 8, d_conv 4; xlstm: d_model 64, 2 heads of 32;
 whisper: d_model 64, 4 heads of 16), on numpy-seeded inputs and weights
@@ -234,20 +234,24 @@ def test_xlstm_state_starts_at_the_reference_stabiliser():
 # ---------------------------------------------------------------------------
 
 def test_cross_attention_matches_reference():
-    """Queries of 16 decoder positions over 30 encoder K/V, no RoPE, no
-    mask, the layer's window applied as the reference applies it."""
+    """Queries of 16 decoder positions over K/V projected from 30 encoder
+    positions (``kv_src``), no RoPE, no mask, the layer's window applied
+    as the reference applies it.  The reference gets the port's own K/V
+    projections as its ``kv_override``, so the two attend over the same
+    bits."""
     jcfg, cfg = _cfgs("whisper_small")
     p, jp = _draw(cfg, cfg.pattern[0], 2, cross=True)
     x, jx = _x((B, 16, cfg.d_model), 4)
-    kv = [_x((B, cfg.enc_seq, cfg.kv_heads, cfg.hd), s) for s in (5, 6)]
+    src, _ = _x((B, cfg.enc_seq, cfg.d_model), 5)
+    kv = tuple(jnp.asarray(np_of((src @ p["cross"][w]).reshape(
+        B, cfg.enc_seq, cfg.kv_heads, cfg.hd)).view(jnp.bfloat16)) for w in ("wk", "wv"))
     for window in (None, 8):
         spec = dataclasses.replace(cfg.pattern[0], window=window)
         jspec = jconfig.LayerSpec(window=window)
         with torch.no_grad():
-            got = L.attention(p["cross"], x, cfg, spec, None, None,
-                              kv_override=tuple(t for t, _ in kv))
+            got = L.attention(p["cross"], x, cfg, spec, None, None, kv_src=src)
         want, _ = jL.attention(jp["cross"], jx, jcfg, spec=jspec, positions=jnp.arange(16),
-                               kv_override=tuple(j for _, j in kv))
+                               kv_override=kv)
         _close(got, want, 2.0 ** -8)
 
 

@@ -926,7 +926,7 @@ def mesh_rank(rank: int, world: int, out: str, kind: str, ref_dir: str) -> None:
     shape, axes, _ = MESH_RUNS[kind]
     mesh = mesh_lib.make_mesh(shape, axes, device="cpu")
     tcfg = _mesh_tcfg(kind)
-    group, sync = step_lib.sync_group(mesh, tcfg)
+    group, sync, _ = step_lib.sync_group(mesh, tcfg)
     idx = dist.get_rank(group)
     coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
     sizes = mesh_lib.axis_sizes(mesh)
@@ -1033,3 +1033,498 @@ def mesh_restore_refused(rank: int, world: int, out: str, ckpt_dir: str) -> None
     except ValueError as e:
         msg = str(e)
     np.savez(out, msg=np.array(msg))
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over 'model' (models/tp): the Functions, the
+# vocabulary-parallel embedding and cross-entropy on a group of gloo ranks
+# ---------------------------------------------------------------------------
+
+TP_D, TP_F, TP_V = 6, 8, 16  # widths; each divides by 4 ranks
+
+
+def tp_exact(shape, seed: int) -> np.ndarray:
+    """f32 multiples of 1/8 in [-1, 1): their sums and products of two are
+    exact in f32 in any order."""
+    return (np.random.default_rng(seed).integers(-8, 8, shape) / 8).astype(np.float32)
+
+
+def tp_ops_rank(rank: int, world: int, out: str) -> None:
+    """``models/tp`` on this rank of a world-sized model group: each
+    Function forward and backward on exact f32 inputs (the copy's input
+    the same on every rank, the rank's own weights and cotangents), the
+    vocabulary-parallel embedding and cross-entropy on this rank's block of
+    the vocabulary (the labels over all of it, then all in the last rank's
+    block), a bf16 SwiGLU split over the ranks, and the bf16 MoE layer with
+    its experts split over them (:func:`_tp_moe`)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.models import layers, tp
+
+    mg = tp.ModelGroup(dist.group.WORLD)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    res = {}
+    x = t(tp_exact((4, TP_D), 0)).requires_grad_()
+    w = t(tp_exact((TP_D, 5), 100 + rank))
+    y = tp.copy(x, mg) @ w
+    (y * t(tp_exact((4, 5), 200 + rank))).sum().backward()
+    res["copy_y"], res["copy_dx"] = y.detach().numpy(), x.grad.numpy()
+
+    xr = t(tp_exact((4, TP_D), 300 + rank)).requires_grad_()
+    y = tp.reduce(xr, mg)
+    y.backward(t(tp_exact((4, TP_D), 400)))
+    res["reduce_y"], res["reduce_dx"] = y.detach().numpy(), xr.grad.numpy()
+
+    xg = t(tp_exact((3, 2, 4), 500 + rank)).requires_grad_()
+    y = tp.gather(xg, mg, 1)
+    y.backward(t(tp_exact((3, 2 * world, 4), 600 + rank)))
+    res["gather_y"], res["gather_dx"] = y.detach().numpy(), xg.grad.numpy()
+
+    rows = TP_V // world
+    table = t(tp_exact((TP_V, TP_D), 700)[rank * rows:(rank + 1) * rows]).requires_grad_()
+    tokens = t(np.random.default_rng(701).integers(0, TP_V, (3, 7)))
+    e = tp.vocab_embed(tokens, table, mg)
+    e.backward(t(tp_exact((3, 7, TP_D), 702)))
+    res["embed_y"], res["embed_dt"] = e.detach().numpy(), table.grad.numpy()
+
+    logits = np.random.default_rng(800).normal(0, 3, (2, 5, TP_V)).astype(np.float32)
+    for tag, labels in (("ce", np.random.default_rng(801).integers(0, TP_V, (2, 5))),
+                        ("ce_last", np.random.default_rng(802).integers(TP_V - rows, TP_V,
+                                                                        (2, 5)))):
+        lg = t(logits[..., rank * rows:(rank + 1) * rows]).requires_grad_()
+        loss = tp.vocab_ce_sum(lg, t(labels), mg)
+        loss.backward()
+        res[tag], res[f"{tag}_dlogits"] = float(loss), lg.grad.numpy()
+
+    bf = lambda a: t(a).to(torch.bfloat16)  # noqa: E731
+    f = TP_F // world
+    xs = bf(np.random.default_rng(900).normal(0, 1, (3, TP_D)).astype(np.float32))
+    xs.requires_grad_()
+    p = {k: bf(np.random.default_rng(s).normal(0, 0.5, sh).astype(np.float32))
+         for k, s, sh in (("w1", 901, (TP_D, TP_F)), ("w3", 902, (TP_D, TP_F)),
+                          ("w2", 903, (TP_F, TP_D)))}
+    blocks = {k: (v[:, rank * f:(rank + 1) * f] if k != "w2" else v[rank * f:(rank + 1) * f])
+              .clone().requires_grad_() for k, v in p.items()}
+    y = layers.swiglu(blocks, xs, mg)
+    y.backward(bf(np.random.default_rng(904).normal(0, 1, (3, TP_D)).astype(np.float32)))
+    res["swiglu_y"] = y.detach().float().numpy()
+    res["swiglu_dx"] = xs.grad.float().numpy()
+    for k, v in blocks.items():
+        res[f"swiglu_d{k}"] = v.grad.float().numpy()
+    _tp_moe(res, rank, world, mg)
+    np.savez(out, **res)
+
+
+# expert parallelism in bf16: deepseek-v2-lite SMOKE's MoE layer (8 experts,
+# top 2, one shared), dropless and at capacity (the C-1 drop), x and the
+# cotangent drawn with numpy
+TP_MOE_ARCH = "deepseek_v2_lite_16b"
+TP_MOE_CASES = {"dropless": (32, {}),
+                "capacity": (80, {"dropless_below": 0, "capacity_factor": 0.5})}
+
+
+def tp_moe_layer(cfg) -> dict:
+    """The MoE leaves (one layer's ``ffn``) drawn with numpy in path order
+    at the reference's init scales, rounded to bf16: ``{path: f32 array}``."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    rng = np.random.default_rng(4)
+    out = {}
+    for path, (shape, scale) in transformer.tree_paths(
+            transformer._layer_shapes(cfg, cfg.pattern[0])["ffn"]):
+        a = np.ones(shape, np.float32) if scale is None else \
+            (rng.normal(0, 1, shape) * scale).astype(np.float32)
+        out[path] = torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+    return out
+
+
+def tp_moe_x(cfg, n_tok: int, seed: int) -> np.ndarray:
+    """(1, n_tok, D) normal f32 values (x at seed 6, the cotangent at 9),
+    rounded to bf16 where they are used."""
+    return np.random.default_rng(seed).normal(0, 1, (1, n_tok, cfg.d_model)).astype(np.float32)
+
+
+def nest_paths(flat: dict) -> dict:
+    """``{"a/b": v}`` -> ``{"a": {"b": v}}``."""
+    tree = {}
+    for path, v in flat.items():
+        *keys, last = path.split("/")
+        node = tree
+        for k in keys:
+            node = node.setdefault(k, {})
+        node[last] = v
+    return tree
+
+
+def _tp_moe(res: dict, rank: int, world: int, mg) -> None:
+    """The MoE layer with this rank's block of the experts (``spec_moe``:
+    ``we1``/``we3``/``we2`` by expert, the shared SwiGLU column/row
+    parallel, the router whole) forward and backward in bf16 on each
+    ``TP_MOE_CASES`` input; the slot table ``moe_route`` gave it."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import layers, transformer
+
+    cfg = configs.get_smoke(TP_MOE_ARCH)
+    specs = dict(transformer.tree_paths(layers.spec_moe(cfg)))
+    bf = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16)  # noqa: E731
+    route = layers.moe_route
+    for tag, (n_tok, kw) in TP_MOE_CASES.items():
+        leaves = {}
+        for path, a in tp_moe_layer(cfg).items():
+            t = bf(a)
+            for d, e in enumerate(specs[path]):
+                if e == "model":
+                    t = t.chunk(world, d)[rank]
+            leaves[path] = t.clone().requires_grad_()
+        slots = []
+
+        def recorded(*args, **kwargs):
+            out = route(*args, **kwargs)
+            slots.append(out[2])
+            return out
+
+        layers.moe_route = recorded
+        try:
+            x = bf(tp_moe_x(cfg, n_tok, 6)).requires_grad_()
+            y = layers.moe(nest_paths(leaves), x, cfg, mg=mg, **kw)
+            y.backward(bf(tp_moe_x(cfg, n_tok, 9)))
+        finally:
+            layers.moe_route = route
+        (slot,) = slots
+        k = cfg.moe.top_k
+        res[f"moe_{tag}_tok"] = torch.where(slot < n_tok * k, slot // k, n_tok).numpy()
+        res[f"moe_{tag}_y"] = y.detach().float().numpy()
+        res[f"moe_{tag}_dx"] = x.grad.float().numpy()
+        for path, t in leaves.items():
+            res[f"moe_{tag}_d/{path}"] = t.grad.float().numpy()
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1 with tensor and expert parallelism over 'model': the reference on 4
+# forced host devices (one subprocess a mesh), the port on 4 gloo ranks
+# ---------------------------------------------------------------------------
+
+TP_RUNS = {  # kind -> (mesh shape, axes, SMOKE archs)
+    "tp": ((2, 2), ("data", "model"),
+           ("tinyllama_1_1b", "gemma3_27b", "deepseek_v2_lite_16b", "whisper_small")),
+    "tp_pods": ((2, 1, 2), ("pod", "data", "model"),
+                ("tinyllama_1_1b", "deepseek_v2_lite_16b")),
+    # tinyllama's K/V columns split inside a head; 8 experts over 4 ranks
+    "tp_heads": ((1, 4), ("data", "model"), ("tinyllama_1_1b", "deepseek_v2_lite_16b")),
+}
+MESH_RUNS.update({k: (shape, axes, {}) for k, (shape, axes, _) in TP_RUNS.items()})
+TP_CKPT_ARCH = "tinyllama_1_1b"
+# the MoE arch runs in f32: in bf16 the router's near ties part between the
+# packages and between layouts, and its step's loss with them (measured at
+# (2, 2) on 8 x 160 tokens: loss relative 1.9e-4, 5.0% of the weights
+# different; the reference's own one-device and (1, 4) losses on 8 x 32
+# part by 2.2e-4); in f32 the port's step gives the reference's loss bits
+TP_F32 = ("deepseek_v2_lite_16b",)
+
+
+def tp_batch_shape(arch: str) -> tuple:
+    """(global batch, seq) of an arch's TP step: 8 x 32, or for
+    deepseek-v2-lite 8 x 160, so that each MoE layer takes 640 tokens a DP
+    rank or more, above ``dropless_below``: the capacity regime (the C-1
+    quirk included), as ``test_torch_zoo_moe_train`` steps it."""
+    return (8, 160) if arch == "deepseek_v2_lite_16b" else (8, 32)
+
+
+def tp_configs(arch: str) -> tuple:
+    """(the port's, the reference's) SMOKE config of a TP run: the MoE arch
+    in f32 (``TP_F32``)."""
+    import dataclasses
+
+    from repro import configs as jconfigs
+    from repro_torch import configs
+
+    cfg, jcfg = configs.get_smoke(arch), jconfigs.get_smoke(arch)
+    if arch in TP_F32:
+        cfg, jcfg = (dataclasses.replace(c, dtype="float32") for c in (cfg, jcfg))
+    return cfg, jcfg
+
+
+def _tp_sync(axes: tuple) -> tuple:
+    return tuple(a for a in axes if a != "model")
+
+
+def mesh_tp_reference(kind: str, out_dir: str) -> None:
+    """The reference's side of ``TP_RUNS[kind]``, in a process with 4
+    forced host devices: the reduce-scatter of each device's
+    ``mesh_rs_input`` over (pod, data) inside its model index under each
+    of MESH_RS_POLICIES; then per arch its ZeRO-1 state from
+    ``PRNGKey(0)`` (each device's parameter shards, the global parameters
+    by path, ``zero1_meta``), checkpointed before (step 0) and after (step
+    1) one compressed step on ``registry.make_batch`` of
+    ``tp_batch_shape(arch)`` (seed 0), its loss, grad norm and flag.  Files under
+    ``out_dir/<arch>/ckpt``; arrays in ``out_dir/ref.npz``."""
+    import os
+
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from repro import sched as jsched
+    from repro.checkpoint.manager import CheckpointManager as JCheckpointManager
+    from repro.core.policy import CompressionPolicy as JPolicy
+    from repro.launch.mesh import make_mesh
+    from repro.models import registry as jregistry
+    from repro.optim import optimizers as jopt
+    from repro.optim import zero1 as jzero1
+    from repro.sched import compile as jcompile
+    from repro.train import step as jstep
+    from repro_torch.models import transformer
+
+    shape, axes, archs = TP_RUNS[kind]
+    mesh = make_mesh(shape, axes)
+    sync = _tp_sync(axes)
+    n_dp = int(np.prod(shape[:-1]))
+    devs = list(mesh.devices.flat)
+    res = {}
+    smap = lambda f, i, o: jax.jit(jax.shard_map(  # noqa: E731
+        f, mesh=mesh, in_specs=i, out_specs=o, axis_names=set(axes), check_vma=False))
+    meta = jzero1.plan_buckets({"g": jax.ShapeDtypeStruct((MESH_RS_N,), jnp.bfloat16)}, n_dp)
+    xs = np.concatenate([np.pad(mesh_rs_input(d), (0, meta.padded[0] - MESH_RS_N))
+                         for d in range(4)])
+    for tag, kw in MESH_RS_POLICIES.items():
+        plan = jcompile.cached_zero1_plan(meta, policy=JPolicy(min_bytes=0, **kw),
+                                          axis_name=sync, n_dev=n_dp)
+
+        def body(x, plan=plan):
+            with jsched.Zero1Execution(plan, sync) as ex:
+                gs, f = ex.reduce_scatter(0, x)
+            return gs, f[None]
+
+        gs, flag = smap(body, (P(axes),), (P(axes), P(axes)))(to_jax(xs, "bfloat16"))
+        res[f"rs_{tag}"], res[f"rs_{tag}_flag"] = np_of(gs).reshape(4, -1), np.asarray(flag)
+
+    dpax = sync if len(sync) > 1 else sync[0]
+    for arch in archs:
+        cfg = tp_configs(arch)[1]
+        tcfg = jstep.TrainConfig(loss_chunk=16, policy=JPolicy(min_bytes=0),
+                                 optim=jopt.OptimConfig(lr=MESH_LR, warmup_steps=MESH_WARMUP))
+        state, _ = jstep.build_train_state(cfg, tcfg, mesh, jax.random.PRNGKey(0))
+        parts = [[] for _ in devs]
+        for leaf in jax.tree_util.tree_leaves(state["params"]):
+            for sh in leaf.addressable_shards:
+                parts[devs.index(sh.device)].append(np_of(sh.data).view(np.uint8).reshape(-1))
+        res[f"{arch}_init"] = np.stack([np.concatenate(p) for p in parts])
+        for path, a in transformer.tree_paths(jax.tree_util.tree_map(np.asarray,
+                                                                    state["params"])):
+            res[f"{arch}_param/{path}"] = np_of(a)
+        meta = jstep.zero1_meta(cfg, n_dp, tcfg, mesh)
+        res[f"{arch}_meta"] = np.array([*meta.lengths, *meta.padded, meta.n_dp, meta.block])
+        res[f"{arch}_members"] = np.array([(b, i, size) for b, mem in enumerate(meta.members)
+                                           for i, _, size in mem])
+        ckpt = JCheckpointManager(os.path.join(out_dir, arch, "ckpt"))
+        ckpt.save(0, state)
+        batch = {k: jax.device_put(v, NamedSharding(mesh, P(dpax, *(None,) * (v.ndim - 1))))
+                 for k, v in jregistry.make_batch(cfg, *tp_batch_shape(arch),
+                                                  rng=np.random.default_rng(0)).items()}
+        state, m = jax.jit(jstep.build_train_step(cfg, tcfg, mesh)[0])(state, batch)
+        for k in ("loss", "gnorm", "overflow"):
+            res[f"{arch}_{k}"] = np.asarray(m[k])
+        ckpt.save(1, state)
+    np.savez(os.path.join(out_dir, "ref.npz"), **res)
+
+
+def run_mesh_tp_reference(kind: str, out_dir) -> dict:
+    """:func:`mesh_tp_reference` in a subprocess with 4 forced host
+    devices; returns its ``ref.npz``."""
+    import os
+    import subprocess
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    src = os.path.join(os.path.dirname(here), "src")
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join([src, here, os.environ.get("PYTHONPATH", "")]))
+    code = f"import torch_port_util as u; u.mesh_tp_reference({kind!r}, {str(out_dir)!r})"
+    res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    return dict(np.load(os.path.join(str(out_dir), "ref.npz")))
+
+
+def _tp_tcfg(policy=None):
+    from repro_torch.core.policy import CompressionPolicy
+    from repro_torch.optim.optimizers import OptimConfig
+    from repro_torch.train import step as step_lib
+
+    return step_lib.TrainConfig(
+        loss_chunk=16, policy=CompressionPolicy(min_bytes=0) if policy is None else policy,
+        optim=OptimConfig(lr=MESH_LR, warmup_steps=MESH_WARMUP))
+
+
+def _leaf_bytes(tensors) -> np.ndarray:
+    return np.concatenate([np_of(t).view(np.uint8).reshape(-1) for t in tensors])
+
+
+def tp_restore(cfg, mesh, tcfg, ckpt_dir: str, step: int):
+    """This rank's train state of checkpoint ``step`` under ``ckpt_dir``,
+    restored onto ``mesh`` with ``restore(shardings=)`` into a state built
+    on the mesh."""
+    import torch
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.train import step as step_lib
+    from repro_torch.tree_util import tree_map_up_to
+
+    like = step_lib.build_train_state(cfg, tcfg, generator=torch.Generator().manual_seed(9),
+                                      mesh=mesh, device="cpu")
+    shardings = tree_map_up_to(lambda _, s: (mesh, s), like.global_like(),
+                               step_lib.make_train_state_specs(cfg, tcfg, mesh))
+    state, got = CheckpointManager(ckpt_dir).restore(like, step=step, shardings=shardings,
+                                                     device="cpu")
+    assert got == step
+    return state
+
+
+def _tp_twin(arch: str, cfg, mesh, compress: bool, rows_of):
+    """2 steps from the port's own init (seed 0) at ``compress``: through
+    the launcher on the mesh, or (an encoder-decoder model, which the
+    launcher refuses) through ``train_step`` on ``registry.make_batch``
+    batches of seeds 0 and 1.  Returns (losses, state, retries)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core.policy import CompressionPolicy
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import registry
+    from repro_torch.train import step as step_lib
+
+    if not cfg.enc_dec:
+        batch, seq = tp_batch_shape(arch)
+        run = launch_train.train(cfg, steps=2, batch=batch, seq=seq, compress=compress,
+                                 device="cpu", lr=MESH_LR, warmup=MESH_WARMUP, mesh=mesh)
+        return run.losses, run.state, run.retries
+    pol = CompressionPolicy(min_bytes=0) if compress else CompressionPolicy.disabled()
+    tc = dataclasses.replace(_tp_tcfg(), policy=pol)
+    st = step_lib.build_train_state(cfg, tc, generator=torch.Generator().manual_seed(0),
+                                    mesh=mesh, device="cpu")
+    with launch_train.deterministic():
+        losses = [float(step_lib.train_step(st, rows_of(registry.make_batch(
+            cfg, *tp_batch_shape(arch), rng=np.random.default_rng(i), device="cpu")),
+            tc)["loss"]) for i in range(2)]
+    return losses, st, 0
+
+
+def mesh_tp_rank(rank: int, world: int, out: str, kind: str, ref_dir: str) -> None:
+    """The port's side of ``TP_RUNS[kind]`` on this gloo rank: its DP index
+    and model rank; the reduce-scatter of its ``mesh_rs_input`` over its
+    (pod, data) group under each of MESH_RS_POLICIES; per arch the
+    reference's parameters through ``load_reference_params(mesh=)`` and
+    its step-0 checkpoint through ``restore(shardings=)`` (this rank's
+    blocks), the bucket layout, one step from that state beside the
+    reference's step-1 state restored the same way, 2 steps compressed and
+    raw from the port's own init (the replicated leaves' bytes after
+    them), and this rank's blocks of ``transformer.init(mesh=)``.  On
+    ``tp``: the restored step-1 state of TP_CKPT_ARCH saved by the port
+    (gathered, rank 0 writes) under ``ref_dir/port_ckpt`` and restored
+    without shardings; then its launcher run with an overflow forced on
+    one rank (model rank 1 of the last DP index) in the first compressed
+    step."""
+    import os
+
+    import ml_dtypes
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import sched
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core.policy import CompressionPolicy
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import registry, transformer
+    from repro_torch.optim import zero1
+    from repro_torch.sched import compile as sched_compile
+    from repro_torch.sched.cache import PlanCache
+    from repro_torch.train import step as step_lib
+    from repro_torch.tree_util import bits_equal, tree_leaves
+
+    shape, axes, archs = TP_RUNS[kind]
+    mesh = mesh_lib.make_mesh(shape, axes, device="cpu")
+    tcfg = _tp_tcfg()
+    groups = step_lib.sync_group(mesh, tcfg)
+    idx, n_dp = dist.get_rank(groups.group), dist.get_world_size(groups.group)
+    mg = groups.model
+    res = {"idx": idx, "mrank": mg.rank, "sync": np.array(groups.axes)}
+    x = to_torch(mesh_rs_input(rank), "bfloat16")
+    for tag, kw in MESH_RS_POLICIES.items():
+        meta = zero1.plan_buckets([x], n_dp)
+        plan = sched_compile.cached_zero1_plan(
+            meta, policy=CompressionPolicy(min_bytes=0, **kw), axis_name=groups.axes,
+            n_dev=n_dp, device="cpu", cache=PlanCache())
+        (gb,) = zero1.flatten_buckets(meta, [x])
+        with sched.Zero1Execution(plan, groups.group) as ex:
+            gs, flag = ex.reduce_scatter(0, gb)
+        res[f"rs_{tag}"], res[f"rs_{tag}_flag"] = np_of(gs), int(flag)
+
+    ref = np.load(os.path.join(ref_dir, "ref.npz"))
+    rows_of = lambda b: launch_train.dp_rows(b, idx, n_dp)  # noqa: E731
+    for arch in archs:
+        cfg = tp_configs(arch)[0]
+        dts = transformer.leaf_dtypes(cfg)
+        tree = {p: ref[f"{arch}_param/{p}"].view(
+            ml_dtypes.bfloat16 if dts[p] == torch.bfloat16 else np.float32) for p in dts}
+        res[f"{arch}_load"] = _leaf_bytes(transformer.load_reference_params(
+            tree, cfg, device="cpu", mesh=mesh).leaves())
+        ckpt_dir = os.path.join(ref_dir, arch, "ckpt")
+        state = tp_restore(cfg, mesh, tcfg, ckpt_dir, 0)
+        res[f"{arch}_restored"] = _leaf_bytes(state.model.leaves())
+        m = state.meta
+        res[f"{arch}_meta"] = np.array([*m.lengths, *m.padded, m.n_dp, m.block])
+        res[f"{arch}_members"] = np.array([(b, i, size) for b, mem in enumerate(m.members)
+                                           for i, _, size in mem])
+        batch = registry.make_batch(cfg, *tp_batch_shape(arch), rng=np.random.default_rng(0),
+                                    device="cpu")
+        with launch_train.deterministic():
+            m = step_lib.train_step(state, rows_of(batch), tcfg)
+        res.update({f"{arch}_loss": float(m["loss"]), f"{arch}_gnorm": float(m["gnorm"]),
+                    f"{arch}_overflow": int(m["overflow"]), f"{arch}_step": state.step,
+                    f"{arch}_params": _flat_f32(state.model.leaves())})
+        want = tp_restore(cfg, mesh, tcfg, ckpt_dir, 1)
+        res[f"{arch}_ref_params"] = _flat_f32(want.model.leaves())
+        for tag, compress in (("comp", True), ("raw", False)):
+            losses, st, _ = _tp_twin(arch, cfg, mesh, compress, rows_of)
+            res[f"{arch}_{tag}_losses"] = np.array(losses)
+            res[f"{arch}_{tag}_params"] = _leaf_bytes(st.model.leaves())
+        kept = transformer.block_specs(cfg, mg.size)
+        res[f"{arch}_rep"] = _leaf_bytes([p for path, p in st.model.params.items()
+                                          if "model" not in kept[path]])
+        res[f"{arch}_own_init"] = _leaf_bytes(transformer.init(
+            cfg, generator=torch.Generator().manual_seed(0), device="cpu", mesh=mesh).leaves())
+        if kind == "tp" and arch == TP_CKPT_ARCH:
+            port_dir = os.path.join(ref_dir, "port_ckpt")
+            CheckpointManager(port_dir).save(1, want)  # gathered to rank 0, which writes
+            dist.barrier()
+            back, _ = CheckpointManager(port_dir).restore(want, device="cpu")
+            res["resume_exact"] = int(bits_equal(back.tree(), want.tree()))
+            res["own_storage"] = np.array([
+                t.untyped_storage().nbytes() == t.numel() * t.element_size()
+                for s in (want, back) for t in tree_leaves(s.tree())])
+            orig, seen = zero1.zero1_step, []
+
+            def forced(*args, **kw):  # one rank's first compressed step overflows
+                out = orig(*args, **kw)
+                if kw["policy"].enabled:
+                    seen.append(1)
+                    if len(seen) == 1 and (idx, mg.rank) == (n_dp - 1, 1):
+                        out = (out[0], out[1], torch.ones_like(out[2]), out[3])
+                return out
+
+            zero1.zero1_step = forced
+            try:
+                losses, st, retries = _tp_twin(arch, cfg, mesh, True, rows_of)
+            finally:
+                zero1.zero1_step = orig
+            res.update(forced_losses=np.array(losses), forced_retries=retries,
+                       forced_params=_leaf_bytes(st.model.leaves()))
+    np.savez(out, **res)
