@@ -309,7 +309,8 @@ result line each:
             timed at each new shape (time_path_shapes), inside the phase;
             merge_zoo adds both to the kernels rows.
 
-tp - ZeRO-1 with tensor and expert parallelism over 'model' (TP_JOBS):
+tp - ZeRO-1 and FSDP with tensor and expert parallelism over 'model'
+            (TP_JOBS):
             the card has one H100 and NCCL refuses two ranks on one device,
             so each job's ranks are processes of their own on cuda:0 over a
             gloo group (a FileStore in a temporary directory), each capped
@@ -330,7 +331,18 @@ tp - ZeRO-1 with tensor and expert parallelism over 'model' (TP_JOBS):
             against the plain versions and timed at every shape any rank
             tallied; the jobs' launches join the kernels line (merge_zoo).
             Step times cross the host through gloo and say nothing about
-            NVLink.
+            NVLink.  Two more jobs: jamba-v0.1-52b at full width, cut to
+            its pattern positions 3-4, (Mamba, MoE) then (attention,
+            SwiGLU) (3.67 B parameters), trained FSDP at (2, 2) on
+            Adafactor (AdamW's moments do not fit a quarter of the card),
+            4 x 512, 2 + 2 steps (Mamba over its inner channels, 8 of 16 experts a
+            model rank, each rank's gathers of its model-local blocks over
+            'data'; launches fsdp_launches of the plan's fsdp_work a step;
+            the grad norm against model = 1 counting each leaf once); and
+            xlstm-350m at full width, one period (7 mLSTM + 1 sLSTM), ZeRO-1
+            at (1, 2), 2 of its 4 heads a rank, 8 x 128, 2 + 2 steps.  Their
+            bounds (TP_JAMBA_*, TP_XLSTM_*) come from tools/rehearse_tp.py,
+            the phase rehearsed on the CPU at SMOKE size.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 ``kernels`` JSON.  Any failed phase exits non-zero and prints no result.
@@ -2357,27 +2369,61 @@ ZOO_UNITS = {"zoo_glm4_9b_pd": ("glm4_pd_admission", ZOO_SERVE["glm4_9b"]["n_req
 # router's near ties may part between layouts (SMOKE on the CPU: tinyllama
 # 6.2e-6 and 3.3e-4, deepseek 2.1e-4 and 6.7e-3); a missing sum over the
 # model group moves either by far more
+# the new jobs' bounds, set from tools/rehearse_tp.py at SMOKE size before
+# their first run on the card: jamba FSDP at (2, 2) parted from model = 1
+# by 1.20e-05 (loss) and 7.42e-03 (grad norm: the bf16 backward through
+# the Mamba scan, ill-conditioned in both packages), xlstm at (1, 2) by
+# 2.48e-06 and 3.53e-04; jamba's loss bound leaves room for its MoE
+# router's near ties, as deepseek's does.  xlstm's grad norm bound was 1e-2
+# and its first run on the card parted by 2.53e-02 at full width: the bf16
+# backward through the exponential gates grows the layouts' rounding with
+# the width and the steps (tools/tp_gap.py, on the CPU at d_model 1024, 4
+# x 64: 6.0e-03 in bf16, 5.7e-08 in f32, so the split itself is exact);
+# it is 5e-2 since
+TP_JAMBA_LOSS_REL, TP_JAMBA_GNORM_REL = 1e-3, 5e-2
+TP_XLSTM_LOSS_REL, TP_XLSTM_GNORM_REL = 1e-4, 5e-2
+# tp_jamba_fsdp: FSDP at model > 1, jamba-v0.1-52b at full width cut to
+# its pattern positions 3-4, (Mamba, MoE) then (attention, SwiGLU): one
+# layer of each kind the job adds (3.67 B parameters, 0.92 B a rank), on
+# Adafactor (deepseek-v3's FSDP optimizer): under AdamW (7.35 GB of
+# moments a rank) a rank outgrew its 18.61 GiB cap at 14.62 GiB allocated
+# asking 1.75 more, without the (attention, SwiGLU) layer at 14.92 asking
+# 1.75, and with growing segments at 17.83 asking 0.88; on Adafactor it
+# peaks at 14.33 GiB with both layers;
+# tp_xlstm: mLSTM and sLSTM split over their heads, one period of
+# xlstm-350m (7 mLSTM + 1 sLSTM), 2 of its 4 heads a rank
 TP_JOBS = {
     "tp_tinyllama": dict(arch="tinyllama_1_1b", shape=(2, 2), batch=8, seq=512, steps=3,
                          repeats=18, mem=0.235, loss_rel=2e-4, gnorm_rel=1e-2),
     "tp_deepseek": dict(arch=DEEPSEEK, shape=(1, 2), batch=8, seq=512, steps=2,
                         repeats=DEEPSEEK_REPEATS, mem=0.45, loss_rel=1e-3, gnorm_rel=2e-2),
+    "tp_jamba_fsdp": dict(arch="jamba_v0_1_52b", shape=(2, 2), batch=4, seq=512, steps=2,
+                          pattern=(3, 4), repeats=1, partition="fsdp", optimizer="adafactor",
+                          mem=0.235,
+                          loss_rel=TP_JAMBA_LOSS_REL, gnorm_rel=TP_JAMBA_GNORM_REL),
+    "tp_xlstm": dict(arch="xlstm_350m", shape=(1, 2), batch=8, seq=128, steps=2, repeats=1,
+                     mem=0.45, loss_rel=TP_XLSTM_LOSS_REL, gnorm_rel=TP_XLSTM_GNORM_REL),
 }
 TP_TIMEOUT = 600  # seconds a job's processes may take
 
 
 def tp_config(job):
+    """The job's config: its arch at full width, its depth cut to
+    ``repeats`` and (where the job says) to the ``pattern`` positions it
+    lists."""
     from repro_torch import configs
 
     cfg = configs.get(job["arch"])
+    if "pattern" in job:
+        cfg = dataclasses.replace(cfg, pattern=tuple(cfg.pattern[i] for i in job["pattern"]))
     return cfg if job["repeats"] is None else dataclasses.replace(cfg, repeats=job["repeats"])
 
 
 def tp_child(rank, world, store, out, job):
     """One rank of a tp job (spawned; the kernels are built): the
-    launcher's ZeRO-1 path on a (data, model) mesh over a gloo group on
-    cuda:0, compressed then raw; its numbers (and rank 0's kernel inputs)
-    saved to ``out``."""
+    launcher's path for the job's partition (ZeRO-1 unless it says FSDP)
+    on a (data, model) mesh over a gloo group on cuda:0, compressed then
+    raw; its numbers (and rank 0's kernel inputs) saved to ``out``."""
     import torch
     import torch.distributed as dist
 
@@ -2401,16 +2447,20 @@ def _tp_child_runs(rank, job, torch):
     from repro_torch.launch import train as launch_train
     from repro_torch.train import step as step_lib
 
+    import torch.distributed as dist
+
     dev = torch.device("cuda", 0) if job.get("device", "cuda") == "cuda" else torch.device("cpu")
     mesh = mesh_lib.make_mesh(job["shape"], ("data", "model"), device=dev)
-    gnorms, train_step = [], step_lib.train_step
+    partition = job.get("partition", "zero1")
+    name = "fsdp_train_step" if partition == "fsdp" else "train_step"
+    gnorms, step_fn = [], getattr(step_lib, name)
 
     def recording(*args, **kw):  # the launcher's step, its grad norm kept
-        m = train_step(*args, **kw)
+        m = step_fn(*args, **kw)
         gnorms.append(float(m["gnorm"]))
         return m
 
-    step_lib.train_step = recording
+    setattr(step_lib, name, recording)
     out = {"runs": {}}
     try:
         for compress in (True, False):
@@ -2422,35 +2472,46 @@ def _tp_child_runs(rank, job, torch):
                 kernels.clear_launch_counts()
                 run = launch_train.train(
                     tp_config(job), steps=job["steps"], batch=job["batch"], seq=job["seq"],
-                    compress=compress, device=dev, seed=SEED, mesh=mesh,
+                    compress=compress, device=dev, seed=SEED, mesh=mesh, partition=partition,
+                    optimizer=job.get("optimizer", "adamw"),
                     generator=torch.Generator(dev).manual_seed(SEED))
                 launches = kernels.launch_counts()
             st = run.state
+            n_dp = dist.get_world_size(st.group)
+            if partition == "fsdp":  # the gathers and reduce-scatters of the plan
+                n_ag, n_rs, _, _ = fsdp_work(st, run.tcfg)
+                per_step, buckets, n = fsdp_launches(n_ag, n_rs, n_dp), 0, []
+            else:  # one two-shot a bucket
+                buckets, n = len(st.meta.dtype_names), list(st.meta.padded)
+                per_step = {k: buckets * v for k, v in two_shot_launches(True, True, n_dp).items()}
+            expect = dict.fromkeys(kernels.KERNELS, 0)
+            expect.update({k: job["steps"] * v for k, v in per_step.items()})
             out["runs"][compress] = {
                 "losses": run.losses, "gnorms": list(gnorms), "step_ms": run.step_ms,
                 "retries": run.retries, "launches": launches, "tallies": shape_tallies(),
                 "peak": torch.cuda.max_memory_allocated(dev),
                 "digests": [hashlib.sha256(p.detach().contiguous().view(torch.uint8).cpu()
                                            .numpy()).hexdigest() for p in st.model.leaves()],
-                "buckets": len(st.meta.dtype_names), "n": list(st.meta.padded),
-                "n_dp": st.meta.n_dp, "mrank": st.model.mg.rank}
+                "buckets": buckets, "n": n, "n_dp": n_dp, "mrank": st.model.mg.rank,
+                "expect": expect}
             if record:
                 out["inputs"] = inputs
             del run, st
             gc.collect()
             torch.cuda.empty_cache()
     finally:
-        step_lib.train_step = train_step
+        setattr(step_lib, name, step_fn)
     return out
 
 
 def tp_model1_ref(job, dev, torch) -> tuple:
     """The first step's loss and grad norm of a tp job's model at model = 1
     in this process: the ranks' init (a generator on the card seeded SEED),
-    the launcher's first global batch, one forward and backward.  The
-    norm counts each leaf that the job's mesh replicates over 'model'
-    (``step.model_specs``) once a model rank, as the step's sum over the
-    model group does."""
+    the launcher's first global batch, one forward and backward.  A ZeRO-1
+    job's norm counts each leaf that the job's mesh replicates over
+    'model' (``step.model_specs``) once a model rank, as the step's sum
+    over the model group does (the reference's count); an FSDP job's
+    counts each leaf once, as the reference's FSDP step does."""
     import gc
 
     from repro_torch.data.pipeline import DataConfig, DataPipeline
@@ -2464,12 +2525,12 @@ def tp_model1_ref(job, dev, torch) -> tuple:
                                     seq_len=job["seq"], seed=SEED)).tensors_at(0, dev)
     loss = step_lib.loss_fn(model, batch, step_lib.TrainConfig(loss_chunk=min(1024, job["seq"])))
     loss.backward()
-    n_model = job["shape"][1]
+    n_model = 1 if job.get("partition") == "fsdp" else job["shape"][1]
     specs = dict(transformer.tree_paths(step_lib.model_specs(
         cfg, mesh_lib.AbstractMesh(job["shape"], ("data", "model")))))
     norm_sq = sum(float(torch.sum(torch.square(p.grad.float())))
                   * (1 if "model" in specs[path] else n_model)
-                  for path, p in model.params.items())
+                  for path, p in model.params.items() if p.grad is not None)
     loss = float(loss)
     del model, batch
     gc.collect()
@@ -2535,9 +2596,7 @@ def phase_tp(dev, torch, np, bw):
         ranks = run_tp_job(job, torch)
         comp0 = ranks[0]["runs"][True]
         n_dp = comp0["n_dp"]
-        expect = dict.fromkeys(kernels.KERNELS, 0)
-        expect.update({k: job["steps"] * comp0["buckets"] * v
-                       for k, v in two_shot_launches(True, True, n_dp).items()})
+        expect = comp0["expect"]
         total, tallies = dict.fromkeys(kernels.KERNELS, 0), {k: {} for k in SHAPED}
         for r, res in enumerate(ranks):
             comp, raw = res["runs"][True], res["runs"][False]
@@ -2547,7 +2606,7 @@ def phase_tp(dev, torch, np, bw):
             if comp["retries"] or raw["retries"] or any(raw["launches"].values()):
                 raise AssertionError(f"{tag} rank {r}: retries {comp['retries']}, raw "
                                      f"launches {raw['launches']}")
-            if comp["launches"] != expect:
+            if comp["expect"] != expect or comp["launches"] != expect:
                 raise AssertionError(f"{tag} rank {r}: launches {comp['launches']}, "
                                      f"expected {expect}")
             if not all(np.isfinite(comp["losses"])) or comp["losses"] != comp0["losses"]:
@@ -2571,14 +2630,17 @@ def phase_tp(dev, torch, np, bw):
         launches[tag] = total
         units[tag] = (f"{tag}_rank_step", world * job["steps"])
         full = configs.get(job["arch"])
+        layers = ", ".join(f"{s.mixer}+{s.ffn}" for s in cfg.pattern)
+        wire = (f"FSDP, {job.get('optimizer', 'adamw')}, gathers and reduce-scatters "
+                f"{expect}" if job.get("partition") == "fsdp" else
+                f"ZeRO-1, bucket n={comp0['n']} a model rank")
         print(f"{tag}: {job['arch']} d_model {cfg.d_model}, {cfg.n_heads} heads, "
               f"{cfg.kv_heads} KV heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
-              f"{cfg.n_layers} of {full.n_layers} layers"
+              f"{cfg.n_layers} of {full.n_layers} layers ({layers})"
               f"{f', {cfg.moe.n_experts} experts' if cfg.moe.n_experts else ''}; "
               f"(data, model) = {job['shape']}, {world} processes on cuda:0 over gloo, each "
               f"capped at {job['mem']} of the card ({_gib(free)} free before them); batch "
-              f"{job['batch']} x {job['seq']}; "
-              f"bucket n={comp0['n']} a model rank, n_dp={n_dp}")
+              f"{job['batch']} x {job['seq']}; {wire}, n_dp={n_dp}")
         for r, res in enumerate(ranks):
             comp, raw = res["runs"][True], res["runs"][False]
             print(f"  rank {r} (model rank {comp['mrank']}): losses {comp['losses']} gnorms "

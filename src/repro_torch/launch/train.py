@@ -19,15 +19,12 @@ state every ``--ckpt-every`` steps, a heartbeat file, counts stragglers,
 flushes a checkpoint on SIGTERM (``--sigterm``) and resumes from the newest
 good checkpoint (``--resume``).  Under ``torchrun`` the process group comes
 from the environment; otherwise a single-process group is made (NCCL on the
-GPU, gloo on the CPU).  ZeRO-1 runs over the reference's smoke mesh
-(``launch.mesh.make_smoke_mesh(pods=)``: at 4 ranks (data, model) = (2,
-2), at 4 ranks and ``--pods 2`` (2, 1, 2)), tensor and expert parallel
-over 'model' (data parallel over it for the archs that
-``cells.TRAIN_KNOBS`` marks ``dp_only``: :func:`cli_mesh`); FSDP over a
-``(pods, world // pods, 1)`` mesh of ``("pod", "data", "model")`` (FSDP at
-model > 1 is not ported).  The steps sync over the DP axes in pod-major
-rank order, and each rank reads the batch rows of its DP index in that
-order (the model ranks of a DP row read the same rows).
+GPU, gloo on the CPU).  ZeRO-1 and FSDP run over the reference's smoke
+mesh (``launch.mesh.make_smoke_mesh(pods=)``: at 4 ranks (data, model) =
+(2, 2), at 4 ranks and ``--pods 2`` (2, 1, 2); :func:`cli_mesh`), tensor
+and expert parallel over 'model'.  The steps sync over the DP axes in
+pod-major rank order, and each rank reads the batch rows of its DP index
+in that order (the model ranks of a DP row read the same rows).
 """
 from __future__ import annotations
 
@@ -43,7 +40,6 @@ import torch.distributed as dist
 from repro_torch import configs, kernels
 from repro_torch.core.policy import CompressionPolicy, capture_wire_reports
 from repro_torch.data.pipeline import DataConfig, DataPipeline
-from repro_torch.launch import cells
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.config import ArchConfig
 from repro_torch.optim.optimizers import OptimConfig
@@ -253,27 +249,14 @@ def train(arch: str | ArchConfig, *, steps: int, batch: int, seq: int,
                     start_step=start)
 
 
-def cli_mesh(arch: str, partition: str, world: int, pods: int = 1, device="cpu") -> tuple:
-    """``(mesh, dp_only)`` of a CLI run of ``world`` ranks: ZeRO-1 over the
-    reference's smoke mesh (``make_smoke_mesh(pods=)``), tensor parallel
-    over its 'model' axis except where ``cells.TRAIN_KNOBS`` marks the arch
-    ``dp_only`` (smollm, xlstm: then 'model' carries batch rows, as in
-    their production cells, and the wire goes raw, since its label
-    ("data", "model") names an axis the policy does not compress, in both
-    packages; at model = 1 ``dp_only`` stays off and the wire compressed);
-    FSDP over ``(pods, world // pods, 1)``.  A
-    ZeRO-1 run of an arch whose layers do not split over 'model' yet
-    (jamba's Mamba, qwen2-vl's vision stub) at model > 1 raises
-    NotImplementedError in the state builder (ROADMAP Queue A, slice 18)."""
+def cli_mesh(world: int, pods: int = 1, device="cpu"):
+    """The mesh of a CLI run of ``world`` ranks, either partition: the
+    reference's smoke mesh (``make_smoke_mesh(pods=)``), tensor and expert
+    parallel over its 'model' axis, as the reference's CLI builds it for
+    both."""
     if world % pods:
         raise SystemExit(f"{world} ranks do not split into {pods} pods")
-    if partition == "zero1":
-        knobs = cells.TRAIN_KNOBS.get(arch, ())
-        mesh = mesh_lib.make_smoke_mesh(world, pods=pods, device=device)
-        return mesh, (len(knobs) > 3 and knobs[3]
-                      and mesh_lib.axis_sizes(mesh)["model"] > 1)
-    return mesh_lib.make_mesh((pods, world // pods, 1), ("pod", "data", "model"),
-                              device=device), False
+    return mesh_lib.make_smoke_mesh(world, pods=pods, device=device)
 
 
 def main(argv=None):
@@ -305,8 +288,7 @@ def main(argv=None):
     rcfg = RunnerConfig(ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
                         heartbeat_path=args.heartbeat, install_sigterm=args.sigterm)
     with launcher_group(args.device) as dev:
-        mesh, dp_only = cli_mesh(args.arch, args.partition, dist.get_world_size(),
-                                 args.pods, dev)
+        mesh = cli_mesh(dist.get_world_size(), args.pods, dev)
         run = train(args.arch, steps=args.steps, batch=args.batch,
                     seq=args.seq, compress=not args.no_compress,
                     smoke=args.smoke, device=dev, seed=args.seed,
@@ -314,8 +296,7 @@ def main(argv=None):
                     compress_min_bytes=args.compress_min_bytes,
                     partition=args.partition, microbatches=args.microbatches, mesh=mesh,
                     rcfg=rcfg,
-                    resume=args.resume, log=print, data_path=args.data_path,
-                    dp_only=dp_only)
+                    resume=args.resume, log=print, data_path=args.data_path)
     print(f"final loss {run.losses[-1]:.4f} | stragglers {run.runner.stragglers} | "
           f"retries {run.retries} | compressed={not args.no_compress} | "
           f"partition={args.partition} | mesh={mesh_lib.axis_sizes(mesh)}")

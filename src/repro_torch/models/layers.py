@@ -161,42 +161,57 @@ def _split_heads(x: torch.Tensor, width: int) -> torch.Tensor:
     return x.reshape(*x.shape[:2], x.shape[2] // width, width)
 
 
+def _kv_heads(t: torch.Tensor, hd: int, Hkv: int, G: int, h0: int, h1: int,
+              mg) -> torch.Tensor:
+    """The KV heads that query heads [h0, h1) read in GQA's global map
+    (query head ``h`` reads KV head ``h // G``), from a column-parallel
+    projection ``t`` (B, S, this rank's block of ``Hkv * hd`` columns):
+    its own heads when they are exactly those, else the projection
+    gathered over the group and cut to them; one a query head where the
+    block of query heads is not whole GQA groups, else (B, S, k1 - k0,
+    hd) for KV heads [k0, k1)."""
+    k0, k1 = h0 // G, (h1 - 1) // G + 1
+    t, kh0, _ = _head_blocks(t, hd, Hkv, mg)
+    if (kh0, t.shape[2]) != (k0, k1 - k0):
+        if t.shape[2] != Hkv:  # whole heads, not the ones these queries read
+            t = _split_heads(tp.gather(t.flatten(2), mg, -1), hd)
+        t = t[:, :, k0:k1]
+    if (h1 - h0) != (k1 - k0) * G:  # the block is not whole GQA groups
+        idx = torch.tensor([h // G - k0 for h in range(h0, h1)], device=t.device)
+        t = t.index_select(2, idx)
+    return t
+
+
+def _own_columns(out: torch.Tensor, w: torch.Tensor, mg) -> torch.Tensor:
+    """``out`` (B, S, every head's columns, where they were all computed)
+    cut to the rows ``w``, this rank's block of a row-parallel projection,
+    holds; ``out`` itself where it has those columns (one rank)."""
+    cols = w.shape[0]
+    if out.shape[-1] != cols:
+        out = out[..., mg.rank * cols:(mg.rank + 1) * cols]
+    return out
+
+
 def _attention_tp(p: dict, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec, cos, sin,
                   kv_src: torch.Tensor | None, mg) -> torch.Tensor:
     """:func:`attention` (training form) on this rank's blocks: ``wq``,
     ``wk``, ``wv`` column-parallel, ``wo`` row-parallel.  The rank computes
     its block of query heads (all of them where its ``wq`` columns split a
-    head) against the KV heads they read in GQA's global map (query head
-    ``h`` reads KV head ``h // (H / Hkv)``): its own ``wk``/``wv`` columns
-    when they are exactly those heads, else the projections gathered over
-    the group and cut to them.  Its block of the output columns goes
-    through its rows of ``wo``, and the ranks' products are summed."""
+    head) against the KV heads they read (:func:`_kv_heads`).  Its block
+    of the output columns goes through its rows of ``wo``, and the ranks'
+    products are summed."""
     B, S, _ = x.shape
     hd, H, Hkv = cfg.hd, cfg.n_heads, cfg.kv_heads
-    G = H // Hkv
     xin = tp.copy(x, mg)
     src = xin if kv_src is None else tp.copy(kv_src, mg)
     q, h0, h1 = _head_blocks(xin @ p["wq"], hd, H, mg)
-    k0, k1 = h0 // G, (h1 - 1) // G + 1  # the KV heads the query heads read
-    k, kh0, _ = _head_blocks(src @ p["wk"], hd, Hkv, mg)
-    v, _, _ = _head_blocks(src @ p["wv"], hd, Hkv, mg)
-    if (kh0, k.shape[2]) != (k0, k1 - k0):
-        if k.shape[2] != Hkv:  # whole heads, not the ones these queries read
-            k, v = (_split_heads(tp.gather(t.flatten(2), mg, -1), hd) for t in (k, v))
-        k, v = k[:, :, k0:k1], v[:, :, k0:k1]
-    if (h1 - h0) != (k1 - k0) * G:  # the block is not whole GQA groups
-        idx = torch.tensor([h // G - k0 for h in range(h0, h1)], device=x.device)
-        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    k, v = (_kv_heads(src @ p[w], hd, Hkv, H // Hkv, h0, h1, mg) for w in ("wk", "wv"))
     if kv_src is None:
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
         out = _attend(q, k, v, spec.window)
     else:
         out = _attend_chunked(q, k, v, causal=False, window=spec.window)
-    out = out.reshape(B, S, -1)
-    cols = p["wo"].shape[0]
-    if out.shape[-1] != cols:  # every head computed: keep this rank's columns
-        out = out[..., mg.rank * cols:(mg.rank + 1) * cols]
-    return tp.reduce(out @ p["wo"], mg)
+    return tp.reduce(_own_columns(out.reshape(B, S, -1), p["wo"], mg) @ p["wo"], mg)
 
 
 def attention(p: dict, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec,
@@ -226,7 +241,7 @@ def attention(p: dict, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec,
     if tp.active(mg):
         if cache is not None:
             raise NotImplementedError("attention with a cache at model > 1 is not ported "
-                                      "(ROADMAP Queue A, slice 18)")
+                                      "(ROADMAP Queue A, slice 19)")
         return _attention_tp(p, x, cfg, spec, cos, sin, kv_src, mg)
     B, S, _ = x.shape
     hd, H, Hkv = cfg.hd, cfg.n_heads, cfg.kv_heads
@@ -287,7 +302,7 @@ def mla_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec,
     if tp.active(mg):
         if cache is not None:
             raise NotImplementedError("MLA with a cache at model > 1 is not ported "
-                                      "(ROADMAP Queue A, slice 18)")
+                                      "(ROADMAP Queue A, slice 19)")
         H = p["wq"].shape[1] // (hd + r)
         if p["wq"].shape[1] != H * (hd + r) or p["w_uk"].shape[1] != H * hd:
             raise ValueError(f"MLA at model = {mg.size}: {cfg.n_heads} heads do not split "
@@ -508,8 +523,14 @@ def _scan_chunk(da: torch.Tensor, db: torch.Tensor, h0: torch.Tensor) -> torch.T
     return h0[None] * a + b
 
 
+def _serving_tp(what: str, mg) -> None:
+    if tp.active(mg):
+        raise NotImplementedError(f"{what} with a recurrent state at model > 1 is not ported "
+                                  f"(ROADMAP Queue A, slice 19)")
+
+
 def mamba(p: dict, x: torch.Tensor, cfg: ArchConfig, *, state: dict | None = None,
-          chunk: int = 256, return_state: bool = False) -> tuple:
+          chunk: int = 256, return_state: bool = False, mg=None) -> tuple:
     """Selective SSM (the reference's ``mamba``): x (B, S, D) -> (out, state).
     p: {in_proj, conv_w, w_bc_dt, a_log, d_skip, out_proj, dt_bias}, the
     last three and ``a_log`` f32.
@@ -525,30 +546,49 @@ def mamba(p: dict, x: torch.Tensor, cfg: ArchConfig, *, state: dict | None = Non
     di)}``, ``conv`` the last k-1 PRE-activation inputs, else None.
 
     With ``state`` (decode, S == 1): the conv over the state's history and
-    the new input, one recurrence step; returns the next state."""
+    the new input, one recurrence step; returns the next state.
+
+    At a model group ``mg`` (training form only; ``spec_mamba``): the rank
+    holds a block of the inner channels, ``[r di / n, (r + 1) di / n)``, of
+    ``conv_w``, ``a_log``, ``d_skip``, ``dt_bias`` and the rows of
+    ``w_bc_dt`` and ``out_proj``, but its block of ``in_proj``'s columns is
+    the reference's contiguous ``P(None, "model")`` block of ``[xs | z]``,
+    not its channels of both halves.  So ``x @ in_proj`` is gathered over
+    the group (``tp.gather``: its backward sums the gradient over the group
+    and keeps this rank's columns, which routes each channel's gradient to
+    the rank holding its column, exactly: one rank's value and zeros), and
+    the rank takes its channels of ``xs`` and ``z``.  B, C and the one dt
+    column are the sum over the group of the ranks' ``w_bc_dt`` rows
+    (``tp.reduce``) before ``dt_bias`` and softplus, re-entering the
+    channel-split region through ``tp.copy``; ``out_proj`` is row-parallel
+    and its products are summed."""
     B, S, D = x.shape
     mc = cfg.mamba
     di, ds, k = mc.expand * D, mc.d_state, mc.d_conv
-    xz = x @ p["in_proj"]
-    xs, z = xz[..., :di], xz[..., di:]
+    if state is not None or return_state:
+        _serving_tp("Mamba", mg)
+    xz = tp.gather(tp.copy(x, mg) @ p["in_proj"], mg, -1)
+    dl = p["conv_w"].shape[1]  # this rank's channels: di, or di / n at a model group
+    c0 = mg.rank * dl if tp.active(mg) else 0
+    xs, z = xz[..., c0:c0 + dl], xz[..., di + c0:di + c0 + dl]
     conv_w = p["conv_w"]
     hist = xs if state is None else torch.cat([state["conv"], xs], 1)
     lead = hist.shape[1] - S  # 0, or the k-1 positions of the state
     acc = torch.zeros_like(xs)
     for i in range(k):
         if state is None:  # x shifted right by i positions, zeros in front
-            shifted = torch.cat([xs.new_zeros(B, min(i, S), di), xs[:, :max(S - i, 0)]], 1)
+            shifted = torch.cat([xs.new_zeros(B, min(i, S), dl), xs[:, :max(S - i, 0)]], 1)
         else:
             shifted = hist[:, lead - i:lead - i + S]
         acc = acc + shifted * conv_w[k - 1 - i]
     xc = F.silu(acc)
-    bcd = xc @ p["w_bc_dt"]
+    bcd = tp.copy(tp.reduce(xc @ p["w_bc_dt"], mg), mg)
     Bm, Cm = bcd[..., :ds], bcd[..., ds:2 * ds]
-    dt = _softplus(bcd[..., -1:].to(torch.float32) + p["dt_bias"])  # (B, S, di)
-    A = -torch.exp(p["a_log"])  # (di, ds)
+    dt = _softplus(bcd[..., -1:].to(torch.float32) + p["dt_bias"])  # (B, S, dl)
+    A = -torch.exp(p["a_log"])  # (dl, ds)
     xcf = xc.to(torch.float32)
 
-    def gates(sl):  # da, db of positions ``sl``, time-major (s, B, di, ds)
+    def gates(sl):  # da, db of positions ``sl``, time-major (s, B, dl, ds)
         dt_s = dt[:, sl].transpose(0, 1)[..., None]
         da = torch.exp(dt_s * A)
         db = (dt_s * Bm[:, sl].transpose(0, 1)[:, :, None, :]).to(torch.float32) * \
@@ -565,7 +605,7 @@ def mamba(p: dict, x: torch.Tensor, cfg: ArchConfig, *, state: dict | None = Non
     if S % n_ch:
         raise ValueError(f"mamba: {S} positions do not split into {n_ch} equal chunks")
     ch = S // n_ch
-    h = torch.zeros((B, di, ds), dtype=torch.float32, device=x.device)
+    h = torch.zeros((B, dl, ds), dtype=torch.float32, device=x.device)
     ys = []
     Cf = Cm.to(torch.float32)
     for c0 in range(0, S, ch):
@@ -574,7 +614,7 @@ def mamba(p: dict, x: torch.Tensor, cfg: ArchConfig, *, state: dict | None = Non
         h = hs[-1]
     y = torch.cat(ys).transpose(0, 1)
     y = (y + xcf * p["d_skip"]) * F.silu(z.to(torch.float32))
-    out = y.to(x.dtype) @ p["out_proj"]
+    out = tp.reduce(y.to(x.dtype) @ p["out_proj"], mg)
     if return_state:
         return out, {"h": h, "conv": xs[:, S - (k - 1):]}
     return out, None
@@ -584,28 +624,72 @@ def mamba(p: dict, x: torch.Tensor, cfg: ArchConfig, *, state: dict | None = Non
 # xLSTM cells (mLSTM: matrix memory, sLSTM: scalar memory), stepped in time
 # ---------------------------------------------------------------------------
 
+def _xlstm_inputs_tp(p: dict, x: torch.Tensor, cfg: ArchConfig, kv: tuple, mg) -> tuple:
+    """An xLSTM cell's projections on this rank's heads at a model group
+    ``mg`` (``spec_xlstm_full``): ``(q, {name: (B, S, h, hd)} of the ``kv``
+    leaves, one a query head (GQA's KV heads repeated), (log input gate,
+    log forget gate) each (B, S, h) f32)``, q (B, S, h, hd) from ``wq``, in
+    the model dtype but the gates.  The rank computes its block of query
+    heads with the KV heads they read, as TP attention does
+    (:func:`_head_blocks`, :func:`_kv_heads`); where the projections' block
+    splits a head, the columns are gathered over the group first and every
+    rank computes every head.  Its gates are its columns of ``wi``/``wf``
+    where those split over the heads; where ``sanitize_specs`` keeps them
+    whole (fewer heads than ranks) every rank computes them whole, and the
+    product enters the head region through ``tp.copy``, so the gates'
+    gradient, and the replicated leaves', is summed over the group."""
+    H, hd, Hkv = cfg.n_heads, cfg.hd, cfg.kv_heads
+    G = H // Hkv
+    xin = tp.copy(x, mg)
+    q, h0, h1 = _head_blocks(xin @ p["wq"], hd, H, mg)
+    kvs = {}
+    for w in kv:
+        t = _kv_heads(xin @ p[w], hd, Hkv, G, h0, h1, mg)
+        kvs[w] = t if t.shape[2] == h1 - h0 else torch.repeat_interleave(t, G, dim=2)
+    if p["wi"].shape[1] == H:  # the gates whole on every rank: this rank's heads of them
+        gi, gf = (tp.copy(x @ p[w], mg)[..., h0:h1] for w in ("wi", "wf"))
+    else:  # the rank's block of the gates' columns: its heads [h0, h1)
+        gi, gf = xin @ p["wi"], xin @ p["wf"]
+    return q, kvs, (gi.to(torch.float32), F.logsigmoid(gf.to(torch.float32)))
+
+
 def _gate_logs(p: dict, x: torch.Tensor) -> tuple:
     """(log input gate, log forget gate), each (B, S, H) f32."""
     return ((x @ p["wi"]).to(torch.float32),
             F.logsigmoid((x @ p["wf"]).to(torch.float32)))
 
 
-def mlstm(p: dict, x: torch.Tensor, cfg: ArchConfig, *, state: dict | None = None) -> tuple:
+def mlstm(p: dict, x: torch.Tensor, cfg: ArchConfig, *, state: dict | None = None,
+          mg=None) -> tuple:
     """mLSTM (the reference's ``mlstm``): per head a matrix memory C (hd x
     hd) with an exponential input gate and a sigmoid forget gate,
     stabilised by the running max m.  p: {wq, wk, wv, wi, wf, wo}; k and v
     are repeated over the GQA groups, then k scaled by 1/sqrt(hd); the
     output divides by max(|q . n|, 1).  Steps over time in f32 from
     ``state`` ({"C", "n", "m"}; None: zeros and m = -1e30); returns (out,
-    the state after the last step)."""
+    the state after the last step).  ``mg``: heads split over a model group
+    (:func:`_xlstm_inputs_tp`; ``wo`` row-parallel, the rank's block of the
+    heads' columns, cut from every head where it computed them all, summed
+    over the group; training form only).  On one rank the projections are
+    taken in the order below: it sets the order in which the bf16
+    gradient of ``x`` sums its parts."""
+    if state is not None:
+        _serving_tp("mLSTM", mg)
     B, S, _ = x.shape
     H, hd, G = cfg.n_heads, cfg.hd, cfg.n_heads // cfg.kv_heads
-    q = (x @ p["wq"]).reshape(B, S, H, hd).to(torch.float32)
-    k = (x @ p["wk"]).reshape(B, S, cfg.kv_heads, hd).to(torch.float32)
-    v = (x @ p["wv"]).reshape(B, S, cfg.kv_heads, hd).to(torch.float32)
-    k = torch.repeat_interleave(k, G, dim=2) / math.sqrt(hd)
-    v = torch.repeat_interleave(v, G, dim=2)
-    logi, logf = _gate_logs(p, x)
+    if tp.active(mg):
+        q, kvs, (logi, logf) = _xlstm_inputs_tp(p, x, cfg, ("wk", "wv"), mg)
+        H = q.shape[2]
+        q = q.to(torch.float32)
+        k = kvs["wk"].to(torch.float32) / math.sqrt(hd)
+        v = kvs["wv"].to(torch.float32)
+    else:
+        q = (x @ p["wq"]).reshape(B, S, H, hd).to(torch.float32)
+        k = (x @ p["wk"]).reshape(B, S, cfg.kv_heads, hd).to(torch.float32)
+        v = (x @ p["wv"]).reshape(B, S, cfg.kv_heads, hd).to(torch.float32)
+        k = torch.repeat_interleave(k, G, dim=2) / math.sqrt(hd)
+        v = torch.repeat_interleave(v, G, dim=2)
+        logi, logf = _gate_logs(p, x)
     if state is None:
         C = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device)
         n = torch.zeros((B, H, hd), dtype=torch.float32, device=x.device)
@@ -624,22 +708,32 @@ def mlstm(p: dict, x: torch.Tensor, cfg: ArchConfig, *, state: dict | None = Non
         ys.append(num / torch.clamp_min(den, 1.0))
         m = m_new
     y = torch.stack(ys, 1).reshape(B, S, H * hd).to(x.dtype)
-    return y @ p["wo"], {"C": C, "n": n, "m": m}
+    return tp.reduce(_own_columns(y, p["wo"], mg) @ p["wo"], mg), {"C": C, "n": n, "m": m}
 
 
-def slstm(p: dict, x: torch.Tensor, cfg: ArchConfig, *, state: dict | None = None) -> tuple:
+def slstm(p: dict, x: torch.Tensor, cfg: ArchConfig, *, state: dict | None = None,
+          mg=None) -> tuple:
     """sLSTM (the reference's ``slstm``): per head a scalar-memory cell with
     exponential gating and a normaliser state.  p: {wq, wk, wv, wi, wf,
     wo}: ``wq`` gives the sigmoid output gate and ``wk`` is never read (as
-    in the reference: its gradient is zero).  Steps over time in f32 from
-    ``state`` ({"c", "n", "m"}; None: zeros and m = -1e30); returns (out,
-    the state after the last step)."""
+    in the reference: its gradient is zero, in every block at a model
+    group).  Steps over time in f32 from ``state`` ({"c", "n", "m"}; None:
+    zeros and m = -1e30); returns (out, the state after the last step).
+    ``mg`` as in :func:`mlstm`."""
+    if state is not None:
+        _serving_tp("sLSTM", mg)
     B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.hd
-    v = (x @ p["wv"]).reshape(B, S, cfg.kv_heads, hd).to(torch.float32)
-    v = torch.repeat_interleave(v, H // cfg.kv_heads, dim=2)
-    o = torch.sigmoid((x @ p["wq"]).reshape(B, S, H, hd).to(torch.float32))
-    logi, logf = _gate_logs(p, x)
+    if tp.active(mg):
+        q, kvs, (logi, logf) = _xlstm_inputs_tp(p, x, cfg, ("wv",), mg)
+        H = q.shape[2]
+        v = kvs["wv"].to(torch.float32)
+        o = torch.sigmoid(q.to(torch.float32))
+    else:
+        v = (x @ p["wv"]).reshape(B, S, cfg.kv_heads, hd).to(torch.float32)
+        v = torch.repeat_interleave(v, H // cfg.kv_heads, dim=2)
+        o = torch.sigmoid((x @ p["wq"]).reshape(B, S, H, hd).to(torch.float32))
+        logi, logf = _gate_logs(p, x)
     if state is None:
         c = torch.zeros((B, H, hd), dtype=torch.float32, device=x.device)
         n = torch.zeros((B, H), dtype=torch.float32, device=x.device)
@@ -656,7 +750,7 @@ def slstm(p: dict, x: torch.Tensor, cfg: ArchConfig, *, state: dict | None = Non
         ys.append(o[:, t] * c / torch.clamp_min(n, 1.0)[..., None])
         m = m_new
     y = torch.stack(ys, 1).reshape(B, S, H * hd).to(x.dtype)
-    return y @ p["wo"], {"c": c, "n": n, "m": m}
+    return tp.reduce(_own_columns(y, p["wo"], mg) @ p["wo"], mg), {"c": c, "n": n, "m": m}
 
 
 # ---------------------------------------------------------------------------

@@ -208,20 +208,18 @@ def block_specs(cfg: ArchConfig, n_model: int) -> dict:
 
 def check_model_parallel(cfg: ArchConfig, n_model: int) -> None:
     """Refuse a model the port cannot run with ``n_model`` > 1 ranks on
-    'model': Mamba, mLSTM and sLSTM layers and the vision stub raise
-    ``NotImplementedError`` (ROADMAP Queue A, slice 18), as does a layer
-    leaf that the layout splits but whose dim does not divide (a layer
-    split in part)."""
+    'model': a layer leaf that the layout splits but whose dim does not
+    divide (a layer split in part) raises ``NotImplementedError``.  Two
+    kinds of leaf may stay whole: the vocabulary's rows (whisper's 51 865;
+    the embedding and head then run replicated), and the xLSTM cells'
+    gates ``wi``/``wf`` where there are fewer heads than ranks
+    (``layers._xlstm_inputs`` then gathers the heads' columns)."""
     if n_model == 1:
         return
-    mixers = sorted({s.mixer for s in (*cfg.prefix, *cfg.pattern)} & set(_RECURRENT))
-    if mixers or cfg.frontend == "vision_stub":
-        what = ", ".join(mixers + (["the vision stub"] if cfg.frontend == "vision_stub" else []))
-        raise NotImplementedError(f"{cfg.name} at model = {n_model}: {what} over 'model' "
-                                  f"is not ported (ROADMAP Queue A, slice 18)")
     kept = block_specs(cfg, n_model)
     for path, spec in tree_paths(specs(cfg)):
-        if path not in ("embed", "lm_head") and kept[path] != spec:
+        whole_ok = path in ("embed", "lm_head") or path.endswith(("mixer/wi", "mixer/wf"))
+        if not whole_ok and kept[path] != spec:
             raise NotImplementedError(f"{cfg.name} at model = {n_model}: {path} of "
                                       f"{spec} does not split into {n_model} blocks")
 
@@ -270,8 +268,11 @@ class Transformer(nn.Module):
     ``mg``: the model group (``models/tp``) of a rank of a 'model' axis
     above 1; ``tensors`` then hold this rank's block of every leaf
     (:func:`block_specs`), and the layers run tensor-parallel (attention,
-    MLA, SwiGLU) or expert-parallel (MoE), the embedding and the head
-    vocabulary-parallel where the vocabulary splits."""
+    MLA, SwiGLU, Mamba over its inner channels, mLSTM and sLSTM over their
+    heads) or expert-parallel (MoE), the embedding and the head
+    vocabulary-parallel where the vocabulary splits (a batch's
+    ``vision_embeds`` replace the leading positions after the embedding's
+    sum over the group)."""
 
     def __init__(self, cfg: ArchConfig, tensors: dict, mg=None):
         super().__init__()
@@ -399,9 +400,10 @@ class Transformer(nn.Module):
                     prev = st if cache_pos is not None else None
                     if spec.mixer == "mamba":
                         out, new = L.mamba(p["mixer"], x, cfg, state=prev,
-                                           return_state=st is not None)
+                                           return_state=st is not None, mg=self.mg)
                     else:
-                        out, new = getattr(L, spec.mixer)(p["mixer"], x, cfg, state=prev)
+                        out, new = getattr(L, spec.mixer)(p["mixer"], x, cfg, state=prev,
+                                                          mg=self.mg)
                     if st is not None:  # the state replaced, in place
                         for k, t in st.items():
                             t.copy_(new[k])
@@ -603,7 +605,7 @@ def logits_from_hidden(model: Transformer, h: torch.Tensor) -> torch.Tensor:
 def _serving(model: Transformer) -> None:
     if model.mg is not None:
         raise NotImplementedError(f"prefill and decode at model = {model.mg.size} are not "
-                                  f"ported (ROADMAP Queue A, slice 18)")
+                                  f"ported (ROADMAP Queue A, slice 19)")
 
 
 @torch.no_grad()

@@ -82,7 +82,9 @@ class TrainState:
     With tensor parallelism (ZeRO-1 at model > 1) the model holds this
     rank's blocks and its model group (``model.mg``), and ``meta`` lays
     out the buckets of those blocks, one set a model rank, as the
-    reference's ``zero1_meta`` on ``local_param_struct``."""
+    reference's ``zero1_meta`` on ``local_param_struct``.  FSDP at model > 1
+    holds this rank's DP shard of its model block of each leaf, and its
+    optimizer state is that of those shards."""
 
     model: transformer.Transformer
     opt: dict
@@ -113,9 +115,28 @@ class TrainState:
         mg = self.model.mg
         if mg is None:
             return None
-        kept = transformer.block_specs(self.model.cfg, mg.size)
-        return [next((d for d, e in enumerate(kept[path]) if e == "model"), -1)
-                for path in self.model.params]
+        dims = model_dims(self.model.cfg, mg.size)
+        return [dims[path] for path in self.model.params]
+
+    def _opt_model_dims(self) -> list:
+        """Per optimizer leaf of an FSDP state with a model group (tree
+        order), its dim split over the model group, -1 where it is whole:
+        a moment's is its parameter's; Adafactor's row factor ``vr`` drops
+        the last dim and its column factor ``vc`` the one before (a factor
+        whose mean ran over the split dim is whole on every rank)."""
+        dims = self._model_dims()
+        params, treedef = tree_flatten(self.model.tree())
+        if "f" not in self.opt:
+            t = tree_unflatten(treedef, dims)
+            return tree_leaves({"m": t, "v": t, "count": -1})
+        per = []
+        for p, d, f in zip(params, dims, tree_flatten_up_to(treedef, self.opt["f"]),
+                           strict=True):
+            nd = p.ndim
+            per.append({"v": d} if "v" in f else
+                       {"vr": d if d < nd - 1 else -1,
+                        "vc": d if d < nd - 2 else nd - 2 if d == nd - 1 else -1})
+        return tree_leaves({"f": tree_unflatten(treedef, per), "count": -1})
 
     def _global_shapes(self) -> tuple:
         """(parameter shapes, optimizer leaf shapes) of the reference's
@@ -137,7 +158,9 @@ class TrainState:
         elif self.fsdp_dims is not None:
             params = [sh if d < 0 else sh[:d] + (sh[d] * n,) + sh[d + 1:]
                       for sh, d in zip(params, tree_leaves(self.fsdp_dims), strict=True)]
-            ost = [(n, *sh) if len(sh) else sh for sh in ost]
+            odims = [-1] * len(ost) if mg is None else self._opt_model_dims()
+            ost = [(n, *(s * mg.size if i == od else s for i, s in enumerate(sh)))
+                   if len(sh) else sh for sh, od in zip(ost, odims, strict=True)]
         return params, ost
 
     def global_like(self) -> dict:
@@ -164,6 +187,8 @@ class TrainState:
         the parameter blocks gathered over the model group of DP index 0
         and joined on their split dim."""
         tree = self.tree()
+        if self.model.mg is not None and self.fsdp_dims is not None:
+            return self._fsdp_tp_checkpoint_tree(tree)
         if self.model.mg is not None:
             return self._tp_checkpoint_tree(tree)
         tree["opt"] = zero1_lib.local_to_global(self.opt, self.group)
@@ -192,6 +217,51 @@ class TrainState:
         tree["opt"] = tree_map(lambda v: v if v.ndim == 0 else v.reshape(n_dp, -1), rows)
         tree["params"] = tree_unflatten(pdef, params)
         return tree
+
+    def _fsdp_tp_checkpoint_tree(self, tree: dict) -> dict | None:
+        """FSDP at model > 1: every leaf's pieces gathered from every rank
+        of the mesh to its rank 0's host (rank ``d * n_model + m``: DP
+        index ``d``, model rank ``m``), a leaf at a time; a parameter's
+        model blocks joined on its split dim, then its DP shards on its
+        sharded dim; an optimizer leaf's model blocks joined, its DP rows
+        stacked ``(n_dp, ...)``."""
+        n_model = self.model.mg.size
+
+        def rows_of(t, dm):  # [the model blocks joined] for each DP index
+            rows = zero1_lib.gather_rows(t.detach(), dist.group.WORLD)
+            if rows is None:
+                return None
+            rows = rows.reshape(-1, n_model, *rows.shape[1:])
+            return [r[0] if dm < 0 else torch.cat(list(r), dim=dm) for r in rows]
+
+        params, pdef = tree_flatten(tree["params"])
+        joined = []
+        for p, dm, df in zip(params, self._model_dims(), tree_leaves(self.fsdp_dims),
+                             strict=True):
+            rows = rows_of(p, dm)
+            joined.append(None if rows is None else rows[0] if df < 0 else
+                          torch.cat(rows, dim=df))
+        leaves, odef = tree_flatten(self.opt)
+        ost = []
+        for v, od in zip(leaves, self._opt_model_dims(), strict=True):
+            rows = [v] if v.ndim == 0 else rows_of(v, od)
+            ost.append(None if rows is None else v if v.ndim == 0 else torch.stack(rows))
+        if dist.get_rank() != 0:
+            return None
+        return dict(tree, params=tree_unflatten(pdef, joined), opt=tree_unflatten(odef, ost))
+
+    def _opt_blocks(self, ost: dict) -> dict:
+        """An FSDP optimizer tree of this rank's DP shards, model-global (the
+        reference's row of it), cut to this model rank's blocks, each a
+        copy; a leaf of this state's own shape is taken as it is."""
+        leaves, odef = tree_flatten(ost)
+        mg = self.model.mg
+        return tree_unflatten(odef, [
+            v if od < 0 or v.shape == q.shape else
+            v.narrow(od, mg.rank * q.shape[od], q.shape[od]).clone(
+                memory_format=torch.contiguous_format)
+            for v, q, od in zip(leaves, tree_leaves(self.opt), self._opt_model_dims(),
+                                strict=True)])
 
     def from_tree(self, tree: dict, device=None) -> "TrainState":
         """A new state holding ``tree``, with this state's config, layout
@@ -234,11 +304,20 @@ class TrainState:
             if mg is not None and self.meta is not None:  # this model rank's columns
                 ost = tree_map(lambda v: v if v.ndim != 1 or v.shape[0] % mg.size else v.narrow(
                     0, mg.rank * (v.shape[0] // mg.size), v.shape[0] // mg.size).clone(), ost)
+            if mg is not None and self.fsdp_dims is not None:
+                ost = self._opt_blocks(ost)
             if shapes(ost) != shapes(self.opt):
                 raise ValueError(f"optimizer leaves of {shapes(tree['opt'])} hold no part "
                                  f"of {shapes(self.opt)} for a rank of {n}")
         return dataclasses.replace(self, model=model, opt=tree_map(lambda v: v.to(dev), ost),
                                    step=int(tree["step"]))
+
+
+def model_dims(cfg: ArchConfig, n_model: int) -> dict:
+    """``{path: dim}``: each leaf's dim that a 'model' axis of ``n_model``
+    splits (``transformer.block_specs``), -1 where it stays whole."""
+    return {path: next((d for d, e in enumerate(spec) if e == "model"), -1)
+            for path, spec in transformer.block_specs(cfg, n_model).items()}
 
 
 def chunked_ce_loss(head: torch.Tensor, hidden: torch.Tensor,
@@ -468,14 +547,9 @@ def sync_group(mesh, tcfg: TrainConfig) -> SyncGroups:
     in the reference's pod-major DP order (at model > 1 the group of this
     rank's model index: each model rank syncs its own buckets over (pod,
     data), as the reference's inner region does), and the 'model' group
-    where that axis is above 1 and carries tensor parallelism (ZeRO-1
-    without ``dp_only``).  FSDP over a 'model' axis above 1 raises
-    ``NotImplementedError`` (ROADMAP Queue A, slice 18)."""
-    n_model = mesh_lib.axis_sizes(mesh).get("model", 1)
-    if n_model > 1 and tcfg.partition == "fsdp":
-        raise NotImplementedError(
-            f"FSDP with tensor parallelism over a 'model' axis of {n_model} is not ported "
-            f"yet (ROADMAP Queue A, slice 18); use model = 1 or ZeRO-1")
+    where that axis is above 1 and carries tensor parallelism (ZeRO-1 and
+    FSDP without ``dp_only``; FSDP under ``dp_only`` keeps the leaves whole
+    on every model rank)."""
     axes = dp_axes_of(mesh) if tcfg.partition == "fsdp" else train_axes_of(mesh, tcfg)
     mg = None if tcfg.dp_only else tp.model_group(mesh)
     return SyncGroups(mesh_lib.axis_group(mesh, axes), axes, mg)
@@ -490,7 +564,8 @@ def train_state_for(model: transformer.Transformer, tcfg: TrainConfig,
         raise ValueError(f"unknown partition {tcfg.partition!r}")
     group, axes = (group, "data") if mesh is None else sync_group(mesh, tcfg)[:2]
     if tcfg.partition == "fsdp":
-        return dataclasses.replace(fsdp_state_for(model, tcfg, group), group=group, axes=axes)
+        return dataclasses.replace(fsdp_state_for(model, tcfg, group, mesh=mesh), group=group,
+                                   axes=axes)
     n_dp = dist.get_world_size(group)
     meta = zero1_lib.plan_buckets(model.leaves(), n_dp,
                                   block=tcfg.policy.profile.block)
@@ -618,44 +693,63 @@ def fsdp_local_shapes(params_shape, plan: dict, n_dp: int):
 
 
 def _fsdp_state(model_tree: dict, cfg: ArchConfig, tcfg: TrainConfig, dims: dict,
-                opt_state=None, step: int = 0) -> TrainState:
+                opt_state=None, step: int = 0, mg=None) -> TrainState:
+    """The FSDP state of this rank's shards ``model_tree``; at a model group
+    ``mg`` shards of its blocks, whose optimizer state decides Adafactor's
+    factoring on the model-global shape."""
     model = transformer.Transformer(
-        cfg, {p: t.contiguous() for p, t in transformer.tree_paths(model_tree)})
+        cfg, {p: t.contiguous() for p, t in transformer.tree_paths(model_tree)}, mg)
     if opt_state is None:
-        opt_state = opt.init(tcfg.optim, model.tree())
+        shapes = None
+        if model.mg is not None:
+            md = model_dims(cfg, model.mg.size)
+            shapes = [tuple(s * model.mg.size if i == md[path] else s
+                            for i, s in enumerate(t.shape)) for path, t in model.params.items()]
+        opt_state = opt.init(tcfg.optim, model.tree(), shapes=shapes)
     return TrainState(model=model, opt=opt_state, meta=None, step=step, fsdp_dims=dims)
 
 
 def fsdp_state_for(model: transformer.Transformer, tcfg: TrainConfig,
-                   group=None) -> TrainState:
-    """FSDP train state around existing weights: this rank's shards
-    (``fsdp.shard_tree_by_plan``) and the optimizer state of the shards."""
+                   group=None, *, mesh=None) -> TrainState:
+    """FSDP train state around existing weights (this rank's blocks at
+    model > 1): this rank's shards (``fsdp.shard_tree_by_plan``) and the
+    optimizer state of the shards.  The plan is ``mesh``'s
+    (:func:`plan_fsdp_tree`: the dims 'model' splits stay unsharded), or
+    that of ``group``'s size at model = 1."""
     n_dp = dist.get_world_size(group)
-    dims = plan_fsdp_tree(model.cfg, tcfg, _dp_mesh(n_dp))
+    dims = plan_fsdp_tree(model.cfg, tcfg, _dp_mesh(n_dp) if mesh is None else mesh)
     local = fsdp_lib.shard_tree_by_plan(dims, model.tree(), dist.get_rank(group), n_dp)
-    return _fsdp_state(local, model.cfg, tcfg, dims)
+    return _fsdp_state(local, model.cfg, tcfg, dims, mg=model.mg)
 
 
 def load_reference_fsdp_state(tree: dict, cfg: ArchConfig, tcfg: TrainConfig, *,
                               n_dp: int = 1, dp_index: int = 0,
-                              device="cuda") -> TrainState:
+                              device="cuda", mesh=None) -> TrainState:
     """Rank ``dp_index``'s FSDP train state from the reference's:
     ``tree = jax.tree_util.tree_map(np.asarray, state)`` of its
     ``build_train_state`` at ``partition="fsdp"`` over ``n_dp`` data ranks.
     Its parameters are global (this rank's shards are cut here); its
     optimizer leaves carry a leading data-rank dim, which is indexed away
     as the reference's ``_opt_local`` does; ``count`` and ``step`` are
-    scalars."""
+    scalars.  ``mesh``: the plan's mesh (default ``n_dp`` data ranks at
+    model = 1); at model > 1 this rank's blocks of the parameters and of
+    the optimizer leaves (which are model-global in the reference's)."""
     dev = kernels.resolve_device(device)
-    dims = plan_fsdp_tree(cfg, tcfg, _dp_mesh(n_dp))
+    dims = plan_fsdp_tree(cfg, tcfg, _dp_mesh(n_dp) if mesh is None else mesh)
+    mg = tp.model_group(mesh)
+    kept = transformer.block_specs(cfg, mg.size) if mg else {}
     dts, arrays = transformer.leaf_dtypes(cfg), dict(transformer.tree_paths(tree["params"]))
-    full = transformer._map_paths(
-        tree["params"], lambda p: transformer.numpy_to_torch(np.asarray(arrays[p]), dts[p]))
+    full = transformer._map_paths(tree["params"], lambda p: transformer._block(
+        transformer.numpy_to_torch(np.asarray(arrays[p]), dts[p]), kept.get(p, ()), mg))
     local = tree_map(lambda t: t.contiguous().to(dev),
                      fsdp_lib.shard_tree_by_plan(dims, full, dp_index, n_dp))
     ost = tree_map(lambda a: torch.from_numpy(np.array(a if a.ndim == 0 else a[dp_index]))
                    .to(dev), tree["opt"])
-    return _fsdp_state(local, cfg, tcfg, dims, ost, int(tree["step"]))
+    if mg is None:
+        return _fsdp_state(local, cfg, tcfg, dims, ost, int(tree["step"]))
+    state = _fsdp_state(local, cfg, tcfg, dims, step=int(tree["step"]), mg=mg)
+    state.opt = state._opt_blocks(ost)  # the reference's leaves are model-global
+    return state
 
 
 def _gather_leaves(tree, dims, tcfg: TrainConfig, group, cache, axes="data"):
@@ -703,7 +797,8 @@ def fsdp_loss_fn(state: TrainState, batch: dict, tcfg: TrainConfig, *, group=Non
                    frames=batch.get("frames"), top=top_full, remat=tcfg.remat,
                    block_param_fn=gather_layer)
     head = top_full["embed" if model.cfg.tie_embeddings else "lm_head"]
-    return chunked_ce_loss(head, hidden, batch["labels"], tcfg.loss_chunk)
+    return chunked_ce_loss(head, hidden, batch["labels"], tcfg.loss_chunk,
+                           model.vocab_group(head))
 
 
 def fsdp_train_step(state: TrainState, batch: dict, tcfg: TrainConfig, *, group=None,
@@ -713,7 +808,11 @@ def fsdp_train_step(state: TrainState, batch: dict, tcfg: TrainConfig, *, group=
     1/n_dp (a gather's backward SUMS over ranks); the replicated leaves'
     gradients are summed with ``psum_safe``; the global norm adds the
     shards' squares over the group to the replicated leaves' own; the
-    optimizer updates the local shards.  Returns ``{"loss" (mean over
+    optimizer updates the local shards.  At model > 1 the forward is the
+    tensor-parallel one on the gathered blocks, and the norm counts each
+    leaf once, as the reference's GSPMD-global sum over 'model' does: a
+    split leaf's squares summed over the model group, a leaf 'model'
+    replicates counted as one rank holds it.  Returns ``{"loss" (mean over
     ranks), "gnorm", "overflow": 0}``: the reference's step reports no
     overflow."""
     group = state.group if group is None else group
@@ -725,12 +824,19 @@ def fsdp_train_step(state: TrainState, batch: dict, tcfg: TrainConfig, *, group=
         lambda mb: fsdp_loss_fn(state, mb, tcfg, group=group, cache=cache) / n_dp,
         batch, tcfg.microbatches)
     dims = tree_leaves(state.fsdp_dims)
+    mg = state.model.mg
+    mdims = state._model_dims()
     with torch.no_grad():
         grads = [g if d >= 0 else psum_safe(g, group)
                  for g, d in zip(_grads_of(leaves), dims, strict=True)]
+        sqs = [torch.sum(torch.square(g.to(torch.float32))) for g in grads]
+        split = [] if mg is None else [i for i, dm in enumerate(mdims) if dm >= 0]
+        if split:  # a split leaf's squares over every block of it
+            summed = tp.all_sum(torch.stack([sqs[i] for i in split]), mg)
+            for j, i in enumerate(split):
+                sqs[i] = summed[j]
         sq_all = sq_shard = torch.zeros((), dtype=torch.float32, device=loss.device)
-        for g, d in zip(grads, dims):
-            sq = torch.sum(torch.square(g.to(torch.float32)))
+        for sq, d in zip(sqs, dims):
             sq_all = sq_all + sq
             if d >= 0:
                 sq_shard = sq_shard + sq
@@ -742,7 +848,7 @@ def fsdp_train_step(state: TrainState, batch: dict, tcfg: TrainConfig, *, group=
         params = state.model.tree()
         treedef = tree_flatten(params)[1]
         new_params, state.opt = opt.update(tcfg.optim, tree_unflatten(treedef, grads),
-                                           state.opt, params)
+                                           state.opt, params, model_dims=mdims, mg=mg)
         for p, new in zip(leaves, tree_leaves(new_params)):
             p.copy_(new)
         state.step += 1

@@ -14,11 +14,11 @@ on a ``jax.sharding.AbstractMesh`` of the same shape; the port on a
 allocates.  ``make_smoke_mesh`` and ``dp_size`` at 1, 2, 4 and 8 devices
 and 1 or 2 pods equal the reference's, recorded in a subprocess with 8
 forced host devices.  The refusals: ``make_mesh`` defaults to the card and
-refuses the CPU unless asked, a shape that is not the world raises, and a
-'model' axis above 1 builds a tensor-parallel ZeRO-1 state, FSDP over it
-and Mamba, xLSTM and the vision stub over it raise ``NotImplementedError``
-(slice 18), and the launcher refuses a batch that
-does not split over the mesh's data ranks.  A one-rank checkpoint of the
+refuses the CPU unless asked, a shape that is not the world raises, and
+the launcher refuses a batch that does not split over the mesh's data
+ranks.  A 'model' axis above 1 builds a tensor-parallel ZeRO-1 and FSDP
+state, Mamba, xLSTM and the vision stub included, and the CLI's mesh is
+the reference's smoke mesh for either partition.  A one-rank checkpoint of the
 per-rank ZeRO-1 layout restores into the global one.  Tolerance: none (all
 exact).
 """
@@ -274,43 +274,71 @@ def test_make_mesh_refusals():
 
 @pytest.mark.parametrize("partition,dp_only", [("zero1", False), ("fsdp", False),
                                                ("fsdp", True)])
-def test_tensor_parallel_mesh_raises(partition, dp_only):
-    """A 'model' axis of 2 that carries tensor parallelism: ZeRO-1 runs
-    over it (its state builds on this rank's blocks, and ``sync_group``
-    gives the data group and the model group); FSDP over it raises in the
-    state builder and the steps (ROADMAP Queue A, slice 18)."""
-    tcfg = step_lib.TrainConfig(partition=partition, dp_only=dp_only)
+def test_tensor_parallel_mesh_builds_the_state_of_either_partition(partition, dp_only):
+    """A 'model' axis of 2 that carries tensor parallelism: ZeRO-1 and FSDP
+    run over it (the state builds on this rank's blocks, and
+    ``sync_group`` gives the data group and the model group); FSDP shards
+    a block on a dim 'model' leaves alone.  FSDP under ``dp_only`` keeps
+    the model group None and the leaves whole over 'model'."""
+    tcfg = step_lib.TrainConfig(partition=partition, dp_only=dp_only, fsdp_min_bytes=0)
     cfg = configs.get_smoke("smollm_135m")
     with fake_world(4):
         mesh = mesh_lib.make_mesh((2, 2), ("data", "model"), device="cpu")
-        if partition == "zero1":
-            state = step_lib.build_train_state(cfg, tcfg, generator=torch.Generator(),
-                                               mesh=mesh, device="cpu")
-            groups = step_lib.sync_group(mesh, tcfg)
+        state = step_lib.build_train_state(cfg, tcfg, generator=torch.Generator(),
+                                           mesh=mesh, device="cpu")
+        groups = step_lib.sync_group(mesh, tcfg)
+        assert state.group is groups.group
+        heads = cfg.n_heads * cfg.hd
+        wq = tuple(state.model.params["blocks/0/mixer/wq"].shape)
+        if dp_only:
+            assert groups.model is None and state.model.mg is None
             assert groups.axes == ("data",) and dist.get_world_size(groups.group) == 2
-            assert (groups.model.size, groups.model.rank) == (2, 0)
-            assert state.model.mg is groups.model and state.group is groups.group
-            heads = cfg.n_heads * cfg.hd
-            assert tuple(state.model.params["blocks/0/mixer/wq"].shape) == (
-                cfg.repeats, cfg.d_model, heads // 2)
+            # whole over 'model'; the FSDP plan shards dim 1 ('model' takes dim 2)
+            assert wq == (cfg.repeats, cfg.d_model // 2, heads)
+            return
+        assert groups.axes == ("data",) and dist.get_world_size(groups.group) == 2
+        assert (groups.model.size, groups.model.rank) == (2, 0)
+        assert state.model.mg is groups.model
+        if partition == "zero1":
+            assert wq == (cfg.repeats, cfg.d_model, heads // 2)
             assert state.meta == step_lib.zero1_meta(cfg, 2, tcfg, mesh)
             return
-        with pytest.raises(NotImplementedError, match="slice 18"):
-            step_lib.build_train_state(cfg, tcfg, generator=torch.Generator(), mesh=mesh,
-                                       device="cpu")
-        with pytest.raises(NotImplementedError, match="tensor parallelism"):
-            step_lib.sync_group(mesh, tcfg)
+        # FSDP: this rank's DP shard (dim 1) of its model block (dim 2)
+        assert wq == (cfg.repeats, cfg.d_model // 2, heads // 2)
+        assert tuple(state.model.params["embed"].shape) == (cfg.vocab // 2, cfg.d_model // 2)
+        assert state.fsdp_dims == step_lib.plan_fsdp_tree(cfg, tcfg, mesh)
+        assert [tuple(t.shape) for t in tree_flatten(state.global_like()["params"])[0]] == \
+            [tuple(t.shape) for t in tree_flatten(transformer.abstract_params(cfg))[0]]
 
 
+@pytest.mark.parametrize("partition", ["zero1", "fsdp"])
 @pytest.mark.parametrize("arch", ["jamba_v0_1_52b", "xlstm_350m", "qwen2_vl_72b"])
-def test_recurrent_mixers_and_the_vision_stub_at_model_2_raise(arch):
-    """Mamba, mLSTM/sLSTM and the vision stub over a 'model' axis of 2 are
-    not ported: the ZeRO-1 state builder raises before drawing a weight."""
+def test_recurrent_mixers_and_the_vision_stub_at_model_2_build(arch, partition):
+    """Mamba, mLSTM/sLSTM and the vision stub over a 'model' axis of 2: the
+    state builds on this rank's blocks, ``in_proj``'s contiguous half of
+    its columns, ``wq``/``wi`` a half of the heads, the embedding half the
+    vocabulary's rows."""
+    cfg = configs.get_smoke(arch)
+    tcfg = step_lib.TrainConfig(partition=partition)  # nothing FSDP-sharded at SMOKE size
     with fake_world(4):
         mesh = mesh_lib.make_mesh((2, 2), ("data", "model"), device="cpu")
-        with pytest.raises(NotImplementedError, match="slice 18"):
-            step_lib.build_train_state(configs.get_smoke(arch), step_lib.TrainConfig(),
-                                       generator=torch.Generator(), mesh=mesh, device="cpu")
+        state = step_lib.build_train_state(cfg, tcfg, generator=torch.Generator(),
+                                           mesh=mesh, device="cpu")
+    params = {k: tuple(v.shape) for k, v in state.model.params.items()}
+    d, r = cfg.d_model, cfg.repeats
+    assert params["embed"] == (cfg.vocab // 2, d)
+    pi = next((i for i, s in enumerate(cfg.pattern) if s.mixer != "attn"), 0)
+    mixer = f"blocks/{pi}/mixer"
+    if arch == "jamba_v0_1_52b":
+        di = cfg.mamba.expand * d
+        assert params[f"{mixer}/in_proj"] == (r, d, di)  # of (r, d, 2 di)
+        assert params[f"{mixer}/conv_w"] == (r, cfg.mamba.d_conv, di // 2)
+        assert params[f"{mixer}/out_proj"] == (r, di // 2, d)
+    elif arch == "xlstm_350m":
+        assert params[f"{mixer}/wq"] == (r, d, cfg.n_heads * cfg.hd // 2)
+        assert params[f"{mixer}/wi"] == (r, d, cfg.n_heads // 2)
+    else:
+        assert params["blocks/0/mixer/wq"] == (r, d, cfg.n_heads * cfg.hd // 2)
 
 
 def test_dp_only_syncs_over_every_axis():
@@ -402,33 +430,26 @@ def test_launcher_refuses_a_batch_that_does_not_split_over_the_dp_ranks():
                                device="cpu", mesh=mesh)
 
 
-@pytest.mark.parametrize("arch,dp_only,raises", [
-    ("xlstm_350m", True, False), ("smollm_135m", True, False),
-    ("tinyllama_1_1b", False, False), ("jamba_v0_1_52b", False, True),
-    ("qwen2_vl_72b", False, True)])
-def test_launcher_cli_state_at_4_ranks(arch, dp_only, raises):
-    """The CLI's ZeRO-1 layout at 4 ranks (``cli_mesh``): the smoke mesh
-    (data, model) = (2, 2), ``dp_only`` where ``cells.TRAIN_KNOBS`` marks
-    the arch so (xlstm and smollm train data parallel over all 4 ranks, as
-    at model = 1), tensor parallel otherwise; the archs whose layers do
-    not split over 'model' yet raise naming slice 18.  At one rank
-    ``dp_only`` stays off (the wire stays compressed)."""
+@pytest.mark.parametrize("partition", ["zero1", "fsdp"])
+@pytest.mark.parametrize("arch", ["xlstm_350m", "smollm_135m", "tinyllama_1_1b",
+                                  "jamba_v0_1_52b", "qwen2_vl_72b"])
+def test_launcher_cli_state_at_4_ranks(arch, partition):
+    """The CLI's layout at 4 ranks (``cli_mesh``), either partition: the
+    reference's smoke mesh (data, model) = (2, 2), tensor parallel over
+    'model' for every arch (the CLI sets no ``dp_only``, as the
+    reference's CLI sets none): the launcher builds each state on this
+    rank's blocks, its sync group the 2 data ranks.  At one rank the mesh
+    is (1, 1)."""
     with fake_world(4):
-        mesh, got = launch_train.cli_mesh(arch, "zero1", 4)
-        assert mesh_lib.axis_sizes(mesh) == {"data": 2, "model": 2} and got == dp_only
-        build = lambda: launch_train.build(arch, smoke=True, batch=4, seq=16,  # noqa: E731
-                                           rcfg=RunnerConfig(), device="cpu", mesh=mesh,
-                                           dp_only=got)
-        if raises:
-            with pytest.raises(NotImplementedError, match="slice 18"):
-                build()
-            return
-        state = build()[0]
-        assert dist.get_world_size(state.group) == (4 if dp_only else 2)
-        assert (state.model.mg is None) == dp_only
-        assert launch_train.cli_mesh(arch, "fsdp", 4)[1] is False
-    with fake_world(1):  # model = 1: no tensor parallelism to turn off
-        assert launch_train.cli_mesh(arch, "zero1", 1)[1] is False
+        mesh = launch_train.cli_mesh(4)
+        assert mesh_lib.axis_sizes(mesh) == {"data": 2, "model": 2}
+        state = launch_train.build(arch, smoke=True, batch=4, seq=16, rcfg=RunnerConfig(),
+                                   device="cpu", mesh=mesh, partition=partition)[0]
+        assert dist.get_world_size(state.group) == 2
+        assert state.model.mg is not None and state.model.mg.size == 2
+        assert (state.fsdp_dims is not None) == (partition == "fsdp")
+    with fake_world(1):
+        assert mesh_lib.axis_sizes(launch_train.cli_mesh(1)) == {"data": 1, "model": 1}
 
 
 def test_one_rank_checkpoint_of_the_per_rank_layout_restores(tmp_path):

@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.optim import optimizers as opt
 from torch_port_util import (MESH_LR, MESH_RS_POLICIES, MESH_RUNS, MESH_WARMUP, TP_F32, TP_RUNS,
-                             tp_configs)
+                             tp_configs, tp_fsdp)
 
 
 def test_ranks_take_the_pod_major_dp_index(mesh_run):
@@ -167,22 +167,30 @@ def test_tp_ranks_take_their_dp_index_and_model_rank(tp_run):
 @pytest.mark.parametrize("policy", sorted(MESH_RS_POLICIES))
 def test_tp_reduce_scatter_shards_equal_the_reference(tp_run, policy):
     """Each rank's f32 shard of the reduce-scatter over (pod, data) within
-    its model index, bit for bit (NaN as NaN)."""
+    its model index, bit for bit (NaN as NaN); an FSDP kind's: the gather
+    of its model-local shard over that group and the reduce-scatter of its
+    backward."""
     _, ref, ranks, _ = tp_run
     for r, res in enumerate(ranks):
-        assert_bits_nan_as_nan(res[f"rs_{policy}"], ref[f"rs_{policy}"][r], (policy, r))
-        assert int(res[f"rs_{policy}_flag"]) == int(ref[f"rs_{policy}_flag"][r]) == 0
+        for key in [k for k in (f"rs_{policy}", f"ag_{policy}") if k in ref]:
+            assert_bits_nan_as_nan(res[key], ref[key][r], (key, r))
+        if f"rs_{policy}_flag" in ref:
+            assert int(res[f"rs_{policy}_flag"]) == int(ref[f"rs_{policy}_flag"][r]) == 0
 
 
 def test_tp_blocks_equal_the_reference_shards(tp_run, tp_arch):
-    """``load_reference_params(mesh=)`` and ``restore(shardings=)`` of the
-    reference's step-0 checkpoint give each rank the reference's
-    addressable shard of every parameter, bit for bit."""
+    """``load_reference_params(mesh=)`` (FSDP: ``load_reference_fsdp_state(
+    mesh=)`` of the reference's global step-0 state) and
+    ``restore(shardings=)`` of the reference's step-0 checkpoint give each
+    rank the reference's addressable shard of every parameter, bit for
+    bit (FSDP: the DP shard of its model block; both ways its optimizer
+    leaves the same)."""
     _, ref, ranks, _ = tp_run
     for r, res in enumerate(ranks):
         want = ref[f"{tp_arch}_init"][r]
         assert np.array_equal(res[f"{tp_arch}_load"], want), r
         assert np.array_equal(res[f"{tp_arch}_restored"], want), r
+        assert int(res.get(f"{tp_arch}_load_opt_exact", 1)), r
 
 
 def test_tp_init_blocks_join_to_the_one_rank_init(tp_run, tp_arch):
@@ -267,7 +275,60 @@ def test_tp_compressed_and_raw_twins_are_identical(tp_run, tp_arch):
 def test_tp_replicated_leaves_are_identical_across_ranks(tp_run, tp_arch):
     """The leaves 'model' replicates (the norms, the router, MLA's
     down-projections, the final norm) hold the same bytes on every rank
-    after 2 steps."""
+    after 2 steps.  Under FSDP (those it leaves unsharded): on every model
+    rank of a DP index.  Across DP indices they may part, in both
+    packages: the FSDP step takes the replicated leaves' squares as the
+    difference of two f32 sums that hold each DP rank's own shards
+    (``sq_rep = sq - sq_shard``, ``src/repro/train/step.py:688``), so the
+    clip's scale can part in its last bit between DP ranks (ROADMAP Queue
+    C item 10; measured on deepseek-v3 SMOKE's second step: 1.50937104
+    against 1.50937116)."""
+    kind, _, ranks, _ = tp_run
+    n_model = TP_RUNS[kind][0][-1]
+    key = f"{tp_arch}_rep"
+    for r, res in enumerate(ranks):
+        first = ranks[r - r % n_model] if tp_fsdp(kind) else ranks[0]
+        assert np.array_equal(res[key], first[key]), r
+
+
+# ---------------------------------------------------------------------------
+# FSDP at model > 1 (the ``fsdp_`` kinds of ``TP_RUNS``): the plans, the
+# checkpoint
+# ---------------------------------------------------------------------------
+
+def test_fsdp_tp_gather_plans_are_keyed_by_model_local_shards(tp_run, tp_arch):
+    """The step from the reference's state compiles one ``fsdp_gather``
+    plan a signature, each keyed by the rank's DP shard of its model
+    block (the sharded dim last), as the reference keys its plans by the
+    model-local shape; no plan of a model-global shape."""
     _, _, ranks, _ = tp_run
+    for r, res in enumerate(ranks):
+        assert int(res[f"{tp_arch}_plan_keys"]), r
+
+
+def test_fsdp_tp_checkpoint_is_the_reference_s(tp_run, tp_arch):
+    """The restored step-1 state saved by the port's 4 ranks (every leaf's
+    pieces gathered to rank 0, which writes) is the reference's
+    checkpoint: names, shapes and dtype names; f32 and int32 files its
+    sha256s, bf16 files its bytes; parameters whole (model blocks and DP
+    shards joined), optimizer leaves ``(n_dp, *DP-local model-global
+    shape)``.  Restored without shardings, each rank takes its part back
+    bit for bit, its leaves holding only that part."""
+    kind, _, ranks, ref_dir = tp_run
+    a = tp_arch
+    want_dir, got_dir = ref_dir / a / "ckpt", ref_dir / "port_ckpt" / a
+    want, got = _manifest(want_dir), _manifest(got_dir)
+    assert [(k, e["file"], e["shape"], e["dtype"]) for k, e in got.items()] == \
+        [(k, e["file"], e["shape"], e["dtype"]) for k, e in want.items()]
+    n_dp = int(np.prod(TP_RUNS[kind][0][:-1]))
+    assert all(e["shape"][0] == n_dp for k, e in got.items()
+               if k.startswith("opt/") and k != "opt/count")
+    for k, e in got.items():
+        if e["dtype"] == "bfloat16":
+            x = np.load(got_dir / "step_00000001" / e["file"])
+            y = np.load(want_dir / "step_00000001" / want[k]["file"])
+            assert x.tobytes() == y.tobytes(), k
+        else:
+            assert e["sha256"] == want[k]["sha256"], k
     for res in ranks:
-        assert np.array_equal(res[f"{tp_arch}_rep"], ranks[0][f"{tp_arch}_rep"])
+        assert int(res[f"{a}_resume_exact"]) and res[f"{a}_own_storage"].all()

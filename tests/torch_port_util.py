@@ -1205,17 +1205,136 @@ def _tp_moe(res: dict, rank: int, world: int, mg) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the recurrent mixers over 'model': Mamba over its inner channels, mLSTM
+# and sLSTM over their heads, on a group of gloo ranks
+# ---------------------------------------------------------------------------
+
+# case -> (arch, mixer, config overrides, x shape); Mamba in f32 (its bf16
+# scan backward is ill-conditioned in both packages), the cells in bf16;
+# "_gqa": 4 query heads over 2 KV heads, so at 4 ranks a rank's query head
+# reads a KV head whose columns split inside it
+TP_MIXER_CASES = {
+    "mamba": ("jamba_v0_1_52b", "mamba", {"dtype": "float32"}, (2, 64)),
+    "mlstm": ("xlstm_350m", "mlstm", {}, (2, 16)),
+    "slstm": ("xlstm_350m", "slstm", {}, (2, 16)),
+    "mlstm_gqa": ("xlstm_350m", "mlstm", {"n_heads": 4, "kv_heads": 2}, (2, 16)),
+    "slstm_gqa": ("xlstm_350m", "slstm", {"n_heads": 4, "kv_heads": 2}, (2, 16)),
+}
+
+
+def tp_mixer_config(case: str, package: str = "torch"):
+    """The case's SMOKE config (``package`` "torch" or "jax") with its
+    overrides, and its mixer's ``LayerSpec``."""
+    import dataclasses
+
+    arch, mixer, over, _ = TP_MIXER_CASES[case]
+    if package == "jax":
+        from repro import configs as jconfigs
+        cfg = jconfigs.get_smoke(arch)
+    else:
+        from repro_torch import configs
+        cfg = configs.get_smoke(arch)
+    cfg = dataclasses.replace(cfg, **over)
+    return cfg, next(s for s in cfg.pattern if s.mixer == mixer)
+
+
+def tp_mixer_arrays(case: str) -> tuple:
+    """The case's weights (``{path: f32 array}`` of one mixer, drawn with
+    numpy in path order at the reference's init scales, rounded to bf16
+    where the leaf is the model dtype's and that is bf16), its input x and
+    its output cotangent (normal f32, rounded likewise)."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    cfg, spec = tp_mixer_config(case)
+    bf16 = cfg.dtype == "bfloat16"
+    rnd = lambda a: torch.from_numpy(a).to(torch.bfloat16).float().numpy() \
+        if bf16 else a  # noqa: E731
+    rng = np.random.default_rng(11)
+    w = {}
+    for path, (shape, init) in transformer.tree_paths(
+            transformer._layer_shapes(cfg, spec, False)["mixer"]):
+        if init in (None, "ones"):
+            a = np.ones(shape, np.float32)
+        elif init == "zeros":
+            a = np.zeros(shape, np.float32)
+        elif init == "uniform":
+            a = (rng.random(shape) * 2 + 0.5).astype(np.float32)
+        else:
+            a = (rng.normal(0, 1, shape) * init).astype(np.float32)
+        w[path] = a if init in transformer.F32_INITS else rnd(a)
+    shape = TP_MIXER_CASES[case][3] + (cfg.d_model,)
+    x = rnd(np.random.default_rng(12).normal(0, 1, shape).astype(np.float32))
+    ct = rnd(np.random.default_rng(13).normal(0, 1, shape).astype(np.float32))
+    return w, x, ct
+
+
+def tp_mixer_run(case: str, mg=None) -> dict:
+    """The case's mixer forward and backward on this rank's blocks of its
+    weights (``transformer.block_specs``; all of them without ``mg``):
+    ``y``, ``dx`` and ``d/<path>``, each as f32."""
+    import torch
+
+    from repro_torch.models import layers, transformer
+
+    cfg, spec = tp_mixer_config(case)
+    n = 1 if mg is None else mg.size
+    specs = {p[len("blocks/0/mixer/"):]: s[1:] for p, s in
+             transformer.block_specs(cfg, n).items() if p.startswith("blocks/0/mixer/")}
+    dt = torch.float32 if cfg.dtype == "float32" else torch.bfloat16
+    w, x, ct = tp_mixer_arrays(case)
+    leaves = {}
+    for path, a in w.items():
+        t = torch.from_numpy(a)
+        t = t if path in ("a_log", "d_skip", "dt_bias") else t.to(dt)  # Mamba's f32 leaves
+        leaves[path] = transformer._block(t, specs[path], mg).requires_grad_()
+    xt = torch.from_numpy(x).to(dt).requires_grad_()
+    y, _ = getattr(layers, spec.mixer)(nest_paths(leaves), xt, cfg, mg=mg)
+    y.backward(torch.from_numpy(ct).to(dt))
+    out = {"y": y.detach().float().numpy(), "dx": xt.grad.float().numpy()}
+    for path, t in leaves.items():
+        out[f"d/{path}"] = (torch.zeros_like(t) if t.grad is None else t.grad).float().numpy()
+    return out
+
+
+def tp_mixers_rank(rank: int, world: int, out: str) -> None:
+    """Every ``TP_MIXER_CASES`` case on this rank of a world-sized model
+    group (:func:`tp_mixer_run`), keys ``<case>/...``."""
+    import torch.distributed as dist
+
+    from repro_torch.models import tp
+
+    mg = tp.ModelGroup(dist.group.WORLD)
+    res = {}
+    for case in TP_MIXER_CASES:
+        res.update({f"{case}/{k}": v for k, v in tp_mixer_run(case, mg).items()})
+    np.savez(out, **res)
+
+
+# ---------------------------------------------------------------------------
 # ZeRO-1 with tensor and expert parallelism over 'model': the reference on 4
 # forced host devices (one subprocess a mesh), the port on 4 gloo ranks
 # ---------------------------------------------------------------------------
 
-TP_RUNS = {  # kind -> (mesh shape, axes, SMOKE archs)
+TP_RUNS = {  # kind -> (mesh shape, axes, SMOKE archs); "fsdp_" kinds train FSDP
     "tp": ((2, 2), ("data", "model"),
-           ("tinyllama_1_1b", "gemma3_27b", "deepseek_v2_lite_16b", "whisper_small")),
+           ("tinyllama_1_1b", "gemma3_27b", "deepseek_v2_lite_16b", "whisper_small",
+            "jamba_v0_1_52b", "xlstm_350m", "qwen2_vl_72b")),
     "tp_pods": ((2, 1, 2), ("pod", "data", "model"),
                 ("tinyllama_1_1b", "deepseek_v2_lite_16b")),
     # tinyllama's K/V columns split inside a head; 8 experts over 4 ranks
-    "tp_heads": ((1, 4), ("data", "model"), ("tinyllama_1_1b", "deepseek_v2_lite_16b")),
+    "tp_heads": ((1, 4), ("data", "model"),
+                 ("tinyllama_1_1b", "deepseek_v2_lite_16b", "jamba_v0_1_52b")),
+    "fsdp_tp": ((2, 2), ("data", "model"), ("tinyllama_1_1b", "jamba_v0_1_52b")),
+    # the same mesh in a file of its own, for the test workers' balance
+    "fsdp_tp_zoo": ((2, 2), ("data", "model"), ("qwen2_vl_72b", "deepseek_v3_671b")),
+    # every leaf's columns split 4 ways; tinyllama's K/V inside a head; no
+    # MoE arch: the reference's FSDP step with an MoE layer at data = 1
+    # does not lower on XLA:CPU (jamba, deepseek-v3: "Cross-partition
+    # allreduce must be in (partial) manual partitioning mode")
+    "fsdp_tp_heads": ((1, 4), ("data", "model"), ("tinyllama_1_1b", "qwen2_vl_72b")),
+    "fsdp_tp_pods": ((2, 1, 2), ("pod", "data", "model"), ("tinyllama_1_1b",)),
 }
 MESH_RUNS.update({k: (shape, axes, {}) for k, (shape, axes, _) in TP_RUNS.items()})
 TP_CKPT_ARCH = "tinyllama_1_1b"
@@ -1224,7 +1343,22 @@ TP_CKPT_ARCH = "tinyllama_1_1b"
 # (2, 2) on 8 x 160 tokens: loss relative 1.9e-4, 5.0% of the weights
 # different; the reference's own one-device and (1, 4) losses on 8 x 32
 # part by 2.2e-4); in f32 the port's step gives the reference's loss bits
-TP_F32 = ("deepseek_v2_lite_16b",)
+#
+# jamba and deepseek-v3 run in f32 too: both route through MoE layers whose
+# bf16 near ties part the same way, and jamba's bf16 backward through the
+# Mamba scan is ill-conditioned in both packages (ROADMAP Queue C: grad
+# norms 7.74 and 6.78 about an f32 7.30 at one rank), which the 1e-2 grad
+# norm bound would not hold between the packages
+TP_F32 = ("deepseek_v2_lite_16b", "jamba_v0_1_52b", "deepseek_v3_671b")
+# their depth cut in both packages, to the reference's compile: jamba to
+# pattern positions 1-2, (Mamba, MoE) then (attention, SwiGLU), one layer
+# of each kind, as the card's FSDP job; deepseek-v3 to its dense prefix
+# layer and one MoE layer
+TP_CUT = {"jamba_v0_1_52b": (1, 2), "deepseek_v3_671b": (0,)}
+# deepseek-v3's production optimizer; factored from 8 wide, so SMOKE's
+# leaves factor, split over 'model' on their last dim and on the one
+# before (the row and column means over the model group)
+TP_OPTIM = {"deepseek_v3_671b": {"name": "adafactor", "factored_min_dim": 8}}
 
 
 def tp_batch_shape(arch: str) -> tuple:
@@ -1236,8 +1370,8 @@ def tp_batch_shape(arch: str) -> tuple:
 
 
 def tp_configs(arch: str) -> tuple:
-    """(the port's, the reference's) SMOKE config of a TP run: the MoE arch
-    in f32 (``TP_F32``)."""
+    """(the port's, the reference's) SMOKE config of a TP run: in f32 where
+    ``TP_F32`` says, its depth cut where ``TP_CUT`` says."""
     import dataclasses
 
     from repro import configs as jconfigs
@@ -1246,7 +1380,14 @@ def tp_configs(arch: str) -> tuple:
     cfg, jcfg = configs.get_smoke(arch), jconfigs.get_smoke(arch)
     if arch in TP_F32:
         cfg, jcfg = (dataclasses.replace(c, dtype="float32") for c in (cfg, jcfg))
+    if arch in TP_CUT:
+        cfg, jcfg = (dataclasses.replace(c, pattern=tuple(c.pattern[i] for i in TP_CUT[arch]))
+                     for c in (cfg, jcfg))
     return cfg, jcfg
+
+
+def tp_fsdp(kind: str) -> bool:
+    return kind.startswith("fsdp")
 
 
 def _tp_sync(axes: tuple) -> tuple:
@@ -1257,10 +1398,12 @@ def mesh_tp_reference(kind: str, out_dir: str) -> None:
     """The reference's side of ``TP_RUNS[kind]``, in a process with 4
     forced host devices: the reduce-scatter of each device's
     ``mesh_rs_input`` over (pod, data) inside its model index under each
-    of MESH_RS_POLICIES; then per arch its ZeRO-1 state from
+    of MESH_RS_POLICIES (an FSDP kind: the gather of each device's seeded
+    model-local shard over (pod, data) and the backward of a seeded
+    cotangent); then per arch its ZeRO-1 or FSDP state from
     ``PRNGKey(0)`` (each device's parameter shards, the global parameters
-    by path, ``zero1_meta``), checkpointed before (step 0) and after (step
-    1) one compressed step on ``registry.make_batch`` of
+    by path, ZeRO-1's ``zero1_meta``), checkpointed before (step 0) and
+    after (step 1) one compressed step on ``registry.make_batch`` of
     ``tp_batch_shape(arch)`` (seed 0), its loss, grad norm and flag.  Files under
     ``out_dir/<arch>/ckpt``; arrays in ``out_dir/ref.npz``."""
     import os
@@ -1274,6 +1417,7 @@ def mesh_tp_reference(kind: str, out_dir: str) -> None:
     from repro.core.policy import CompressionPolicy as JPolicy
     from repro.launch.mesh import make_mesh
     from repro.models import registry as jregistry
+    from repro.optim import fsdp as jfsdp
     from repro.optim import optimizers as jopt
     from repro.optim import zero1 as jzero1
     from repro.sched import compile as jcompile
@@ -1281,6 +1425,7 @@ def mesh_tp_reference(kind: str, out_dir: str) -> None:
     from repro_torch.models import transformer
 
     shape, axes, archs = TP_RUNS[kind]
+    fsdp = tp_fsdp(kind)
     mesh = make_mesh(shape, axes)
     sync = _tp_sync(axes)
     n_dp = int(np.prod(shape[:-1]))
@@ -1292,6 +1437,25 @@ def mesh_tp_reference(kind: str, out_dir: str) -> None:
     xs = np.concatenate([np.pad(mesh_rs_input(d), (0, meta.padded[0] - MESH_RS_N))
                          for d in range(4)])
     for tag, kw in MESH_RS_POLICIES.items():
+        if fsdp:
+            pol = JPolicy(min_bytes=0, **kw)
+            lshape, dt = MESH_GATHER
+            gather = jfsdp._make_gather(sync, 6, 5, 512, 0.02, pol.enabled, lshape, dt,
+                                        pol.fused_decode_reduce, True)
+
+            def gbody(local, cot, gather=gather):
+                (full, _), vjp = jax.vjp(gather, local)
+                (grad,) = vjp((cot, np.zeros((), jax.dtypes.float0)))
+                return full, grad
+
+            locs = np.concatenate([fsdp_bits(lshape, dt, 400 + d) for d in range(4)])
+            cots = np.concatenate([fsdp_bits(fsdp_full_shape(lshape, n_dp), dt, 500 + d)
+                                   for d in range(4)])
+            full, grad = smap(gbody, (P(axes), P(axes)), (P(axes), P(axes)))(
+                to_jax(locs, dt), to_jax(cots, dt))
+            res[f"rs_{tag}"], res[f"ag_{tag}"] = (np_of(grad).reshape(4, -1),
+                                                  np_of(full).reshape(4, -1))
+            continue
         plan = jcompile.cached_zero1_plan(meta, policy=JPolicy(min_bytes=0, **kw),
                                           axis_name=sync, n_dev=n_dp)
 
@@ -1306,8 +1470,13 @@ def mesh_tp_reference(kind: str, out_dir: str) -> None:
     dpax = sync if len(sync) > 1 else sync[0]
     for arch in archs:
         cfg = tp_configs(arch)[1]
+        # remat changes no value; without it the reference's FSDP step
+        # compiles in half the time, but at data = 1 it does not lower
         tcfg = jstep.TrainConfig(loss_chunk=16, policy=JPolicy(min_bytes=0),
-                                 optim=jopt.OptimConfig(lr=MESH_LR, warmup_steps=MESH_WARMUP))
+                                 optim=jopt.OptimConfig(lr=MESH_LR, warmup_steps=MESH_WARMUP,
+                                                        **TP_OPTIM.get(arch, {})),
+                                 **({"partition": "fsdp", "fsdp_min_bytes": 0,
+                                     "remat": n_dp == 1} if fsdp else {}))
         state, _ = jstep.build_train_state(cfg, tcfg, mesh, jax.random.PRNGKey(0))
         parts = [[] for _ in devs]
         for leaf in jax.tree_util.tree_leaves(state["params"]):
@@ -1317,10 +1486,11 @@ def mesh_tp_reference(kind: str, out_dir: str) -> None:
         for path, a in transformer.tree_paths(jax.tree_util.tree_map(np.asarray,
                                                                     state["params"])):
             res[f"{arch}_param/{path}"] = np_of(a)
-        meta = jstep.zero1_meta(cfg, n_dp, tcfg, mesh)
-        res[f"{arch}_meta"] = np.array([*meta.lengths, *meta.padded, meta.n_dp, meta.block])
-        res[f"{arch}_members"] = np.array([(b, i, size) for b, mem in enumerate(meta.members)
-                                           for i, _, size in mem])
+        if not fsdp:
+            meta = jstep.zero1_meta(cfg, n_dp, tcfg, mesh)
+            res[f"{arch}_meta"] = np.array([*meta.lengths, *meta.padded, meta.n_dp, meta.block])
+            res[f"{arch}_members"] = np.array([(b, i, size) for b, mem in enumerate(meta.members)
+                                               for i, _, size in mem])
         ckpt = JCheckpointManager(os.path.join(out_dir, arch, "ckpt"))
         ckpt.save(0, state)
         batch = {k: jax.device_put(v, NamedSharding(mesh, P(dpax, *(None,) * (v.ndim - 1))))
@@ -1352,14 +1522,15 @@ def run_mesh_tp_reference(kind: str, out_dir) -> dict:
     return dict(np.load(os.path.join(str(out_dir), "ref.npz")))
 
 
-def _tp_tcfg(policy=None):
+def _tp_tcfg(policy=None, kind: str = "tp", arch: str = ""):
     from repro_torch.core.policy import CompressionPolicy
     from repro_torch.optim.optimizers import OptimConfig
     from repro_torch.train import step as step_lib
 
     return step_lib.TrainConfig(
         loss_chunk=16, policy=CompressionPolicy(min_bytes=0) if policy is None else policy,
-        optim=OptimConfig(lr=MESH_LR, warmup_steps=MESH_WARMUP))
+        optim=OptimConfig(lr=MESH_LR, warmup_steps=MESH_WARMUP, **TP_OPTIM.get(arch, {})),
+        **({"partition": "fsdp", "fsdp_min_bytes": 0} if tp_fsdp(kind) else {}))
 
 
 def _leaf_bytes(tensors) -> np.ndarray:
@@ -1386,11 +1557,13 @@ def tp_restore(cfg, mesh, tcfg, ckpt_dir: str, step: int):
     return state
 
 
-def _tp_twin(arch: str, cfg, mesh, compress: bool, rows_of):
+def _tp_twin(arch: str, cfg, mesh, compress: bool, rows_of, tcfg=None):
     """2 steps from the port's own init (seed 0) at ``compress``: through
     the launcher on the mesh, or (an encoder-decoder model, which the
-    launcher refuses) through ``train_step`` on ``registry.make_batch``
-    batches of seeds 0 and 1.  Returns (losses, state, retries)."""
+    launcher refuses, or an FSDP ``tcfg``, whose ``fsdp_min_bytes = 0``
+    the launcher does not set) through ``train_step`` or
+    ``fsdp_train_step`` on ``registry.make_batch`` batches of seeds 0 and
+    1.  Returns (losses, state, retries)."""
     import dataclasses
 
     import torch
@@ -1400,37 +1573,84 @@ def _tp_twin(arch: str, cfg, mesh, compress: bool, rows_of):
     from repro_torch.models import registry
     from repro_torch.train import step as step_lib
 
-    if not cfg.enc_dec:
+    from repro_torch.sched.cache import PlanCache
+
+    fsdp = tcfg is not None and tcfg.partition == "fsdp"
+    if not cfg.enc_dec and not fsdp:
         batch, seq = tp_batch_shape(arch)
         run = launch_train.train(cfg, steps=2, batch=batch, seq=seq, compress=compress,
                                  device="cpu", lr=MESH_LR, warmup=MESH_WARMUP, mesh=mesh)
         return run.losses, run.state, run.retries
     pol = CompressionPolicy(min_bytes=0) if compress else CompressionPolicy.disabled()
-    tc = dataclasses.replace(_tp_tcfg(), policy=pol)
+    tc = dataclasses.replace(_tp_tcfg() if tcfg is None else tcfg, policy=pol)
     st = step_lib.build_train_state(cfg, tc, generator=torch.Generator().manual_seed(0),
                                     mesh=mesh, device="cpu")
+    step_fn, kw = ((step_lib.fsdp_train_step, {"cache": PlanCache()}) if fsdp
+                   else (step_lib.train_step, {}))
     with launch_train.deterministic():
-        losses = [float(step_lib.train_step(st, rows_of(registry.make_batch(
+        losses = [float(step_fn(st, rows_of(registry.make_batch(
             cfg, *tp_batch_shape(arch), rng=np.random.default_rng(i), device="cpu")),
-            tc)["loss"]) for i in range(2)]
+            tc, **kw)["loss"]) for i in range(2)]
     return losses, st, 0
+
+
+def _global_numpy(tree):
+    """A global train-state tree of torch tensors as the reference's numpy
+    tree (bf16 leaves as ml_dtypes bf16, f32 as f32, ints as they are)."""
+    from repro_torch.tree_util import tree_map
+
+    return tree_map(lambda t: ref_array(t) if t.is_floating_point() else t.numpy(), tree)
+
+
+def _fsdp_keys_model_local(state, cfg, tcfg, groups, n_dp: int, cache) -> bool:
+    """Whether ``cache`` holds exactly one ``fsdp_gather`` plan for each
+    signature of the state's sharded leaves, keyed by this rank's shard of
+    its model block with the sharded dim last (the reference's
+    ``cached_fsdp_gather_plan(tuple(lshape), ...)``), and each leaf that
+    'model' splits is held at its global dim over ``n_model``."""
+    from repro_torch.models import transformer
+    from repro_torch.sched import compile as sched_compile
+    from repro_torch.sched.plan import dtype_name
+    from repro_torch.train import step as step_lib
+
+    mg = state.model.mg
+    dims = step_lib.model_dims(cfg, mg.size)
+    whole = dict(transformer.tree_paths(transformer.abstract_params(cfg)))
+    keys, ok = set(), True
+    for path, d in transformer.tree_paths(state.fsdp_dims):
+        if d < 0:
+            continue
+        leaf = state.model.params[path]
+        shard = leaf[0].movedim(d - 1, -1) if path.startswith("blocks/") else leaf.movedim(d, -1)
+        key = sched_compile.fsdp_gather_plan_key(tuple(shard.shape), dtype_name(leaf.dtype),
+                                                 groups.axes, tcfg.policy, n_dp, "cpu")
+        keys.add(key)
+        ok &= key in cache
+        if dims[path] >= 0:
+            ok &= leaf.shape[dims[path]] * mg.size == whole[path].shape[dims[path]]
+    return ok and len(cache) == len(keys) > 0
 
 
 def mesh_tp_rank(rank: int, world: int, out: str, kind: str, ref_dir: str) -> None:
     """The port's side of ``TP_RUNS[kind]`` on this gloo rank: its DP index
     and model rank; the reduce-scatter of its ``mesh_rs_input`` over its
-    (pod, data) group under each of MESH_RS_POLICIES; per arch the
-    reference's parameters through ``load_reference_params(mesh=)`` and
-    its step-0 checkpoint through ``restore(shardings=)`` (this rank's
-    blocks), the bucket layout, one step from that state beside the
-    reference's step-1 state restored the same way, 2 steps compressed and
-    raw from the port's own init (the replicated leaves' bytes after
-    them), and this rank's blocks of ``transformer.init(mesh=)``.  On
-    ``tp``: the restored step-1 state of TP_CKPT_ARCH saved by the port
-    (gathered, rank 0 writes) under ``ref_dir/port_ckpt`` and restored
-    without shardings; then its launcher run with an overflow forced on
-    one rank (model rank 1 of the last DP index) in the first compressed
-    step."""
+    (pod, data) group under each of MESH_RS_POLICIES (an FSDP kind: the
+    gather of its seeded model-local shard over that group, and the
+    backward of its cotangent); per arch the reference's parameters
+    through ``load_reference_params(mesh=)`` (FSDP: its step-0 state
+    through ``load_reference_fsdp_state(mesh=)``) and its step-0
+    checkpoint through ``restore(shardings=)`` (this rank's blocks, FSDP
+    their DP shards), ZeRO-1's bucket layout, one step from that state
+    beside the reference's step-1 state restored the same way, 2 steps
+    compressed and raw from the port's own init (the bytes of the leaves
+    no axis splits after them), and this rank's blocks of
+    ``transformer.init(mesh=)``.  On ``tp``: the restored step-1 state of
+    TP_CKPT_ARCH saved by the port (gathered, rank 0 writes) under
+    ``ref_dir/port_ckpt`` and restored without shardings; then its
+    launcher run with an overflow forced on one rank (model rank 1 of the
+    last DP index) in the first compressed step.  On an FSDP kind every
+    arch's restored step-1 state is saved so, under
+    ``ref_dir/port_ckpt/<arch>``."""
     import os
 
     import ml_dtypes
@@ -1443,6 +1663,7 @@ def mesh_tp_rank(rank: int, world: int, out: str, kind: str, ref_dir: str) -> No
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import train as launch_train
     from repro_torch.models import registry, transformer
+    from repro_torch.optim import fsdp as fsdp_lib
     from repro_torch.optim import zero1
     from repro_torch.sched import compile as sched_compile
     from repro_torch.sched.cache import PlanCache
@@ -1450,18 +1671,28 @@ def mesh_tp_rank(rank: int, world: int, out: str, kind: str, ref_dir: str) -> No
     from repro_torch.tree_util import bits_equal, tree_leaves
 
     shape, axes, archs = TP_RUNS[kind]
+    fsdp = tp_fsdp(kind)
     mesh = mesh_lib.make_mesh(shape, axes, device="cpu")
-    tcfg = _tp_tcfg()
-    groups = step_lib.sync_group(mesh, tcfg)
+    groups = step_lib.sync_group(mesh, _tp_tcfg(kind=kind))
     idx, n_dp = dist.get_rank(groups.group), dist.get_world_size(groups.group)
     mg = groups.model
     res = {"idx": idx, "mrank": mg.rank, "sync": np.array(groups.axes)}
     x = to_torch(mesh_rs_input(rank), "bfloat16")
     for tag, kw in MESH_RS_POLICIES.items():
+        pol = CompressionPolicy(min_bytes=0, **kw)
+        if fsdp:
+            lshape, dt = MESH_GATHER
+            wire = fsdp_lib.GatherWire(groups.axes, 6, 5, 512, 0.02, pol.enabled, lshape, dt,
+                                       pol.fused_decode_reduce, True)
+            local = to_torch(fsdp_bits(lshape, dt, 400 + rank), dt).requires_grad_()
+            full, _ = wire(local, groups.group)
+            (grad,) = torch.autograd.grad(full, local, to_torch(
+                fsdp_bits(fsdp_full_shape(lshape, n_dp), dt, 500 + rank), dt))
+            res[f"rs_{tag}"], res[f"ag_{tag}"] = np_of(grad).reshape(-1), np_of(full).reshape(-1)
+            continue
         meta = zero1.plan_buckets([x], n_dp)
         plan = sched_compile.cached_zero1_plan(
-            meta, policy=CompressionPolicy(min_bytes=0, **kw), axis_name=groups.axes,
-            n_dev=n_dp, device="cpu", cache=PlanCache())
+            meta, policy=pol, axis_name=groups.axes, n_dev=n_dp, device="cpu", cache=PlanCache())
         (gb,) = zero1.flatten_buckets(meta, [x])
         with sched.Zero1Execution(plan, groups.group) as ex:
             gs, flag = ex.reduce_scatter(0, gb)
@@ -1471,45 +1702,63 @@ def mesh_tp_rank(rank: int, world: int, out: str, kind: str, ref_dir: str) -> No
     rows_of = lambda b: launch_train.dp_rows(b, idx, n_dp)  # noqa: E731
     for arch in archs:
         cfg = tp_configs(arch)[0]
-        dts = transformer.leaf_dtypes(cfg)
-        tree = {p: ref[f"{arch}_param/{p}"].view(
-            ml_dtypes.bfloat16 if dts[p] == torch.bfloat16 else np.float32) for p in dts}
-        res[f"{arch}_load"] = _leaf_bytes(transformer.load_reference_params(
-            tree, cfg, device="cpu", mesh=mesh).leaves())
+        tcfg = _tp_tcfg(kind=kind, arch=arch)
         ckpt_dir = os.path.join(ref_dir, arch, "ckpt")
         state = tp_restore(cfg, mesh, tcfg, ckpt_dir, 0)
+        if fsdp:
+            glob, _ = CheckpointManager(ckpt_dir).restore(state.global_like(), step=0,
+                                                          device="cpu")
+            loaded = step_lib.load_reference_fsdp_state(
+                _global_numpy(glob), cfg, tcfg, n_dp=n_dp, dp_index=idx, device="cpu",
+                mesh=mesh)
+            res[f"{arch}_load_opt_exact"] = int(bits_equal(loaded.opt, state.opt))
+        else:
+            dts = transformer.leaf_dtypes(cfg)
+            tree = {p: ref[f"{arch}_param/{p}"].view(
+                ml_dtypes.bfloat16 if dts[p] == torch.bfloat16 else np.float32) for p in dts}
+            loaded = transformer.load_reference_params(tree, cfg, device="cpu", mesh=mesh)
+            m = state.meta
+            res[f"{arch}_meta"] = np.array([*m.lengths, *m.padded, m.n_dp, m.block])
+            res[f"{arch}_members"] = np.array([(b, i, size) for b, mem in enumerate(m.members)
+                                               for i, _, size in mem])
+        res[f"{arch}_load"] = _leaf_bytes(loaded.model.leaves() if fsdp else loaded.leaves())
         res[f"{arch}_restored"] = _leaf_bytes(state.model.leaves())
-        m = state.meta
-        res[f"{arch}_meta"] = np.array([*m.lengths, *m.padded, m.n_dp, m.block])
-        res[f"{arch}_members"] = np.array([(b, i, size) for b, mem in enumerate(m.members)
-                                           for i, _, size in mem])
         batch = registry.make_batch(cfg, *tp_batch_shape(arch), rng=np.random.default_rng(0),
                                     device="cpu")
+        cache = PlanCache()
         with launch_train.deterministic():
-            m = step_lib.train_step(state, rows_of(batch), tcfg)
+            m = (step_lib.fsdp_train_step(state, rows_of(batch), tcfg, cache=cache)
+                 if fsdp else step_lib.train_step(state, rows_of(batch), tcfg))
+        if fsdp:  # one fsdp_gather plan a signature, keyed by the model-local shard
+            res[f"{arch}_plan_keys"] = int(_fsdp_keys_model_local(state, cfg, tcfg, groups,
+                                                                   n_dp, cache))
         res.update({f"{arch}_loss": float(m["loss"]), f"{arch}_gnorm": float(m["gnorm"]),
                     f"{arch}_overflow": int(m["overflow"]), f"{arch}_step": state.step,
                     f"{arch}_params": _flat_f32(state.model.leaves())})
         want = tp_restore(cfg, mesh, tcfg, ckpt_dir, 1)
         res[f"{arch}_ref_params"] = _flat_f32(want.model.leaves())
         for tag, compress in (("comp", True), ("raw", False)):
-            losses, st, _ = _tp_twin(arch, cfg, mesh, compress, rows_of)
+            losses, st, _ = _tp_twin(arch, cfg, mesh, compress, rows_of, tcfg if fsdp else None)
             res[f"{arch}_{tag}_losses"] = np.array(losses)
             res[f"{arch}_{tag}_params"] = _leaf_bytes(st.model.leaves())
         kept = transformer.block_specs(cfg, mg.size)
-        res[f"{arch}_rep"] = _leaf_bytes([p for path, p in st.model.params.items()
-                                          if "model" not in kept[path]])
+        whole = [d < 0 for d in tree_leaves(st.fsdp_dims)] if fsdp else [True] * len(kept)
+        res[f"{arch}_rep"] = _leaf_bytes([p for (path, p), w in zip(st.model.params.items(),
+                                                                   whole, strict=True)
+                                          if w and "model" not in kept[path]])
         res[f"{arch}_own_init"] = _leaf_bytes(transformer.init(
             cfg, generator=torch.Generator().manual_seed(0), device="cpu", mesh=mesh).leaves())
-        if kind == "tp" and arch == TP_CKPT_ARCH:
-            port_dir = os.path.join(ref_dir, "port_ckpt")
+        if fsdp or (kind == "tp" and arch == TP_CKPT_ARCH):
+            port_dir = os.path.join(ref_dir, "port_ckpt", arch if fsdp else "")
             CheckpointManager(port_dir).save(1, want)  # gathered to rank 0, which writes
             dist.barrier()
             back, _ = CheckpointManager(port_dir).restore(want, device="cpu")
-            res["resume_exact"] = int(bits_equal(back.tree(), want.tree()))
-            res["own_storage"] = np.array([
+            pre = f"{arch}_" if fsdp else ""
+            res[f"{pre}resume_exact"] = int(bits_equal(back.tree(), want.tree()))
+            res[f"{pre}own_storage"] = np.array([
                 t.untyped_storage().nbytes() == t.numel() * t.element_size()
                 for s in (want, back) for t in tree_leaves(s.tree())])
+        if kind == "tp" and arch == TP_CKPT_ARCH:
             orig, seen = zero1.zero1_step, []
 
             def forced(*args, **kw):  # one rank's first compressed step overflows
