@@ -1678,31 +1678,46 @@ def phase_mesh(comp, mesh, dev, torch):
 
 # zoo phase: serve runs (requests, prompt tokens, new tokens, slots, cache
 # length), qwen2-vl's cut depth and prefill, tinyllama's training run
-ZOO_SERVE = {"glm4_9b": dict(n_req=4, prompt=512, new=32, slots=4, max_len=1024),
-             "gemma3_27b": dict(n_req=2, prompt=1536, new=16, slots=2, max_len=2048)}
+# the zoo's depth, cut to make room for the tp phase's serve jobs
+# (chip_smoke.py took 1060-1093 s with them at the depths before): glm4-9b
+# served at 20 of its 40 layers, gemma3-27b at 2 of its 10 six-layer
+# patterns and its 2 prefix layers (14 of 62; full depth took ~45 s of the
+# zoo phase, a 1.04 GB shipment a request)
+ZOO_SERVE = {"glm4_9b": dict(n_req=4, prompt=512, new=32, slots=4, max_len=1024,
+                             repeats=20),
+             "gemma3_27b": dict(n_req=2, prompt=1536, new=16, slots=2, max_len=2048,
+                                repeats=2)}
 QWEN_REPEATS, QWEN_BATCH, QWEN_SEQ, QWEN_DECODE, QWEN_MAX_LEN = 4, 2, 512, 8, 1024
 TINY_BATCH, TINY_SEQ, TINY_STEPS = 8, 512, 2
-# deepseek-v2-lite: served at full depth after the dense models; trained at
-# full width with the depth cut to the dense prefix layer and REPEATS MoE
-# layers, 8 x 512 = 4096 tokens a step (the capacity regime: C = 480)
+# deepseek-v2-lite: served after the dense models at its dense prefix layer
+# and DEEPSEEK_SERVE's repeats of its 26 MoE layers (7 of 27 layers; full
+# depth before the serve jobs); trained at full width with the depth cut to the dense
+# prefix layer and REPEATS MoE layers, 8 x 512 = 4096 tokens a step (the
+# capacity regime: C = 480)
 DEEPSEEK = "deepseek_v2_lite_16b"
-DEEPSEEK_SERVE = dict(n_req=4, prompt=512, new=32, slots=4, max_len=1024)
+DEEPSEEK_SERVE = dict(n_req=4, prompt=512, new=32, slots=4, max_len=1024, repeats=6)
 DEEPSEEK_REPEATS, DEEPSEEK_BATCH, DEEPSEEK_SEQ, DEEPSEEK_STEPS = 1, 8, 512, 2
 # the remaining mixers: jamba served at full width with its depth cut to
-# JAMBA_REPEATS of its 4 eight-layer patterns (14 Mamba and 2 attention
-# layers, 8 of them MoE), and trained at full width with its pattern cut to
-# (Mamba + SwiGLU, attention + SwiGLU) once; xlstm-350m served and trained
-# at full width and depth; whisper-small (encoder-decoder) at full width
-# and depth: a prefill with frames, its cache shipped, greedy decode steps,
-# and ZeRO-1 twins on registry.make_batch batches.  xlstm's twins run at
-# seq 128: its eager step loop took 48-54 s a step at 8 x 512 (both twins
-# 202 s on the H100), and the sequence is cut, never a width
+# JAMBA_REPEATS of its 4 eight-layer patterns (7 Mamba and 1 attention
+# layer, 4 of them MoE; 2 patterns before the serve jobs), and trained at
+# full width with its pattern cut to (Mamba + SwiGLU, attention + SwiGLU)
+# once; xlstm-350m served and trained at full width, XLSTM_REPEATS periods;
+# whisper-small (encoder-decoder) at full width and depth: a prefill with
+# frames, its cache shipped, greedy decode steps, and ZeRO-1 twins on
+# registry.make_batch batches.  xlstm's twins run at a cut sequence
+# (XLSTM_TRAIN_SEQ): its eager step loop took 48-54 s a step at 8 x 512
+# (both twins 202 s on the H100), and the sequence is cut, never a width
 JAMBA, XLSTM, WHISPER = "jamba_v0_1_52b", "xlstm_350m", "whisper_small"
-JAMBA_REPEATS = 2
+JAMBA_REPEATS = 1
+# xlstm-350m served (prompts of XLSTM_PROMPT) and trained (8 x 64) at one
+# of its 3 periods (8 of 24 layers): at full depth its eager steps took
+# ~5.3 s a prefill of 512 and 67 s for the twins at 8 x 128 (H100), and
+# the phase's time went to the tp phase's serve jobs
+XLSTM_REPEATS, XLSTM_PROMPT = 1, 256
 MIXER_SERVE = dict(n_req=4, prompt=512, new=32, slots=4, max_len=1024)
 WHISPER_BATCH, WHISPER_SEQ, WHISPER_DECODE, WHISPER_MAX_LEN = 2, 512, 8, 1024
 JAMBA_TRAIN_SEQ, JAMBA_TRAIN_STEPS = 512, 2
-XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ, XLSTM_TRAIN_STEPS = 8, 128, 2
+XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ, XLSTM_TRAIN_STEPS = 8, 64, 2
 WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ, WHISPER_TRAIN_STEPS = 8, 512, 2
 
 
@@ -2102,12 +2117,13 @@ class Zoo:
 def phase_zoo(dev, torch, np, bw):
     """The model zoo at full width, each model drawn from SEED on the card,
     run, held, its kernels' new shapes timed, and freed before the next:
-    glm4-9b and gemma3-27b at full depth served colocated and PD (a model
+    glm4-9b and gemma3-27b at a cut depth served colocated and PD (a model
     whose weights and init draw do not fit fails the phase); qwen2-vl-72b
     cut in depth: a prefill with vision embeddings, its cache over the host
-    wire and greedy decode from both; tinyllama-1.1b trained through the
-    launcher's ZeRO-1 path, compressed and raw; deepseek-v2-lite-16b (MLA
-    and MoE) served at full depth over its latent KV cache, then trained at
+    wire and greedy decode from both;
+    tinyllama-1.1b trained through the launcher's ZeRO-1 path, compressed
+    and raw; deepseek-v2-lite-16b (MLA and MoE) served at a cut depth over
+    its latent KV cache, then trained at
     full width and a cut depth like tinyllama; then the remaining mixers
     (:func:`zoo_mixers`).  Returns the launches of each run and the timed
     shapes."""
@@ -2124,7 +2140,8 @@ def phase_zoo(dev, torch, np, bw):
           f"{_gib(torch.cuda.memory_allocated(dev))} still allocated")
     # -- glm4-9b and gemma3-27b: served colocated, then PD ------------------
     for arch, sp in ZOO_SERVE.items():
-        zoo.serve_full(arch, sp)
+        zoo.serve_full(arch, sp, dataclasses.replace(configs.get(arch), repeats=sp["repeats"])
+                       if "repeats" in sp else None)
     # -- qwen2-vl-72b at a cut depth: prefill with vision embeddings --------
     zoo.ship_and_decode("zoo_qwen2_vl_ship", "qwen2_vl_72b",
                         dataclasses.replace(configs.get("qwen2_vl_72b"), repeats=QWEN_REPEATS),
@@ -2146,8 +2163,9 @@ def phase_zoo(dev, torch, np, bw):
     torch.cuda.empty_cache()
     zoo.timed("zoo_tinyllama_train", recorded)
     del recorded
-    # -- deepseek-v2-lite-16b: MLA + MoE served at full depth ---------------
-    zoo.serve_full(DEEPSEEK, DEEPSEEK_SERVE)
+    # -- deepseek-v2-lite-16b: MLA + MoE served, its depth cut ----------------
+    zoo.serve_full(DEEPSEEK, DEEPSEEK_SERVE, dataclasses.replace(
+        configs.get(DEEPSEEK), repeats=DEEPSEEK_SERVE["repeats"]))
     # -- and trained at full width, the depth cut: ZeRO-1 twins -------------
     full = configs.get(DEEPSEEK)
     cfg = dataclasses.replace(full, repeats=DEEPSEEK_REPEATS)
@@ -2242,10 +2260,12 @@ def zoo_mixers(zoo):
           f"{sum(s.ffn == 'moe' for s in cfg.pattern) * cfg.repeats} MoE; prefill 1 x "
           f"{MIXER_SERVE['prompt']} {out['prefill_ms']:.2f} ms, decode step "
           f"{out['decode_step_ms']:.2f} ms; state wire by dtype {out['by_dtype']}")
-    # -- xlstm-350m at full width and depth: served -------------------------
-    out = zoo.serve_full(XLSTM, MIXER_SERVE)
-    print(f"  {XLSTM}: prefill 1 x {MIXER_SERVE['prompt']} {out['prefill_ms']:.2f} ms "
-          f"({MIXER_SERVE['prompt']} steps x {configs.get(XLSTM).n_layers} layers of eager "
+    # -- xlstm-350m at full width, XLSTM_REPEATS periods: served --------------
+    xcfg = dataclasses.replace(configs.get(XLSTM), repeats=XLSTM_REPEATS)
+    xsp = dict(MIXER_SERVE, prompt=XLSTM_PROMPT)
+    out = zoo.serve_full(XLSTM, xsp, xcfg)
+    print(f"  {XLSTM}: prefill 1 x {xsp['prompt']} {out['prefill_ms']:.2f} ms "
+          f"({xsp['prompt']} steps x {xcfg.n_layers} layers of eager "
           f"ops), decode step {out['decode_step_ms']:.2f} ms; state wire by dtype "
           f"{out['by_dtype']}")
     # -- whisper-small: prefill with frames, the cache shipped, decode ------
@@ -2280,16 +2300,16 @@ def zoo_mixers(zoo):
     torch.cuda.empty_cache()
     zoo.timed("zoo_jamba_train", recorded)
     del recorded
-    # -- xlstm-350m trained at full width and depth ---------------------------
+    # -- xlstm-350m trained at full width, XLSTM_REPEATS periods ---------------
     full = configs.get(XLSTM)
     t0 = time.perf_counter()
     comp, raw, recorded, names, meta, n_dp = zoo.train_twins(
-        XLSTM, XLSTM_TRAIN_STEPS, XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ)
+        XLSTM, XLSTM_TRAIN_STEPS, XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ, xcfg)
     seconds = time.perf_counter() - t0
     launches["zoo_xlstm_train"] = comp["launches"]
     slstm = {f"blocks/{pi}/mixer/wk" for pi, s in enumerate(full.pattern) if s.mixer == "slstm"}
     zero = zero_blocks_in(recorded[0]["encode_fused"], names, meta, lambda n: n in slstm)
-    twins_line(XLSTM, full, full, comp, raw, n_dp, XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ,
+    twins_line(XLSTM, xcfg, full, comp, raw, n_dp, XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ,
                f" ({seconds:.1f} s for both twins)")
     print(f"  {XLSTM} first step's gradient bucket: {zero['zero_blocks']} of {zero['blocks']} "
           f"512-value blocks all zero ({zero['zero_share']:.6f}), {zero['inside']} of them in "
@@ -2361,7 +2381,9 @@ ZOO_UNITS = {"zoo_glm4_9b_pd": ("glm4_pd_admission", ZOO_SERVE["glm4_9b"]["n_req
 # values outgrew 17.4 GiB in the all-gather's plain decode (2.05 GiB more
 # asked at 16.71 allocated), and four such ranks do not fit the card; a
 # rank peaked at 14.17 GiB at 14 layers and 17.49 at 18 (~0.83 a layer),
-# so 19 would pass 18.3 under a cap that leaves the card no room
+# so 19 would pass 18.3 under a cap that leaves the card no room; it runs
+# 12 layers, to keep chip_smoke.py in its time with the serve
+# jobs
 # loss_rel, gnorm_rel: the first step's loss and grad norm against the same
 # model at model = 1 (the norm counting the leaves 'model' replicates once
 # a model rank, the reference's count).  In f32 both agree within 1e-7
@@ -2391,10 +2413,25 @@ TP_XLSTM_LOSS_REL, TP_XLSTM_GNORM_REL = 1e-4, 5e-2
 # 1.75, and with growing segments at 17.83 asking 0.88; on Adafactor it
 # peaks at 14.33 GiB with both layers;
 # tp_xlstm: mLSTM and sLSTM split over their heads, one period of
-# xlstm-350m (7 mLSTM + 1 sLSTM), 2 of its 4 heads a rank
+# xlstm-350m (7 mLSTM + 1 sLSTM), 2 of its 4 heads a rank;
+# tp_serve_*: ServeEngine at (data, model) = (1, 2), colocated then PD
+# (each rank ships its own block of every admitted cache), on jamba cut
+# as tp_jamba_fsdp (prompts of 508 fill rank 0's block of 512 positions,
+# the decode steps cross into rank 1's), deepseek-v2-lite cut as
+# tp_deepseek (prompts of 600 fill both blocks) and one period of
+# xlstm-350m.  logits_rel: the prefills' and the first TP_SERVE_STEPS
+# decode steps' logits against the same model at model = 1 (fed the
+# ranks' tokens), the largest difference over the largest magnitude; set
+# from tools/tp_gap.py --serve at full width before the jobs' first run:
+# on the H100 jamba 1.434e-01 and deepseek 2.933e-01 in bf16 (2.3e-05 and
+# 2.7e-06 in f32: the split is exact, the bf16 layouts round apart and the
+# MoE routers' near ties part), on the CPU xlstm 3.067e-02 (f32 6.9e-06);
+# about twice each, three times xlstm's (the card rounds otherwise)
+TP_SERVE_STEPS = 4
+TP_SERVE_JAMBA_REL, TP_SERVE_DEEPSEEK_REL, TP_SERVE_XLSTM_REL = 0.3, 0.6, 0.1
 TP_JOBS = {
     "tp_tinyllama": dict(arch="tinyllama_1_1b", shape=(2, 2), batch=8, seq=512, steps=3,
-                         repeats=18, mem=0.235, loss_rel=2e-4, gnorm_rel=1e-2),
+                         repeats=12, mem=0.235, loss_rel=2e-4, gnorm_rel=1e-2),
     "tp_deepseek": dict(arch=DEEPSEEK, shape=(1, 2), batch=8, seq=512, steps=2,
                         repeats=DEEPSEEK_REPEATS, mem=0.45, loss_rel=1e-3, gnorm_rel=2e-2),
     "tp_jamba_fsdp": dict(arch="jamba_v0_1_52b", shape=(2, 2), batch=4, seq=512, steps=2,
@@ -2403,6 +2440,15 @@ TP_JOBS = {
                           loss_rel=TP_JAMBA_LOSS_REL, gnorm_rel=TP_JAMBA_GNORM_REL),
     "tp_xlstm": dict(arch="xlstm_350m", shape=(1, 2), batch=8, seq=128, steps=2, repeats=1,
                      mem=0.45, loss_rel=TP_XLSTM_LOSS_REL, gnorm_rel=TP_XLSTM_GNORM_REL),
+    "tp_serve_jamba": dict(arch="jamba_v0_1_52b", shape=(1, 2), pattern=(3, 4), repeats=1,
+                           mem=0.45, logits_rel=TP_SERVE_JAMBA_REL,
+                           serve=dict(n_req=4, prompt=508, new=16, slots=4, max_len=1024)),
+    "tp_serve_deepseek": dict(arch=DEEPSEEK, shape=(1, 2), repeats=DEEPSEEK_REPEATS, mem=0.45,
+                              logits_rel=TP_SERVE_DEEPSEEK_REL,
+                              serve=dict(n_req=4, prompt=600, new=16, slots=4, max_len=1024)),
+    "tp_serve_xlstm": dict(arch="xlstm_350m", shape=(1, 2), repeats=1, mem=0.45,
+                           logits_rel=TP_SERVE_XLSTM_REL,
+                           serve=dict(n_req=4, prompt=120, new=16, slots=4, max_len=192)),
 }
 TP_TIMEOUT = 600  # seconds a job's processes may take
 
@@ -2438,6 +2484,217 @@ def tp_child(rank, world, store, out, job):
         dist.destroy_process_group()
 
 
+def tp_serve_prompts(cfg, sp, np) -> list:
+    rng = np.random.default_rng(SEED)
+    return [rng.integers(0, cfg.vocab, sp["prompt"]).astype(np.int32)
+            for _ in range(sp["n_req"])]
+
+
+@contextlib.contextmanager
+def tp_serve_logits(torch):
+    """While active, the logits of ``transformer.prefill`` and
+    ``transformer.decode_step`` as the engine calls them, on the host:
+    ``{"prefill": [...], "decode": [...]}``, the first TP_SERVE_STEPS decode
+    steps' only."""
+    from repro_torch.models import transformer
+
+    seen = {"prefill": [], "decode": []}
+    orig = transformer.prefill, transformer.decode_step
+
+    def prefill(*a, **kw):
+        out = orig[0](*a, **kw)
+        seen["prefill"].append(out[0].float().cpu())
+        return out
+
+    def decode_step(*a, **kw):
+        out = orig[1](*a, **kw)
+        if len(seen["decode"]) < TP_SERVE_STEPS:
+            seen["decode"].append(out[0].float().cpu())
+        return out
+
+    transformer.prefill, transformer.decode_step = prefill, decode_step
+    try:
+        yield seen
+    finally:
+        transformer.prefill, transformer.decode_step = orig
+
+
+def tp_serve_run(cfg, model, sp, pd, torch, np, n_req=None, new=None) -> tuple:
+    """``ServeEngine`` over the job's prompts (the first ``n_req``, ``new``
+    tokens each), colocated or PD over the host KV wire (a fresh
+    PlanCache): ((rid, tokens) sorted, seconds to the last token)."""
+    from repro_torch.core.policy import CompressionPolicy
+    from repro_torch.sched.cache import PlanCache
+    from repro_torch.serve.engine import Request, ServeConfig, ServeEngine
+
+    scfg = ServeConfig(batch_slots=sp["slots"], max_len=sp["max_len"],
+                       prefill_chunk=sp["prompt"], pd_disaggregated=pd)
+    eng = ServeEngine(cfg, model, scfg, kv_plan_cache=PlanCache() if pd else None,
+                      kv_policy=CompressionPolicy(min_bytes=0) if pd else None)
+    for i, p in enumerate(tp_serve_prompts(cfg, sp, np)[:n_req]):
+        eng.submit(Request(rid=i, prompt=p, max_new=new or sp["new"]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    return sorted((r.rid, tuple(r.out)) for r in done), time.perf_counter() - t0
+
+
+def _tp_child_serve(rank, job, torch):
+    """A serve job's rank: this rank's blocks of the job's model (a
+    generator on the card seeded SEED, as the parent's model = 1), one
+    warm-up request, then the engine colocated and PD; per run its
+    tokens, recorded logits, launches, shape tallies, peak memory and
+    seconds (rank 0's PD run also its kernel inputs)."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer
+    from repro_torch.tree_util import tree_flatten
+
+    dev = torch.device("cuda", 0) if job.get("device", "cuda") == "cuda" else torch.device("cpu")
+    mesh = mesh_lib.make_mesh(job["shape"], ("data", "model"), device=dev)
+    cfg, sp = tp_config(job), job["serve"]
+    model = transformer.init(cfg, generator=torch.Generator(dev).manual_seed(SEED), device=dev,
+                             mesh=mesh)
+    block = transformer.cache_struct(cfg, 1, sp["max_len"], mesh=mesh)
+    leaves = [t for t in tree_flatten(block)[0] if t.dim()]
+    out = {"runs": {}, "mrank": model.mg.rank, "block_shapes": sorted(
+        {tuple(t.shape) for t in leaves}), "block_bytes": sum(
+        t.numel() * t.element_size() for t in leaves)}
+    with launch_train.deterministic():
+        tp_serve_run(cfg, model, sp, False, torch, np, n_req=1, new=2)  # warm-up
+        for pd in (False, True):
+            record = pd and rank == 0
+            torch.cuda.reset_peak_memory_stats(dev)
+            with (recorded_inputs(torch, host=True) if record else
+                  contextlib.nullcontext(None)) as inputs, tp_serve_logits(torch) as seen:
+                kernels.clear_launch_counts()
+                tokens, secs = tp_serve_run(cfg, model, sp, pd, torch, np)
+                launches = kernels.launch_counts()
+            out["runs"][pd] = {"tokens": tokens, "logits": seen, "launches": launches,
+                               "tallies": shape_tallies(), "seconds": secs,
+                               "peak": torch.cuda.max_memory_allocated(dev)}
+            if record:
+                out["inputs"] = inputs
+    expect = dict.fromkeys(kernels.KERNELS, 0)
+    expect.update(pack=2 * len(leaves) * sp["n_req"], unpack=2 * len(leaves) * sp["n_req"])
+    out["expect"] = expect
+    return out
+
+
+def tp_serve_model1(job, tokens, dev, torch, np) -> tuple:
+    """A serve job's model at model = 1 in this process (the ranks' init):
+    each prompt prefilled into its slot of a batched cache, then
+    TP_SERVE_STEPS decode steps fed the ranks' tokens ``tokens`` ((rid,
+    tokens) sorted; request ``i`` took slot ``i``); returns the prefills'
+    and the steps' logits on the host."""
+    import gc
+
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg, sp = tp_config(job), job["serve"]
+    model = transformer.init(cfg, generator=torch.Generator(dev).manual_seed(SEED), device=dev)
+    cache = transformer.init_cache(cfg, sp["slots"], sp["max_len"], dev)
+    pre, dec = [], []
+    with launch_train.deterministic():
+        for i, p in enumerate(tp_serve_prompts(cfg, sp, np)):
+            lg, one = transformer.prefill(model, torch.from_numpy(p[None].astype(np.int64)).to(dev),
+                                          transformer.init_cache(cfg, 1, sp["max_len"], dev))
+            ServeEngine._splice_impl(cache, one, i)
+            pre.append(lg.float().cpu())
+        cache["pos"] = torch.tensor(sp["prompt"], dtype=torch.int32, device=dev)
+        for k in range(TP_SERVE_STEPS):
+            feed = torch.tensor([[out[k]] for _, out in tokens], dtype=torch.int32, device=dev)
+            lg, cache = transformer.decode_step(model, feed, cache)
+            dec.append(lg.float().cpu())
+    del model, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return pre, dec
+
+
+def tp_serve_job(tag, job, dev, torch, np) -> tuple:
+    """Run a serve job's ranks and check them: on every rank the PD run's
+    tokens and logits equal the colocated run's, and every rank's equal
+    rank 0's (the same whole logits, the same greedy picks); the colocated
+    run launches nothing, PD pack and unpack twice a block leaf an
+    admission; the prefills' and first TP_SERVE_STEPS steps' logits
+    within ``logits_rel`` of the model at model = 1; the share of its
+    greedy picks equal to the ranks' tokens is reported.  Returns (the
+    launches of all ranks, rank 0's (inputs, tallies of all ranks))."""
+    from repro_torch import configs, kernels
+
+    cfg, sp = tp_config(job), job["serve"]
+    free = torch.cuda.mem_get_info(dev)[0]
+    ranks = run_tp_job(job, torch)
+    col0 = ranks[0]["runs"][False]
+    total, tallies = dict.fromkeys(kernels.KERNELS, 0), {k: {} for k in SHAPED}
+    for r, res in enumerate(ranks):
+        col, pd = res["runs"][False], res["runs"][True]
+        for run, name in ((pd, "PD"), (col, "colocated")):
+            if run["tokens"] != col0["tokens"] or any(
+                    len(a) != len(b) or not all(torch.equal(x, y) for x, y in zip(a, b))
+                    for key in ("prefill", "decode")
+                    for a, b in [(run["logits"][key], col0["logits"][key])]):
+                raise AssertionError(f"{tag} rank {r}: {name} tokens or logits differ from "
+                                     f"rank 0's colocated run")
+        if any(col["launches"].values()) or pd["launches"] != res["expect"]:
+            raise AssertionError(f"{tag} rank {r}: launches {pd['launches']} (colocated "
+                                 f"{col['launches']}), expected {res['expect']}")
+        if len(col0["tokens"]) != sp["n_req"] or any(
+                len(o) != sp["new"] or not all(0 <= t < cfg.vocab for t in o)
+                for _, o in col0["tokens"]):
+            raise AssertionError(f"{tag}: unexpected serve output {col0['tokens']}")
+        for k, v in pd["launches"].items():
+            total[k] += v
+        for k, by in pd["tallies"].items():
+            if not set(by) <= set(ranks[0]["inputs"][k]):
+                raise AssertionError(f"{tag} rank {r}: {k} at {list(by)}, rank 0 recorded "
+                                     f"{list(ranks[0]['inputs'][k])}")
+            for shape, n in by.items():
+                tallies[k][shape] = tallies[k].get(shape, 0) + n
+    pre, dec = tp_serve_model1(job, col0["tokens"], dev, torch, np)
+    got = torch.cat([*col0["logits"]["prefill"], *col0["logits"]["decode"]])
+    want = torch.cat([*pre, *dec])
+    gap = float((got - want).abs().max() / want.abs().max())
+    picks = torch.cat([torch.cat(pre)[:, -1].argmax(-1)[:, None],
+                       torch.stack([d[:, -1].argmax(-1) for d in dec], 1)], 1)
+    ranks_picks = torch.tensor([list(o[:TP_SERVE_STEPS + 1]) for _, o in col0["tokens"]])
+    share = float((picks == ranks_picks).float().mean())
+    if not gap <= job["logits_rel"]:
+        raise AssertionError(f"{tag}: logits {gap:.3e} of the largest from model = 1's, "
+                             f"bound {job['logits_rel']}")
+    world = len(ranks)
+    full = configs.get(job["arch"])
+    layers = ", ".join(f"{s.mixer}+{s.ffn}" for s in cfg.pattern)
+    print(f"{tag}: {job['arch']} d_model {cfg.d_model}, {cfg.n_heads} heads, "
+          f"{cfg.kv_heads} KV heads, vocab {cfg.vocab}, {cfg.n_layers} of {full.n_layers} "
+          f"layers ({layers}){f', {cfg.moe.n_experts} experts' if cfg.moe.n_experts else ''}; "
+          f"ServeEngine at (data, model) = {job['shape']}, {world} processes on cuda:0 over "
+          f"gloo, each capped at {job['mem']} of the card ({_gib(free)} free before them); "
+          f"{sp['n_req']} requests x {sp['prompt']} prompt + {sp['new']} new tokens, "
+          f"{sp['slots']} slots, max_len {sp['max_len']}; a rank's cache block "
+          f"{ranks[0]['block_shapes']}, {ranks[0]['block_bytes']} bytes a request")
+    for r, res in enumerate(ranks):
+        col, pd = res["runs"][False], res["runs"][True]
+        n_tok = sp["n_req"] * sp["new"]
+        print(f"  rank {r} (model rank {res['mrank']}): PD tokens and logits identical to "
+              f"colocated and to rank 0's; tokens/s colocated {n_tok / col['seconds']:.1f} "
+              f"({col['seconds'] * 1e3:.1f} ms), PD {n_tok / pd['seconds']:.1f} "
+              f"({pd['seconds'] * 1e3:.1f} ms) (host-staged gloo); peak "
+              f"{_gib(max(col['peak'], pd['peak']))}; PD launches {pd['launches']}")
+    print(f"  logits of the {sp['n_req']} prefills and {TP_SERVE_STEPS} decode steps vs model = "
+          f"1 (one process, the same seed, fed the ranks' tokens): largest difference "
+          f"{gap:.3e} of the largest |logit| {float(want.abs().max()):.4g} (bound "
+          f"{job['logits_rel']}); greedy picks equal to the ranks' tokens {share:.4f}")
+    return total, (ranks[0].pop("inputs"), tallies)
+
+
 def _tp_child_runs(rank, job, torch):
     import gc
     import hashlib
@@ -2449,6 +2706,8 @@ def _tp_child_runs(rank, job, torch):
 
     import torch.distributed as dist
 
+    if "serve" in job:
+        return _tp_child_serve(rank, job, torch)
     dev = torch.device("cuda", 0) if job.get("device", "cuda") == "cuda" else torch.device("cpu")
     mesh = mesh_lib.make_mesh(job["shape"], ("data", "model"), device=dev)
     partition = job.get("partition", "zero1")
@@ -2572,7 +2831,7 @@ def run_tp_job(job, torch) -> list:
 def phase_tp(dev, torch, np, bw):
     """ZeRO-1 with tensor and expert parallelism over 'model' (TP_JOBS), each
     job's ranks in processes of their own on the card: tinyllama-1.1b at
-    full width, 18 of 22 layers, on (data, model) = (2, 2),
+    full width, 12 of 22 layers, on (data, model) = (2, 2),
     deepseek-v2-lite at full width, its depth cut, on (1, 2) (32 of its
     64 experts a rank).
     Every rank's compressed and raw twins bit-identical (losses, grad
@@ -2590,6 +2849,15 @@ def phase_tp(dev, torch, np, bw):
     launches, shapes, units = {}, {}, {}
     for tag, job in TP_JOBS.items():
         t0 = time.perf_counter()
+        if "serve" in job:
+            total, recorded = tp_serve_job(tag, job, dev, torch, np)
+            launches[tag] = total
+            units[tag] = (f"{tag}_rank_admission", job["shape"][1] * job["serve"]["n_req"])
+            merge_shapes(shapes, time_path_shapes({tag: recorded}, {tag: total}, bw, dev, torch))
+            del recorded
+            torch.cuda.empty_cache()
+            print(f"  {tag}: {time.perf_counter() - t0:.1f} s")
+            continue
         cfg = tp_config(job)
         ref_loss, ref_gnorm = tp_model1_ref(job, dev, torch)
         free = torch.cuda.mem_get_info(dev)[0]

@@ -123,14 +123,21 @@ def _attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _decode_attend(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
-                   cache_pos: int, window) -> torch.Tensor:
+                   cache_pos: int, window, *, start: int = 0, mg=None) -> torch.Tensor:
     """Single-token attention over the cache (the reference's
     ``_decode_attend``): q (B, 1, H, hd) against every cache position
     ``<= cache_pos``, scores scaled after the product, softmax in f32 with
-    the division last."""
+    the division last.
+
+    Context-parallel (the reference's ``cp_axis``): ``ck``/``cv`` hold
+    this rank's block of positions, from global position ``start``; the
+    ranks' partial softmaxes are combined over ``mg``, the max first
+    (``tp.all_max``), then the sums and the value products (``tp.all_sum``,
+    rank order in f32), and the division last, so every rank gets the same
+    bits."""
     B, _, H, hd = q.shape
     Hkv = ck.shape[2]
-    kpos = torch.arange(ck.shape[1], device=q.device)
+    kpos = start + torch.arange(ck.shape[1], device=q.device)
     valid = kpos <= cache_pos
     if window is not None:
         valid &= (cache_pos - kpos) < window
@@ -138,10 +145,31 @@ def _decode_attend(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     scores = torch.einsum("bhgd,bshd->bhgs", qh, ck.to(torch.float32)) * (
         1.0 / math.sqrt(hd))
     scores = torch.where(valid, scores, -1e30)
-    e = torch.exp(scores - scores.amax(-1, keepdim=True))
-    o = torch.einsum("bhgs,bshd->bhgd", e, cv.to(torch.float32))
-    out = o / torch.clamp_min(e.sum(-1, keepdim=True), 1e-30)
+    e = torch.exp(scores - tp.all_max(scores.amax(-1, keepdim=True), mg))
+    o = tp.all_sum(torch.einsum("bhgs,bshd->bhgd", e, cv.to(torch.float32)), mg)
+    out = o / torch.clamp_min(tp.all_sum(e.sum(-1, keepdim=True), mg), 1e-30)
     return out.reshape(B, 1, H, cv.shape[-1]).to(q.dtype)
+
+
+def _cache_write(cache: dict, new: dict, start: int, mg) -> None:
+    """Write fresh K/V (or MLA latents) ``new`` of positions ``[start, start
+    + S)`` into ``cache`` in place.  On one rank at ``start`` clamped into
+    the cache (as the reference's dynamic update clamps); where ``mg``
+    splits the cache's positions (block ``r`` holds ``[r s_loc, (r + 1)
+    s_loc)``), the rank writes only the positions its block holds, as the
+    reference's owner shard writes."""
+    S = next(iter(new.values())).shape[1]
+    s_loc = next(iter(cache.values())).shape[1]
+    if not tp.active(mg):
+        at = max(min(start, s_loc - S), 0)
+        for k, t in new.items():
+            cache[k][:, at:at + S] = t
+        return
+    p0 = mg.rank * s_loc
+    a, b = max(start, p0), min(start + S, p0 + s_loc)
+    for k, t in new.items():
+        if a < b:
+            cache[k][:, a - p0:b - p0] = t[:, a - start:b - start]
 
 
 def _head_blocks(x: torch.Tensor, width: int, heads: int, mg) -> tuple:
@@ -167,16 +195,24 @@ def _kv_heads(t: torch.Tensor, hd: int, Hkv: int, G: int, h0: int, h1: int,
     (query head ``h`` reads KV head ``h // G``), from a column-parallel
     projection ``t`` (B, S, this rank's block of ``Hkv * hd`` columns):
     its own heads when they are exactly those, else the projection
-    gathered over the group and cut to them; one a query head where the
-    block of query heads is not whole GQA groups, else (B, S, k1 - k0,
-    hd) for KV heads [k0, k1)."""
+    gathered over the group and cut to them (:func:`_query_kv`)."""
     k0, k1 = h0 // G, (h1 - 1) // G + 1
     t, kh0, _ = _head_blocks(t, hd, Hkv, mg)
-    if (kh0, t.shape[2]) != (k0, k1 - k0):
-        if t.shape[2] != Hkv:  # whole heads, not the ones these queries read
-            t = _split_heads(tp.gather(t.flatten(2), mg, -1), hd)
-        t = t[:, :, k0:k1]
-    if (h1 - h0) != (k1 - k0) * G:  # the block is not whole GQA groups
+    if (kh0, t.shape[2]) == (k0, k1 - k0):
+        return _query_kv(t, G, h0, h1, k0)
+    if t.shape[2] != Hkv:  # whole heads, not the ones these queries read
+        t = _split_heads(tp.gather(t.flatten(2), mg, -1), hd)
+    return _query_kv(t, G, h0, h1)
+
+
+def _query_kv(t: torch.Tensor, G: int, h0: int, h1: int, base: int = 0) -> torch.Tensor:
+    """The KV heads query heads [h0, h1) read, from ``t`` (B, S, heads, hd)
+    holding KV heads from ``base`` on: (B, S, k1 - k0, hd) for KV heads
+    [k0, k1), or one a query head where the block of query heads is not
+    whole GQA groups."""
+    k0, k1 = h0 // G, (h1 - 1) // G + 1
+    t = t[:, :, k0 - base:k1 - base]
+    if (h1 - h0) != (k1 - k0) * G:
         idx = torch.tensor([h // G - k0 for h in range(h0, h1)], device=t.device)
         t = t.index_select(2, idx)
     return t
@@ -214,6 +250,36 @@ def _attention_tp(p: dict, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec, co
     return tp.reduce(_own_columns(out.reshape(B, S, -1), p["wo"], mg) @ p["wo"], mg)
 
 
+def _attention_cached_tp(p: dict, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec, cos,
+                         sin, cache: dict, cache_pos: int | None, mg) -> torch.Tensor:
+    """:func:`attention` with a cache on this rank's blocks: the weights as
+    :func:`_attention_tp`, the cache this rank's block of positions (its
+    ``s_loc`` of ``n s_loc``, every KV head).  K/V of every head are
+    gathered over the group, and the rank writes the positions its block
+    holds (:func:`_cache_write`).  Prefill: the rank's query heads over
+    the fresh K/V they read, causal with the window (a prompt may be
+    longer than a block).  Decode: the query's heads gathered, each rank
+    attends with every head over its positions, and the partial softmaxes
+    are combined (:func:`_decode_attend`).  The rank's block of the output
+    columns goes through its rows of ``wo``, and the products are
+    summed."""
+    B, S, _ = x.shape
+    hd, H, Hkv = cfg.hd, cfg.n_heads, cfg.kv_heads
+    k, v = (_split_heads(tp.gather(x @ p[w], mg, -1), hd) for w in ("wk", "wv"))
+    k = apply_rope(k, cos, sin)
+    start = 0 if cache_pos is None else cache_pos
+    _cache_write(cache, {"k": k, "v": v}, start, mg)
+    if cache_pos is None:
+        q, h0, h1 = _head_blocks(x @ p["wq"], hd, H, mg)
+        k, v = (_query_kv(t, H // Hkv, h0, h1) for t in (k, v))
+        out = _attend_chunked(apply_rope(q, cos, sin), k, v, causal=True, window=spec.window)
+    else:
+        q = apply_rope(_split_heads(tp.gather(x @ p["wq"], mg, -1), hd), cos, sin)
+        out = _decode_attend(q, cache["k"], cache["v"], cache_pos, spec.window,
+                             start=mg.rank * cache["k"].shape[1], mg=mg)
+    return tp.reduce(_own_columns(out.reshape(B, S, -1), p["wo"], mg) @ p["wo"], mg)
+
+
 def attention(p: dict, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec,
               cos: torch.Tensor | None, sin: torch.Tensor | None, cache: dict | None = None,
               cache_pos: int | None = None, *, kv_src: torch.Tensor | None = None,
@@ -237,11 +303,12 @@ def attention(p: dict, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec,
     ``<= cache_pos``.
 
     ``mg``: the model group (``models/tp``) whose rank holds its blocks of
-    the leaves (:func:`_attention_tp`); training forms only (no cache)."""
+    the leaves: :func:`_attention_tp` without a cache,
+    :func:`_attention_cached_tp` with one (the rank's block of its
+    positions)."""
     if tp.active(mg):
-        if cache is not None:
-            raise NotImplementedError("attention with a cache at model > 1 is not ported "
-                                      "(ROADMAP Queue A, slice 19)")
+        if cache is not None and kv_src is None:
+            return _attention_cached_tp(p, x, cfg, spec, cos, sin, cache, cache_pos, mg)
         return _attention_tp(p, x, cfg, spec, cos, sin, kv_src, mg)
     B, S, _ = x.shape
     hd, H, Hkv = cfg.hd, cfg.n_heads, cfg.kv_heads
@@ -257,13 +324,10 @@ def attention(p: dict, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec,
     if cache is None:
         out = _attend(q, k, v, spec.window)
     elif cache_pos is None:
-        cache["k"][:, :S] = k
-        cache["v"][:, :S] = v
+        _cache_write(cache, {"k": k, "v": v}, 0, None)
         out = _attend_chunked(q, k, v, causal=True, window=spec.window)
     else:
-        at = min(max(cache_pos, 0), cache["k"].shape[1] - S)
-        cache["k"][:, at:at + S] = k
-        cache["v"][:, at:at + S] = v
+        _cache_write(cache, {"k": k, "v": v}, cache_pos, None)
         out = _decode_attend(q, cache["k"], cache["v"], cache_pos, spec.window)
     return out.reshape(B, S, H * hd) @ p["wo"]
 
@@ -290,19 +354,21 @@ def mla_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec,
     augmented vectors ``[q_nope | q_rope] . [k_nope | k_rope]``, so the
     scale is 1/sqrt(hd + rope_dim) while values are hd wide.  No window.
 
-    At a model group ``mg`` (training form only): ``w_dkv``/``w_krope``
-    replicated, so every rank computes the same latents; ``wq``, ``w_uk``
-    and ``w_uv`` column-parallel over whole heads, ``wo`` row-parallel.
-    The latents, the query input and the rank's head products enter its
-    block through ``tp.copy``, the output leaves through ``tp.reduce``."""
+    At a model group ``mg``: ``w_dkv``/``w_krope`` replicated, so every
+    rank computes the same latents; ``wq``, ``w_uk`` and ``w_uv``
+    column-parallel over whole heads, ``wo`` row-parallel.  The latents,
+    the query input and the rank's head products enter its block through
+    ``tp.copy``, the output leaves through ``tp.reduce``.  With a cache (the
+    rank's block of its positions) the rank writes only the positions its
+    block holds (where the reference's ``cp_axis`` decode writes at the
+    global position on every shard); a prefill attends over the fresh
+    latents, a decode step over every position's latents gathered over
+    the group, with the rank's heads."""
     B, S, _ = x.shape
     hd, H, r = cfg.hd, cfg.n_heads, cfg.mla.rope_dim
     c_kv = x @ p["w_dkv"]
     k_rope = apply_rope((x @ p["w_krope"])[:, :, None, :], cos, sin)[:, :, 0]
     if tp.active(mg):
-        if cache is not None:
-            raise NotImplementedError("MLA with a cache at model > 1 is not ported "
-                                      "(ROADMAP Queue A, slice 19)")
         H = p["wq"].shape[1] // (hd + r)
         if p["wq"].shape[1] != H * (hd + r) or p["w_uk"].shape[1] != H * hd:
             raise ValueError(f"MLA at model = {mg.size}: {cfg.n_heads} heads do not split "
@@ -310,14 +376,11 @@ def mla_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec,
         x, c_kv, k_rope = (tp.copy(t, mg) for t in (x, c_kv, k_rope))
     q = (x @ p["wq"]).reshape(B, S, H, hd + r)
     q_aug = torch.cat([q[..., :hd], apply_rope(q[..., hd:], cos, sin)], -1)
-    if cache is not None and cache_pos is None:
-        cache["c_kv"][:, :S] = c_kv
-        cache["k_rope"][:, :S] = k_rope
-    elif cache is not None:
-        at = min(max(cache_pos, 0), cache["c_kv"].shape[1] - S)
-        cache["c_kv"][:, at:at + S] = c_kv
-        cache["k_rope"][:, at:at + S] = k_rope
-        c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    if cache is not None:
+        _cache_write(cache, {"c_kv": c_kv, "k_rope": k_rope},
+                     0 if cache_pos is None else cache_pos, mg)
+        if cache_pos is not None:  # every position's latents
+            c_kv, k_rope = (tp.gather(cache[k], mg, 1) for k in ("c_kv", "k_rope"))
     Sk = c_kv.shape[1]
     k_aug = torch.cat([(c_kv @ p["w_uk"]).reshape(B, Sk, H, hd),
                        k_rope[:, :, None, :].expand(B, Sk, H, r)], -1)
@@ -523,10 +586,19 @@ def _scan_chunk(da: torch.Tensor, db: torch.Tensor, h0: torch.Tensor) -> torch.T
     return h0[None] * a + b
 
 
-def _serving_tp(what: str, mg) -> None:
-    if tp.active(mg):
-        raise NotImplementedError(f"{what} with a recurrent state at model > 1 is not ported "
-                                  f"(ROADMAP Queue A, slice 19)")
+def _state_block(state: dict | None, lo: int, n: int, dims: dict) -> dict | None:
+    """This rank's block ``[lo, lo + n)`` of a whole recurrent ``state`` on
+    each leaf's dim in ``dims``."""
+    if state is None:
+        return None
+    return {k: t.narrow(dims[k], lo, n) for k, t in state.items()}
+
+
+def _state_whole(state: dict, dims: dict, mg) -> dict:
+    """A recurrent state of the ranks' blocks on each leaf's dim in
+    ``dims`` gathered over the group in rank order: the whole state, the
+    same bits on every rank."""
+    return {k: tp.gather(t, mg, dims[k]) for k, t in state.items()}
 
 
 def mamba(p: dict, x: torch.Tensor, cfg: ArchConfig, *, state: dict | None = None,
@@ -548,8 +620,8 @@ def mamba(p: dict, x: torch.Tensor, cfg: ArchConfig, *, state: dict | None = Non
     With ``state`` (decode, S == 1): the conv over the state's history and
     the new input, one recurrence step; returns the next state.
 
-    At a model group ``mg`` (training form only; ``spec_mamba``): the rank
-    holds a block of the inner channels, ``[r di / n, (r + 1) di / n)``, of
+    At a model group ``mg`` (``spec_mamba``): the rank holds a block of the
+    inner channels, ``[r di / n, (r + 1) di / n)``, of
     ``conv_w``, ``a_log``, ``d_skip``, ``dt_bias`` and the rows of
     ``w_bc_dt`` and ``out_proj``, but its block of ``in_proj``'s columns is
     the reference's contiguous ``P(None, "model")`` block of ``[xs | z]``,
@@ -561,16 +633,19 @@ def mamba(p: dict, x: torch.Tensor, cfg: ArchConfig, *, state: dict | None = Non
     column are the sum over the group of the ranks' ``w_bc_dt`` rows
     (``tp.reduce``) before ``dt_bias`` and softplus, re-entering the
     channel-split region through ``tp.copy``; ``out_proj`` is row-parallel
-    and its products are summed."""
+    and its products are summed.  A state is whole on every rank: the rank
+    reads its channels of ``state`` and returns the next state gathered
+    whole over the group."""
     B, S, D = x.shape
     mc = cfg.mamba
     di, ds, k = mc.expand * D, mc.d_state, mc.d_conv
-    if state is not None or return_state:
-        _serving_tp("Mamba", mg)
     xz = tp.gather(tp.copy(x, mg) @ p["in_proj"], mg, -1)
     dl = p["conv_w"].shape[1]  # this rank's channels: di, or di / n at a model group
     c0 = mg.rank * dl if tp.active(mg) else 0
     xs, z = xz[..., c0:c0 + dl], xz[..., di + c0:di + c0 + dl]
+    dims = {"h": 1, "conv": 2}  # the channel dim of each state leaf
+    if tp.active(mg):
+        state = _state_block(state, c0, dl, dims)
     conv_w = p["conv_w"]
     hist = xs if state is None else torch.cat([state["conv"], xs], 1)
     lead = hist.shape[1] - S  # 0, or the k-1 positions of the state
@@ -600,7 +675,9 @@ def mamba(p: dict, x: torch.Tensor, cfg: ArchConfig, *, state: dict | None = Non
         h = state["h"] * da[0] + db[0]
         y = torch.einsum("bds,bs->bd", h, Cm[:, 0].to(torch.float32))[:, None]
         y = (y + xcf * p["d_skip"]) * F.silu(z.to(torch.float32))
-        return y.to(x.dtype) @ p["out_proj"], {"h": h, "conv": hist[:, -(k - 1):]}
+        new = {"h": h, "conv": hist[:, -(k - 1):]}
+        return (tp.reduce(y.to(x.dtype) @ p["out_proj"], mg),
+                _state_whole(new, dims, mg) if tp.active(mg) else new)
     n_ch = max(1, S // chunk)
     if S % n_ch:
         raise ValueError(f"mamba: {S} positions do not split into {n_ch} equal chunks")
@@ -616,7 +693,8 @@ def mamba(p: dict, x: torch.Tensor, cfg: ArchConfig, *, state: dict | None = Non
     y = (y + xcf * p["d_skip"]) * F.silu(z.to(torch.float32))
     out = tp.reduce(y.to(x.dtype) @ p["out_proj"], mg)
     if return_state:
-        return out, {"h": h, "conv": xs[:, S - (k - 1):]}
+        new = {"h": h, "conv": xs[:, S - (k - 1):]}
+        return out, _state_whole(new, dims, mg) if tp.active(mg) else new
     return out, None
 
 
@@ -653,6 +731,23 @@ def _xlstm_inputs_tp(p: dict, x: torch.Tensor, cfg: ArchConfig, kv: tuple, mg) -
     return q, kvs, (gi.to(torch.float32), F.logsigmoid(gf.to(torch.float32)))
 
 
+def _heads_block(state: dict | None, H: int, cfg: ArchConfig, mg) -> dict | None:
+    """This rank's heads ``[r H, (r + 1) H)`` of a whole xLSTM ``state``
+    (every leaf's head dim is 1) where the rank computes ``H`` of the
+    model's heads; ``state`` as it is where it computes every head."""
+    if state is None or not tp.active(mg) or H == cfg.n_heads:
+        return state
+    return _state_block(state, mg.rank * H, H, dict.fromkeys(state, 1))
+
+
+def _heads_whole(state: dict, H: int, cfg: ArchConfig, mg) -> dict:
+    """An xLSTM state of the rank's ``H`` heads gathered whole over the
+    group; ``state`` as it is where the rank computes every head."""
+    if not tp.active(mg) or H == cfg.n_heads:
+        return state
+    return _state_whole(state, dict.fromkeys(state, 1), mg)
+
+
 def _gate_logs(p: dict, x: torch.Tensor) -> tuple:
     """(log input gate, log forget gate), each (B, S, H) f32."""
     return ((x @ p["wi"]).to(torch.float32),
@@ -660,7 +755,7 @@ def _gate_logs(p: dict, x: torch.Tensor) -> tuple:
 
 
 def mlstm(p: dict, x: torch.Tensor, cfg: ArchConfig, *, state: dict | None = None,
-          mg=None) -> tuple:
+          mg=None, serve: bool = False) -> tuple:
     """mLSTM (the reference's ``mlstm``): per head a matrix memory C (hd x
     hd) with an exponential input gate and a sigmoid forget gate,
     stabilised by the running max m.  p: {wq, wk, wv, wi, wf, wo}; k and v
@@ -670,16 +765,17 @@ def mlstm(p: dict, x: torch.Tensor, cfg: ArchConfig, *, state: dict | None = Non
     the state after the last step).  ``mg``: heads split over a model group
     (:func:`_xlstm_inputs_tp`; ``wo`` row-parallel, the rank's block of the
     heads' columns, cut from every head where it computed them all, summed
-    over the group; training form only).  On one rank the projections are
-    taken in the order below: it sets the order in which the bf16
-    gradient of ``x`` sums its parts."""
-    if state is not None:
-        _serving_tp("mLSTM", mg)
+    over the group); a given ``state`` is whole and the rank reads its
+    heads of it (:func:`_heads_block`); the state returned is the rank's
+    heads', or with ``serve`` gathered whole (:func:`_heads_whole`).  On
+    one rank the projections are taken in the order below: it sets the
+    order in which the bf16 gradient of ``x`` sums its parts."""
     B, S, _ = x.shape
     H, hd, G = cfg.n_heads, cfg.hd, cfg.n_heads // cfg.kv_heads
     if tp.active(mg):
         q, kvs, (logi, logf) = _xlstm_inputs_tp(p, x, cfg, ("wk", "wv"), mg)
         H = q.shape[2]
+        state = _heads_block(state, H, cfg, mg)
         q = q.to(torch.float32)
         k = kvs["wk"].to(torch.float32) / math.sqrt(hd)
         v = kvs["wv"].to(torch.float32)
@@ -708,11 +804,13 @@ def mlstm(p: dict, x: torch.Tensor, cfg: ArchConfig, *, state: dict | None = Non
         ys.append(num / torch.clamp_min(den, 1.0))
         m = m_new
     y = torch.stack(ys, 1).reshape(B, S, H * hd).to(x.dtype)
-    return tp.reduce(_own_columns(y, p["wo"], mg) @ p["wo"], mg), {"C": C, "n": n, "m": m}
+    new = {"C": C, "n": n, "m": m}
+    return (tp.reduce(_own_columns(y, p["wo"], mg) @ p["wo"], mg),
+            _heads_whole(new, H, cfg, mg) if serve else new)
 
 
 def slstm(p: dict, x: torch.Tensor, cfg: ArchConfig, *, state: dict | None = None,
-          mg=None) -> tuple:
+          mg=None, serve: bool = False) -> tuple:
     """sLSTM (the reference's ``slstm``): per head a scalar-memory cell with
     exponential gating and a normaliser state.  p: {wq, wk, wv, wi, wf,
     wo}: ``wq`` gives the sigmoid output gate and ``wk`` is never read (as
@@ -720,13 +818,12 @@ def slstm(p: dict, x: torch.Tensor, cfg: ArchConfig, *, state: dict | None = Non
     group).  Steps over time in f32 from ``state`` ({"c", "n", "m"}; None:
     zeros and m = -1e30); returns (out, the state after the last step).
     ``mg`` as in :func:`mlstm`."""
-    if state is not None:
-        _serving_tp("sLSTM", mg)
     B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.hd
     if tp.active(mg):
         q, kvs, (logi, logf) = _xlstm_inputs_tp(p, x, cfg, ("wv",), mg)
         H = q.shape[2]
+        state = _heads_block(state, H, cfg, mg)
         v = kvs["wv"].to(torch.float32)
         o = torch.sigmoid(q.to(torch.float32))
     else:
@@ -750,7 +847,9 @@ def slstm(p: dict, x: torch.Tensor, cfg: ArchConfig, *, state: dict | None = Non
         ys.append(o[:, t] * c / torch.clamp_min(n, 1.0)[..., None])
         m = m_new
     y = torch.stack(ys, 1).reshape(B, S, H * hd).to(x.dtype)
-    return tp.reduce(_own_columns(y, p["wo"], mg) @ p["wo"], mg), {"c": c, "n": n, "m": m}
+    new = {"c": c, "n": n, "m": m}
+    return (tp.reduce(_own_columns(y, p["wo"], mg) @ p["wo"], mg),
+            _heads_whole(new, H, cfg, mg) if serve else new)
 
 
 # ---------------------------------------------------------------------------

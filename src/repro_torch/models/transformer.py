@@ -25,7 +25,12 @@ positions' token embeddings.
 Serving state: attention and MLA layers keep a KV cache written at
 positions; Mamba, mLSTM and sLSTM layers keep a recurrent state that each
 call replaces, copied in place into the cache's tensors (their ``[r]``
-slice for a stacked layer), so every cache leaf is written in place.
+slice for a stacked layer), so every cache leaf is written in place.  At a
+'model' axis above 1 a rank serves on its blocks of the weights and holds
+its block of the cache as ``serve/sharding.cache_specs`` lays out the
+global one (:func:`init_cache` with ``mesh``): its ``max_len / n_model``
+positions of every K/V or latent leaf (context-parallel), the recurrent
+states whole.
 """
 from __future__ import annotations
 
@@ -272,17 +277,37 @@ class Transformer(nn.Module):
     heads) or expert-parallel (MoE), the embedding and the head
     vocabulary-parallel where the vocabulary splits (a batch's
     ``vision_embeds`` replace the leading positions after the embedding's
-    sum over the group)."""
+    sum over the group).
 
-    def __init__(self, cfg: ArchConfig, tensors: dict, mg=None):
+    ``dp``: ``(group, {path: dim})``, the leaves a serving layout also
+    splits over the DP axes (``serve/sharding.serve_param_specs``), each
+    held as this rank's block on ``dim`` and gathered over ``group`` (a
+    ``tp.ModelGroup`` of the DP axes) in rank order where it is read
+    (:meth:`weight`).  ``mesh``: the mesh the model was laid out on, or
+    None."""
+
+    def __init__(self, cfg: ArchConfig, tensors: dict, mg=None, *, dp=None, mesh=None):
         super().__init__()
         self.cfg = cfg
         self.mg = mg if tp.active(mg) else None
         if self.mg is not None:
             check_model_parallel(cfg, self.mg.size)
+        self.dp_group, self.dp_dims = dp if dp is not None else (None, {})
+        self.mesh = mesh
         self.params = nn.ParameterDict()
         for path, _ in tree_paths(_tree_shapes(cfg)):
             self.params[path] = nn.Parameter(tensors[path])
+
+    def weight(self, path: str, r: int | None = None, top: dict | None = None) -> torch.Tensor:
+        """The leaf at ``path`` (from ``top`` where it holds it), at repeat
+        ``r`` of a stacked leaf; a leaf held split over the DP axes is
+        gathered over them (:class:`Transformer`'s ``dp``)."""
+        if top is not None and path in top:
+            t = top[path]
+            return t if r is None else t[r]
+        t = self.params[path] if r is None else self.params[path][r]
+        d = self.dp_dims.get(path)
+        return t if d is None else tp.gather(t, self.dp_group, d - (r is not None))
 
     def leaves(self) -> list:
         """Parameters in the reference's ``tree_leaves`` order."""
@@ -296,7 +321,7 @@ class Transformer(nn.Module):
         return _map_paths(_tree_shapes(self.cfg), lambda p: self.params[p].detach())
 
     def head(self) -> torch.Tensor:
-        return self.params["embed" if self.cfg.tie_embeddings else "lm_head"]
+        return self.weight("embed" if self.cfg.tie_embeddings else "lm_head")
 
     def vocab_group(self, table: torch.Tensor):
         """The model group when ``table`` (an embedding or head of this
@@ -310,11 +335,8 @@ class Transformer(nn.Module):
         or ``enc_blocks/`` sliced at repeat ``r``, or ``prefix_<i>/`` whole),
         taken from ``top`` where it holds them, as the tree of ``spec``'s
         leaves (``cross`` as in :func:`_layer_shapes`)."""
-        def get(k):
-            t = top[pre + k] if pre + k in top else self.params[pre + k]
-            return t if r is None else t[r]
-
-        return _map_paths(_layer_shapes(self.cfg, spec, cross), get)
+        return _map_paths(_layer_shapes(self.cfg, spec, cross),
+                          lambda k: self.weight(pre + k, r, top))
 
     def ropes(self, positions: torch.Tensor) -> dict:
         """The RoPE tables (cos, sin) at ``positions`` (S,) that the layers
@@ -335,8 +357,8 @@ class Transformer(nn.Module):
         ``enc_norm``.  ``top`` and ``remat`` as in :meth:`run_layers`."""
         cfg = self.cfg
         top = {} if top is None else top
-        get = lambda k: top[k] if k in top else self.params[k]  # noqa: E731
-        h = frames.to(get("enc_pos").dtype) + get("enc_pos")[None, :frames.shape[1]]
+        enc_pos = self.weight("enc_pos", top=top)
+        h = frames.to(enc_pos.dtype) + enc_pos[None, :frames.shape[1]]
         for r in range(cfg.n_enc_layers):
             def layer(h, r=r):
                 p = self._layer("enc_blocks/", r, ENC_SPEC, top, cross=False)
@@ -347,7 +369,7 @@ class Transformer(nn.Module):
 
             h = (checkpoint(layer, h, use_reentrant=False, preserve_rng_state=False)
                  if remat else layer(h))
-        return L.rms_norm(h, get("enc_norm"), cfg.norm_eps)
+        return L.rms_norm(h, self.weight("enc_norm", top=top), cfg.norm_eps)
 
     def run_layers(self, h: torch.Tensor, positions: torch.Tensor, cache: dict | None = None,
                    cache_pos: int | None = None, *, enc_out: torch.Tensor | None = None,
@@ -403,7 +425,7 @@ class Transformer(nn.Module):
                                            return_state=st is not None, mg=self.mg)
                     else:
                         out, new = getattr(L, spec.mixer)(p["mixer"], x, cfg, state=prev,
-                                                          mg=self.mg)
+                                                          mg=self.mg, serve=st is not None)
                     if st is not None:  # the state replaced, in place
                         for k, t in st.items():
                             t.copy_(new[k])
@@ -421,8 +443,7 @@ class Transformer(nn.Module):
             # the layer draws no random numbers: no RNG state to keep
             h = (checkpoint(layer, h, use_reentrant=False, preserve_rng_state=False)
                  if remat else layer(h))
-        return L.rms_norm(h, top.get("final_norm", self.params["final_norm"]),
-                          cfg.norm_eps)
+        return L.rms_norm(h, self.weight("final_norm", top=top), cfg.norm_eps)
 
     def embed(self, tokens: torch.Tensor, vision_embeds: torch.Tensor | None = None,
               table: torch.Tensor | None = None) -> torch.Tensor:
@@ -430,7 +451,7 @@ class Transformer(nn.Module):
         VLM stub's ``vision_embeds`` (B, Sv, D) replacing the leading Sv
         positions.  A table of this rank's block of the vocabulary looks up
         vocabulary-parallel (``tp.vocab_embed``)."""
-        table = self.params["embed"] if table is None else table
+        table = self.weight("embed") if table is None else table
         h = tp.vocab_embed(tokens, table, self.vocab_group(table))
         if vision_embeds is not None:
             ve = vision_embeds.to(h.dtype)
@@ -477,7 +498,7 @@ def _draw(shape, init, dt, generator, dev) -> torch.Tensor:
 
 
 def init(cfg: ArchConfig, *, generator: torch.Generator, device="cuda",
-         mesh=None) -> Transformer:
+         mesh=None, param_specs=None) -> Transformer:
     """Random initialisation with the reference's scales (normal * 0.02 for
     embeddings, the encoder's positions, the router and the xLSTM gates,
     normal * 0.5 for Mamba's conv, normal / sqrt(shape[0]) for dense layers
@@ -490,16 +511,46 @@ def init(cfg: ArchConfig, *, generator: torch.Generator, device="cuda",
 
     ``mesh``: a mesh whose 'model' axis is above 1 keeps this rank's block
     of each leaf (:func:`block_specs`), drawn whole as on one rank, so the
-    blocks of the ranks join to the one-rank init bit for bit."""
+    blocks of the ranks join to the one-rank init bit for bit.
+    ``param_specs``: a serving layout of the parameters on ``mesh``
+    (``serve/sharding.serve_param_specs``), whose leaves may also split
+    over the DP axes: the rank keeps its block of each leaf by it."""
     dev = kernels.resolve_device(device)
-    mg = tp.model_group(mesh)
-    kept = block_specs(cfg, mg.size) if mg else {}
+    block, kw = _layout(cfg, mesh, param_specs)
     tensors = {}
     for path, (shape, init) in tree_paths(_tree_shapes(cfg)):
         t = _draw(_stacked(cfg, path) + tuple(shape), init, _leaf_dtype(cfg, init),
                   generator, dev)
-        tensors[path] = _block(t, kept.get(path, ()), mg)
-    return Transformer(cfg, tensors, mg)
+        tensors[path] = block(path, t)
+    return Transformer(cfg, tensors, **kw)
+
+
+def _layout(cfg: ArchConfig, mesh, param_specs) -> tuple:
+    """``(block, kwargs)``: ``block(path, t)`` is this rank's block of the
+    global leaf ``t`` at ``path`` (a copy with storage of its own where it
+    is a part), by :func:`block_specs` on the mesh's 'model' axis, or by
+    ``param_specs`` (model and DP entries) where given; ``kwargs`` the
+    :class:`Transformer`'s ``mg``, ``dp`` and ``mesh``."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    mg = tp.model_group(mesh)
+    if param_specs is None:
+        kept = block_specs(cfg, mg.size) if mg else {}
+        return (lambda path, t: _block(t, kept.get(path, ()), mg)), dict(mg=mg, mesh=mesh)
+    specs = dict(tree_paths(param_specs))
+    dims = {path: d for path, s in specs.items() for d, e in enumerate(s)
+            if e is not None and e != "model" and mesh_lib.entry_size(e, mesh) > 1}
+    group = None
+    if dims:
+        from repro_torch.train.step import dp_axes_of
+
+        group = tp.ModelGroup(mesh_lib.axis_group(mesh, dp_axes_of(mesh)))
+
+    def block(path, t):
+        b = mesh_lib.block_of(t, specs[path], mesh)
+        return b if b.shape == t.shape else b.clone(memory_format=torch.contiguous_format)
+
+    return block, dict(mg=mg, dp=(group, dims), mesh=mesh)
 
 
 def abstract_params(cfg: ArchConfig) -> dict:
@@ -533,38 +584,89 @@ def load_reference_params(tree, cfg: ArchConfig, device="cuda", mesh=None) -> Tr
     as in :func:`init`: this rank's block of each global leaf."""
     dev = kernels.resolve_device(device)
     dts = leaf_dtypes(cfg)
-    mg = tp.model_group(mesh)
-    kept = block_specs(cfg, mg.size) if mg else {}
-    tensors = {path: _block(numpy_to_torch(a, dts[path]), kept.get(path, ()), mg).to(dev)
+    block, kw = _layout(cfg, mesh, None)
+    tensors = {path: block(path, numpy_to_torch(a, dts[path])).to(dev)
                for path, a in tree_paths(tree)}
-    return Transformer(cfg, tensors, mg)
+    return Transformer(cfg, tensors, **kw)
 
 
 # ---------------------------------------------------------------------------
 # serving: KV cache and recurrent state, prefill, decode
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda") -> dict:
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda", *,
+               cp_shards: int = 1, mesh=None) -> dict:
     """The reference's cache pytree: ``{"pos": int32 scalar, "prefix_<i>":
     {...} per prefix layer, "blocks": ({...},) per pattern position}``; a
     pattern position's leaves lead with ``repeats``.  By mixer: attention's
-    ``{"kv": {"k", "v"}}`` of ``(batch, max_len, kv_heads, hd)``, MLA's
-    latents ``{"kv": {"c_kv": (batch, max_len, kv_lora), "k_rope": (batch,
-    max_len, rope_dim)}}``, zeros in the model dtype; Mamba's ``{"ssm":
+    ``{"kv": {"k", "v"}}`` of ``(batch, s_loc, kv_heads, hd)``, MLA's
+    latents ``{"kv": {"c_kv": (batch, s_loc, kv_lora), "k_rope": (batch,
+    s_loc, rope_dim)}}``, zeros in the model dtype; Mamba's ``{"ssm":
     {"h": (batch, di, d_state) f32, "conv": (batch, d_conv - 1, di)}}``,
     mLSTM's ``{"rnn": {"C": (batch, H, hd, hd), "n": (batch, H, hd), "m":
     (batch, H)}}`` and sLSTM's ``{"rnn": {"c": (batch, H, hd), "n", "m":
     (batch, H)}}``, f32 but ``conv`` (the model dtype), zeros but ``m``
-    (-1e30)."""
-    return _cache_tree(cfg, batch, max_len, kernels.resolve_device(device))
+    (-1e30).  ``s_loc = max_len // cp_shards``: the positions one shard of
+    a context-parallel cache holds (the reference's ``cp_shards``).
+
+    ``mesh``: this rank's block of the global cache of ``batch`` rows as
+    ``serve/sharding.cache_specs`` lays it out (:func:`cache_block`)."""
+    dev = kernels.resolve_device(device)
+    if mesh is not None:
+        return _cache_tree(cfg, *cache_block(cfg, batch, max_len, mesh), dev)
+    return _cache_tree(cfg, batch, max_len // cp_shards, dev)
 
 
-def cache_struct(cfg: ArchConfig, batch: int, max_len: int) -> dict:
+def cache_struct(cfg: ArchConfig, batch: int, max_len: int, *, cp_shards: int = 1,
+                 mesh=None) -> dict:
     """:func:`init_cache`'s tree as ``meta`` tensors (no storage)."""
-    return _cache_tree(cfg, batch, max_len, torch.device("meta"))
+    if mesh is not None:
+        return _cache_tree(cfg, *cache_block(cfg, batch, max_len, mesh), torch.device("meta"))
+    return _cache_tree(cfg, batch, max_len // cp_shards, torch.device("meta"))
 
 
-def _cache_tree(cfg: ArchConfig, batch: int, max_len: int, dev: torch.device) -> dict:
+def cache_block(cfg: ArchConfig, batch: int, max_len: int, mesh) -> tuple:
+    """``(rows, s_loc)`` of this rank's block of the global cache of
+    ``batch`` rows and ``max_len`` positions as ``serve/sharding.
+    cache_specs`` lays it out on ``mesh``: ``batch / n_dp`` rows (the
+    rank's pod-major DP index holds rows ``[i rows, (i + 1) rows)``) and,
+    at model index ``r``, positions ``[r s_loc, (r + 1) s_loc)`` of every
+    K/V or latent leaf, ``s_loc = max_len / n_model``; every KV head and
+    the whole latent; the recurrent states whole on every model rank, as
+    the specs replicate them.  Raises ValueError where the specs lay the
+    cache out otherwise: a batch or a ``max_len`` they leave whole, or a
+    recurrent leaf they split over 'model' because one of its widths
+    equals ``max_len`` (the reference would split that state; the port
+    keeps states whole)."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.serve.sharding import cache_specs
+
+    specs, struct = cache_specs(cfg, mesh, batch, max_len)
+    n_dp, n_model = mesh_lib.dp_size(mesh), mesh_lib.axis_sizes(mesh)["model"]
+    leaves = dict(tree_paths(struct))
+    if batch % n_dp or max_len % n_model:
+        raise ValueError(f"{cfg.name}: a cache of {batch} rows and {max_len} positions does "
+                         f"not split into {n_dp} DP blocks of rows and {n_model} model "
+                         f"blocks of positions")
+    rows, s_loc = batch // n_dp, max_len // n_model
+    block = dict(tree_paths(_cache_tree(cfg, rows, s_loc, torch.device("meta"))))
+    for path, spec in tree_paths(specs):
+        shape = tuple(leaves[path].shape)
+        if n_model > 1 and "/kv/" not in path and "model" in spec:
+            d = spec.index("model")
+            raise ValueError(f"{cfg.name}: cache_specs splits the recurrent state {path} "
+                             f"{shape} over 'model' on dim {d}, whose width {shape[d]} "
+                             f"equals max_len; the port keeps recurrent states whole on "
+                             f"every model rank (pick another max_len)")
+        want = mesh_lib.shard_shape(shape, spec, mesh)
+        if tuple(block[path].shape) != want:
+            raise ValueError(f"{cfg.name}: cache leaf {path} {shape} is laid out as "
+                             f"{want} a rank by {spec}, not as the port's block "
+                             f"{tuple(block[path].shape)}")
+    return rows, s_loc
+
+
+def _cache_tree(cfg: ArchConfig, batch: int, s_loc: int, dev: torch.device) -> dict:
     dt = codec.LAYOUTS[cfg.dtype].dtype
     f32 = torch.float32
     H, hd = cfg.n_heads, cfg.hd
@@ -585,7 +687,7 @@ def _cache_tree(cfg: ArchConfig, batch: int, max_len: int, dev: torch.device) ->
             widths = {"c_kv": (cfg.mla.kv_lora,), "k_rope": (cfg.mla.rope_dim,)}
         else:
             widths = dict.fromkeys(("k", "v"), (cfg.kv_heads, cfg.hd))
-        return {"kv": {k: z(max_len, *w, dtype=dt) for k, w in widths.items()}}
+        return {"kv": {k: z(s_loc, *w, dtype=dt) for k, w in widths.items()}}
 
     cache = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
     for i, spec in enumerate(cfg.prefix):
@@ -602,10 +704,12 @@ def logits_from_hidden(model: Transformer, h: torch.Tensor) -> torch.Tensor:
     return tp.copy(h, model.vocab_group(head)) @ head.T
 
 
-def _serving(model: Transformer) -> None:
-    if model.mg is not None:
-        raise NotImplementedError(f"prefill and decode at model = {model.mg.size} are not "
-                                  f"ported (ROADMAP Queue A, slice 19)")
+def _whole_logits(model: Transformer, h: torch.Tensor) -> torch.Tensor:
+    """Logits over the whole vocabulary: a vocabulary-parallel head's
+    blocks gathered over the model group in rank order, the same bits on
+    every rank."""
+    head = model.head()
+    return tp.gather(h @ head.T, model.vocab_group(head), -1)
 
 
 @torch.no_grad()
@@ -619,14 +723,18 @@ def prefill(model: Transformer, tokens: torch.Tensor, cache: dict, *,
     after the last position), in place; returns (last-position logits (B,
     1, V), the cache with ``pos = S``).  The cache is what PD
     disaggregation ships; an encoder-decoder model's decode steps take the
-    encoder's output again (:meth:`Transformer.encode`)."""
-    _serving(model)
+    encoder's output again (:meth:`Transformer.encode`).
+
+    At a model group the rank runs on its blocks and ``cache`` is its
+    block (:func:`init_cache` with ``mesh``): each layer writes the
+    positions of [0, S) its block holds (a prompt may be longer than a
+    block), and the logits are gathered whole on every rank."""
     S = tokens.shape[1]
     enc_out = model.encode(frames)
     h = model.embed(tokens, vision_embeds)
     h = model.run_layers(h, torch.arange(S, device=tokens.device), cache, enc_out=enc_out)
     pos = torch.tensor(S, dtype=torch.int32, device=tokens.device)
-    return logits_from_hidden(model, h[:, -1:]), dict(cache, pos=pos)
+    return _whole_logits(model, h[:, -1:]), dict(cache, pos=pos)
 
 
 @torch.no_grad()
@@ -638,10 +746,11 @@ def decode_step(model: Transformer, tokens: torch.Tensor, cache: dict, *,
     the cross-attention, whose K/V are projected anew every step (as the
     reference's); without it a decoder layer skips its cross-attention,
     as the reference's does.  Returns (logits (B, 1, V), the cache with
-    ``pos + 1``)."""
-    _serving(model)
+    ``pos + 1``).  At a model group as :func:`prefill`: the rank whose
+    block holds ``pos`` writes its K/V, and attention combines the ranks'
+    partial softmaxes (``layers._decode_attend``)."""
     pos = int(cache["pos"])
     h = model.embed(tokens)
     h = model.run_layers(h, torch.full((1,), pos, device=tokens.device), cache, pos,
                          enc_out=enc_out)
-    return logits_from_hidden(model, h), dict(cache, pos=cache["pos"] + 1)
+    return _whole_logits(model, h), dict(cache, pos=cache["pos"] + 1)

@@ -14,10 +14,17 @@ The inference side of the paper's §5.3.2 workload.  Two deployment modes:
 ``ServeEngine`` keeps a fixed number of decode slots, each holding one
 request's cache position; finished slots are refilled from the queue
 between decode steps; ``ingest_weights`` hot-swaps the model's weights from
-the weight-sync wire (``sync/engine.py``).  The reference's semantics are
-kept where they look odd: one engine-wide ``pos = max(slot pos)`` per decode step, prompts
-left-padded with zeros to a multiple of ``prefill_chunk``, and the splice
-of an admitted cache on the stacked dimension 1.  Sampling is greedy at
+the weight-sync wire (``sync/engine.py``).  On a model laid out over a
+'model' axis above 1 (``transformer.init(mesh=)``, at data = 1) every
+rank of the model group runs the engine on the same requests: it holds
+its block of the weights and of every cache (``transformer.init_cache``
+with the mesh: its block of each K/V leaf's positions, the recurrent
+states whole), splices and, PD-disaggregated, ships its own block, and
+samples the same tokens from the same whole logits.  The reference's
+semantics are kept where they look odd: one engine-wide ``pos = max(slot
+pos)`` per decode step, prompts left-padded with zeros to a multiple of
+``prefill_chunk``, and the splice of an admitted cache on the stacked
+dimension 1.  Sampling is greedy at
 temperature 0; above it, a categorical draw from a generator on the
 engine's device, seeded with 0 (as the reference seeds
 ``PRNGKey(0)``), one draw a :func:`sample` call in the reference's order
@@ -41,6 +48,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.integrity import WireIntegrityError
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import transformer
 from repro_torch.models.config import ArchConfig
 from repro_torch.tree_util import tree_flatten, tree_leaves
@@ -121,8 +129,11 @@ class ServeEngine:
         # test seam that interposes on the packed wire (fault injection)
         self._kv_max_tries = 3
         self.kv_fault_injector: Optional[Callable] = None
-        self.cache = transformer.init_cache(cfg, scfg.batch_slots, scfg.max_len,
-                                            self.device)
+        self.mesh = model.mesh if model.mg is not None else None
+        if model.mg is not None and (self.mesh is None or mesh_lib.dp_size(self.mesh) != 1):
+            raise ValueError("ServeEngine at model > 1 serves a model laid out on a mesh "
+                             "(transformer.init(mesh=)) at data = 1")
+        self.cache = self._new_cache(scfg.batch_slots)
         self.tokens = torch.zeros((scfg.batch_slots, 1), dtype=torch.int32,
                                   device=self.device)
         self.slots: list = [None] * scfg.batch_slots
@@ -152,6 +163,10 @@ class ServeEngine:
         model's parameters in place, so the decode loop keeps its tensors."""
         from repro_torch.sync.engine import apply_update, verify_update
 
+        if self.mesh is not None:
+            raise NotImplementedError("ingest_weights at model > 1 is not ported (ROADMAP "
+                                      "Queue A: weight ingestion into a model split over "
+                                      "'model')")
         if update.checksum is not None and not verify_update(update):
             obs.metric("serve_ingest_rejects_total").inc(reason="checksum")
             raise WireIntegrityError(
@@ -188,11 +203,19 @@ class ServeEngine:
         self.queue.append(req)
         obs.metric("serve_queue_depth").set(len(self.queue))
 
+    def _new_cache(self, batch: int) -> dict:
+        """A cache of ``batch`` rows on the engine's device: this rank's
+        block of it at model > 1."""
+        return transformer.init_cache(self.cfg, batch, self.scfg.max_len, self.device,
+                                      mesh=self.mesh)
+
     @staticmethod
     def _splice_impl(batched_cache: dict, one_cache: dict, slot: int) -> dict:
         """Write a single-request cache (batch 1) into slot ``slot`` of the
         batched cache, in place.  The batch dimension is 0 or, for stacked
-        blocks, 1; ``pos`` is per engine (slot positions live on the host)."""
+        blocks, 1; ``pos`` is per engine (slot positions live on the host).
+        At model > 1 both caches are this rank's blocks, which hold the
+        same positions."""
         def leafwise(b, o):
             if b.dim() == 0:
                 return
@@ -218,8 +241,7 @@ class ServeEngine:
             with obs.span("serve:admit", rid=req.rid, slot=s):
                 pad = -len(req.prompt) % self.scfg.prefill_chunk
                 toks = np.concatenate([np.zeros(pad, np.int32), req.prompt])
-                one_cache = transformer.init_cache(self.cfg, 1, self.scfg.max_len,
-                                                   self.device)
+                one_cache = self._new_cache(1)
                 with obs.span("serve:prefill", tokens=len(toks)):
                     logits, one_cache = transformer.prefill(
                         self.model,
@@ -245,7 +267,8 @@ class ServeEngine:
 
     def _ship_kv(self, one_cache: dict) -> dict:
         """Cross the prefill -> decode boundary: pack the prefilled cache with
-        the host compressor and unpack it on the decode side.
+        the host compressor and unpack it on the decode side (at model > 1,
+        this rank's block of it).
 
         The codec schedule comes from a kind-"kv" CommPlan keyed on the
         cache signature: the first admission compiles it, every later one

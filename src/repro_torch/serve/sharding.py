@@ -7,8 +7,9 @@ model_specs``), and a leaf above ``shard_over_dp_bytes`` per model shard
 also goes over the DP axes on a free dim, as no device holds deepseek-v3's
 1.34 TB replicated over DP even at model = 16.  A KV cache puts its batch
 dim over the DP axes and its ``max_len`` dim over 'model' (context-
-parallel decode).  The serving engine runs on one device today; these are
-the layouts a sharded server and the dry run read.
+parallel decode).  A rank serves on its blocks by these layouts:
+``transformer.init(mesh=, param_specs=serve_param_specs(...))`` and
+``transformer.init_cache(mesh=)``; the dry run reads them too.
 """
 from __future__ import annotations
 

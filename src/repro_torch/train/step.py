@@ -291,7 +291,7 @@ class TrainState:
                       for p, q, d in zip(params, self.model.leaves(),
                                          tree_leaves(self.fsdp_dims), strict=True)]
         model = transformer.Transformer(self.model.cfg, dict(transformer.tree_paths(
-            tree_unflatten(pdef, [p.to(dev) for p in params]))), mg)
+            tree_unflatten(pdef, [p.to(dev) for p in params]))), mg, mesh=self.model.mesh)
 
         def shapes(t):
             return [tuple(v.shape) for v in tree_leaves(t)]

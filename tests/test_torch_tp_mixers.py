@@ -44,7 +44,8 @@ import torch
 from repro.models import layers as jL
 from repro_torch.models import layers, transformer
 from torch_port_util import (TP_MIXER_CASES, run_gloo_ranks, tp_mixer_arrays, tp_mixer_config,
-                             tp_mixer_run, tp_mixers_rank)
+                             tp_mixer_run, tp_mixer_serve_rank, tp_mixer_serve_run,
+                             tp_mixers_rank)
 
 WORLDS = (1, 2, 4)
 CASES = sorted(TP_MIXER_CASES)
@@ -177,15 +178,23 @@ def test_xlstm_gates_stay_whole_where_heads_are_fewer_than_ranks(ranks):
         assert res["mlstm/d/wi"].shape == (cfg.d_model, cfg.n_heads), r
 
 
-def test_serving_forms_refuse_a_model_group():
-    """Prefill and decode at model > 1 are slice 19's: a state or a
-    returned state with a model group raises."""
-    active = SimpleNamespace(size=2, rank=0)
-    cfg, _ = tp_mixer_config("mamba")
-    with pytest.raises(NotImplementedError, match="slice 19"):
-        layers.mamba({}, torch.zeros(1, 1, cfg.d_model), cfg, return_state=True, mg=active)
-    for case in ("mlstm", "slstm"):
-        cfg, spec = tp_mixer_config(case)
-        with pytest.raises(NotImplementedError, match="slice 19"):
-            getattr(layers, spec.mixer)({}, torch.zeros(1, 1, cfg.d_model), cfg, state={},
-                                        mg=active)
+def test_serving_forms_refuse_a_model_group(tmp_path):
+    """The serving forms no longer refuse a model group: at 2 gloo ranks
+    each case's prefill (its state returned) and a decode step from that
+    state, on the rank's blocks, give every rank the one-rank layer's
+    output and the whole state (the rank reads its channels or heads of
+    the whole state, and the new state is gathered over the group), the
+    same bits on both ranks.  Tolerances: the file's bounds against the
+    one-rank layer (Mamba in f32 1e-5; the bf16 cells 2**-7 of the largest
+    magnitude plus 1%)."""
+    runs = run_gloo_ranks(tp_mixer_serve_rank, 2, tmp_path, timeout=300)
+    for case in CASES:
+        cfg, _ = tp_mixer_config(case)
+        want = tp_mixer_serve_run(case)
+        for key, w in want.items():
+            got = runs[0][f"{case}/{key}"]
+            np.testing.assert_array_equal(runs[1][f"{case}/{key}"], got, err_msg=key)
+            assert got.shape == w.shape, (case, key)
+            tol = np.abs(w).max() * (1e-5 if cfg.dtype == "float32" else 2 ** -7)
+            rel = 0.0 if cfg.dtype == "float32" else 0.01
+            np.testing.assert_allclose(got, w, rtol=rel, atol=tol, err_msg=f"{case} {key}")

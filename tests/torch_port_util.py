@@ -1777,3 +1777,45 @@ def mesh_tp_rank(rank: int, world: int, out: str, kind: str, ref_dir: str) -> No
             res.update(forced_losses=np.array(losses), forced_retries=retries,
                        forced_params=_leaf_bytes(st.model.leaves()))
     np.savez(out, **res)
+
+
+def tp_mixer_serve_run(case: str, mg=None) -> dict:
+    """The case's mixer in its serving forms on this rank's blocks (all of
+    them without ``mg``): a prefill over all positions but the last, which
+    returns the state, then a decode step of the last position from it;
+    ``y`` (both outputs joined) and ``state/<name>`` (the decode's new
+    state), each as f32."""
+    import torch
+
+    from repro_torch.models import layers, transformer
+
+    cfg, spec = tp_mixer_config(case)
+    n = 1 if mg is None else mg.size
+    specs = {p[len("blocks/0/mixer/"):]: s[1:] for p, s in
+             transformer.block_specs(cfg, n).items() if p.startswith("blocks/0/mixer/")}
+    dt = torch.float32 if cfg.dtype == "float32" else torch.bfloat16
+    w, x, _ = tp_mixer_arrays(case)
+    p = nest_paths({path: transformer._block(
+        torch.from_numpy(a) if path in ("a_log", "d_skip", "dt_bias") else
+        torch.from_numpy(a).to(dt), specs[path], mg) for path, a in w.items()})
+    xt = torch.from_numpy(x).to(dt)
+    fn = getattr(layers, spec.mixer)
+    kw = {"return_state": True} if spec.mixer == "mamba" else {"serve": True}
+    with torch.no_grad():
+        y0, st = fn(p, xt[:, :-1], cfg, mg=mg, **kw)
+        y1, st = fn(p, xt[:, -1:], cfg, state=st, mg=mg, **kw)
+    out = {"y": torch.cat([y0, y1], 1).float().numpy()}
+    out.update({f"state/{k}": t.float().numpy() for k, t in st.items()})
+    return out
+
+
+def tp_mixer_serve_rank(rank: int, world: int, out: str) -> None:
+    """:func:`tp_mixer_serve_run` of every ``TP_MIXER_CASES`` case on this
+    rank of a world-sized model group, keys ``<case>/...``."""
+    import torch.distributed as dist
+
+    from repro_torch.models import tp
+
+    mg = tp.ModelGroup(dist.group.WORLD)
+    np.savez(out, **{f"{case}/{k}": v for case in TP_MIXER_CASES
+                     for k, v in tp_mixer_serve_run(case, mg).items()})

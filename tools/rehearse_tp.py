@@ -26,7 +26,7 @@ sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
 import chip_smoke as cs  # noqa: E402
 
 # SMOKE's positions of each job's pattern cut, where the full config's differ
-SMOKE_PATTERN = {"tp_jamba_fsdp": (1, 2)}
+SMOKE_PATTERN = {"tp_jamba_fsdp": (1, 2), "tp_serve_jamba": (1, 2)}
 
 
 def patch(torch) -> None:
@@ -55,6 +55,7 @@ def patch(torch) -> None:
             kernels.count_launch(_kernel, _key(*args))
             return out
         setattr(mod, attr, counted)
+    torch.cuda.synchronize = lambda *a, **k: None
     torch.cuda.reset_peak_memory_stats = lambda *a, **k: None
     torch.cuda.max_memory_allocated = lambda *a, **k: 0
     torch.cuda.empty_cache = lambda *a, **k: None
@@ -113,7 +114,6 @@ def main() -> None:
     names = sys.argv[1].split(",") if len(sys.argv) > 1 else list(cs.TP_JOBS)
     patch(torch)
     torch.cuda.Event = _Event
-    torch.cuda.synchronize = lambda *a, **k: None
     torch.cuda.mem_get_info = lambda *a, **k: (1 << 34, 1 << 35)
     cs.run_card = lambda: "cpu (rehearsal)"
     cs.run_tp_job = run_job
