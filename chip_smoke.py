@@ -120,7 +120,23 @@ result line each:
             from the module ledger (clear_wire_reports, one step,
             wire_reports) and its time (median of 5); a cell JSON and its
             trace read back by roofline.report.collect.  Prints the markdown
-            row and the step's share of the card's bf16 peak.
+            row and the step's share of the card's bf16 peak.  One more
+            step gives the arguments' bytes (state and batch) and the peak
+            the card allocates above what was allocated before it.
+   dryrun - the dry run (launch/dryrun) on the CPU, no card involved:
+            tinyllama_1_1b train_4k at (16, 16) as rank 0 of a fake world
+            of 256 on fake tensors, through its CLI in a process of its own
+            started after the build (no card visible to it) and run beside
+            the phases before this one; its JSON and trace read by
+            roofline.report.collect (arguments and temp a device, FLOPs,
+            wire ratio, collective bytes, the row).  Then, after the main
+            phase's group is gone, the roofline phase's step (its TrainConfig, 8 x 512, (1,
+            1, 1)) once on fake tensors by the same tracker and counter:
+            its arguments' bytes equal the card's state and batch, its
+            FLOPs the roofline phase's count, its all-to-all and all-gather
+            bytes the plan:zero1 wire, and the card's peaks of a forward
+            and backward and of the step lie within DRYRUN_PEAK_* of the
+            tracked ones (all printed).
    psum   - on the same group, the gradient pytree of one forward+backward
             of the trained model at batch 8 x 512 through psum_with_plan
             with the default policy (its one bf16 bucket on the two-shot,
@@ -148,7 +164,7 @@ result line each:
 4b. fsdp  - smollm_135m at full width, compressed FSDP (partition="fsdp", 2
             microbatches, remat) on a new single-rank NCCL group through a
             (1, 1, 1) mesh, batch 8 x
-            seq 512: 3 compressed steps, then 3 of the raw twin from the same
+            seq 512: 2 compressed steps, then 2 of the raw twin from the same
             weights, through the launcher's StepRunner.  The 7 stacked
             projections and the embedding are sharded (fsdp_min_bytes 1
             MiB; the norms stay replicated), each gathered on a cached
@@ -295,7 +311,7 @@ result line each:
             unpacks each cache leaf twice (glm4 2 leaves, gemma3 16 of two
             shapes); one prefilled cache shipped bit-identical (pack and
             unpack ms, wire ratio); tokens/s of each mode.  qwen2-vl-72b at
-            full width, its repeats cut to 4 (80 layers to 4): one prefill
+            full width, its repeats cut to 2 (80 layers to 2): one prefill
             of 2 x 512 tokens whose first 128 positions are
             registry.make_batch's vision_embeds, its cache over the host
             wire bit-identical (pack and unpack 4 each), 8 greedy decode
@@ -316,8 +332,8 @@ tp - ZeRO-1 and FSDP with tensor and expert parallelism over 'model'
             gloo group (a FileStore in a temporary directory), each capped
             by torch.cuda.set_per_process_memory_fraction; the kernels are
             built by this process first and the ranks only load them.
-            tinyllama-1.1b at full width, 18 of its 22 layers (four ranks
-            fit no more), on (data, model) = (2, 2), 8 x 512 global, and
+            tinyllama-1.1b at full width, 3 of its 22 layers, on (data,
+            model) = (2, 2), 8 x 512 global, and
             deepseek-v2-lite at full width cut to
             its dense prefix and one MoE layer on (1, 2), 32 of its 64
             experts a rank: each rank runs the launcher's ZeRO-1 path,
@@ -342,7 +358,21 @@ tp - ZeRO-1 and FSDP with tensor and expert parallelism over 'model'
             xlstm-350m at full width, one period (7 mLSTM + 1 sLSTM), ZeRO-1
             at (1, 2), 2 of its 4 heads a rank, 8 x 128, 2 + 2 steps.  Their
             bounds (TP_JAMBA_*, TP_XLSTM_*) come from tools/rehearse_tp.py,
-            the phase rehearsed on the CPU at SMOKE size.
+            the phase rehearsed on the CPU at SMOKE size.  The serve jobs
+            (tp_serve_*): ServeEngine at (1, 2), colocated then PD, held
+            against the model at model = 1.  tp_serve_deepseek also ingests:
+            this process makes a full update of the job's weights at model
+            = 1 and, after a seeded change (TP_INGEST_CHANGE), a delta
+            (WeightSyncEngine.update_for); after their serve runs both ranks
+            ingest each (ServeEngine.ingest_weights at model > 1); every
+            rank's blocks have the sha256 of its blocks of the decoded whole
+            leaves, every rank holds the same version and epoch, a corrupted
+            copy is refused with the blocks untouched, and PD tokens on the
+            new weights equal the colocated ones on both ranks; unpack
+            twice a piece of a compressed bucket (a rank decodes a bucket
+            2**24 values at a time), rank 0's inputs timed, the
+            launches in the kernels line (tp_serve_deepseek_ingest).  Prints
+            each update's ratio and apply ms a rank.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 ``kernels`` JSON.  Any failed phase exits non-zero and prints no result.
@@ -1444,7 +1474,7 @@ def phase_roofline(comp, group, dev, torch):
     from repro_torch import kernels
     from repro_torch.core import policy
     from repro_torch.data.pipeline import DataConfig, DataPipeline
-    from repro_torch.launch import cells
+    from repro_torch.launch import cells, dryrun
     from repro_torch.launch import train as launch_train
     from repro_torch.roofline import analysis, report
     from repro_torch.roofline import model as roof_model
@@ -1490,6 +1520,24 @@ def phase_roofline(comp, group, dev, torch):
         reports = policy.wire_reports()
         policy.clear_wire_reports()
         step_s = sorted(times)[len(times) // 2]
+        # for phase_dryrun: the arguments' bytes, and the peaks the card
+        # allocates above what is allocated before a forward and backward
+        # and before one more step
+        args_bytes = dryrun.storage_bytes(dryrun.input_tensors(state)) + dryrun.storage_bytes(
+            batch.values())
+        peak = {}
+        for part, fn in (("forward_backward", lambda: step_lib._microbatch_grads(
+                lambda mb: step_lib.loss_fn(state.model, mb, comp.tcfg), batch,
+                comp.tcfg.microbatches)), ("step", step)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            fn()
+            torch.cuda.synchronize()
+            peak[part] = torch.cuda.max_memory_allocated() - before
+            for p in state.model.leaves():
+                p.grad = None
+        policy.clear_wire_reports()
         model_flops = analysis.model_flops_for(ARCH, shape)
         rec = {"arch": ARCH, "shape": shape.name, "mesh": "h100x1", "n_chips": 1,
                "compressed": True, "ok": True, "model_flops": model_flops,
@@ -1534,7 +1582,9 @@ def phase_roofline(comp, group, dev, torch):
           f"{flops / step_s / 1e12:.2f} TFLOP/s; bound {row.t_bound * 1e3:.3f} ms "
           f"({row.bottleneck}), roofline fraction at the bound {row.roofline_fraction:.3f}")
     return {"launches": launches, "recorded": recorded, "share": share,
-            "step_ms": step_s * 1e3, "flops": flops, "model_flops": model_flops, "coll": coll}
+            "step_ms": step_s * 1e3, "flops": flops, "model_flops": model_flops, "coll": coll,
+            "tcfg": comp.tcfg, "plan_wire": plan.wire_bytes, "args_bytes": args_bytes,
+            "peak": peak, "batch": {k: (tuple(v.shape), v.dtype) for k, v in batch.items()}}
 
 
 def phase_checkpoint(comp, group, hb, dev, torch):
@@ -1614,6 +1664,140 @@ def phase_checkpoint(comp, group, hb, dev, torch):
     del live, restored
 
 
+DRYRUN_CELL = ("tinyllama_1_1b", "train_4k", "single")
+# the card's peaks above the arguments against the dry run's tracked ones
+# (PERF.md section 6): a forward and backward (the same plain
+# PyTorch ops on the card) within 1% and 64 MiB of the tracked one (the
+# allocator's 512-byte rounding of every live block, cuBLAS workspaces);
+# the whole step at least the tracked forward and backward less 1%, at
+# most the tracked whole step (the sync on the plain route's temporaries,
+# which the kernels do without) plus 1% and 64 MiB
+DRYRUN_PEAK_LOW, DRYRUN_PEAK_HIGH, DRYRUN_PEAK_SLACK = 0.99, 1.01, 64 << 20
+DRYRUN_TIMEOUT = 600  # seconds phase_dryrun waits for dryrun_cell's process
+
+
+@contextlib.contextmanager
+def dryrun_cell():
+    """DRYRUN_CELL through the dry run's CLI (``python -m
+    repro_torch.launch.dryrun``) in a process of its own, started now and
+    run beside the phases that use the card (it takes only the host's
+    CPU): no card is visible to it (``CUDA_VISIBLE_DEVICES`` empty).
+    Yields ``(process, output directory)``; the process is killed on exit
+    if it still runs."""
+    import tempfile
+
+    arch, shape, mk = DRYRUN_CELL
+    with tempfile.TemporaryDirectory(prefix="dryrun_") as tmp:
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), CUDA_VISIBLE_DEVICES="",
+                   OMP_NUM_THREADS="1")
+        with open(os.path.join(tmp, "log.txt"), "w") as log:
+            proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                                     arch, "--shape", shape, "--mesh", mk, "--out-dir", tmp],
+                                    cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+            try:
+                yield proc, tmp
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait()
+
+
+def phase_dryrun(roofline, cell, dev, torch):
+    """The dry run (``launch/dryrun``) on the CPU, no card involved: (a)
+    DRYRUN_CELL, rank 0 of a fake world of 256 on fake tensors, run by
+    :func:`dryrun_cell` beside the earlier phases; ``roofline.report.
+    collect`` reads its JSON and trace.  (b) Its accounting held
+    against the card: the roofline phase's ZeRO-1 step of smollm-135m at (1,
+    1, 1) (its TrainConfig, its batch's shapes) run once on fake tensors by
+    the same tracker and counter: the arguments' bytes equal the real
+    state's and batch's, the FLOPs the roofline phase's count, the all-to-all
+    and all-gather bytes the plan:zero1 wire, and the card's peak above the
+    arguments (a forward and backward, the whole step) lie within
+    DRYRUN_PEAK_* of the tracked ones."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.roofline import analysis, report
+    from repro_torch.train import step as step_lib
+
+    t0 = time.perf_counter()
+    arch, shape, mk = DRYRUN_CELL
+    proc, tmp = cell
+    try:
+        rc = proc.wait(timeout=DRYRUN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        rc = None
+    with open(os.path.join(tmp, "log.txt")) as f:
+        log = f.read()
+    if rc != 0:
+        raise AssertionError(f"the dry run of {DRYRUN_CELL} exited {rc}: {log[-3000:]}")
+    with open(os.path.join(tmp, f"{arch}__{shape}__{mk}.json")) as f:
+        rec = json.load(f)
+    rows = report.collect(tmp, mesh=mk)
+    waited = time.perf_counter() - t0
+    if len(rows) != 1 or not rec["ok"] or rows[0].flops != rec["cost"]["flops"] or \
+            rows[0].coll_bytes != sum(rec["collectives"]["bytes"].values()):
+        raise AssertionError(f"report.collect read {rows} of the cell {rec}")
+    mem, (row,) = rec["memory"], rows
+    print(f"dryrun: {arch} {shape} on (data, model) = (16, 16): rank 0 of a fake world of "
+          f"{rec['n_chips']}, fake CPU tensors, no device (a process of its own beside the "
+          f"earlier phases, waited for {waited:.1f} s); build {rec['build_s']} s, run "
+          f"{rec['run_s']} s; a device's arguments {mem['argument_size_bytes'] / 2**30:.4f} "
+          f"GiB (the specs' {mem['spec_argument_size_bytes'] / 2**30:.4f}: a ZeRO-1 row once "
+          f"a model shard), temp {mem['temp_size_bytes'] / 2**30:.4f} GiB, outputs "
+          f"{mem['output_size_bytes']} B, in place {mem['alias_size_bytes'] / 2**30:.4f} GiB; "
+          f"{rec['cost']['flops']:.4e} FLOPs a rank; wire ratio {rec['wire']['ratio']:.4f}; "
+          f"collective bytes {sum(rec['collectives']['bytes'].values())} "
+          f"{rec['collectives']['bytes']}")
+    print("  " + analysis.MD_HEADER_WIRE.replace("\n", "\n  "))
+    print("  " + analysis.markdown_row_wire(row))
+    cfg, tcfg = configs.get(ARCH), roofline["tcfg"]
+    t1 = time.perf_counter()
+    with dryrun.fake_world(1):
+        mesh = mesh_lib.make_mesh((1, 1, 1), ("pod", "data", "model"), device="cpu")
+        dryrun.make_groups(mesh, tcfg)
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            state = step_lib.build_train_state(cfg, tcfg, generator=torch.Generator().manual_seed(
+                SEED), mesh=mesh, device="cpu")
+            batch = {k: torch.zeros(sh, dtype=dt) for k, (sh, dt) in roofline["batch"].items()}
+            fb = dryrun.measure(lambda st, b: {"loss": step_lib._microbatch_grads(
+                lambda mb: step_lib.loss_fn(st.model, mb, tcfg), b, tcfg.microbatches)},
+                (state, batch))
+            for p in state.model.leaves():
+                p.grad = None
+            res = dryrun.measure(lambda st, b: step_lib.train_step(st, b, tcfg), (state, batch))
+    fake_s = time.perf_counter() - t1
+    got = res["collectives"]["bytes"]
+    moved = got["all-to-all"] + got["all-gather"]
+    tracked = {"forward_backward": fb["memory"]["temp_size_bytes"],
+               "step": res["memory"]["temp_size_bytes"]}
+    card = roofline["peak"]
+    bounds = {"forward_backward": (DRYRUN_PEAK_LOW * tracked["forward_backward"],
+                                   DRYRUN_PEAK_HIGH * tracked["forward_backward"]
+                                   + DRYRUN_PEAK_SLACK),
+              "step": (DRYRUN_PEAK_LOW * tracked["forward_backward"],
+                       DRYRUN_PEAK_HIGH * tracked["step"] + DRYRUN_PEAK_SLACK)}
+    print(f"  {ARCH} ZeRO-1 step at (1, 1, 1), {BATCH} x {SEQ}, on fake tensors ({fake_s:.1f} s) "
+          f"against the roofline phase's step on the card ({run_card()}): arguments "
+          f"{res['memory']['argument_size_bytes']} B (card {roofline['args_bytes']}); FLOPs "
+          f"{res['flops']} (card {roofline['flops']}); all-to-all + all-gather {moved} B "
+          f"(plan:zero1 wire {roofline['plan_wire']}); the peak above the arguments, tracked "
+          f"against the card's max_memory_allocated less what was allocated before: " + "; ".join(
+              f"{part} {tracked[part]} B, card {card[part]} B ({card[part] / tracked[part]:.4f}; "
+              f"bound [{lo:.0f}, {hi:.0f}])" for part, (lo, hi) in bounds.items()))
+    if res["memory"]["argument_size_bytes"] != roofline["args_bytes"] or \
+            res["flops"] != roofline["flops"] or moved != roofline["plan_wire"]:
+        raise AssertionError("the dry run's arguments, FLOPs or collective bytes differ from "
+                             "the card's step")
+    for part, (lo, hi) in bounds.items():
+        if not lo <= card[part] <= hi:
+            raise AssertionError(f"the card's {part} peak {card[part]} B is outside [{lo}, {hi}]")
+    print(f"  dryrun phase {time.perf_counter() - t0:.1f} s")
+    return {"seconds": time.perf_counter() - t0, "cell": rec, "card": card, "tracked": tracked}
+
+
 def phase_mesh(comp, mesh, dev, torch):
     """The mesh layer on the card, arithmetic and a restore (no kernel
     launches): smollm's spec-derived per-device parameter and ZeRO-1 state
@@ -1679,23 +1863,25 @@ def phase_mesh(comp, mesh, dev, torch):
 # zoo phase: serve runs (requests, prompt tokens, new tokens, slots, cache
 # length), qwen2-vl's cut depth and prefill, tinyllama's training run
 # the zoo's depth, cut to make room for the tp phase's serve jobs
-# (chip_smoke.py took 1060-1093 s with them at the depths before): glm4-9b
-# served at 20 of its 40 layers, gemma3-27b at 2 of its 10 six-layer
-# patterns and its 2 prefix layers (14 of 62; full depth took ~45 s of the
-# zoo phase, a 1.04 GB shipment a request)
+# (chip_smoke.py took 1060-1093 s with them at the depths before) and then
+# for the dryrun phase and the tp phase's ingestion: glm4-9b served at 2
+# of its 40 layers (20 before), gemma3-27b at 1 of its 10 six-layer
+# patterns and its 2 prefix layers (8 of 62; 14 before; full depth took
+# ~45 s of the zoo phase, a 1.04 GB shipment a request)
 ZOO_SERVE = {"glm4_9b": dict(n_req=4, prompt=512, new=32, slots=4, max_len=1024,
-                             repeats=20),
+                             repeats=2),
              "gemma3_27b": dict(n_req=2, prompt=1536, new=16, slots=2, max_len=2048,
-                                repeats=2)}
-QWEN_REPEATS, QWEN_BATCH, QWEN_SEQ, QWEN_DECODE, QWEN_MAX_LEN = 4, 2, 512, 8, 1024
+                                repeats=1)}
+QWEN_REPEATS, QWEN_BATCH, QWEN_SEQ, QWEN_DECODE, QWEN_MAX_LEN = 2, 2, 512, 8, 1024
 TINY_BATCH, TINY_SEQ, TINY_STEPS = 8, 512, 2
 # deepseek-v2-lite: served after the dense models at its dense prefix layer
-# and DEEPSEEK_SERVE's repeats of its 26 MoE layers (7 of 27 layers; full
-# depth before the serve jobs); trained at full width with the depth cut to the dense
+# and DEEPSEEK_SERVE's repeats of its 26 MoE layers (2 of 27 layers; 7
+# before the dryrun phase, full depth before the serve jobs); trained at
+# full width with the depth cut to the dense
 # prefix layer and REPEATS MoE layers, 8 x 512 = 4096 tokens a step (the
 # capacity regime: C = 480)
 DEEPSEEK = "deepseek_v2_lite_16b"
-DEEPSEEK_SERVE = dict(n_req=4, prompt=512, new=32, slots=4, max_len=1024, repeats=6)
+DEEPSEEK_SERVE = dict(n_req=4, prompt=512, new=32, slots=4, max_len=1024, repeats=1)
 DEEPSEEK_REPEATS, DEEPSEEK_BATCH, DEEPSEEK_SEQ, DEEPSEEK_STEPS = 1, 8, 512, 2
 # the remaining mixers: jamba served at full width with its depth cut to
 # JAMBA_REPEATS of its 4 eight-layer patterns (7 Mamba and 1 attention
@@ -1709,15 +1895,16 @@ DEEPSEEK_REPEATS, DEEPSEEK_BATCH, DEEPSEEK_SEQ, DEEPSEEK_STEPS = 1, 8, 512, 2
 # (both twins 202 s on the H100), and the sequence is cut, never a width
 JAMBA, XLSTM, WHISPER = "jamba_v0_1_52b", "xlstm_350m", "whisper_small"
 JAMBA_REPEATS = 1
-# xlstm-350m served (prompts of XLSTM_PROMPT) and trained (8 x 64) at one
+# xlstm-350m served (prompts of XLSTM_PROMPT) and trained (8 x 32) at one
 # of its 3 periods (8 of 24 layers): at full depth its eager steps took
 # ~5.3 s a prefill of 512 and 67 s for the twins at 8 x 128 (H100), and
-# the phase's time went to the tp phase's serve jobs
-XLSTM_REPEATS, XLSTM_PROMPT = 1, 256
+# the phase's time went to the tp phase's serve jobs; prompts of 128 (256
+# before the dryrun phase and ingestion)
+XLSTM_REPEATS, XLSTM_PROMPT = 1, 128
 MIXER_SERVE = dict(n_req=4, prompt=512, new=32, slots=4, max_len=1024)
 WHISPER_BATCH, WHISPER_SEQ, WHISPER_DECODE, WHISPER_MAX_LEN = 2, 512, 8, 1024
 JAMBA_TRAIN_SEQ, JAMBA_TRAIN_STEPS = 512, 2
-XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ, XLSTM_TRAIN_STEPS = 8, 64, 2
+XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ, XLSTM_TRAIN_STEPS = 8, 32, 2
 WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ, WHISPER_TRAIN_STEPS = 8, 512, 2
 
 
@@ -2431,7 +2618,7 @@ TP_SERVE_STEPS = 4
 TP_SERVE_JAMBA_REL, TP_SERVE_DEEPSEEK_REL, TP_SERVE_XLSTM_REL = 0.3, 0.6, 0.1
 TP_JOBS = {
     "tp_tinyllama": dict(arch="tinyllama_1_1b", shape=(2, 2), batch=8, seq=512, steps=3,
-                         repeats=12, mem=0.235, loss_rel=2e-4, gnorm_rel=1e-2),
+                         repeats=3, mem=0.235, loss_rel=2e-4, gnorm_rel=1e-2),
     "tp_deepseek": dict(arch=DEEPSEEK, shape=(1, 2), batch=8, seq=512, steps=2,
                         repeats=DEEPSEEK_REPEATS, mem=0.45, loss_rel=1e-3, gnorm_rel=2e-2),
     "tp_jamba_fsdp": dict(arch="jamba_v0_1_52b", shape=(2, 2), batch=4, seq=512, steps=2,
@@ -2444,13 +2631,17 @@ TP_JOBS = {
                            mem=0.45, logits_rel=TP_SERVE_JAMBA_REL,
                            serve=dict(n_req=4, prompt=508, new=16, slots=4, max_len=1024)),
     "tp_serve_deepseek": dict(arch=DEEPSEEK, shape=(1, 2), repeats=DEEPSEEK_REPEATS, mem=0.45,
-                              logits_rel=TP_SERVE_DEEPSEEK_REL,
+                              logits_rel=TP_SERVE_DEEPSEEK_REL, ingest=True,
                               serve=dict(n_req=4, prompt=600, new=16, slots=4, max_len=1024)),
     "tp_serve_xlstm": dict(arch="xlstm_350m", shape=(1, 2), repeats=1, mem=0.45,
                            logits_rel=TP_SERVE_XLSTM_REL,
-                           serve=dict(n_req=4, prompt=120, new=16, slots=4, max_len=192)),
+                           serve=dict(n_req=2, prompt=120, new=16, slots=2, max_len=192)),
 }
 TP_TIMEOUT = 600  # seconds a job's processes may take
+# a serve job that ingests (``ingest``): the seed of the change between its
+# full and its delta update, and the requests (and new tokens each) served
+# colocated and PD on the ingested weights
+TP_INGEST_CHANGE, TP_INGEST_SERVE = 5, (2, 8)
 
 
 def tp_config(job):
@@ -2582,6 +2773,135 @@ def _tp_child_serve(rank, job, torch):
     expect = dict.fromkeys(kernels.KERNELS, 0)
     expect.update(pack=2 * len(leaves) * sp["n_req"], unpack=2 * len(leaves) * sp["n_req"])
     out["expect"] = expect
+    if "ingest_path" in job:
+        with launch_train.deterministic():
+            out["ingest"] = _tp_child_ingest(rank, job, cfg, model, torch, np)
+    return out
+
+
+def tp_block_sha(leaves, torch) -> str:
+    """sha256 over the bytes of ``leaves`` in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in leaves:
+        h.update(t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _tp_child_ingest(rank, job, cfg, model, torch, np) -> dict:
+    """A serve job's rank after its serve runs: an engine on the rank's
+    blocks ingests the parent's full update, then its delta
+    (``ServeEngine.ingest_weights`` at model > 1), each timed (apply ms),
+    its launches counted and the sha256 of the rank's blocks taken; a
+    corrupted copy of the delta must be refused with the blocks and the
+    version untouched; then TP_INGEST_SERVE requests colocated and PD on
+    the new weights (rank 0 records its kernel inputs)."""
+    from repro_torch import kernels
+    from repro_torch.core.integrity import WireIntegrityError
+    from repro_torch.runtime.faults import corrupt_payload
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    ups = torch.load(job["ingest_path"], weights_only=False)
+    sp = job["serve"]
+    eng = ServeEngine(cfg, model, ServeConfig(batch_slots=1, max_len=sp["max_len"]))
+    res = {"updates": {}}
+    dev = model.leaves()[0].device
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    with (recorded_inputs(torch, host=True) if rank == 0 else
+          contextlib.nullcontext(None)) as inputs:
+        kernels.clear_launch_counts()
+        seen = dict.fromkeys(kernels.KERNELS, 0)
+        for name in ("full", "delta"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            version = eng.ingest_weights(ups[name])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            now = kernels.launch_counts()
+            res["updates"][name] = {
+                "version": version, "epoch": eng.weight_epoch, "ms": ms,
+                "launches": {k: now[k] - seen[k] for k in now},
+                "sha": tp_block_sha(model.leaves(), torch)}
+            seen = now
+        res["launches"], res["tallies"] = kernels.launch_counts(), shape_tallies()
+    res["peak"] = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    if inputs is not None:
+        res["inputs"] = inputs
+    before = res["updates"]["delta"]["sha"]
+    try:
+        eng.ingest_weights(corrupt_payload(ups["delta"], np.random.default_rng(SEED)))
+        res["corrupt"] = ""
+    except WireIntegrityError as e:
+        res["corrupt"] = str(e)
+    res["untouched"] = (tp_block_sha(model.leaves(), torch) == before
+                        and eng.weight_version == res["updates"]["delta"]["version"])
+    n_req, new = TP_INGEST_SERVE
+    res["tokens"] = {pd: tp_serve_run(cfg, model, sp, pd, torch, np, n_req=n_req, new=new)[0]
+                     for pd in (False, True)}
+    return res
+
+
+def tp_ingest_updates(job, dev, torch, np, path) -> dict:
+    """The parent's side of a serve job's ingestion: the job's weights at
+    model = 1 (the ranks' init), a full update of them and, after
+    TP_INGEST_CHANGE (the low 3 mantissa bits of about 30% of every leaf
+    XORed with a seeded mask, as consecutive optimizer steps move them), a
+    delta (``WeightSyncEngine.update_for``), saved to ``path``; each
+    update decoded whole here (``apply_update``, the delta against the
+    full one's leaves) and, per model rank, the sha256 of its blocks of
+    the decoded leaves (``transformer.block_specs``).  Returns the updates'
+    modes, ratios, wire bytes, the hashes and each rank's expected
+    launches (unpack twice a compressed bucket)."""
+    import gc
+
+    from repro_torch.core.policy import CompressionPolicy
+    from repro_torch.models import transformer
+    from repro_torch.sched.cache import PlanCache
+    from repro_torch.sync.engine import WeightSyncEngine, apply_update, decode_chunks
+    from repro_torch.tree_util import tree_leaves
+
+    cfg, n_model = tp_config(job), job["shape"][1]
+    model = transformer.init(cfg, generator=torch.Generator(dev).manual_seed(SEED), device=dev)
+    sync = WeightSyncEngine(policy=CompressionPolicy(min_bytes=0), plan_cache=PlanCache())
+    v1 = sync.publish(model.tree())
+    full = sync.update_for("tp")
+    sync.ack("tp", v1)
+    gen = torch.Generator(dev).manual_seed(TP_INGEST_CHANGE)
+    ints = {2: torch.int16, 4: torch.int32}
+    with torch.no_grad():
+        for p in model.leaves():
+            bits = p.view(ints[p.element_size()])
+            mask = torch.randint(0, 8, p.shape, generator=gen, device=dev).to(bits.dtype)
+            bits.bitwise_xor_(mask * (torch.rand(p.shape, generator=gen, device=dev) < 0.3))
+    sync.publish(model.tree())
+    delta = sync.update_for("tp")
+    torch.save({"full": full, "delta": delta}, path)
+    specs = transformer.block_specs(cfg, n_model)
+    paths = [q for q, _ in transformer.tree_paths(transformer.abstract_params(cfg))]
+
+    def block(t, spec, r):
+        for d, e in enumerate(spec):
+            if e == "model":
+                n = t.shape[d] // n_model
+                t = t.narrow(d, r * n, n)
+        return t
+
+    out = {"sha": {}, "modes": {}, "ratio": {}, "wire": {}, "expect": {}}
+    whole = None
+    for name, u in (("full", full), ("delta", delta)):
+        whole = tree_leaves(apply_update(u, base_params=whole, device=dev))
+        out["sha"][name] = [tp_block_sha([block(t, specs[q], r) for q, t in zip(paths, whole)],
+                                         torch) for r in range(n_model)]
+        out["modes"][name] = [m for _, _, m, _ in u.buckets]
+        out["ratio"][name], out["wire"][name] = u.ratio, u.wire_bytes
+        out["expect"][name] = 2 * sum(len(decode_chunks(members))
+                                      for _, members, m, _ in u.buckets if m != "raw")
+    if tp_block_sha(whole, torch) != tp_block_sha(model.leaves(), torch):
+        raise AssertionError("the decoded delta update is not the published weights")
+    del model, sync, whole
+    gc.collect()
     return out
 
 
@@ -2625,13 +2945,30 @@ def tp_serve_job(tag, job, dev, torch, np) -> tuple:
     run launches nothing, PD pack and unpack twice a block leaf an
     admission; the prefills' and first TP_SERVE_STEPS steps' logits
     within ``logits_rel`` of the model at model = 1; the share of its
-    greedy picks equal to the ranks' tokens is reported.  Returns (the
-    launches of all ranks, rank 0's (inputs, tallies of all ranks))."""
+    greedy picks equal to the ranks' tokens is reported.  A job that
+    ingests (:func:`tp_ingest_updates`, :func:`_tp_child_ingest`): every
+    rank's blocks after each update have the sha256 of its blocks of the
+    decoded whole leaves, its launches are unpack twice a piece of a
+    compressed bucket, every rank holds the same version and epoch, a corrupted copy
+    is refused on every rank with its blocks untouched, and the PD tokens
+    on the new weights equal the colocated ones on every rank.  Returns
+    the runs as ``(run, launches of all ranks, rank 0's (inputs, tallies
+    of all ranks), (unit, count))``: the PD serve run and, where the job
+    ingests, the ingestion."""
+    import tempfile
+
     from repro_torch import configs, kernels
 
     cfg, sp = tp_config(job), job["serve"]
     free = torch.cuda.mem_get_info(dev)[0]
-    ranks = run_tp_job(job, torch)
+    ingest = None
+    with tempfile.TemporaryDirectory(prefix="ingest_") as tmp:
+        if job.get("ingest"):
+            path = os.path.join(tmp, "updates.pt")
+            ingest = tp_ingest_updates(job, dev, torch, np, path)
+            torch.cuda.empty_cache()
+            job = dict(job, ingest_path=path)
+        ranks = run_tp_job(job, torch)
     col0 = ranks[0]["runs"][False]
     total, tallies = dict.fromkeys(kernels.KERNELS, 0), {k: {} for k in SHAPED}
     for r, res in enumerate(ranks):
@@ -2692,7 +3029,63 @@ def tp_serve_job(tag, job, dev, torch, np) -> tuple:
           f"1 (one process, the same seed, fed the ranks' tokens): largest difference "
           f"{gap:.3e} of the largest |logit| {float(want.abs().max()):.4g} (bound "
           f"{job['logits_rel']}); greedy picks equal to the ranks' tokens {share:.4f}")
-    return total, (ranks[0].pop("inputs"), tallies)
+    runs = [(tag, total, (ranks[0].pop("inputs"), tallies),
+             (f"{tag}_rank_admission", job["shape"][1] * sp["n_req"]))]
+    if ingest is not None:
+        runs.append(tp_ingest_check(tag, ranks, ingest, torch))
+    return runs
+
+
+def tp_ingest_check(tag, ranks, ingest, torch) -> tuple:
+    """Check a serve job's ingestion on every rank (see :func:`tp_serve_job`)
+    and print each update's ratio and apply ms; returns its run as
+    :func:`tp_serve_job` does."""
+    from repro_torch import kernels
+
+    total, tallies = dict.fromkeys(kernels.KERNELS, 0), {k: {} for k in SHAPED}
+    first = ranks[0]["ingest"]
+    for r, res in enumerate(ranks):
+        g = res["ingest"]
+        for name in ("full", "delta"):
+            u, u0 = g["updates"][name], first["updates"][name]
+            want = dict.fromkeys(kernels.KERNELS, 0)
+            want["unpack"] = ingest["expect"][name]
+            if u["sha"] != ingest["sha"][name][res["mrank"]]:
+                raise AssertionError(f"{tag} rank {r}: its blocks after the {name} update are "
+                                     f"not its blocks of the decoded whole leaves")
+            if u["launches"] != want or (u["version"], u["epoch"]) != (u0["version"],
+                                                                       u0["epoch"]):
+                raise AssertionError(f"{tag} rank {r}: {name} ingest launches {u['launches']} "
+                                     f"(expected {want}), version {u['version']}@{u['epoch']} "
+                                     f"(rank 0 {u0['version']}@{u0['epoch']})")
+        if "checksum" not in g["corrupt"] or not g["untouched"]:
+            raise AssertionError(f"{tag} rank {r}: a corrupted update gave {g['corrupt']!r}, "
+                                 f"blocks untouched {g['untouched']}")
+        if g["tokens"][True] != g["tokens"][False] or g["tokens"][False] != first["tokens"][False]:
+            raise AssertionError(f"{tag} rank {r}: tokens after ingest differ (PD, colocated, "
+                                 f"rank 0's)")
+        for k, v in g["launches"].items():
+            total[k] += v
+        for k, by in g["tallies"].items():
+            if not set(by) <= set(first["inputs"][k]):
+                raise AssertionError(f"{tag} rank {r}: ingest {k} at {list(by)}, rank 0 "
+                                     f"recorded {list(first['inputs'][k])}")
+            for shape, n in by.items():
+                tallies[k][shape] = tallies[k].get(shape, 0) + n
+    for name in ("full", "delta"):
+        modes = ingest["modes"][name]
+        print(f"  ingest {name} v{first['updates'][name]['version']}: buckets "
+              f"{modes}, ratio {ingest['ratio'][name]:.4f} ({ingest['wire'][name]} wire bytes); "
+              f"apply ms " + ", ".join(f"rank {r} {res['ingest']['updates'][name]['ms']:.1f}"
+                                      for r, res in enumerate(ranks))
+              + f"; each rank's blocks = its blocks of the decoded leaves (sha256); launches "
+              f"{first['updates'][name]['launches']}")
+    print(f"  a corrupted update refused on every rank ({first['corrupt'][:60]}...), blocks "
+          f"untouched; {TP_INGEST_SERVE[0]} requests on the new weights: PD tokens = colocated "
+          f"on every rank; a rank's peak while ingesting " + ", ".join(
+              _gib(res["ingest"]["peak"]) for res in ranks))
+    return (f"{tag}_ingest", total, (first.pop("inputs"), tallies),
+            (f"{tag}_rank_update", 2 * len(ranks)))
 
 
 def _tp_child_runs(rank, job, torch):
@@ -2831,7 +3224,7 @@ def run_tp_job(job, torch) -> list:
 def phase_tp(dev, torch, np, bw):
     """ZeRO-1 with tensor and expert parallelism over 'model' (TP_JOBS), each
     job's ranks in processes of their own on the card: tinyllama-1.1b at
-    full width, 12 of 22 layers, on (data, model) = (2, 2),
+    full width, 3 of 22 layers, on (data, model) = (2, 2),
     deepseek-v2-lite at full width, its depth cut, on (1, 2) (32 of its
     64 experts a rank).
     Every rank's compressed and raw twins bit-identical (losses, grad
@@ -2850,11 +3243,11 @@ def phase_tp(dev, torch, np, bw):
     for tag, job in TP_JOBS.items():
         t0 = time.perf_counter()
         if "serve" in job:
-            total, recorded = tp_serve_job(tag, job, dev, torch, np)
-            launches[tag] = total
-            units[tag] = (f"{tag}_rank_admission", job["shape"][1] * job["serve"]["n_req"])
-            merge_shapes(shapes, time_path_shapes({tag: recorded}, {tag: total}, bw, dev, torch))
-            del recorded
+            for run, total, recorded, unit in tp_serve_job(tag, job, dev, torch, np):
+                launches[run], units[run] = total, unit
+                merge_shapes(shapes, time_path_shapes({run: recorded}, {run: total}, bw, dev,
+                                                      torch))
+                del recorded
             torch.cuda.empty_cache()
             print(f"  {tag}: {time.perf_counter() - t0:.1f} s")
             continue
@@ -3019,6 +3412,7 @@ def phase_breakdown(run, group, dev, torch):
 
 
 FSDP_MICRO = 2  # microbatches of the fsdp phase's steps
+FSDP_STEPS = 2  # steps of each twin of the fsdp phase (3 before the dryrun phase's cuts)
 
 
 def fsdp_work(state, tcfg) -> tuple:
@@ -3062,7 +3456,8 @@ def fsdp_launches(n_ag: int, n_rs: int, n_dev: int) -> dict:
 def phase_fsdp(main, dev, torch):
     """Compressed FSDP training of smollm_135m at full width on a one-rank
     NCCL group (``partition="fsdp"``, 2 microbatches, remat), batch 8 x seq
-    512: 3 compressed steps, then 3 of the raw twin from the same weights,
+    512: FSDP_STEPS compressed steps, then as many of the raw twin from the
+    same weights,
     through the launcher's StepRunner.  Losses and the final train state
     (shards and optimizer moments) must be identical, the launches and the
     plan caches' misses (one a signature) and hits those of
@@ -3082,7 +3477,7 @@ def phase_fsdp(main, dev, torch):
             with recorded_inputs(torch) as inputs:
                 kernels.clear_launch_counts()
                 runs[compress] = launch_train.train(
-                    ARCH, steps=STEPS, batch=BATCH, seq=SEQ, compress=compress,
+                    ARCH, steps=FSDP_STEPS, batch=BATCH, seq=SEQ, compress=compress,
                     device=dev, seed=SEED, mesh=mesh, partition="fsdp",
                     microbatches=FSDP_MICRO)
                 runs[compress].launches = kernels.launch_counts()
@@ -3095,19 +3490,19 @@ def phase_fsdp(main, dev, torch):
             raise AssertionError("fsdp final train states differ between the twins")
         n_ag, n_rs, per_sig, shards = fsdp_work(comp.state, comp.tcfg)
         expect = dict.fromkeys(kernels.KERNELS, 0)
-        expect.update({k: STEPS * v for k, v in fsdp_launches(n_ag, n_rs, n_dp).items()})
+        expect.update({k: FSDP_STEPS * v for k, v in fsdp_launches(n_ag, n_rs, n_dp).items()})
         if comp.launches != expect or any(raw.launches.values()):
             raise AssertionError(f"fsdp launch counts {comp.launches} (raw twin "
                                  f"{raw.launches}), expected {expect}")
-        want = (len(per_sig), STEPS * n_ag - len(per_sig))
+        want = (len(per_sig), FSDP_STEPS * n_ag - len(per_sig))
         for run in (comp, raw):
             st = run.plan_cache.stats
             if (st.misses, st.hits) != want or run.retries:
                 raise AssertionError(f"fsdp plan cache {run.plan_cache.cache_info()}, "
                                      f"expected (misses, hits) {want}, retries {run.retries}")
         names = [r.name for r in comp.wire_reports]
-        if names.count("all_gather") != STEPS * n_ag \
-                or names.count("reduce_scatter") != STEPS * n_rs or raw.wire_reports:
+        if names.count("all_gather") != FSDP_STEPS * n_ag \
+                or names.count("reduce_scatter") != FSDP_STEPS * n_rs or raw.wire_reports:
             raise AssertionError(f"fsdp wire reports: {len(names)}")
         ratio = {n: sum(r.wire_bytes for r in comp.wire_reports if r.name == n)
                  / sum(r.raw_bytes for r in comp.wire_reports if r.name == n)
@@ -4393,11 +4788,18 @@ def main() -> int:
     dev = kernels.resolve_device("cuda")
     name = torch.cuda.get_device_name(0)
     smi = phase_build(kernels, torch)
+    with dryrun_cell() as cell:
+        return run_phases(smi, cell, dev, name, torch, np)
+
+
+def run_phases(smi, cell, dev, name, torch, np) -> int:
+    """Every phase after the build (:func:`main`)."""
     worst = phase_check(dev, torch, np)
     phase_check_wire(dev, torch, np)
     serve = phase_serve(dev, torch, np)
     sampled = phase_serve_sampled(dev, torch, np)
     comp, psum, file_twins, roofline = phase_main(dev, torch)
+    phase_dryrun(roofline, cell, dev, torch)
     fsdp = phase_fsdp(comp, dev, torch)
     sync = phase_sync(dev, torch)
     strategies = phase_sync_strategies(sync, dev, torch)
@@ -4417,7 +4819,7 @@ def main() -> int:
                                "train_file_step", FILE_STEPS),
         "roofline": path_run(roofline["launches"], roofline["recorded"],
                              "roofline_step", ROOFLINE_STEPS),
-        "fsdp": path_run(fsdp["launches"], fsdp["recorded"], "fsdp_step", STEPS),
+        "fsdp": path_run(fsdp["launches"], fsdp["recorded"], "fsdp_step", FSDP_STEPS),
         "psum": path_run(psum["launches"], psum["recorded"], "psum_phase", 1),
         "weight_sync": path_run(sync["launches"], sync["recorded"], "publish",
                                 sync["n_publishes"]),

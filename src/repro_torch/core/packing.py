@@ -358,10 +358,17 @@ def encode_delta(x: torch.Tensor, base: torch.Tensor, *, width: int,
         dtype_name=lay.name, shape=tuple(x.shape))
 
 
-def decode_delta(m: DeltaMessage, base: torch.Tensor) -> torch.Tensor:
-    """Exact inverse of :func:`encode_delta` given the same base version."""
+def delta_bits(m: DeltaMessage) -> torch.Tensor:
+    """The XOR pattern a delta message carries (the new bits XOR the
+    base's), as its float dtype: what :func:`decode_delta` XORs into the
+    base, elementwise, so a block of it applies to the same block of the
+    base alone."""
     lay = codec.LAYOUTS[m.dtype_name]
     n = math.prod(m.shape)
     lo = unpack_delta_plane(m.lo)[:n]
-    delta = codec.merge_planes(unpack_exponents(m.exp), lo, lay.dtype, m.shape)
-    return codec.xor_delta(delta, base.reshape(m.shape))
+    return codec.merge_planes(unpack_exponents(m.exp), lo, lay.dtype, m.shape)
+
+
+def decode_delta(m: DeltaMessage, base: torch.Tensor) -> torch.Tensor:
+    """Exact inverse of :func:`encode_delta` given the same base version."""
+    return codec.xor_delta(delta_bits(m), base.reshape(m.shape))

@@ -33,6 +33,7 @@ import time
 from pathlib import Path
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor, unset_fake_temporarily
 
 SOURCES = {
     "encode_fused": "encode_fused.cu",
@@ -222,10 +223,30 @@ def require_aligned(ptr: int, what: str) -> None:
 def aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself when it starts on an ALIGN-byte boundary, else a fresh
     contiguous copy (which does): what an entry point hands a kernel wrapper
-    for a view into a larger tensor, such as a parameter of a flat bucket."""
-    if t.data_ptr() % ALIGN == 0:
+    for a view into a larger tensor, such as a parameter of a flat bucket.
+    A CPU tensor (real or fake) is returned as it is: only a CUDA kernel
+    stages by ALIGN-byte copies, and a fake tensor has no address."""
+    if t.device.type != "cuda" or t.data_ptr() % ALIGN == 0:
         return t
     return t.clone(memory_format=torch.contiguous_format)
+
+
+def is_fake(t) -> bool:
+    """Whether ``t`` is a ``FakeTensor``: shapes and dtypes, no data, as
+    the dry run's rank (``launch/dryrun``) holds every tensor."""
+    return isinstance(t, FakeTensor)
+
+
+def host_int(t: torch.Tensor) -> int:
+    """``int(t)`` of a real tensor, also where a ``FakeTensorMode`` is
+    active (the dry run's decode cells keep the cache's position a real
+    scalar among fake leaves); a fake tensor raises ValueError."""
+    if is_fake(t):
+        raise ValueError("a fake tensor holds no value to read on the host")
+    if torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is None:
+        return int(t)
+    with unset_fake_temporarily():
+        return int(t)
 
 
 # ---------------------------------------------------------------------------

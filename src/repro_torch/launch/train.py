@@ -249,7 +249,7 @@ def train(arch: str | ArchConfig, *, steps: int, batch: int, seq: int,
                     start_step=start)
 
 
-def cli_mesh(world: int, pods: int = 1, device="cpu"):
+def cli_mesh(world: int, pods: int = 1, device="cuda"):
     """The mesh of a CLI run of ``world`` ranks, either partition: the
     reference's smoke mesh (``make_smoke_mesh(pods=)``), tensor and expert
     parallel over its 'model' axis, as the reference's CLI builds it for

@@ -629,26 +629,27 @@ def cache_block(cfg: ArchConfig, batch: int, max_len: int, mesh) -> tuple:
     """``(rows, s_loc)`` of this rank's block of the global cache of
     ``batch`` rows and ``max_len`` positions as ``serve/sharding.
     cache_specs`` lays it out on ``mesh``: ``batch / n_dp`` rows (the
-    rank's pod-major DP index holds rows ``[i rows, (i + 1) rows)``) and,
-    at model index ``r``, positions ``[r s_loc, (r + 1) s_loc)`` of every
-    K/V or latent leaf, ``s_loc = max_len / n_model``; every KV head and
-    the whole latent; the recurrent states whole on every model rank, as
-    the specs replicate them.  Raises ValueError where the specs lay the
-    cache out otherwise: a batch or a ``max_len`` they leave whole, or a
-    recurrent leaf they split over 'model' because one of its widths
-    equals ``max_len`` (the reference would split that state; the port
-    keeps states whole)."""
+    rank's pod-major DP index holds rows ``[i rows, (i + 1) rows)``), or
+    every row where the DP size does not divide the batch (the specs
+    replicate it: each DP rank holds and computes every row, as GSPMD runs
+    a replicated dim), and, at model index ``r``, positions ``[r s_loc,
+    (r + 1) s_loc)`` of every K/V or latent leaf, ``s_loc = max_len /
+    n_model``; every KV head and the whole latent; the recurrent states
+    whole on every model rank, as the specs replicate them.  Raises
+    ValueError where the specs lay the cache out otherwise: a ``max_len``
+    they leave whole, or a recurrent leaf they split over 'model' because
+    one of its widths equals ``max_len`` (the reference would split that
+    state; the port keeps states whole)."""
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.serve.sharding import cache_specs
 
     specs, struct = cache_specs(cfg, mesh, batch, max_len)
     n_dp, n_model = mesh_lib.dp_size(mesh), mesh_lib.axis_sizes(mesh)["model"]
     leaves = dict(tree_paths(struct))
-    if batch % n_dp or max_len % n_model:
-        raise ValueError(f"{cfg.name}: a cache of {batch} rows and {max_len} positions does "
-                         f"not split into {n_dp} DP blocks of rows and {n_model} model "
-                         f"blocks of positions")
-    rows, s_loc = batch // n_dp, max_len // n_model
+    if max_len % n_model:
+        raise ValueError(f"{cfg.name}: a cache of {max_len} positions does not split into "
+                         f"{n_model} model blocks of positions")
+    rows, s_loc = (batch if batch % n_dp else batch // n_dp), max_len // n_model
     block = dict(tree_paths(_cache_tree(cfg, rows, s_loc, torch.device("meta"))))
     for path, spec in tree_paths(specs):
         shape = tuple(leaves[path].shape)
@@ -749,7 +750,7 @@ def decode_step(model: Transformer, tokens: torch.Tensor, cache: dict, *,
     ``pos + 1``).  At a model group as :func:`prefill`: the rank whose
     block holds ``pos`` writes its K/V, and attention combines the ranks'
     partial softmaxes (``layers._decode_attend``)."""
-    pos = int(cache["pos"])
+    pos = kernels.host_int(cache["pos"])
     h = model.embed(tokens)
     h = model.run_layers(h, torch.full((1,), pos, device=tokens.device), cache, pos,
                          enc_out=enc_out)

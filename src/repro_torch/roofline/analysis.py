@@ -49,6 +49,10 @@ _C10D_OPS = {
     "c10d::alltoall_base_": ("all-to-all", 1),
 }
 _A2A_INPUT_SPLITS = 4  # alltoall_base_(output, input, group, out_splits, in_splits, ...)
+# a range nested in a collective over a tensor list whose name ends in the
+# list's element type: the dry run's (``launch/dryrun.LiveBytes``), as the
+# fake backend records no event of its own
+LIST_TYPE_EVENT = "c10d_list_type::"
 
 # element sizes by the names a trace gives dtypes: a cpu_op's "Input type"
 # (the C++ type) and NCCL's record_param_comms "dtype" (the ScalarType)
@@ -105,11 +109,17 @@ def collective_bytes(trace) -> dict:
     counts as a collective-permute of the rows its input splits send.  An argument that
     is a tensor list (``allreduce_``) carries no type; it is read from the
     backend's own event of the call: NCCL's ``record_param_comms`` nested in
-    the op (its "dtype"), or gloo's ``gloo:*`` event of the same dims that
-    starts first at or after the op (its "Input type").  A collective whose
-    type the trace does not give raises ValueError."""
+    the op (its "dtype"), gloo's ``gloo:*`` event of the same dims that
+    starts first at or after the op (its "Input type"), or, on the fake
+    backend, a ``LIST_TYPE_EVENT`` range nested in the op (its name's
+    suffix).  A collective whose type the trace does not give raises
+    ValueError.  Under a Python dispatch mode (the dry run's fake tensors)
+    the profiler records an op again inside itself at each redispatch: an
+    op nested in a counted one on its thread is the same call, counted
+    once."""
     events = _events(trace)
     comms = [e for e in events if e.get("name") == "record_param_comms"]
+    marks = [e for e in events if str(e.get("name", "")).startswith(LIST_TYPE_EVENT)]
     gloo = sorted((e for e in events if str(e.get("name", "")).startswith("gloo:")),
                   key=lambda e: e["ts"])
     claimed: set = set()
@@ -119,6 +129,9 @@ def collective_bytes(trace) -> dict:
             if (e.get("tid") == op.get("tid") and op["ts"] <= e["ts"] <= op["ts"] + op["dur"]
                     and "dtype" in e.get("args", {})):
                 return _itemsize(e["args"]["dtype"], op["name"])
+        for e in marks:
+            if e.get("tid") == op.get("tid") and op["ts"] <= e["ts"] <= op["ts"] + op["dur"]:
+                return _itemsize(e["name"][len(LIST_TYPE_EVENT):], op["name"])
         for i, e in enumerate(gloo):
             a = e.get("args", {})
             if i in claimed or e["ts"] < op["ts"] or not a.get("Input Dims"):
@@ -131,8 +144,12 @@ def collective_bytes(trace) -> dict:
 
     out = {k: 0 for k in _COLL_KINDS}
     counts = {k: 0 for k in _COLL_KINDS}
+    ends: dict = {}  # thread -> end of the last op counted on it
     for op in sorted((e for e in events if e.get("name") in _C10D_OPS),
                      key=lambda e: e["ts"]):
+        if op["ts"] < ends.get(op.get("tid"), float("-inf")):
+            continue
+        ends[op.get("tid")] = op["ts"] + op["dur"]
         kind, ix = _C10D_OPS[op["name"]]
         args = op.get("args", {})
         if "Input Dims" not in args:

@@ -160,31 +160,41 @@ class ServeEngine:
         and raises otherwise (the caller should ask for a full send).  The
         whole new tree is decoded before the first parameter is overwritten
         (a delta decodes against the current bits), then copied into the
-        model's parameters in place, so the decode loop keeps its tensors."""
-        from repro_torch.sync.engine import apply_update, verify_update
+        model's parameters in place, so the decode loop keeps its tensors.
 
-        if self.mesh is not None:
-            raise NotImplementedError("ingest_weights at model > 1 is not ported (ROADMAP "
-                                      "Queue A: weight ingestion into a model split over "
-                                      "'model')")
+        At model > 1 every rank of the model group ingests the same update
+        (the trainer's whole weights): it checks each decoded leaf's global
+        shape and dtype and keeps its block (``launch.mesh.block_of`` by
+        ``transformer.block_specs``), and a delta's XOR pattern applies
+        block by block to the rank's own blocks
+        (``sync.engine.apply_update_blocks``), bit for bit the block of the
+        engine's ingest at model = 1.  The checks come first on every rank,
+        so a corrupt or fenced update raises on each and leaves every
+        rank's weights as they were."""
+        from repro_torch.sync.engine import apply_update, apply_update_blocks, verify_update
+
         if update.checksum is not None and not verify_update(update):
             obs.metric("serve_ingest_rejects_total").inc(reason="checksum")
             raise WireIntegrityError(
                 f"update v{update.version} failed its payload checksum; "
                 f"re-send it (escalate delta -> full -> raw)")
-        if update.base_version is not None:
-            if (update.base_version != self.weight_version
-                    or update.epoch != self.weight_epoch):
-                obs.metric("serve_ingest_rejects_total").inc(reason="fence")
-                raise ValueError(
-                    f"delta update v{update.version} assumes base "
-                    f"v{update.base_version}@e{update.epoch} but this engine "
-                    f"holds v{self.weight_version}@e{self.weight_epoch}; "
-                    f"request a full send")
-            new = apply_update(update, base_params=self.model.tree(), device=self.device)
+        delta = update.base_version is not None
+        if delta and (update.base_version != self.weight_version
+                      or update.epoch != self.weight_epoch):
+            obs.metric("serve_ingest_rejects_total").inc(reason="fence")
+            raise ValueError(
+                f"delta update v{update.version} assumes base "
+                f"v{update.base_version}@e{update.epoch} but this engine "
+                f"holds v{self.weight_version}@e{self.weight_epoch}; "
+                f"request a full send")
+        params = self.model.leaves()
+        if self.mesh is None:
+            got = tree_leaves(apply_update(update, base_params=self.model.tree() if delta
+                                           else None, device=self.device))
         else:
-            new = apply_update(update, device=self.device)
-        params, got = self.model.leaves(), tree_leaves(new)
+            got = apply_update_blocks(update, self._block_fn(update),
+                                      [p.detach() for p in params] if delta else None,
+                                      device=self.device)
         if len(got) != len(params) or any(
                 g.shape != p.shape or g.dtype != p.dtype for g, p in zip(got, params)):
             raise ValueError(f"update v{update.version} does not hold this model's "
@@ -195,6 +205,30 @@ class ServeEngine:
         self.weight_version = update.version
         self.weight_epoch = update.epoch
         return self.weight_version
+
+    def _block_fn(self, update):
+        """``block(i, leaf)`` of :func:`~repro_torch.sync.engine.
+        apply_update_blocks` for this rank: leaf ``i`` must have the global
+        shape and dtype of the model's leaf ``i``; its block by
+        ``transformer.block_specs`` (as ``transformer.init(mesh=)`` lays the
+        model out), a copy with storage of its own."""
+        cfg, n_model = self.cfg, self.model.mg.size
+        glob = list(transformer.tree_paths(transformer.abstract_params(cfg)))
+        specs = transformer.block_specs(cfg, n_model)
+        if update.n_leaves != len(glob):
+            raise ValueError(f"update v{update.version} holds {update.n_leaves} leaves, "
+                             f"{cfg.name} {len(glob)}")
+
+        def block(i, leaf):
+            path, want = glob[i]
+            if leaf.shape != want.shape or leaf.dtype != want.dtype:
+                raise ValueError(f"update v{update.version}: leaf {path} is "
+                                 f"{tuple(leaf.shape)} {leaf.dtype}, the model's "
+                                 f"{tuple(want.shape)} {want.dtype}")
+            return mesh_lib.block_of(leaf, specs[path], self.mesh).clone(
+                memory_format=torch.contiguous_format)
+
+        return block
 
     # -- admission -----------------------------------------------------------
 

@@ -115,6 +115,55 @@ def _device_message(m, mode: str, dev: torch.device):
                                      dtype_name=m.dtype_name, shape=shape)
 
 
+def _sorted(a) -> bool:
+    a = np.asarray(a)
+    return a.size < 2 or bool(np.all(a[1:] >= a[:-1]))
+
+
+def _message_part(m, mode: str, start: int, stop: int, sorted_exc: tuple) -> tuple:
+    """``(part, offset)``: the host message of the blocks of ``m`` (a host
+    message of one bucket) that hold its elements ``[start, stop)``, which
+    decodes alone to the same bits (a block carries its own base and
+    exceptions, a 32-value group of a plane its own bits; the exceptions of
+    other blocks and elements are dropped), and ``start``'s offset in it.
+    ``sorted_exc``: whether the exponent plane's and (a delta's) lo plane's
+    exception indices are sorted (:func:`_exceptions`)."""
+    e = m.exp
+    blk, width = int(e.block), int(e.width)
+    per = blk // 32
+    n = math.prod(int(s) for s in m.shape)
+    b0, b1 = start // blk, -(-stop // blk)
+    first, last = b0 * blk, min(b1 * blk, n)
+    exc_idx, exc_raw = _exceptions(np.asarray(e.exc_idx), np.asarray(e.exc_raw), b0, b1,
+                                   sorted_exc[0])
+    exp = dataclasses.replace(
+        e, payload=np.asarray(e.payload).reshape(-1, width)[b0 * per:b1 * per],
+        bases=np.asarray(e.bases)[b0:b1], exc_idx=exc_idx, exc_raw=exc_raw, n=last - first)
+    rows = slice(first // 32, -(-last // 32))
+    if mode == MODE_DELTA:
+        lo = m.lo
+        li, lr = _exceptions(np.asarray(lo.exc_idx), np.asarray(lo.exc_raw), first, last,
+                             sorted_exc[1])
+        lo = dataclasses.replace(
+            lo, payload=np.asarray(lo.payload).reshape(-1, int(lo.width))[rows], exc_idx=li,
+            exc_raw=lr, n=last - first)
+    else:
+        lo = np.asarray(m.lo)[rows]
+    return dataclasses.replace(m, lo=lo, exp=exp, shape=(last - first,)), start - first
+
+
+def _exceptions(idx: np.ndarray, raw: np.ndarray, lo: int, hi: int, is_sorted: bool) -> tuple:
+    """The entries of an exception list (indices and their raw rows) whose
+    index lies in ``[lo, hi)``, indices made relative to ``lo``: a slice
+    where the indices are sorted (the codec writes them so, fill entries
+    last), a mask otherwise."""
+    if is_sorted:
+        sel = slice(int(np.searchsorted(idx, lo)), int(np.searchsorted(idx, hi)))
+    else:
+        sel = (idx >= lo) & (idx < hi)
+    return (idx[sel].astype(np.int64) - lo).astype(np.int32), raw[sel]
+
+
 def _raw_wire(bucket: torch.Tensor, dtype_name: str) -> np.ndarray:
     """A raw bucket as its wire array: codec floats travel as their unsigned
     bit patterns, anything else as it is."""
@@ -192,6 +241,74 @@ def apply_update(update: SyncUpdate, base_params=None, *, device="cuda"):
     for i, arr in update.raw_leaves:
         leaves[i] = _tensor(arr, dev)
     return tree_unflatten(update.treedef, leaves)
+
+
+# values of a bucket a rank decodes at a time in apply_update_blocks: a
+# multiple of every block size, small beside a model (a 1 G-value bucket
+# decoded whole holds ~13 GB of int32 temporaries), large beside a launch
+DECODE_CHUNK = 1 << 24
+
+
+def decode_chunks(members) -> list:
+    """``(start, stop)`` of the DECODE_CHUNK-value pieces a rank decodes a
+    bucket of ``members`` in (:func:`apply_update_blocks`)."""
+    n = sum(size for _, _, size in members)
+    return [(c, min(c + DECODE_CHUNK, n)) for c in range(0, n, DECODE_CHUNK)]
+
+
+def apply_update_blocks(update: SyncUpdate, block, base_blocks=None, *, device="cuda") -> list:
+    """A rank's blocks of the published weights of ``update`` (a rank of a
+    model split over 'model', which holds no whole leaf), bit for bit
+    ``block(i, leaf)`` of :func:`apply_update`'s leaf ``i``, in leaf order.
+    ``block(i, leaf)`` is leaf ``i``'s block (with storage of its own: the
+    leaf is freed once its block is taken); ``base_blocks`` (the rank's
+    blocks at ``update.base_version``, in leaf order) is required iff the
+    update carries delta buckets.  A bucket is decoded a piece at a time
+    (:func:`decode_chunks`, each from the blocks of the message that hold
+    it: ``_message_part``), each piece copied into the leaves it covers, so
+    a rank's peak holds a piece and the leaves it has begun, not the
+    bucket.  A delta decodes to its XOR pattern
+    (:func:`~repro_torch.core.packing.delta_bits`) and the leaf's block of
+    the pattern XORs the rank's block of the base: XOR is elementwise, so
+    no rank needs the whole base the trainer XORed against.  Every leaf is
+    decoded before the list is returned, so it never aliases
+    ``base_blocks``."""
+    dev = kernels.resolve_device(device)
+    blocks: list = [None] * update.n_leaves
+    for dtype_name, members, mode, msg in update.buckets:
+        if mode == MODE_DELTA and base_blocks is None:
+            raise ValueError(f"update v{update.version} deltas against "
+                             f"v{update.base_version}; apply_update_blocks needs base_blocks")
+        ends = np.cumsum([size for _, _, size in members])
+        if mode != MODE_RAW:
+            sorted_exc = (_sorted(msg.exp.exc_idx),
+                          mode == MODE_DELTA and _sorted(msg.lo.exc_idx))
+        pending = list(zip(members, ends - [size for _, _, size in members], ends))
+        open_leaves: dict = {}
+        for c0, c1 in decode_chunks(members):
+            if mode == MODE_RAW:
+                got = _raw_unwire(np.asarray(msg)[c0:c1], dtype_name, dev)
+            else:
+                part, at = _message_part(msg, mode, c0, c1, sorted_exc)
+                part = _device_message(part, mode, dev)
+                got = (packing.delta_bits(part) if mode == MODE_DELTA
+                       else packing.decode_message(part))[at:at + c1 - c0]
+            while pending and pending[0][1] < c1:
+                (i, shape, size), start, stop = pending[0]
+                lo, hi = max(start, c0), min(stop, c1)
+                if i not in open_leaves:
+                    open_leaves[i] = got.new_empty((size,))
+                open_leaves[i][lo - start:hi - start] = got[lo - c0:hi - c0]
+                if stop > c1:
+                    break
+                pending.pop(0)
+                b = block(i, open_leaves.pop(i).reshape(shape))
+                blocks[i] = codec.xor_delta(b, base_blocks[i].to(dev)) if mode == MODE_DELTA \
+                    else b
+            del got
+    for i, arr in update.raw_leaves:
+        blocks[i] = block(i, _tensor(arr, dev))
+    return blocks
 
 
 def update_checksum(update: SyncUpdate) -> int:

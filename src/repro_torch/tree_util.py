@@ -10,40 +10,44 @@ from __future__ import annotations
 import torch
 
 
+# The walkers are module functions that take what they fill: a nested
+# function that calls itself is a reference cycle with its closure, which
+# would keep every leaf it saw alive until the cyclic collector runs.
+
+def _flatten(t, leaves: list) -> tuple:
+    if isinstance(t, dict):
+        keys = tuple(sorted(t))
+        return ("dict", keys, tuple(_flatten(t[k], leaves) for k in keys))
+    if isinstance(t, (tuple, list)):
+        return (type(t).__name__, None, tuple(_flatten(x, leaves) for x in t))
+    if t is None:
+        return ("none", None, ())
+    leaves.append(t)
+    return ("leaf", None, ())
+
+
 def tree_flatten(tree) -> tuple:
     """``(leaves, treedef)`` of ``tree``."""
     leaves: list = []
+    return leaves, _flatten(tree, leaves)
 
-    def walk(t):
-        if isinstance(t, dict):
-            keys = tuple(sorted(t))
-            return ("dict", keys, tuple(walk(t[k]) for k in keys))
-        if isinstance(t, (tuple, list)):
-            return (type(t).__name__, None, tuple(walk(x) for x in t))
-        if t is None:
-            return ("none", None, ())
-        leaves.append(t)
-        return ("leaf", None, ())
 
-    return leaves, walk(tree)
+def _build(d, it):
+    kind, keys, subs = d
+    if kind == "leaf":
+        return next(it)
+    if kind == "none":
+        return None
+    kids = [_build(s, it) for s in subs]
+    if kind == "dict":
+        return dict(zip(keys, kids))
+    return tuple(kids) if kind == "tuple" else kids
 
 
 def tree_unflatten(treedef: tuple, leaves) -> object:
     """Inverse of :func:`tree_flatten`."""
     it = iter(leaves)
-
-    def build(d):
-        kind, keys, subs = d
-        if kind == "leaf":
-            return next(it)
-        if kind == "none":
-            return None
-        kids = [build(s) for s in subs]
-        if kind == "dict":
-            return dict(zip(keys, kids))
-        return tuple(kids) if kind == "tuple" else kids
-
-    out = build(treedef)
+    out = _build(treedef, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree structure holds")
     return out
@@ -59,28 +63,28 @@ def tree_map(fn, tree):
     return tree_unflatten(treedef, [fn(x) for x in leaves])
 
 
+def _up_to(d, t, out: list) -> None:
+    kind, keys, subs = d
+    if kind == "leaf":
+        out.append(t)
+    elif kind == "dict":
+        if not isinstance(t, dict) or tuple(sorted(t)) != keys:
+            raise ValueError(f"tree does not match the structure: {t!r:.80}")
+        for k, s in zip(keys, subs):
+            _up_to(s, t[k], out)
+    elif kind != "none":
+        if not isinstance(t, (tuple, list)) or len(t) != len(subs):
+            raise ValueError(f"tree does not match the structure: {t!r:.80}")
+        for s, x in zip(subs, t):
+            _up_to(s, x, out)
+
+
 def tree_flatten_up_to(treedef: tuple, tree) -> list:
     """The subtrees of ``tree`` at the leaves of ``treedef`` (a prefix of
     ``tree``'s structure), in leaf order: ``jax`` treedefs'
     ``flatten_up_to``."""
     out: list = []
-
-    def walk(d, t):
-        kind, keys, subs = d
-        if kind == "leaf":
-            out.append(t)
-        elif kind == "dict":
-            if not isinstance(t, dict) or tuple(sorted(t)) != keys:
-                raise ValueError(f"tree does not match the structure: {t!r:.80}")
-            for k, s in zip(keys, subs):
-                walk(s, t[k])
-        elif kind != "none":
-            if not isinstance(t, (tuple, list)) or len(t) != len(subs):
-                raise ValueError(f"tree does not match the structure: {t!r:.80}")
-            for s, x in zip(subs, t):
-                walk(s, x)
-
-    walk(treedef, tree)
+    _up_to(treedef, tree, out)
     return out
 
 

@@ -230,9 +230,12 @@ def test_misaligned_pointers_are_refused():
 
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.bfloat16, torch.int32, torch.float32])
 def test_aligned_copies_only_a_view_off_a_boundary(dtype):
-    """The entry points' helper: a view one element or 8 bytes off a 16-byte
-    boundary comes back as an aligned contiguous copy with the same values;
-    an aligned tensor comes back as itself."""
+    """The entry points' helper copies only a CUDA view off a 16-byte
+    boundary (only a CUDA kernel stages by 16-byte copies;
+    ``tests/test_torch_gpu.py::test_aligned_copies_a_cuda_view_off_a_boundary``
+    holds the copy on the card): on the CPU every tensor, aligned or a view
+    one element or 8 bytes off a boundary, 1-d or 2-d, comes back as
+    itself."""
     base = torch.arange(96, dtype=torch.int64).to(dtype)
     assert base.data_ptr() % 16 == 0
     assert kernels.aligned(base) is base
@@ -241,13 +244,9 @@ def test_aligned_copies_only_a_view_off_a_boundary(dtype):
     for off in sorted({1, 8 // base.element_size()}):
         view = base[off:off + 64]
         assert view.data_ptr() % 16
-        got = kernels.aligned(view)
-        assert got.data_ptr() % 16 == 0 and got.is_contiguous()
-        assert got.data_ptr() != view.data_ptr()
-        assert torch.equal(got, view) and got.dtype == dtype
-    rows = base[2:66].view(8, 8)  # a 2-d view keeps its shape
-    got = kernels.aligned(rows)
-    assert got.shape == (8, 8) and torch.equal(got, rows) and got.data_ptr() % 16 == 0
+        assert kernels.aligned(view) is view
+    rows = base[2:66].view(8, 8)
+    assert kernels.aligned(rows) is rows
 
 
 def test_constants_match_the_sources():

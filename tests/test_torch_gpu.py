@@ -153,6 +153,25 @@ def test_unpack_at_tile_edges(cuda, width):
     assert kernels.launch_counts()["unpack"] - before == len(counts)
 
 
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.bfloat16, torch.int32, torch.float32])
+def test_aligned_copies_a_cuda_view_off_a_boundary(cuda, dtype):
+    """``kernels.aligned`` on the card: a view one element or 8 bytes off a
+    16-byte boundary comes back as an aligned contiguous copy with the same
+    values (a 2-d view keeps its shape); an aligned tensor as itself."""
+    base = torch.arange(96, dtype=torch.int64, device=cuda).to(dtype)
+    assert base.data_ptr() % 16 == 0 and kernels.aligned(base) is base
+    whole = base[16 // base.element_size():]
+    assert kernels.aligned(whole) is whole
+    for off in sorted({1, 8 // base.element_size()}):
+        view = base[off:off + 64]
+        got = kernels.aligned(view)
+        assert view.data_ptr() % 16 and got.data_ptr() % 16 == 0 and got.is_contiguous()
+        assert got.data_ptr() != view.data_ptr() and torch.equal(got, view)
+    rows = base[2:66].view(8, 8)
+    got = kernels.aligned(rows)
+    assert got.shape == (8, 8) and torch.equal(got, rows) and got.data_ptr() % 16 == 0
+
+
 def test_misaligned_inputs_raise(cuda):
     """encode_fused, unpack, pack and decode_reduce stage their input by
     16-byte copies: a view off a 16-byte boundary raises and launches

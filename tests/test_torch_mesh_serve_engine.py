@@ -9,11 +9,13 @@
   of one block or both and decode steps across a block boundary);
 * at temperature 0.8 every rank draws the same tokens (each rank's
   generator is seeded 0 and reads the same whole logits);
-* ``ingest_weights`` at model > 1 raises ``NotImplementedError``;
+* ``ingest_weights`` at model > 1 refuses a corrupted update (its
+  checksum; ``test_torch_mesh_ingest`` holds full and delta ingestion);
 * a cache that ``cache_specs`` would lay out otherwise than the port's
   blocks raises ``ValueError``: a recurrent state with a width equal to
-  ``max_len`` (which the specs split over 'model'), and a ``max_len`` or
-  a batch that the mesh does not split.
+  ``max_len`` (which the specs split over 'model'), and a ``max_len``
+  that the mesh does not split; a batch that the DP ranks do not split
+  is replicated, as the specs leave it whole.
 
 Tolerances: none; tokens are compared exactly."""
 import numpy as np
@@ -55,8 +57,9 @@ def test_sampled_tokens_are_identical_across_ranks(engine_run, engine_arch):
 
 
 def test_ingest_weights_at_model_2_is_refused(engine_run, engine_arch):
+    """A corrupted update is refused on both ranks by its checksum."""
     for res in engine_run:
-        assert "ROADMAP Queue A" in str(res[f"{engine_arch}_ingest"])
+        assert "checksum" in str(res[f"{engine_arch}_ingest"])
 
 
 @pytest.mark.parametrize("arch,max_len,leaf", [
@@ -74,10 +77,17 @@ def test_a_recurrent_state_split_by_cache_specs_is_refused(arch, max_len, leaf):
 
 @pytest.mark.parametrize("batch,max_len", [(2, 15), (3, 16)])
 def test_a_cache_the_mesh_does_not_split_is_refused(batch, max_len):
+    """A ``max_len`` that 'model' does not split is refused; a batch that
+    the DP ranks do not split (3 rows over 2) is not: ``cache_specs``
+    leaves it whole, and so does the rank's block (every row)."""
     cfg = configs.get_smoke("tinyllama_1_1b")
-    with pytest.raises(ValueError, match="does not split"):
-        transformer.cache_struct(cfg, batch, max_len,
-                                 mesh=mesh_lib.AbstractMesh((2, 2), ("data", "model")))
+    mesh = mesh_lib.AbstractMesh((2, 2), ("data", "model"))
+    if max_len % 2:
+        with pytest.raises(ValueError, match="does not split"):
+            transformer.cache_struct(cfg, batch, max_len, mesh=mesh)
+        return
+    k = transformer.cache_struct(cfg, batch, max_len, mesh=mesh)["blocks"][0]["kv"]["k"]
+    assert k.shape[1:3] == (batch, max_len // 2)
 
 
 def test_the_mesh_block_is_the_cp_shards_cache():

@@ -441,7 +441,7 @@ def test_launcher_cli_state_at_4_ranks(arch, partition):
     rank's blocks, its sync group the 2 data ranks.  At one rank the mesh
     is (1, 1)."""
     with fake_world(4):
-        mesh = launch_train.cli_mesh(4)
+        mesh = launch_train.cli_mesh(4, device="cpu")
         assert mesh_lib.axis_sizes(mesh) == {"data": 2, "model": 2}
         state = launch_train.build(arch, smoke=True, batch=4, seq=16, rcfg=RunnerConfig(),
                                    device="cpu", mesh=mesh, partition=partition)[0]
@@ -449,7 +449,8 @@ def test_launcher_cli_state_at_4_ranks(arch, partition):
         assert state.model.mg is not None and state.model.mg.size == 2
         assert (state.fsdp_dims is not None) == (partition == "fsdp")
     with fake_world(1):
-        assert mesh_lib.axis_sizes(launch_train.cli_mesh(1)) == {"data": 1, "model": 1}
+        mesh = launch_train.cli_mesh(1, device="cpu")
+        assert mesh_lib.axis_sizes(mesh) == {"data": 1, "model": 1}
 
 
 def test_one_rank_checkpoint_of_the_per_rank_layout_restores(tmp_path):

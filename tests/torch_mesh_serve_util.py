@@ -395,9 +395,15 @@ def engine_rank(rank: int, world: int, out: str) -> None:
     """This rank of a (1, 2) mesh: per arch (its SMOKE config in f32, the
     port's seed-0 weights) the engine's tokens colocated, PD-disaggregated
     and at temperature 0.8, the model = 1 engine's colocated tokens (each
-    rank runs it), and whether ``ingest_weights`` refuses the model."""
+    rank runs it), and the refusal of a corrupted weight update by
+    ``ingest_weights`` at model > 1 (its message)."""
+    from repro_torch.core.integrity import WireIntegrityError
+    from repro_torch.core.policy import CompressionPolicy
     from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.runtime.faults import corrupt_payload
+    from repro_torch.sched.cache import PlanCache
     from repro_torch.serve.engine import ServeConfig, ServeEngine
+    from repro_torch.sync.engine import WeightSyncEngine
 
     mesh = mesh_lib.make_mesh((1, 2), AXES, device="cpu")
     res = {}
@@ -408,8 +414,10 @@ def engine_rank(rank: int, world: int, out: str) -> None:
             res[f"{arch}_{tag}"] = engine_tokens(cfg, model, **kw)
         res[f"{arch}_one"] = engine_tokens(cfg, port_weights(cfg))
         eng = ServeEngine(cfg, model, ServeConfig(batch_slots=1, max_len=SERVE_MAX_LEN))
+        sync = WeightSyncEngine(policy=CompressionPolicy(min_bytes=0), plan_cache=PlanCache())
+        sync.publish(port_weights(cfg).tree())
         try:
-            eng.ingest_weights(None)
-        except NotImplementedError as e:
+            eng.ingest_weights(corrupt_payload(sync.update_for("r"), np.random.default_rng(0)))
+        except WireIntegrityError as e:
             res[f"{arch}_ingest"] = str(e)
     np.savez(out, **res)
