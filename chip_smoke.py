@@ -274,7 +274,13 @@ result line each:
             summarize_wire_reports, the Chrome trace exported and parsed
             back; then the cost of observability: the train step and the
             weight-sync update with obs off and on, alternating, median of 3,
-            and the calls alone.  Prints one {"obs": ...} line.
+            and the calls alone.  Prints one {"obs": ...} line.  Then
+            obs.dump.run on the card (the twin of the reference's
+            benchmarks/run.py key "obs": 3 smoke train steps and 3
+            weight-sync publishes) with REPRO_TRACE_DIR at a temporary
+            directory: its three lines, its five files, a Chrome trace with
+            train:step, plan:* and sync:* spans, metrics and report JSON that
+            parse; its launches count as the run "obs_dump".
 9. times  - each kernel and its plain version at the shapes its path
             gives it: encode_fused, decode_reduce and plane_split at the
             AG bucket, pack and unpack at one KV leaf (the row's ms), and
@@ -1313,6 +1319,8 @@ def phase_main(dev, torch):
     import tempfile
 
     from repro_torch import kernels
+    from repro_torch.core import codec, packing
+    from repro_torch.optim import zero1
     from repro_torch.launch import train as launch_train
     from repro_torch.runtime.fault_tolerance import RunnerConfig
     from repro_torch.train import step as step_lib
@@ -1368,6 +1376,13 @@ def phase_main(dev, torch):
                 r.wire_bytes != plan.wire_bytes for r in comp.wire_reports):
             raise AssertionError(f"wire reports {comp.wire_reports} of plan {plan.summary()}")
         (pair,) = plan.buckets
+        # the AG bucket's exponent plane as the last step's all-gather sent it
+        ag = pair.ag
+        bucket = zero1.flatten_buckets(comp.state.meta, comp.state.model.leaves())[0]
+        ag_bits = packing.pack_exponents(codec.split_planes(bucket)[0], width=ag.width,
+                                         block=ag.block, exc_frac=ag.exc_frac
+                                         ).wire_bits_per_element()
+        del bucket
         print(f"main: {ARCH} full width, ZeRO-1 n_dp={n_dp} over the mesh "
               f"{mesh_lib.axis_sizes(mesh)} (sync axes {comp.state.axes}), batch {BATCH} x "
               f"seq {SEQ}, bucket n={comp.state.meta.padded[0]}")
@@ -1376,7 +1391,8 @@ def phase_main(dev, torch):
         print(f"  raw twin   losses {raw.losses} step_ms {[round(t, 1) for t in raw.step_ms]}")
         print("  zero1 plan cache (misses, hits): " + ", ".join(
             f"{tag} {mh}" for tag, mh in cached.items()))
-        print(f"  wire ratio RS {pair.rs.ratio:.4f} AG {pair.ag.ratio:.4f} (plan:zero1 "
+        print(f"  wire ratio RS {pair.rs.ratio:.4f} AG {pair.ag.ratio:.4f} (exponent plane "
+              f"{ag_bits:.4f} bits/element at width {ag.width}; plan:zero1 "
               f"{comp.wire_reports[0].ratio:.4f}); launches {comp.launches}; "
               f"losses and final parameter bytes identical")
         phase_checkpoint(comp, group, hb, dev, torch)
@@ -4454,7 +4470,73 @@ def phase_obs(comp, psum, sync, dev, torch, np):
               f"{v['metric_observations']} metric observations: {v['estimate_ms']:.3f})"
               for k, v in cost.items()))
     print(json.dumps({"obs": line}))
-    return {"launches": launches, "recorded": recorded, "cost": cost}
+    return {"launches": launches, "recorded": recorded, "cost": cost,
+            "dump": obs_dump_run(dev, torch)}
+
+
+OBS_DUMP_FILES = ("trace_train_sync.json", "metrics_train_sync.json", "metrics_train_sync.md",
+                  "report_train_sync.json", "report_train_sync.md")
+
+
+def obs_dump_run(dev, torch) -> dict:
+    """``obs.dump.run`` on the card, the twin of the reference's
+    ``benchmarks/run.py`` key ``obs`` (3 smoke train steps, then 3 weight-sync
+    publishes), with ``REPRO_TRACE_DIR`` at a temporary directory: its three
+    lines name the files, the five files are there, the Chrome trace holds
+    ``train:step``, ``plan:*`` and ``sync:*`` spans, the metrics and the
+    report parse, and the compressed steps launched the kernels.  Prints one
+    ``obs_dump:`` line; returns the run's launches and recorded inputs."""
+    import collections
+    import io
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.obs import dump
+
+    before = os.environ.get("REPRO_TRACE_DIR")
+    with tempfile.TemporaryDirectory(prefix="obs_dump_") as out:
+        os.environ["REPRO_TRACE_DIR"] = out
+        try:
+            with recorded_inputs(torch) as inputs, \
+                    contextlib.redirect_stdout(io.StringIO()) as said:
+                kernels.clear_launch_counts()
+                t0 = time.perf_counter()
+                dump.run(device=dev)
+                torch.cuda.synchronize()
+                run_s = time.perf_counter() - t0
+                launches = kernels.launch_counts()
+        finally:
+            if before is None:
+                os.environ.pop("REPRO_TRACE_DIR")
+            else:
+                os.environ["REPRO_TRACE_DIR"] = before
+        recorded = (inputs, shape_tallies())
+        lines = said.getvalue().splitlines()
+        want = [f"obs dump: {k} -> {os.path.join(out, f)}" for k, f in
+                (("trace", OBS_DUMP_FILES[0]), ("metrics", OBS_DUMP_FILES[1]),
+                 ("report", OBS_DUMP_FILES[4]))]
+        if lines != want or sorted(os.listdir(out)) != sorted(OBS_DUMP_FILES):
+            raise AssertionError(f"obs dump printed {lines} and wrote {os.listdir(out)}")
+        with open(os.path.join(out, OBS_DUMP_FILES[0])) as f:
+            spans = collections.Counter(e["name"] for e in json.load(f)["traceEvents"])
+        with open(os.path.join(out, OBS_DUMP_FILES[1])) as f:
+            counters = json.load(f)["counters"]
+        with open(os.path.join(out, OBS_DUMP_FILES[3])) as f:
+            report = json.load(f)
+        if (spans["train:step"] != 3 or not any(k.startswith("plan:") for k in spans)
+                or not any(k.startswith("sync:") for k in spans)
+                or counters["plan_exec_total"] != {"kind=zero1": 3}
+                or counters["sync_publish_total"] != {"": 3}
+                or not launches["encode_fused"] or not launches["decode_reduce"]):
+            raise AssertionError(f"obs dump: spans {dict(spans)}, plan_exec_total "
+                                 f"{counters['plan_exec_total']}, launches {launches}")
+        sizes = {f: os.path.getsize(os.path.join(out, f)) for f in OBS_DUMP_FILES}
+    for text in lines:
+        print(text)
+    print(f"obs_dump: dump.run on {dev} in {run_s:.2f} s: {len(spans)} span names "
+          f"({sum(spans.values())} spans), {len(report['ratio_series'])} ratio series, files "
+          f"{sizes}; launches {launches}")
+    return {"launches": launches, "recorded": recorded, "seconds": run_s}
 
 
 def _time(fn, torch, runs=TIMED_RUNS, reps=1):
@@ -4827,7 +4909,9 @@ def run_phases(smi, cell, dev, name, torch, np) -> int:
                                     "strategy_engine", len(SYNC_STRATEGIES)),
         "p2p": path_run(p2p["launches"], p2p["recorded"], "p2p_phase", 1),
         "fleet": path_run(fleet["launches"], fleet["recorded"], "fleet_phase", 1),
-        "obs": path_run(obs_run["launches"], obs_run["recorded"], "obs_phase", 1)}
+        "obs": path_run(obs_run["launches"], obs_run["recorded"], "obs_phase", 1),
+        "obs_dump": path_run(obs_run["dump"]["launches"], obs_run["dump"]["recorded"],
+                             "obs_dump_run", 1)}
     rows = phase_times(runs, comp, serve, dev, torch, np, worst, bw)
     # the zoo's models take the card alone: only the rows stay
     del comp, fsdp, serve, sync, psum, p2p, fleet, obs_run, sampled, file_twins, roofline, \

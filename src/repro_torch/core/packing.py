@@ -118,6 +118,18 @@ class PackedPlane:
     def n_blocks(self) -> int:
         return self.bases.shape[0]
 
+    def wire_bits_per_element(self) -> float:
+        """Exponent-plane wire cost in bits/element (for ratio accounting).
+        Reads only shapes, so a plane on the card causes no sync."""
+        total = (
+            self.payload.numel() * 32
+            + self.bases.numel() * 8
+            + self.exc_idx.numel() * 32
+            + self.exc_raw.numel() * 8
+            + 32
+        )
+        return total / self.n
+
 
 def block_residuals(exp: torch.Tensor, *, width: int, block: int) -> tuple:
     """The zero-escape block codes of a uint8 exponent plane: ``(blocks``

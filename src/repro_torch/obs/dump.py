@@ -23,7 +23,9 @@ Targets are pluggable (``TARGETS``) and sized as the reference's; the
 default ``train_sync`` runs the smollm smoke model through the
 fault-tolerant step runner and then a publish/update/ack weight-sync loop —
 one file that shows nested ``train:step`` / ``plan:*`` / ``sync:*`` spans
-on a common clock.
+on a common clock.  :func:`run` is the twin of the reference's
+``benchmarks/run.py`` entry (key ``obs``): the default dump with the
+observatory report.
 """
 from __future__ import annotations
 
@@ -252,6 +254,15 @@ def dump(target: str = "train_sync", out: str = None, steps: int = 3,
             f.write(report_to_markdown(rep))
         paths.update({"report_json": rep_json, "report_md": rep_md})
     return paths
+
+
+def run(device="cuda") -> None:
+    """The default smoke dump on ``device``, observatory report included;
+    prints the reference's three lines."""
+    paths = dump(report=True, device=device)
+    print(f"obs dump: trace -> {paths['trace']}")
+    print(f"obs dump: metrics -> {paths['metrics_json']}")
+    print(f"obs dump: report -> {paths['report_md']}")
 
 
 def main(argv=None):

@@ -82,7 +82,6 @@ def ingest_rank(rank: int, world: int, out: str) -> None:
     from repro_torch.serve.engine import ServeConfig, ServeEngine
     from repro_torch.sync.engine import WeightSyncEngine
 
-    torch.set_num_threads(1)
     mesh = mesh_lib.make_mesh((1, 2), AXES, device="cpu")
     res = {}
     for arch in INGEST_ARCHS:
@@ -149,7 +148,6 @@ def replicated_rank(rank: int, world: int, out: str) -> None:
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models import registry, transformer
 
-    torch.set_num_threads(1)
     torch.set_grad_enabled(False)
     mesh = mesh_lib.make_mesh((2, 2), AXES, device="cpu")
     res = {}

@@ -14,8 +14,14 @@ reference on numpy-seeded inputs:
   determinism, a chi-square test against ``softmax(logits / T)`` (JAX's
   random stream cannot be matched), PD = colocated at temperature > 0;
 * ``WeightSyncEngine(strategy=)``: the plan key and strategy as the
-  reference's, the host wire's bytes the same under every strategy.
+  reference's, the host wire's bytes the same under every strategy;
+* ``PackedPlane.wire_bits_per_element``: the reference's float by ``==`` for
+  every format, with and without exception blocks, at a ragged n;
+* ``obs.dump.run``: the reference's three lines, and the five files of a
+  real run on the CPU.
 """
+import json
+import os
 import threading
 
 import jax
@@ -27,19 +33,22 @@ import torch
 from repro import sched as jsched
 from repro.core import calibrate as jcalibrate
 from repro.core import codec as jcodec
+from repro.core import packing as jpacking
 from repro.core import policy as jpolicy
 from repro.core.policy import CompressionPolicy as JPolicy
 from repro.data.pipeline import DataConfig as JDataConfig
 from repro.data.pipeline import DataPipeline as JDataPipeline
+from repro.obs import dump as jdump
 from repro.sync import WeightSyncEngine as JWeightSyncEngine
 from repro_torch import configs
-from repro_torch.core import calibrate, codec, policy
+from repro_torch.core import calibrate, codec, packing, policy
 from repro_torch.core import compressed_collectives as cc
 from repro_torch.core.integrity import tree_chunks
 from repro_torch.core.policy import CompressionPolicy
 from repro_torch.data.pipeline import DataConfig, DataPipeline
 from repro_torch.launch import train as launch_train
 from repro_torch.models import transformer
+from repro_torch.obs import dump
 from repro_torch.sched.cache import PlanCache
 from repro_torch.serve.engine import Request, ServeConfig, ServeEngine, sample
 from repro_torch.sync import WeightSyncEngine
@@ -447,3 +456,85 @@ def test_the_host_wire_is_the_same_under_every_strategy():
 def test_an_unknown_engine_strategy_raises():
     with pytest.raises(ValueError, match="strategy"):
         WeightSyncEngine(strategy="ring")
+
+
+# ---------------------------------------------------------------------------
+# PackedPlane.wire_bits_per_element
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("width,exc_frac,exceptions", [(2, 1.0, True), (8, 0.02, False)])
+@pytest.mark.parametrize("n", [512 * 9, 512 * 9 + 77])
+def test_wire_bits_per_element_is_the_reference_float(fmt, width, exc_frac, exceptions, n):
+    """Width 2 is too narrow for grad-like data (exception blocks, room for
+    all of them); width 8 fits every exponent range (none, at the floor of
+    4 exception slots).  Both packages encode the same bits."""
+    bits = grad_like_bits(fmt, n, seed=31)
+    exp, _ = codec.split_planes(to_torch(bits, fmt))
+    jexp, _ = jcodec.split_planes(to_jax(bits, fmt))
+    p = packing.pack_exponents(exp, width=width, exc_frac=exc_frac)
+    jp = jpacking.pack_exponents(jexp, width=width, exc_frac=exc_frac)
+    assert int(p.overflow) == 0 and int(jp.overflow) == 0
+    assert (int((p.exc_idx < p.n_blocks).sum()) > 0) == exceptions
+    got = p.wire_bits_per_element()
+    assert type(got) is float
+    assert got == jp.wire_bits_per_element()
+
+
+def test_wire_bits_per_element_reads_no_values():
+    """Only shapes enter the count, so planes with no storage give it."""
+    meta = dict(device="meta")
+    p = packing.PackedPlane(
+        payload=torch.empty((48, 5), dtype=torch.int32, **meta),
+        bases=torch.empty((3,), dtype=torch.uint8, **meta),
+        exc_idx=torch.empty((2,), dtype=torch.int32, **meta),
+        exc_raw=torch.empty((2, 512), dtype=torch.uint8, **meta),
+        overflow=torch.empty((), dtype=torch.int32, **meta),
+        width=5, block=512, n=1500, exp_bits=8)
+    assert p.wire_bits_per_element() == (48 * 5 * 32 + 3 * 8 + 2 * 32 + 2 * 512 * 8 + 32) / 1500
+
+
+# ---------------------------------------------------------------------------
+# obs.dump.run
+# ---------------------------------------------------------------------------
+
+def test_dump_run_prints_the_reference_lines(monkeypatch, capsys):
+    paths = {"trace": "/t/trace_train_sync.json", "metrics_json": "/t/metrics_train_sync.json",
+             "metrics_md": "/t/metrics_train_sync.md", "report_json": "/t/report_train_sync.json",
+             "report_md": "/t/report_train_sync.md"}
+    calls = []
+
+    def fake_dump(**kw):
+        calls.append(kw)
+        return dict(paths)
+
+    monkeypatch.setattr(jdump, "dump", fake_dump)
+    monkeypatch.setattr(dump, "dump", fake_dump)
+    jdump.run()
+    want = capsys.readouterr().out
+    dump.run(device="cpu")
+    assert capsys.readouterr().out == want
+    assert want.splitlines() == ["obs dump: trace -> /t/trace_train_sync.json",
+                                 "obs dump: metrics -> /t/metrics_train_sync.json",
+                                 "obs dump: report -> /t/report_train_sync.md"]
+    assert calls == [{"report": True}, {"report": True, "device": "cpu"}]
+
+
+def test_dump_run_on_the_cpu_writes_five_files(tmp_path, monkeypatch, capsys):
+    monkeypatch.setenv("REPRO_TRACE_DIR", str(tmp_path))
+    dump.run(device="cpu")
+    lines = capsys.readouterr().out.splitlines()
+    assert lines == [f"obs dump: {k} -> {tmp_path / f}" for k, f in
+                     (("trace", "trace_train_sync.json"), ("metrics", "metrics_train_sync.json"),
+                      ("report", "report_train_sync.md"))]
+    assert sorted(os.listdir(tmp_path)) == sorted(
+        f"{a}_train_sync.{b}" for a, b in (("trace", "json"), ("metrics", "json"),
+                                           ("metrics", "md"), ("report", "json"),
+                                           ("report", "md")))
+    names = {e["name"] for e in json.load(open(tmp_path / "trace_train_sync.json"))["traceEvents"]}
+    assert "train:step" in names and "plan:zero1" in names and "sync:publish" in names
+    snap = json.load(open(tmp_path / "metrics_train_sync.json"))
+    assert snap["counters"]["plan_exec_total"] == {"kind=zero1": 3}
+    assert set(json.load(open(tmp_path / "report_train_sync.json"))) == {
+        "regret", "drift", "ledger_by_kind", "ledger_by_bucket", "ratio_series"}
+    assert open(tmp_path / "report_train_sync.md").read().startswith("# Wire-efficiency observatory")

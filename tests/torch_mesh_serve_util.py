@@ -24,7 +24,7 @@ import os
 
 import numpy as np
 
-from torch_port_util import tp_configs
+from torch_port_util import run_reference, tp_configs
 
 SERVE_ARCHS = ("tinyllama_1_1b", "gemma3_27b", "deepseek_v2_lite_16b", "jamba_v0_1_52b",
                "xlstm_350m", "whisper_small")
@@ -211,22 +211,8 @@ def mesh_serve_reference(kind: str, out_dir: str) -> None:
 
 
 def run_mesh_serve_reference(kind: str, out_dir) -> dict:
-    """:func:`mesh_serve_reference` in a subprocess with 4 forced host
-    devices; returns its ``ref.npz``."""
-    import subprocess
-    import sys
-
-    here = os.path.dirname(os.path.abspath(__file__))
-    src = os.path.join(os.path.dirname(here), "src")
-    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
-               JAX_PLATFORMS="cpu",
-               PYTHONPATH=os.pathsep.join([src, here, os.environ.get("PYTHONPATH", "")]))
-    code = (f"import torch_mesh_serve_util as u; "
-            f"u.mesh_serve_reference({kind!r}, {str(out_dir)!r})")
-    res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
-                         text=True, timeout=600)
-    assert res.returncode == 0, res.stderr[-3000:]
-    return dict(np.load(os.path.join(str(out_dir), "ref.npz")))
+    """:func:`mesh_serve_reference` in a subprocess (:func:`run_reference`)."""
+    return run_reference("torch_mesh_serve_util", "mesh_serve_reference", kind, out_dir)
 
 
 def _serve(model, cfg, batch: dict, toks, cache) -> tuple:
@@ -282,7 +268,6 @@ def mesh_serve_rank(rank: int, world: int, out: str, kind: str) -> None:
     rows = slice(idx * per, (idx + 1) * per)
     res = {"idx": idx, "mrank": mg.rank}
     torch.set_grad_enabled(False)
-    torch.set_num_threads(1)  # 4 ranks beside the other test workers
     for arch in SERVE_ARCHS:
         cfg = tp_configs(arch)[0]
         toks = torch.from_numpy(serve_tokens(cfg))

@@ -126,8 +126,9 @@ def run_gloo_ranks(worker, world: int, tmp_path, *args, timeout: float = 120.0) 
     """Run ``worker(rank, world, out_path, *args)`` in ``world`` spawned
     processes joined into one gloo group over a ``FileStore`` under
     ``tmp_path`` (no port, so parallel test workers never collide).  Each
-    rank saves its results as ``.npz`` at ``out_path``; returns them in rank
-    order."""
+    rank runs on one intra-op thread: the ranks share the host's cores with
+    each other and with the other test workers.  Each rank saves its results
+    as ``.npz`` at ``out_path``; returns them in rank order."""
     import multiprocessing
 
     ctx = multiprocessing.get_context("spawn")
@@ -148,8 +149,10 @@ def run_gloo_ranks(worker, world: int, tmp_path, *args, timeout: float = 120.0) 
 
 
 def _gloo_rank(worker, rank, world, store, out, *args):
+    import torch
     import torch.distributed as dist
 
+    torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
     try:
@@ -830,23 +833,56 @@ def mesh_reference(kind: str, out_dir: str) -> None:
     np.savez(os.path.join(out_dir, "ref.npz"), **res)
 
 
-def run_mesh_reference(kind: str, out_dir) -> dict:
-    """:func:`mesh_reference` in a subprocess with 4 forced host devices;
-    returns its ``ref.npz``."""
+def reference_env(out_dir) -> dict:
+    """The environment of a reference subprocess: the JAX package on 4
+    forced host devices, the repo's ``src`` and ``tests`` on the path, and
+    a JAX persistent compilation cache that the subprocesses of one pytest
+    run share, so that a program another one has compiled is read back,
+    not compiled again.  ``out_dir`` is a directory of
+    ``tmp_path_factory``: the cache sits in the run's base directory (under
+    xdist, the one above the workers'), so it goes with the run's
+    temporary files and never outlives the run."""
+    import os
+    from pathlib import Path
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    src = os.path.join(os.path.dirname(here), "src")
+    base = Path(out_dir).parent
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent
+    return dict(os.environ, JAX_PLATFORMS="cpu",
+                XLA_FLAGS="--xla_force_host_platform_device_count=4",
+                JAX_COMPILATION_CACHE_DIR=str(base / "jax_cache"),
+                JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS="0",
+                JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES="0",
+                # a size bound turns on the cache's file lock: the workers
+                # read and write it at once
+                JAX_COMPILATION_CACHE_MAX_SIZE=str(4 << 30),
+                PYTHONPATH=os.pathsep.join([src, here, os.environ.get("PYTHONPATH", "")]))
+
+
+def reference_code(module: str, fn: str, kind: str, out_dir) -> str:
+    """The ``python -c`` program of a reference subprocess."""
+    return f"import {module} as u; u.{fn}({kind!r}, {str(out_dir)!r})"
+
+
+def run_reference(module: str, fn: str, kind: str, out_dir) -> dict:
+    """``module.fn(kind, out_dir)`` in a subprocess of
+    :func:`reference_env`; returns the ``ref.npz`` it writes there."""
     import os
     import subprocess
     import sys
 
-    here = os.path.dirname(os.path.abspath(__file__))
-    src = os.path.join(os.path.dirname(here), "src")
-    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
-               JAX_PLATFORMS="cpu",
-               PYTHONPATH=os.pathsep.join([src, here, os.environ.get("PYTHONPATH", "")]))
-    code = f"import torch_port_util as u; u.mesh_reference({kind!r}, {str(out_dir)!r})"
-    res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
-                         text=True, timeout=600)
+    res = subprocess.run([sys.executable, "-c", reference_code(module, fn, kind, out_dir)],
+                         env=reference_env(out_dir), capture_output=True, text=True,
+                         timeout=600)
     assert res.returncode == 0, res.stderr[-3000:]
     return dict(np.load(os.path.join(str(out_dir), "ref.npz")))
+
+
+def run_mesh_reference(kind: str, out_dir) -> dict:
+    """:func:`mesh_reference` in a subprocess (:func:`run_reference`)."""
+    return run_reference("torch_port_util", "mesh_reference", kind, out_dir)
 
 
 def _mesh_tcfg(kind: str, policy=None):
@@ -1504,22 +1540,8 @@ def mesh_tp_reference(kind: str, out_dir: str) -> None:
 
 
 def run_mesh_tp_reference(kind: str, out_dir) -> dict:
-    """:func:`mesh_tp_reference` in a subprocess with 4 forced host
-    devices; returns its ``ref.npz``."""
-    import os
-    import subprocess
-    import sys
-
-    here = os.path.dirname(os.path.abspath(__file__))
-    src = os.path.join(os.path.dirname(here), "src")
-    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
-               JAX_PLATFORMS="cpu",
-               PYTHONPATH=os.pathsep.join([src, here, os.environ.get("PYTHONPATH", "")]))
-    code = f"import torch_port_util as u; u.mesh_tp_reference({kind!r}, {str(out_dir)!r})"
-    res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
-                         text=True, timeout=600)
-    assert res.returncode == 0, res.stderr[-3000:]
-    return dict(np.load(os.path.join(str(out_dir), "ref.npz")))
+    """:func:`mesh_tp_reference` in a subprocess (:func:`run_reference`)."""
+    return run_reference("torch_port_util", "mesh_tp_reference", kind, out_dir)
 
 
 def _tp_tcfg(policy=None, kind: str = "tp", arch: str = ""):
